@@ -1,0 +1,149 @@
+"""Model and LoRA configuration for the PyTorch port.
+
+The port's own copy of the configuration dataclasses of ``repro.config``: the
+fields are the same, so a registered architecture reads identically in both
+packages, but only the dense decoder (``family="dense"``, layer char ``G``)
+is runnable here. ``ModelConfig`` keeps every field of the reference so that
+configuration modules copy over verbatim.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Any, Callable, Optional
+
+
+@dataclass(frozen=True)
+class LoRAConfig:
+    """Low-rank adaptation (paper eq. (1): w0 + B·A, r << min(d, k))."""
+
+    rank: int = 16
+    alpha: float = 32.0
+    # Which projection weights receive adapters, matched by leaf name.
+    targets: tuple[str, ...] = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
+                                "in_proj", "out_proj", "w_rec_in", "w_gate_in", "w_out")
+    dropout: float = 0.0
+
+    @property
+    def scale(self) -> float:
+        return self.alpha / self.rank
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """One config object for every family of the reference zoo."""
+
+    name: str
+    family: str  # dense | moe | ssm | hybrid | encdec | vlm
+
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0  # 0 -> d_model // num_heads
+
+    # --- attention options -------------------------------------------------
+    rope_theta: float = 10_000.0
+    use_rope: bool = True
+    qk_norm: bool = False
+    attn_logit_softcap: float = 0.0
+    final_logit_softcap: float = 0.0
+    sliding_window: int = 0
+    layer_pattern: str = "G"
+
+    # --- block options -----------------------------------------------------
+    mlp_activation: str = "swiglu"
+    norm_type: str = "rmsnorm"
+    use_bias: bool = False
+    use_post_norm: bool = False
+    parallel_block: bool = False
+    tie_embeddings: bool = False
+    embedding_multiplier: float = 1.0
+    logit_scale: float = 1.0
+
+    # --- MoE ----------------------------------------------------------------
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    moe_router_norm: bool = True
+
+    # --- SSM (mamba2 / SSD) -------------------------------------------------
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    ssm_chunk: int = 256
+    ssm_conv_width: int = 4
+
+    # --- hybrid (RG-LRU) ----------------------------------------------------
+    lru_width: int = 0
+
+    # --- enc-dec ------------------------------------------------------------
+    num_encoder_layers: int = 0
+    encoder_seq: int = 1500
+
+    # --- VLM ----------------------------------------------------------------
+    vision_tokens: int = 0
+
+    # --- numerics -----------------------------------------------------------
+    dtype: str = "bfloat16"  # activation/compute dtype
+    param_dtype: str = "bfloat16"
+    lora: Optional[LoRAConfig] = None
+
+    def __post_init__(self):
+        if self.head_dim == 0:
+            object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
+        if self.family == "hybrid" and self.lru_width == 0:
+            object.__setattr__(self, "lru_width", self.d_model)
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+
+_REGISTRY: dict[str, Callable[[], ModelConfig]] = {}
+
+
+def register_arch(name: str):
+    def deco(fn: Callable[[], ModelConfig]):
+        _REGISTRY[name] = fn
+        return fn
+
+    return deco
+
+
+def get_arch(name: str) -> ModelConfig:
+    import repro_torch.configs  # noqa: F401  (configs register on import)
+
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
+    return _REGISTRY[name]()
+
+
+def smoke_variant(cfg: ModelConfig) -> ModelConfig:
+    """Reduced config of the same family for CPU smoke tests."""
+    kw: dict[str, Any] = dict(
+        name=cfg.name + "-smoke",
+        num_layers=max(2, len(cfg.layer_pattern)),
+        d_model=64,
+        num_heads=4,
+        num_kv_heads=min(cfg.num_kv_heads, 2) if cfg.num_kv_heads < cfg.num_heads else 4,
+        head_dim=16,
+        d_ff=128,
+        vocab_size=256,
+        dtype="float32",
+        param_dtype="float32",
+    )
+    if cfg.num_experts:
+        kw.update(num_experts=8, num_experts_per_tok=2)
+    if cfg.family == "ssm":
+        kw.update(ssm_state=16, ssm_head_dim=16, ssm_chunk=16)
+    if cfg.family == "hybrid":
+        kw.update(lru_width=64, sliding_window=32)
+    if cfg.sliding_window:
+        kw.update(sliding_window=32)
+    if cfg.family == "encdec":
+        kw.update(num_encoder_layers=2, encoder_seq=32)
+    if cfg.family == "vlm":
+        kw.update(vision_tokens=8)
+    return cfg.replace(**kw)

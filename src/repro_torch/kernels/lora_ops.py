@@ -1,0 +1,53 @@
+"""Public wrapper of the fused LoRA matmul (after ``repro/kernels/lora_ops.py``).
+
+Flattens leading dims and checks its inputs. A tensor on the CPU goes to the
+plain version; a CUDA tensor launches the CUDA kernel (bf16 only) or raises.
+``lora_matmul.launches`` counts kernel launches."""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.lora_matmul import MAX_RANK, lora_matmul_cuda
+from repro_torch.kernels.lora_ref import lora_matmul_ref
+
+
+def _check(x, w, a, b):
+    if not (w.ndim == a.ndim == b.ndim == 2 and x.ndim >= 1):
+        raise ValueError(f"lora_matmul: bad ranks x{tuple(x.shape)} w{tuple(w.shape)} "
+                         f"a{tuple(a.shape)} b{tuple(b.shape)}")
+    K, N, r = w.shape[0], w.shape[1], a.shape[1]
+    if x.shape[-1] != K or a.shape[0] != K or b.shape != (r, N) or 0 in (K, N, r):
+        raise ValueError(f"lora_matmul: shapes do not chain: x{tuple(x.shape)} w{tuple(w.shape)} "
+                         f"a{tuple(a.shape)} b{tuple(b.shape)}")
+    if not (x.dtype == w.dtype == a.dtype == b.dtype):
+        raise TypeError(f"lora_matmul: mixed dtypes {x.dtype} {w.dtype} {a.dtype} {b.dtype}")
+    if not (x.device == w.device == a.device == b.device):
+        raise ValueError("lora_matmul: tensors on different devices")
+    if not all(t.is_contiguous() for t in (x, w, a, b)):
+        raise ValueError("lora_matmul: inputs must be contiguous")
+    if x.device.type == "cuda":
+        if x.dtype != torch.bfloat16:
+            raise TypeError(f"lora_matmul: the CUDA kernel takes bfloat16, got {x.dtype}")
+        if r > MAX_RANK:
+            raise ValueError(f"lora_matmul: the CUDA kernel takes rank <= {MAX_RANK}, got {r}")
+    elif x.device.type != "cpu":
+        raise ValueError(f"lora_matmul: unsupported device {x.device}")
+
+
+def lora_matmul(x, w, a, b, *, scale: float = 1.0):
+    """y = x·W + scale·(x·A)·B with x (..., K), w (K, N), a (K, r), b (r, N)."""
+    _check(x, w, a, b)
+    lead, K, N = x.shape[:-1], x.shape[-1], w.shape[1]
+    x2 = x.reshape(-1, K)
+    if x.device.type == "cpu":
+        y = lora_matmul_ref(x2, w, a, b, scale=scale)
+    else:
+        y = lora_matmul_cuda(x2, w, a, b, scale)
+        lora_matmul.launches += 1
+    return y.reshape(*lead, N)
+
+
+lora_matmul.launches = 0
+
+__all__ = ["lora_matmul", "lora_matmul_ref"]

@@ -1,0 +1,87 @@
+"""Batched serving: prefill + single-token decode loop with a KV cache
+(port of ``repro/serving/decode.py``).
+
+Greedy decoding is the contract; ``sample="categorical"`` draws from an
+explicit ``torch.Generator``. ``lora`` (adapters keyed as in
+``core/lora.py``) is optional: without it every projection is a plain
+``x @ W``; with it, every adapted projection runs the fused LoRA kernel.
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple, Optional
+
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.models import transformer as T
+
+
+class DecodeState(NamedTuple):
+    cache: Any
+    pos: int  # current absolute position
+    tokens: torch.Tensor  # last emitted token (B, 1)
+
+
+def make_prefill_fn(cfg: ModelConfig):
+    def prefill_fn(params, batch, cache, lora=None):
+        logits, cache = T.prefill(params, batch, cfg, cache, lora=lora)
+        last = torch.argmax(logits[:, -1:, :], dim=-1)
+        return DecodeState(cache, batch["tokens"].shape[1], last)
+
+    return prefill_fn
+
+
+def make_decode_fn(cfg: ModelConfig, sample: str = "greedy", temperature: float = 1.0):
+    if sample not in ("greedy", "categorical"):
+        raise ValueError(f"sample={sample!r}: greedy or categorical")
+
+    def decode_fn(params, state: DecodeState, generator: Optional[torch.Generator] = None,
+                  lora=None):
+        logits, cache = T.decode_step(params, state.tokens, state.cache, state.pos, cfg,
+                                      lora=lora)
+        if sample == "greedy":
+            nxt = torch.argmax(logits[:, -1, :], dim=-1)[:, None]
+        else:
+            probs = torch.softmax(logits[:, -1, :] / temperature, dim=-1)
+            nxt = torch.multinomial(probs, 1, generator=generator)
+        return DecodeState(cache, state.pos + 1, nxt), logits
+
+    return decode_fn
+
+
+def resolve_device(device) -> torch.device:
+    """The device a caller asked for; asking for CUDA without a GPU raises."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but no CUDA GPU is available; "
+                           "pass device='cpu' to run the plain versions on the CPU")
+    return dev
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+@torch.no_grad()
+def decode_tokens(params, cfg: ModelConfig, prompt, max_new: int,
+                  max_seq: Optional[int] = None, sample: str = "greedy", seed: int = 0, *,
+                  lora=None, device="cuda"):
+    """Prefill ``prompt`` (B, S) then generate: the prefill's argmax and
+    ``max_new - 1`` decoded tokens, (B, max_new). Runs on ``device``."""
+    dev = resolve_device(device)
+    params = _to(params, dev)
+    lora = _to(lora, dev) if lora is not None else None
+    prompt = prompt.to(dev)
+    B, S = prompt.shape
+    cache = T.init_cache(cfg, B, max_seq or (S + max_new), device=dev)
+    decode_fn = make_decode_fn(cfg, sample=sample)
+    state = make_prefill_fn(cfg)(params, {"tokens": prompt, "labels": prompt}, cache, lora)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = [state.tokens]
+    for _ in range(max_new - 1):
+        state, _ = decode_fn(params, state, gen, lora)
+        out.append(state.tokens)
+    return torch.cat(out, dim=1)

@@ -1,0 +1,176 @@
+"""The port's kernels against the reference's Pallas kernels.
+
+On the CPU the port's wrappers run their plain versions; these are held
+against the JAX Pallas kernels (interpret mode, as ``test_kernels.py`` runs
+them) and the reference's plain versions, on the same numpy-seeded inputs.
+The CUDA kernels themselves are held against their plain versions on the
+card by ``test_torch_cuda.py``.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.attn_ops import flash_attention as jax_flash_attention
+from repro.kernels.attn_ref import flash_attention_ref as jax_flash_attention_ref
+from repro.kernels.lora_ops import lora_matmul as jax_lora_matmul
+from repro.kernels.lora_ref import lora_matmul_ref as jax_lora_matmul_ref
+from repro.models import layers as jax_layers
+from repro_torch.kernels.attn_ops import flash_attention
+from repro_torch.kernels.attn_ref import flash_attention_ref
+from repro_torch.kernels.lora_ops import lora_matmul
+from repro_torch.kernels.lora_ref import lora_matmul_ref
+from repro_torch.models import layers as torch_layers
+
+# fp32: both sides accumulate in fp32 in another order; bf16: one bf16 ulp of
+# outputs of magnitude ~1-4 (the reference's own kernel tolerances)
+TOL = {"float32": 1e-5, "bfloat16": 5e-2}
+JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _pair(a: np.ndarray, dtype: str):
+    """The same values as a JAX array and a torch tensor (bf16 rounding is
+    round-to-nearest-even on both sides)."""
+    return jnp.asarray(a, JNP[dtype]), torch.from_numpy(a).to(TORCH[dtype])
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+# ---------------------------------------------------------------------------
+# LoRA fused matmul
+# ---------------------------------------------------------------------------
+
+# the cases of test_kernels.py's LORA_CASES: (M, K, N, r, dtype)
+LORA_CASES = [
+    (128, 256, 128, 8, "float32"),
+    (256, 512, 384, 16, "float32"),
+    (64, 128, 256, 4, "bfloat16"),
+    (100, 200, 300, 8, "float32"),  # non-aligned: the reference pads
+    (32, 1024, 64, 32, "float32"),
+    (8, 64, 8, 2, "float32"),  # tiny
+]
+
+
+def _lora_inputs(M, K, N, r, seed=0, b_scale=0.05):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((M, K), np.float32),
+            rng.standard_normal((K, N), np.float32) * 0.05,
+            rng.standard_normal((K, r), np.float32) * 0.05,
+            rng.standard_normal((r, N), np.float32) * b_scale)
+
+
+@pytest.mark.parametrize("M,K,N,r,dtype", LORA_CASES)
+def test_lora_plain_matches_pallas_and_ref(M, K, N, r, dtype):
+    (jx, tx), (jw, tw), (ja, ta), (jb, tb) = (_pair(t, dtype) for t in _lora_inputs(M, K, N, r))
+    y = lora_matmul(tx, tw, ta, tb, scale=2.0)
+    assert y.dtype == TORCH[dtype] and y.shape == (M, N)
+    tol = TOL[dtype]
+    for ref in (jax_lora_matmul(jx, jw, ja, jb, scale=2.0),
+                jax_lora_matmul_ref(jx, jw, ja, jb, scale=2.0)):
+        np.testing.assert_allclose(_np(y), _np(ref), rtol=tol, atol=tol)
+    np.testing.assert_allclose(_np(lora_matmul_ref(tx, tw, ta, tb, scale=2.0)), _np(y),
+                               rtol=tol, atol=tol)
+
+
+def test_lora_plain_leading_dims_and_zero_B():
+    x, w, a, b = _lora_inputs(16, 64, 32, 4, seed=1, b_scale=0.0)
+    (jx, tx), (jw, tw), (ja, ta), (jb, tb) = (_pair(t, "float32") for t in (x, w, a, b))
+    y = lora_matmul(tx.reshape(2, 8, 64), tw, ta, tb, scale=4.0)
+    assert y.shape == (2, 8, 32)
+    ref = jax_lora_matmul(jx.reshape(2, 8, 64), jw, ja, jb, scale=4.0)
+    np.testing.assert_allclose(_np(y), _np(ref), rtol=1e-5, atol=1e-5)
+    # B = 0 (the LoRA init) -> exactly the frozen product's value
+    np.testing.assert_allclose(_np(y).reshape(16, 32), x @ w, rtol=1e-5, atol=1e-5)
+
+
+def test_lora_wrapper_rejects_bad_inputs():
+    x, w, a, b = (torch.from_numpy(t) for t in _lora_inputs(8, 64, 32, 4))
+    with pytest.raises(TypeError):
+        lora_matmul(x, w.double(), a, b)
+    with pytest.raises(ValueError):
+        lora_matmul(x, w[:32], a, b)
+    with pytest.raises(ValueError):
+        lora_matmul(x, w.t().contiguous().t(), a, b)
+    with pytest.raises(ValueError):
+        lora_matmul(x, w, a, b.t())
+
+
+# ---------------------------------------------------------------------------
+# Flash attention
+# ---------------------------------------------------------------------------
+
+# test_kernels.py's ATTN_CASES (B, H, Kv, S, d, window, softcap, dtype) plus
+# ragged lengths, which the reference wrapper pads and the port masks
+ATTN_CASES = [
+    (2, 4, 2, 128, 64, 0, 0.0, "float32"),
+    (1, 4, 4, 256, 32, 64, 0.0, "float32"),  # sliding window
+    (1, 2, 1, 128, 64, 0, 50.0, "float32"),  # softcap + MQA
+    (1, 8, 2, 192, 64, 0, 0.0, "bfloat16"),  # GQA bf16
+    (2, 2, 2, 64, 128, 32, 30.0, "float32"),  # window + softcap
+    (2, 6, 2, 100, 32, 0, 0.0, "float32"),  # ragged S, GQA
+    (1, 4, 2, 77, 64, 20, 0.0, "float32"),  # ragged S + window
+]
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+
+
+def _attn_inputs(B, H, Kv, S, d, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, H, S, d), np.float32),
+            rng.standard_normal((B, Kv, S, d), np.float32),
+            rng.standard_normal((B, Kv, S, d), np.float32))
+
+
+@pytest.mark.parametrize("B,H,Kv,S,d,window,softcap,dtype", ATTN_CASES)
+def test_flash_plain_matches_pallas_and_ref(B, H, Kv, S, d, window, softcap, dtype):
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(t, dtype) for t in _attn_inputs(B, H, Kv, S, d))
+    o = flash_attention(tq, tk, tv, window=window, softcap=softcap)
+    assert o.dtype == TORCH[dtype] and o.shape == (B, H, S, d)
+    tol = ATTN_TOL[dtype]
+    for ref in (jax_flash_attention(jq, jk, jv, window=window, softcap=softcap, bq=64, bk=64),
+                jax_flash_attention_ref(jq, jk, jv, window=window, softcap=softcap)):
+        np.testing.assert_allclose(_np(o), _np(ref), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("B,H,Kv,S,d,window,softcap,dtype",
+                         [c for c in ATTN_CASES if c[-1] == "float32"])
+def test_flash_plain_matches_attend_full_in_model_layout(B, H, Kv, S, d, window, softcap, dtype):
+    """The port's model-layout call (the flash path of layers.attention) and
+    its _attend_full baseline against the reference's _attend_full."""
+    q, k, v = (np.ascontiguousarray(t.transpose(0, 2, 1, 3)) for t in _attn_inputs(B, H, Kv, S, d))
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(t, dtype) for t in (q, k, v))
+    ref = jax_layers._attend_full(jq, jk, jv, causal=True, window=window, softcap=softcap)
+    for attend in (torch_layers._attend_flash, torch_layers._attend_full):
+        out = attend(tq, tk, tv, causal=True, window=window, softcap=softcap)
+        assert out.shape == (B, S, H * d)
+        np.testing.assert_allclose(_np(out), _np(ref), rtol=2e-5, atol=2e-5)
+
+
+def test_flash_plain_non_causal_ragged_kv():
+    """Sq != Skv without causal masking: the reference wrapper gives up on the
+    kernel here (attn_ops.py:27-31); the port's plain version follows its ref."""
+    rng = np.random.default_rng(3)
+    q = rng.standard_normal((1, 4, 40, 32), np.float32)
+    k = rng.standard_normal((1, 2, 72, 32), np.float32)
+    v = rng.standard_normal((1, 2, 72, 32), np.float32)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(t, "float32") for t in (q, k, v))
+    o = flash_attention(tq, tk, tv, causal=False)
+    ref = jax_flash_attention_ref(jq, jk, jv, causal=False)
+    np.testing.assert_allclose(_np(o), _np(ref), rtol=2e-5, atol=2e-5)
+
+
+def test_flash_wrapper_rejects_bad_inputs():
+    q, k, v = (torch.from_numpy(t) for t in _attn_inputs(1, 4, 2, 16, 32))
+    with pytest.raises(ValueError):
+        flash_attention(q, k[:, :, :8], v)  # k/v shapes differ
+    with pytest.raises(ValueError):
+        flash_attention(q[:, :3], k, v)  # 3 heads over 2 kv heads
+    with pytest.raises(TypeError):
+        flash_attention(q, k.double(), v.double())
+    with pytest.raises(ValueError):
+        flash_attention(q.transpose(2, 3), k, v)  # head dim not contiguous
