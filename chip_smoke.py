@@ -21,7 +21,7 @@ Phases, each of which fails the run (non-zero exit) on any miss:
                card could take; prefill ms and decode tokens/s.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
-last ``{"ok": true, "device": {...}}``. Details go to ``chiprun_out/``.
+last ``{"ok": true, "device": {...}}``. Details go to ``build/chip_smoke/``.
 Without a CUDA card it exits non-zero before printing any result.
 """
 
@@ -50,7 +50,7 @@ from repro_torch.kernels.lora_ref import lora_matmul_ref  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.serving.decode import decode_tokens  # noqa: E402
 
-OUT = ROOT / "chiprun_out"
+OUT = ROOT / "build" / "chip_smoke"
 # NVIDIA H100 SXM data sheet: dense bf16 tensor-core peak, HBM3 bandwidth
 PEAK_BF16 = 989e12
 HBM_BYTES_PER_S = 3.35e12
@@ -170,7 +170,7 @@ def phase_build() -> dict:
     seconds = time.perf_counter() - t0
     (OUT / "build_log.txt").write_text("\n".join(f"== {k}\n{v}" for k, v in logs.items()))
     log(f"[build] {len(logs)} kernel(s) compiled in {seconds:.1f} s "
-        f"into {_build.BUILD_DIR.relative_to(ROOT)} (ptxas output: chiprun_out/build_log.txt)")
+        f"into {_build.BUILD_DIR.relative_to(ROOT)} (ptxas output: {(OUT / 'build_log.txt').relative_to(ROOT)})")
     return {"seconds": seconds}
 
 
@@ -422,7 +422,7 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False  # fp32 products in full fp32
     torch.backends.cudnn.allow_tf32 = False
-    OUT.mkdir(exist_ok=True)
+    OUT.mkdir(parents=True, exist_ok=True)
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()

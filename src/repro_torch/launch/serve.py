@@ -1,4 +1,4 @@
-"""Serving driver: batched prefill + greedy decode of a LoRA-adapted model.
+"""Serving entry point: batched prefill + greedy decode of a LoRA-adapted model.
 
 Usage (on the GPU; ``--device cpu`` runs the plain versions on the CPU):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch fedsllm-100m \
