@@ -5,20 +5,24 @@ Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``:
 
     python3 chip_smoke.py
 
-Phases, each of which fails the run (non-zero exit) on any miss:
-  1. build   — compile every CUDA kernel of the serving path from
-               ``src/repro_torch/csrc`` (one nvcc per source, in parallel);
-  2. kernels — each kernel against its plain PyTorch version on the card, in
-               bf16, at the serving path's shapes, with stated tolerances;
-  3. slice   — full-width ``fedsllm-100m`` (bf16, batch 8, prompt 512, 32 new
-               tokens, random weights and non-zero adapters from seeded
-               generators) served once through ``decode_tokens`` with the
-               kernel launch counts read around it; then the kernel path's
+Two serving paths, each at full width and depth: ``fedsllm-100m`` (dense,
+fused LoRA + flash attention) and ``mamba2-130m`` (SSM, fused LoRA + the SSD
+chunked scan). Phases, each of which fails the run (non-zero exit) on any miss:
+  1. build   — compile every CUDA kernel from ``src/repro_torch/csrc`` (one
+               nvcc per source, all at once);
+then, for each path:
+  2. kernels — each of its kernels against its plain PyTorch version on the
+               card at the path's shapes, with stated tolerances;
+  3. slice   — the model (bf16, batch 8, prompt 512, 32 new tokens, random
+               weights and non-zero adapters from seeded generators) served
+               once through ``decode_tokens``, every kernel's launch count set
+               to 0 just before and read just after; then the kernel path's
                prefill/decode logits against the plain path (merged weights,
-               ``_attend_full``);
+               ``_attend_full`` / ``ssd_chunked``) and against fp32;
   4. timings — CUDA-event times of each kernel, its plain version and one
-               library call at the path's shapes, beside the least time the
-               card could take; prefill ms and decode tokens/s.
+               library call (where one exists) at the path's shapes, beside
+               the least time the card could take; prefill ms and decode
+               tokens/s.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``. Details go to ``build/chip_smoke/``.
@@ -40,13 +44,16 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch.config import get_arch  # noqa: E402
+from repro_torch.config import LoRAConfig, get_arch  # noqa: E402
 from repro_torch.core.lora import init_lora, merge  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.attn_ops import flash_attention  # noqa: E402
 from repro_torch.kernels.attn_ref import flash_attention_ref  # noqa: E402
 from repro_torch.kernels.lora_ops import lora_matmul  # noqa: E402
 from repro_torch.kernels.lora_ref import lora_matmul_ref  # noqa: E402
+from repro_torch.kernels.ssd_ops import ssd_scan  # noqa: E402
+from repro_torch.kernels.ssd_ref import ssd_scan_ref  # noqa: E402
+from repro_torch.models import mamba2 as M2  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.serving.decode import decode_tokens  # noqa: E402
 
@@ -56,6 +63,8 @@ PEAK_BF16 = 989e12
 HBM_BYTES_PER_S = 3.35e12
 BATCH, PROMPT, NEW = 8, 512, 32
 ADAPTER_B_STD = 0.05  # std of the non-zero B drawn for the adapters
+ARCHS = ("fedsllm-100m", "mamba2-130m")
+KERNELS = {"lora_matmul": lora_matmul, "flash_attention": flash_attention, "ssd_scan": ssd_scan}
 
 
 def log(msg: str) -> None:
@@ -120,8 +129,20 @@ def n_sets(bytes_per_set: int) -> int:
 def lora_shapes(cfg) -> collections.Counter:
     """(K, N) of each adapted projection of one layer, with its count."""
     D, F = cfg.d_model, cfg.d_ff
+    if cfg.layer_pattern == "M":  # in_proj, out_proj
+        d_inner, H, P, N, conv_ch = M2.dims(cfg)
+        return collections.Counter([(D, 2 * d_inner + 2 * N + H), (d_inner, D)])
     q, kv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
     return collections.Counter([(D, q), (D, kv), (D, kv), (q, D), (D, F), (D, F), (F, D)])
+
+
+def path_kernels(cfg) -> dict[str, int]:
+    """Launches of each kernel in one decode_tokens call (prefill + NEW-1 steps)."""
+    per_forward = sum(lora_shapes(cfg).values()) * cfg.num_layers
+    ssm = cfg.layer_pattern == "M"
+    return {"lora_matmul": per_forward * NEW,
+            "flash_attention": 0 if ssm else cfg.num_layers,  # one per layer of the prefill
+            "ssd_scan": cfg.num_layers if ssm else 0}
 
 
 def lora_inputs(gen, M, K, N, r, dev):
@@ -159,6 +180,30 @@ def attn_work(B, S, H, Kv, d, causal, window):
     return nbytes, ops
 
 
+def ssd_inputs(gen, B, S, H, P, N, dev, dtype=torch.float32, h0=False):
+    """Drawn as tests/test_kernels.py draws the reference's SSD cases."""
+    x = torch.randn((B, S, H, P), generator=gen, device=dev).to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn((B, S, H), generator=gen, device=dev))
+    A = -torch.exp(torch.randn((H,), generator=gen, device=dev) * 0.3)
+    Bm = (torch.randn((B, S, N), generator=gen, device=dev) * 0.5).to(dtype)
+    Cm = (torch.randn((B, S, N), generator=gen, device=dev) * 0.5).to(dtype)
+    state = torch.randn((B, H, P, N), generator=gen, device=dev) if h0 else None
+    return x, dt, A, Bm, Cm, state
+
+
+def ssd_work(B, S, H, P, N, chunk, esize, h0):
+    """Bytes: x, dt, A, Bm, Cm read once, y (fp32) and the final state written
+    once, the initial state read once if given. Operations: the chunked
+    algorithm at the reference's chunk Q (scores C·Bᵀ and their product with
+    dt·x, 2·Q²·(N+P) per chunk; the state's contribution and update,
+    4·Q·N·P), per (b, h)."""
+    nbytes = (esize * (B * S * H * P + 2 * B * S * N) + 4 * (B * S * H + H)
+              + 4 * B * S * H * P + 4 * B * H * P * N * (2 if h0 else 1))
+    Q = min(chunk, S)
+    ops = B * H * math.ceil(S / Q) * (2 * Q * Q * (N + P) + 4 * Q * N * P)
+    return nbytes, ops
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -176,15 +221,16 @@ def phase_build() -> dict:
 
 def phase_kernels(cfg, dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(0)
-    r = cfg.lora.rank
+    lcfg = cfg.lora or LoRAConfig()  # the adapters' config (the default where a config has none)
+    r = lcfg.rank
     fails, rows = [], []
-    errs = {"lora_matmul": 0.0, "flash_attention": 0.0}
+    errs = {"lora_matmul": 0.0}
     for M in (8, 37, BATCH * PROMPT):
         for K, N in lora_shapes(cfg):
             x, w, a, b = lora_inputs(gen, M, K, N, r, dev)
-            y = lora_matmul(x, w, a, b, scale=cfg.lora.scale)
+            y = lora_matmul(x, w, a, b, scale=lcfg.scale)
             torch.cuda.synchronize()
-            ref = lora_matmul_ref(x, w, a, b, scale=cfg.lora.scale)
+            ref = lora_matmul_ref(x, w, a, b, scale=lcfg.scale)
             err = (y.float() - ref.float()).abs().max().item()
             # both round the same fp32 sums, accumulated in another order
             tol = bf16_ulps(ref)
@@ -192,6 +238,20 @@ def phase_kernels(cfg, dev) -> dict:
             errs["lora_matmul"] = max(errs["lora_matmul"], err)
             if not err <= tol:
                 fails.append(rows[-1])
+    if cfg.layer_pattern == "M":
+        fails += ssd_checks(cfg, dev, gen, rows, errs)
+    else:
+        fails += flash_checks(cfg, dev, gen, rows, errs)
+    for row in rows:
+        log(f"[kernels] {json.dumps(row)}")
+    if fails:
+        raise SystemExit(f"[kernels] {len(fails)} case(s) disagree with the plain version: {fails}")
+    return {"max_abs_err": errs, "cases": rows}
+
+
+def flash_checks(cfg, dev, gen, rows, errs) -> list:
+    fails = []
+    errs["flash_attention"] = 0.0
     H, Kv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     for S, window, softcap in ((PROMPT, 0, 0.0), (200, 0, 0.0), (PROMPT, 128, 0.0),
                                (PROMPT, 0, 50.0)):
@@ -208,11 +268,35 @@ def phase_kernels(cfg, dev) -> dict:
         errs["flash_attention"] = max(errs["flash_attention"], err)
         if not err <= tol:
             fails.append(rows[-1])
-    for row in rows:
-        log(f"[kernels] {json.dumps(row)}")
-    if fails:
-        raise SystemExit(f"[kernels] {len(fails)} case(s) disagree with the plain version: {fails}")
-    return {"max_abs_err": errs, "cases": rows}
+    return fails
+
+
+def ssd_checks(cfg, dev, gen, rows, errs) -> list:
+    """y and the final state against the sequential recurrence, at the path's
+    widths: the full prompt, a ragged S, an initial state, 8 reference
+    chunks, and the path's bf16 inputs. Tolerance 1e-4 of the largest
+    reference output, the reference's own (tests/test_kernels.py): all the
+    kernel's products are fp32 FMAs, only their order differs (and exp(cs_q
+    − cs_s) stands for a product of per-step decays)."""
+    fails = []
+    errs["ssd_scan"] = 0.0
+    _, H, P, N, _ = M2.dims(cfg)
+    for S, h0, dtype in ((PROMPT, False, torch.float32), (200, False, torch.float32),
+                         (PROMPT, True, torch.float32), (8 * cfg.ssm_chunk, False, torch.float32),
+                         (PROMPT, True, torch.bfloat16)):
+        x, dt, A, Bm, Cm, state = ssd_inputs(gen, BATCH, S, H, P, N, dev, dtype, h0)
+        y, h = ssd_scan(x, dt, A, Bm, Cm, initial_state=state)
+        torch.cuda.synchronize()
+        yr, hr = ssd_scan_ref(x, dt, A, Bm, Cm, state)
+        for out, ref, what in ((y, yr, "y"), (h, hr, "final_state")):
+            err = (out - ref).abs().max().item()
+            tol = 1e-4 * ref.abs().max().item()
+            rows.append(dict(kernel="ssd_scan", out=what, B=BATCH, S=S, H=H, P=P, N=N,
+                             initial_state=h0, dtype=str(dtype).split(".")[-1], err=err, tol=tol))
+            errs["ssd_scan"] = max(errs["ssd_scan"], err)
+            if not err <= tol:
+                fails.append(rows[-1])
+    return fails
 
 
 def make_model(cfg, dev):
@@ -222,6 +306,18 @@ def make_model(cfg, dev):
     for ab in lora.values():  # B = 0 at init would hide the low-rank fold
         ab["B"] = (torch.randn(ab["B"].shape, generator=gen, device=dev)
                    * ADAPTER_B_STD).to(ab["B"].dtype)
+    if cfg.layer_pattern == "M":
+        # the reference's init makes A = -1, dt_bias = 0, D = 1, conv_b = 0 on
+        # every head, which would hide a head-indexing fault: draw them per
+        # head as Mamba-2 initialises them (A in [1, 16], dt in [1e-3, 1e-1])
+        m = params["groups"]["sub_0"]["mamba"]
+        u = lambda shape: torch.rand(shape, generator=gen, device=dev)
+        m["A_log"] = torch.log(1 + 15 * u(m["A_log"].shape))
+        dt = torch.exp(math.log(1e-3) + (math.log(1e-1) - math.log(1e-3)) * u(m["dt_bias"].shape))
+        m["dt_bias"] = dt + torch.log(-torch.expm1(-dt))  # softplus(dt_bias) = dt
+        m["D_skip"] = 1 + 0.5 * torch.randn(m["D_skip"].shape, generator=gen, device=dev)
+        m["conv_b"] = (0.1 * torch.randn(m["conv_b"].shape, generator=gen, device=dev)
+                       ).to(m["conv_b"].dtype)
     prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen, device=dev)
     return params, lora, prompt
 
@@ -237,25 +333,25 @@ def rel_err(got, want) -> float:
 
 
 def phase_slice(cfg, dev, params, lora, prompt) -> dict:
-    per_forward = sum(lora_shapes(cfg).values()) * cfg.num_layers
     # the main path, once, through the entry point a user calls
     torch.cuda.synchronize()
-    lora_matmul.launches = flash_attention.launches = 0
+    for fn in KERNELS.values():
+        fn.launches = 0
     t0 = time.perf_counter()
     tokens = decode_tokens(params, cfg, prompt, NEW, lora=lora, device=dev)
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
-    launches = {"lora_matmul": lora_matmul.launches, "flash_attention": flash_attention.launches}
-    log(f"[slice] decode_tokens {tuple(tokens.shape)} in {serve_s:.3f} s (first call), "
-        f"launches {launches}")
+    launches = {name: fn.launches for name, fn in KERNELS.items()}
+    log(f"[slice] {cfg.name}: decode_tokens {tuple(tokens.shape)} in {serve_s:.3f} s "
+        f"(first call), launches {launches}")
     assert tokens.shape == (BATCH, NEW) and tokens.dtype == torch.int64
     assert bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all())
-    assert launches["lora_matmul"] == per_forward * NEW, launches  # prefill + NEW-1 decode steps
-    assert launches["flash_attention"] == cfg.num_layers, launches  # one per layer of the prefill
+    assert launches == path_kernels(cfg), (launches, path_kernels(cfg))
 
-    # kernel path against the plain path (merged weights, _attend_full), and
-    # both against the same function in fp32 (W + scale·A·B unrounded, full
-    # fp32 products): the plain path's own error there is the bf16 floor
+    # kernel path against the plain path (merged weights, _attend_full /
+    # ssd_chunked), and both against the same function in fp32 (W + scale·A·B
+    # unrounded, full fp32 products): the plain path's own error there is the
+    # bf16 floor
     batch = {"tokens": prompt}
     cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
     with torch.no_grad():
@@ -263,14 +359,14 @@ def phase_slice(cfg, dev, params, lora, prompt) -> dict:
         logits, cache = T.prefill(params, batch, cfg, cache, lora=lora)
         merged = merge(params, lora, cfg)
         plain_cache = T.init_cache(cfg, BATCH, PROMPT + NEW, device=dev)
-        plain, plain_cache = T.prefill(merged, batch, cfg, plain_cache, flash=False)
+        plain, plain_cache = T.prefill(merged, batch, cfg, plain_cache, kernels=False)
         tok, plain_tok = logits[:, -1].argmax(-1), plain[:, -1].argmax(-1)
         step, _ = T.decode_step(params, plain_tok[:, None], cache, PROMPT, cfg, lora=lora)
         plain_step, _ = T.decode_step(merged, plain_tok[:, None], plain_cache, PROMPT, cfg)
         del merged, cache, plain_cache
         exact = merge(to_fp32(params), to_fp32(lora), cfg32)
         cache32 = T.init_cache(cfg32, BATCH, PROMPT + NEW, device=dev)
-        ref, cache32 = T.prefill(exact, batch, cfg32, cache32, flash=False)
+        ref, cache32 = T.prefill(exact, batch, cfg32, cache32, kernels=False)
         ref_step, _ = T.decode_step(exact, plain_tok[:, None], cache32, PROMPT, cfg32)
         del exact, cache32
     assert torch.isfinite(logits).all() and torch.isfinite(step).all()
@@ -288,7 +384,7 @@ def phase_slice(cfg, dev, params, lora, prompt) -> dict:
     gap = (top2[:, 0] - top2[:, 1])
     same = tok == plain_tok
     tie = (~same) & (gap <= 2 * last_err)
-    log("[slice] logits relative errors " + json.dumps(errs))
+    log(f"[slice] {cfg.name}: logits relative errors " + json.dumps(errs))
     log(f"[slice] first-step greedy tokens equal on {int(same.sum())}/{BATCH} rows, "
         f"{int(tie.sum())} tie(s) within {2 * last_err:.3e}")
     # the kernel path may be no further from fp32 than twice the plain bf16
@@ -304,7 +400,8 @@ def phase_slice(cfg, dev, params, lora, prompt) -> dict:
 
 def phase_timings(cfg, dev, params, lora, prompt) -> dict:
     gen = torch.Generator(device=dev).manual_seed(3)
-    r, scale = cfg.lora.rank, cfg.lora.scale
+    lcfg = cfg.lora or LoRAConfig()
+    r, scale = lcfg.rank, lcfg.scale
     shapes = []
 
     def lora_call(x, w, a, b):
@@ -328,21 +425,10 @@ def phase_timings(cfg, dev, params, lora, prompt) -> dict:
                                library_ms=time_ms(lora_library, sets, 200),
                                bound_ms=b_ms, bound_by=b_by))
             del sets
-    H, Kv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    nbytes, ops = attn_work(BATCH, PROMPT, H, Kv, d, True, 0)
-    sets = [attn_inputs(gen, BATCH, PROMPT, H, Kv, d, dev) for _ in range(n_sets(nbytes))]
-    b_ms, b_by = bound_ms(nbytes, ops)
-    shapes.append(dict(
-        kernel="flash_attention", B=BATCH, S=PROMPT, H=H, Kv=Kv, d=d, causal=True,
-        launches=cfg.num_layers,
-        ms=time_ms(lambda q, k, v: flash_attention(q, k, v, causal=True), sets, 100),
-        plain_ms=time_ms(lambda q, k, v: flash_attention_ref(q, k, v, causal=True), sets, 20),
-        library_ms=time_ms(lambda q, k, v: torch.nn.functional.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), sets, 100),
-        bound_ms=b_ms, bound_by=b_by))
-    del sets
+    shapes.append(ssd_timing(cfg, dev, gen) if cfg.layer_pattern == "M"
+                  else flash_timing(cfg, dev, gen))
     for row in shapes:
-        log(f"[timing] {json.dumps(row)}")
+        log(f"[timing] {cfg.name}: {json.dumps(row)}")
 
     # end to end: prefill, and decode steps against the prefilled cache
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -380,40 +466,106 @@ def phase_timings(cfg, dev, params, lora, prompt) -> dict:
            "decode_step_device_ms": step_dev, "decode_busy": step_dev / step_ms,
            "prefill_top_kernels": prefill_top, "decode_top_kernels": step_top,
            "decode_top_host_ops": step_host}
-    log(f"[timing] prefill {prefill_ms:.3f} ms (B={BATCH}, S={PROMPT}); decode step "
+    log(f"[timing] {cfg.name}: prefill {prefill_ms:.3f} ms (B={BATCH}, S={PROMPT}); decode step "
         f"{step_ms:.3f} ms = {e2e['decode_tokens_per_s']:.1f} tokens/s; one decode_tokens call "
         f"{serve_s:.3f} s = {e2e['serve_tokens_per_s']:.1f} tokens/s")
-    log(f"[timing] device busy: prefill {prefill_dev:.3f} ms of kernels "
+    log(f"[timing] {cfg.name}: device busy: prefill {prefill_dev:.3f} ms of kernels "
         f"({e2e['prefill_busy']:.1%}), decode step {step_dev:.3f} ms ({e2e['decode_busy']:.1%})")
     for name, top in (("prefill device", prefill_top), ("decode device", step_top),
                       ("decode host", step_host)):
         for key, ms, count in top:
-            log(f"[profile] {name} {ms:9.3f} ms  x{count:<4d} {key}")
+            log(f"[profile] {cfg.name} {name} {ms:9.3f} ms  x{count:<4d} {key}")
     return {"shapes": shapes, "end_to_end": e2e}
 
 
-def kernel_entries(checks, slice_res, timings) -> list[dict]:
+def flash_timing(cfg, dev, gen) -> dict:
+    H, Kv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    nbytes, ops = attn_work(BATCH, PROMPT, H, Kv, d, True, 0)
+    sets = [attn_inputs(gen, BATCH, PROMPT, H, Kv, d, dev) for _ in range(n_sets(nbytes))]
+    b_ms, b_by = bound_ms(nbytes, ops)
+    return dict(
+        kernel="flash_attention", B=BATCH, S=PROMPT, H=H, Kv=Kv, d=d, causal=True,
+        launches=cfg.num_layers,
+        ms=time_ms(lambda q, k, v: flash_attention(q, k, v, causal=True), sets, 100),
+        plain_ms=time_ms(lambda q, k, v: flash_attention_ref(q, k, v, causal=True), sets, 20),
+        library_ms=time_ms(lambda q, k, v: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), sets, 100),
+        bound_ms=b_ms, bound_by=b_by)
+
+
+def ssd_timing(cfg, dev, gen) -> dict:
+    """The SSD scan as the prefill calls it: bf16 x, Bm, Cm as strided views
+    of the conv output (B, S, conv_ch), fp32 dt, an initial state from the
+    cache. Plain = the sequential recurrence (the wrapper's CPU version);
+    ``chunked_ms`` times the model's plain chunked path for comparison. No
+    single PyTorch call computes this function: no library time."""
+    d_inner, H, P, N, conv_ch = M2.dims(cfg)
+
+    def inputs():
+        xbc = torch.randn((BATCH, PROMPT, conv_ch), generator=gen, device=dev).mul(0.5).bfloat16()
+        dt = torch.nn.functional.softplus(torch.randn((BATCH, PROMPT, H), generator=gen,
+                                                      device=dev) - 2)
+        A = -torch.exp(torch.randn((H,), generator=gen, device=dev))
+        state = torch.randn((BATCH, H, P, N), generator=gen, device=dev)
+        return (xbc[..., :d_inner].unflatten(-1, (H, P)), dt, A, xbc[..., d_inner:d_inner + N],
+                xbc[..., d_inner + N:], state)
+
+    nbytes, ops = ssd_work(BATCH, PROMPT, H, P, N, cfg.ssm_chunk, 2, True)
+    sets = [inputs() for _ in range(n_sets(nbytes))]
+    b_ms, b_by = bound_ms(nbytes, ops)
+    return dict(
+        kernel="ssd_scan", B=BATCH, S=PROMPT, H=H, P=P, N=N, chunk=cfg.ssm_chunk,
+        launches=cfg.num_layers,
+        ms=time_ms(lambda x, dt, A, Bm, Cm, h: ssd_scan(x, dt, A, Bm, Cm, initial_state=h),
+                   sets, 50),
+        plain_ms=time_ms(ssd_scan_ref, sets, 3),
+        chunked_ms=time_ms(lambda *a: M2.ssd_chunked(*a[:5], cfg.ssm_chunk, a[5]), sets, 10),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+
+
+def kernel_entries(results) -> list[dict]:
     """One entry per kernel; the times are summed over the launches that one
-    serve call (prefill + NEW-1 decode steps) makes at each shape."""
+    serve call (prefill + NEW-1 decode steps) makes at each shape, over the
+    serving paths that run the kernel."""
     meta = {
         "lora_matmul": ("src/repro_torch/csrc/lora_matmul.cu",
                         "src/repro/kernels/lora_matmul.py:51"),
         "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:84"),
+        "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu", "src/repro/kernels/ssd_scan.py:71"),
     }
     out = []
     for name, (source, replaces) in meta.items():
-        rows = [s for s in timings["shapes"] if s["kernel"] == name]
-        total = {k: sum(s[k] * s["launches"] for s in rows)
-                 for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        rows = [dict(s, path=arch) for arch, r in results.items()
+                for s in r["timings"]["shapes"] if s["kernel"] == name]
+        total = {k: sum(s[k] * s["launches"] for s in rows) for k in ("ms", "plain_ms", "bound_ms")}
+        lib = [s["library_ms"] for s in rows]
+        total["library_ms"] = (None if None in lib
+                               else sum(s["library_ms"] * s["launches"] for s in rows))
         by_bytes = sum(s["bound_ms"] * s["launches"] for s in rows if s["bound_by"] == "bytes")
+        by_path = {arch: r["slice"]["launches"][name] for arch, r in results.items()}
         out.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                    "launches": slice_res["launches"][name],
-                    "max_abs_err": checks["max_abs_err"][name], **total,
+                    "launches": sum(by_path.values()), "launches_by_path": by_path,
+                    "max_abs_err": max(r["checks"]["max_abs_err"].get(name, 0.0)
+                                       for r in results.values()), **total,
                     "bound_by": "bytes" if by_bytes >= total["bound_ms"] / 2 else "operations",
-                    "per": "one decode_tokens call: B=8, prompt 512, 32 new tokens",
+                    "per": "one decode_tokens call of each path: B=8, prompt 512, 32 new tokens",
                     "shapes": rows})
     return out
+
+
+def run_path(arch: str, dev) -> dict:
+    """Phases 2-4 of one serving path."""
+    cfg = get_arch(arch)
+    t0 = time.perf_counter()
+    checks = phase_kernels(cfg, dev)
+    params, lora, prompt = make_model(cfg, dev)
+    slice_res = phase_slice(cfg, dev, params, lora, prompt)
+    timings = phase_timings(cfg, dev, params, lora, prompt)
+    del params, lora
+    torch.cuda.empty_cache()
+    log(f"[path] {arch} done in {time.perf_counter() - t0:.1f} s")
+    return {"checks": checks, "slice": slice_res, "timings": timings}
 
 
 def main() -> int:
@@ -428,16 +580,14 @@ def main() -> int:
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     log(f"[device] {torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
-    cfg = get_arch("fedsllm-100m")
     build = phase_build()
-    checks = phase_kernels(cfg, dev)
-    params, lora, prompt = make_model(cfg, dev)
-    slice_res = phase_slice(cfg, dev, params, lora, prompt)
-    timings = phase_timings(cfg, dev, params, lora, prompt)
-    kernels = kernel_entries(checks, slice_res, timings)
+    results = {arch: run_path(arch, dev) for arch in ARCHS}
+    kernels = kernel_entries(results)
     (OUT / "chip_smoke.json").write_text(json.dumps(
-        {"nvidia_smi": smi, "build": build, "kernels": kernels, "checks": checks,
-         "slice": slice_res, "end_to_end": timings["end_to_end"]}, indent=1))
+        {"nvidia_smi": smi, "build": build, "kernels": kernels,
+         "paths": {arch: {"checks": r["checks"], "slice": r["slice"],
+                          "end_to_end": r["timings"]["end_to_end"]}
+                   for arch, r in results.items()}}, indent=1))
     print(smi)
     print(json.dumps({"kernels": [{k: v for k, v in e.items() if k != "shapes"}
                                   for e in kernels]}))

@@ -3,8 +3,9 @@
 The port's own copy of the configuration dataclasses of ``repro.config``: the
 fields are the same, so a registered architecture reads identically in both
 packages, but only the dense decoder (``family="dense"``, layer char ``G``)
-is runnable here. ``ModelConfig`` keeps every field of the reference so that
-configuration modules copy over verbatim.
+and the SSM (``family="ssm"``, layer char ``M``) are runnable here.
+``ModelConfig`` keeps every field of the reference so that configuration
+modules copy over verbatim.
 """
 
 from __future__ import annotations

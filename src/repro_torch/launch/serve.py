@@ -3,11 +3,13 @@
 Usage (on the GPU; ``--device cpu`` runs the plain versions on the CPU):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch fedsllm-100m \
       --batch 8 --prompt-len 512 --max-new 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \
+      --batch 8 --prompt-len 512 --max-new 32
 
 The adapters are freshly initialised (A ~ N(0,1)/r, B = 0, as a FedsLLM run
 starts), so the output equals the base model's; every adapted projection
-still runs the fused LoRA kernel. Prints tokens/s and both kernels' launch
-counts.
+still runs the fused LoRA kernel. Prints tokens/s and every kernel's launch
+count.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from repro_torch.config import get_arch, smoke_variant
 from repro_torch.core.lora import init_lora
 from repro_torch.kernels.attn_ops import flash_attention
 from repro_torch.kernels.lora_ops import lora_matmul
+from repro_torch.kernels.ssd_ops import ssd_scan
 from repro_torch.models import transformer as T
 from repro_torch.serving.decode import decode_tokens, resolve_device
 
@@ -44,7 +47,7 @@ def main(argv=None):
     gen = torch.Generator(device=dev).manual_seed(1)
     prompt = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len), generator=gen,
                            device=dev)
-    lora_matmul.launches = flash_attention.launches = 0
+    lora_matmul.launches = flash_attention.launches = ssd_scan.launches = 0
     t0 = time.perf_counter()
     out = decode_tokens(params, cfg, prompt, args.max_new, lora=lora, device=dev)
     if dev.type == "cuda":
@@ -53,7 +56,7 @@ def main(argv=None):
     print(f"arch={cfg.name} device={dev.type} generated {tuple(out.shape)} in {dt:.2f}s "
           f"({args.batch * args.max_new / dt:.1f} tok/s)")
     print(f"kernel launches: lora_matmul={lora_matmul.launches} "
-          f"flash_attention={flash_attention.launches}")
+          f"flash_attention={flash_attention.launches} ssd_scan={ssd_scan.launches}")
     print("sample tokens:", out[0, :12].tolist())
 
 

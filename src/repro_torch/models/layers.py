@@ -7,7 +7,7 @@ reference are dropped: one card holds everything.
 
 A targeted projection goes through ``project``: plain ``x @ W`` without an
 adapter, the fused LoRA kernel with one. Prefill attention goes through the
-flash kernel (``flash=True``) or the plain ``_attend_full`` baseline.
+flash kernel (``kernels=True``) or the plain ``_attend_full`` baseline.
 """
 
 from __future__ import annotations
@@ -31,12 +31,14 @@ def torch_dtype(name: str) -> torch.dtype:
 
 def make_param(gen: torch.Generator, shape, dtype: str, *, init: str = "normal",
                scale: float = 0.02, device=None) -> torch.Tensor:
-    """One parameter, as ``repro.parallel.make_param`` draws it (normal × scale
-    or ones, in fp32, then cast), from ``gen``."""
+    """One parameter, as ``repro.parallel.make_param`` draws it (normal × scale,
+    ones or zeros, in fp32, then cast), from ``gen``."""
     if init == "normal":
         v = torch.randn(tuple(shape), generator=gen, dtype=torch.float32, device=device) * scale
     elif init == "ones":
         v = torch.ones(tuple(shape), dtype=torch.float32, device=device)
+    elif init == "zeros":
+        v = torch.zeros(tuple(shape), dtype=torch.float32, device=device)
     else:
         raise ValueError(init)
     return v.to(torch_dtype(dtype))
@@ -161,7 +163,7 @@ def _decode_attend(q, ck, cv, *, cfg: ModelConfig, cache_pos: int):
 
 def attention(p, x, cfg: ModelConfig, *, positions, adapters=None,
               cache: Optional[tuple] = None, cache_pos: Optional[int] = None,
-              flash: bool = True):
+              kernels: bool = True):
     """Causal GQA attention with global (unwindowed) masking; positions (B, S).
 
     cache: (k, v), each (B, S_cache, Kv, hd), updated in place: a
@@ -186,7 +188,7 @@ def attention(p, x, cfg: ModelConfig, *, positions, adapters=None,
         if cache is not None:
             ck, cv = cache
             ck[:, :S], cv[:, :S] = k, v
-        attend = _attend_flash if flash else _attend_full
+        attend = _attend_flash if kernels else _attend_full
         out = attend(q, k, v, causal=True, window=0, softcap=cfg.attn_logit_softcap)
     return project(out, p["wo"], ad.get("wo"))
 

@@ -1,11 +1,18 @@
-"""Dense decoder stack (port of ``repro/models/transformer.py``, the ``dense``
-family with ``layer_pattern="G"`` only: one global-attention layer per group).
+"""Decoder stack (port of ``repro/models/transformer.py``) for two of the
+reference's layer chars: ``G`` (global attention + MLP, the ``dense`` family)
+and ``M`` (a Mamba-2 SSD block, the ``ssm`` family). One char per group.
 
 Parameters keep the reference's tree: ``{"embed", "groups", "final_norm"}``
 with the group leaves stacked ``(num_groups, ...)``; the reference's
-``lax.scan`` over groups is a Python loop here, and the KV cache
-``(num_groups, B, S, Kv, hd)`` is updated in place (the reference carries a
-new cache through the scan; in place saves a cache copy per step).
+``lax.scan`` over groups is a Python loop here, and the caches (KV
+``(num_groups, B, S, Kv, hd)``; SSM conv and SSD states) are updated in
+place (the reference carries a new cache through the scan; in place saves a
+cache copy per step).
+
+``kernels`` (prefill only) picks the CUDA kernels of the prefill, flash
+attention and the SSD scan, or their plain baselines ``_attend_full`` and
+``ssd_chunked``. Adapted projections run the fused LoRA kernel whenever
+adapters are given.
 """
 
 from __future__ import annotations
@@ -15,17 +22,22 @@ import torch
 from repro_torch.config import ModelConfig
 from repro_torch.core.lora import layer_adapters
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as M2
+
+# (family, layer_pattern) pairs the port runs
+PORTED = {("dense", "G"), ("ssm", "M")}
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    unported = {"family": cfg.family != "dense", "layer_pattern": cfg.layer_pattern != "G",
+def _require_ported(cfg: ModelConfig) -> None:
+    unported = {"family/layer_pattern": (cfg.family, cfg.layer_pattern) not in PORTED,
                 "qk_norm": cfg.qk_norm, "use_bias": cfg.use_bias,
                 "use_post_norm": cfg.use_post_norm, "parallel_block": cfg.parallel_block,
                 "num_experts": bool(cfg.num_experts)}
     bad = [k for k, v in unported.items() if v]
     if bad:
-        raise NotImplementedError(f"{cfg.name}: not ported yet ({', '.join(bad)}); "
-                                  "the port runs the dense family with layer_pattern 'G'")
+        raise NotImplementedError(f"{cfg.name}: not ported yet ({', '.join(bad)}); the port runs "
+                                  "the dense family with layer_pattern 'G' and the ssm family "
+                                  "with layer_pattern 'M'")
 
 
 def _index(tree, i):
@@ -43,6 +55,9 @@ def _index(tree, i):
 
 
 def init_sublayer(gen, cfg: ModelConfig, device=None):
+    if cfg.layer_pattern == "M":
+        return {"norm1": L.init_norm(gen, cfg, cfg.d_model, device),
+                "mamba": M2.init_mamba(gen, cfg, device)}
     return {"norm1": L.init_norm(gen, cfg, cfg.d_model, device),
             "attn": L.init_attn(gen, cfg, device),
             "norm2": L.init_norm(gen, cfg, cfg.d_model, device),
@@ -50,23 +65,26 @@ def init_sublayer(gen, cfg: ModelConfig, device=None):
 
 
 def apply_sublayer(p, x, cfg: ModelConfig, *, cache=None, cache_pos=None, positions=None,
-                   adapters=None, flash=True):
-    """One pre-norm layer (the reference's ``G`` branch)."""
+                   adapters=None, kernels=True):
+    """One pre-norm layer: the reference's ``G`` or ``M`` branch."""
     ad = adapters or {}
     h = L.apply_norm(p["norm1"], x, cfg)
+    if cfg.layer_pattern == "M":
+        return x + M2.apply_mamba(p["mamba"], h, cfg, cache["ssm"] if cache else None,
+                                  adapters=ad.get("mamba"), kernels=kernels)
     x = x + L.attention(p["attn"], h, cfg, adapters=ad.get("attn"), positions=positions,
                         cache=cache["attn"] if cache else None, cache_pos=cache_pos,
-                        flash=flash)
+                        kernels=kernels)
     h2 = L.apply_norm(p["norm2"], x, cfg)
     return x + L.apply_mlp(p["mlp"], h2, cfg, adapters=ad.get("mlp"))
 
 
 def apply_group(gp, x, cfg: ModelConfig, *, cache=None, cache_pos=None, positions=None,
-                adapters=None, flash=True):
+                adapters=None, kernels=True):
     ad = adapters or {}
     return apply_sublayer(gp["sub_0"], x, cfg, cache=cache["sub_0"] if cache else None,
                           cache_pos=cache_pos, positions=positions, adapters=ad.get("sub_0"),
-                          flash=flash)
+                          kernels=kernels)
 
 
 # ---------------------------------------------------------------------------
@@ -77,7 +95,7 @@ def apply_group(gp, x, cfg: ModelConfig, *, cache=None, cache_pos=None, position
 def init_params(cfg: ModelConfig, seed: int = 0, device=None):
     """Random weights with the reference's shapes and scales, drawn from a
     ``torch.Generator`` on ``device`` seeded with ``seed``."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     gen = torch.Generator(device=device or "cpu").manual_seed(seed)
     tree = {"embed": L.init_embed(gen, cfg, device)}
     layers = [init_sublayer(gen, cfg, device) for _ in range(cfg.num_layers)]
@@ -105,21 +123,21 @@ def _embed_inputs(params, batch, cfg: ModelConfig):
 
 
 def _scan_groups(params, x, cfg: ModelConfig, *, cache=None, cache_pos=None, positions=None,
-                 lora=None, flash=True):
+                 lora=None, kernels=True):
     """Run the stacked groups, writing the cache (if any) in place."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     for i in range(cfg.num_layers):
         x = apply_group(_index(params["groups"], i), x, cfg,
                         cache=_index(cache["groups"], i) if cache else None,
                         cache_pos=cache_pos, positions=positions,
-                        adapters=layer_adapters(lora, cfg, i), flash=flash)
+                        adapters=layer_adapters(lora, cfg, i), kernels=kernels)
     return x
 
 
-def forward(params, batch, cfg: ModelConfig, *, lora=None, flash=True):
+def forward(params, batch, cfg: ModelConfig, *, lora=None, kernels=True):
     """Full forward -> logits (B, S, V), fp32."""
     x, positions = _embed_inputs(params, batch, cfg)
-    x = _scan_groups(params, x, cfg, positions=positions, lora=lora, flash=flash)
+    x = _scan_groups(params, x, cfg, positions=positions, lora=lora, kernels=kernels)
     return L.lm_logits(params["embed"], L.apply_norm(params["final_norm"], x, cfg), cfg)
 
 
@@ -129,11 +147,18 @@ def forward(params, batch, cfg: ModelConfig, *, lora=None, flash=True):
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None, device=None):
-    """Zero KV cache ``{"groups": {"sub_0": {"attn": (k, v)}}}``, k and v each
-    ``(num_groups, B, max_seq, Kv, hd)``."""
-    _require_dense(cfg)
-    shape = (cfg.num_layers, batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+    """Zero cache ``{"groups": {"sub_0": ...}}`` with the layer stack leading:
+    ``{"attn": (k, v)}``, each ``(num_groups, B, max_seq, Kv, hd)``, for
+    ``G``; ``{"ssm": (conv_state, ssd_state)}`` for ``M`` (``max_seq`` unused:
+    the state does not grow)."""
+    _require_ported(cfg)
     dtype = dtype or L.torch_dtype(cfg.dtype)
+    ng = cfg.num_layers
+    if cfg.layer_pattern == "M":
+        conv, ssd = M2.init_mamba_cache(cfg, batch, dtype, device)
+        return {"groups": {"sub_0": {"ssm": (conv.new_zeros((ng,) + conv.shape),
+                                             ssd.new_zeros((ng,) + ssd.shape))}}}
+    shape = (ng, batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
     kv = tuple(torch.zeros(shape, dtype=dtype, device=device) for _ in range(2))
     return {"groups": {"sub_0": {"attn": kv}}}
 
@@ -154,10 +179,10 @@ def decode_step(params, tokens, cache, cache_pos: int, cfg: ModelConfig, *, lora
     return L.lm_logits(params["embed"], x, cfg), cache
 
 
-def prefill(params, batch, cfg: ModelConfig, cache, *, lora=None, flash=True):
+def prefill(params, batch, cfg: ModelConfig, cache, *, lora=None, kernels=True):
     """Prefill: run the full prompt, writing the cache. Returns (logits, cache)."""
     x, positions = _embed_inputs(params, batch, cfg)
     x = _scan_groups(params, x, cfg, cache=cache, cache_pos=0, positions=positions,
-                     lora=lora, flash=flash)
+                     lora=lora, kernels=kernels)
     x = L.apply_norm(params["final_norm"], x, cfg)
     return L.lm_logits(params["embed"], x, cfg), cache

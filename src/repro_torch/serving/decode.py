@@ -1,5 +1,5 @@
 """Batched serving: prefill + single-token decode loop with a KV cache
-(port of ``repro/serving/decode.py``).
+(attention) or a state cache (SSM) (port of ``repro/serving/decode.py``).
 
 Greedy decoding is the contract; ``sample="categorical"`` draws from an
 explicit ``torch.Generator``. ``lora`` (adapters keyed as in

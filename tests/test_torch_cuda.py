@@ -17,6 +17,8 @@ from repro_torch.kernels.attn_ops import flash_attention
 from repro_torch.kernels.attn_ref import flash_attention_ref
 from repro_torch.kernels.lora_ops import lora_matmul
 from repro_torch.kernels.lora_ref import lora_matmul_ref
+from repro_torch.kernels.ssd_ops import ssd_scan
+from repro_torch.kernels.ssd_ref import ssd_scan_ref
 from repro_torch.models import transformer as T
 
 pytestmark = pytest.mark.cuda
@@ -110,7 +112,113 @@ def test_bf16_smoke_serving_runs_the_kernels(cuda):
     assert lora_matmul.launches - lm0 == 2 * 7 * cfg.num_layers
     assert flash_attention.launches - fa0 == cfg.num_layers
     plain_cache = T.init_cache(cfg, 2, 48, device=cuda)
-    ref, plain_cache = T.prefill(merged, {"tokens": tokens}, cfg, plain_cache, flash=False)
+    ref, plain_cache = T.prefill(merged, {"tokens": tokens}, cfg, plain_cache, kernels=False)
+    ref_step, _ = T.decode_step(merged, tokens[:, -1:], plain_cache, 40, cfg)
+    for got, want in ((logits, ref), (step, ref_step)):
+        assert torch.isfinite(got).all()
+        rel = ((got - want).norm() / want.norm()).item()
+        assert rel <= 2e-2, rel
+
+
+def _ssd_inputs(cuda, B, S, H, P, N, dtype, h0, seed):
+    """Drawn as tests/test_kernels.py draws the reference's SSD cases."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn((B, S, H, P), generator=gen, device=cuda).to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn((B, S, H), generator=gen, device=cuda))
+    A = -torch.exp(torch.randn((H,), generator=gen, device=cuda) * 0.3)
+    Bm = (torch.randn((B, S, N), generator=gen, device=cuda) * 0.5).to(dtype)
+    Cm = (torch.randn((B, S, N), generator=gen, device=cuda) * 0.5).to(dtype)
+    state = torch.randn((B, H, P, N), generator=gen, device=cuda) if h0 else None
+    return x, dt, A, Bm, Cm, state
+
+
+@pytest.mark.parametrize("B,S,H,P,N,dtype,h0", [
+    (8, 512, 24, 64, 128, torch.bfloat16, True),  # the mamba2-130m prefill
+    (2, 200, 24, 64, 128, torch.float32, False),  # ragged S
+    (2, 2048, 4, 64, 128, torch.float32, True),  # many chunks
+    (2, 70, 3, 24, 40, torch.float32, True),  # P, N not multiples of 16
+    (1, 33, 1, 8, 8, torch.float32, False),  # H = 1, one step past a chunk
+    (3, 1, 2, 16, 16, torch.float32, True),  # S = 1
+    (2, 40, 8, 16, 16, torch.bfloat16, False),  # smoke widths
+    (1, 64, 2, 100, 200, torch.float32, True),  # beyond one thread tile
+])
+def test_ssd_kernel_matches_plain(cuda, B, S, H, P, N, dtype, h0):
+    x, dt, A, Bm, Cm, state = _ssd_inputs(cuda, B, S, H, P, N, dtype, h0, seed=S + P)
+    before = ssd_scan.launches
+    y, h = ssd_scan(x, dt, A, Bm, Cm, initial_state=state)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    assert y.dtype == h.dtype == torch.float32 and y.shape == x.shape and h.shape == (B, H, P, N)
+    yr, hr = ssd_scan_ref(x, dt, A, Bm, Cm, state)
+    # 1e-4 of the largest output, the reference's own SSD tolerance: both
+    # sides compute in fp32, the kernel in chunks (exp of cumulative sums
+    # for products of per-step decays, sums in another order)
+    for got, want in ((y, yr), (h, hr)):
+        err = (got - want).abs().max().item()
+        assert err <= 1e-4 * want.abs().max().item(), (err, want.abs().max().item())
+
+
+def test_ssd_kernel_reads_strided_views(cuda):
+    """x, Bm, Cm as the model hands them over: views of one (B, S, conv_ch)
+    tensor, not contiguous."""
+    B, S, H, P, N = 2, 100, 4, 32, 24
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    xbc = torch.randn((B, S, H * P + 2 * N), generator=gen, device=cuda).bfloat16()
+    x = xbc[..., :H * P].unflatten(-1, (H, P))
+    Bm, Cm = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+    dt = torch.nn.functional.softplus(torch.randn((B, S, H), generator=gen, device=cuda))
+    A = -torch.exp(torch.randn((H,), generator=gen, device=cuda))
+    assert not (x.is_contiguous() or Bm.is_contiguous())
+    y, h = ssd_scan(x, dt, A, Bm, Cm)
+    yr, hr = ssd_scan_ref(x, dt, A, Bm, Cm)
+    for got, want in ((y, yr), (h, hr)):
+        assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+def test_ssd_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
+    x, dt, A, Bm, Cm, state = _ssd_inputs(cuda, 1, 16, 2, 8, 8, torch.float32, True, seed=0)
+    with pytest.raises(TypeError):
+        ssd_scan(x.half(), dt, A, Bm.half(), Cm.half())  # fp16
+    with pytest.raises(TypeError):
+        ssd_scan(x, dt.bfloat16(), A, Bm, Cm)  # dt not fp32
+    with pytest.raises(TypeError):
+        ssd_scan(x, dt, A, Bm, Cm, initial_state=state.bfloat16())
+    with pytest.raises(ValueError):
+        ssd_scan(x.transpose(1, 3).contiguous().transpose(1, 3), dt, A, Bm, Cm)  # P strided
+    with pytest.raises(ValueError):
+        ssd_scan(x, dt, A, Bm, Cm, initial_state=state.transpose(-1, -2))
+    with pytest.raises(ValueError):
+        ssd_scan(x, dt, A, Bm.cpu(), Cm)  # mixed devices
+    big = _ssd_inputs(cuda, 1, 4, 1, 256, 256, torch.float32, False, seed=0)
+    with pytest.raises(ValueError, match="shared"):
+        ssd_scan(*big[:5])  # the (P, N) state does not fit a block's shared memory
+
+
+def test_bf16_smoke_mamba2_serving_runs_the_kernels(cuda):
+    """Prefill + one decode step of the bf16 smoke mamba2: kernel path (fused
+    LoRA, SSD scan) against the plain path (merged weights, ssd_chunked)."""
+    cfg = smoke_variant(get_arch("mamba2-130m")).replace(dtype="bfloat16",
+                                                         param_dtype="bfloat16")
+    params = T.init_params(cfg, seed=0, device=cuda)
+    lora = init_lora(params, cfg, seed=1, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    for ab in lora.values():
+        ab["B"] = (torch.randn(ab["B"].shape, generator=gen, device=cuda) * 0.05).bfloat16()
+    m = params["groups"]["sub_0"]["mamba"]  # per-head values, not the uniform init
+    m["A_log"] = torch.rand(m["A_log"].shape, generator=gen, device=cuda) * 2
+    m["D_skip"] = 1 + torch.randn(m["D_skip"].shape, generator=gen, device=cuda) * 0.5
+    tokens = torch.randint(0, cfg.vocab_size, (2, 40), generator=gen, device=cuda)
+    merged = merge(params, lora, cfg)
+    lm0, fa0, ss0 = lora_matmul.launches, flash_attention.launches, ssd_scan.launches
+    cache = T.init_cache(cfg, 2, 48, device=cuda)
+    logits, cache = T.prefill(params, {"tokens": tokens}, cfg, cache, lora=lora)
+    step, cache = T.decode_step(params, tokens[:, -1:], cache, 40, cfg, lora=lora)
+    torch.cuda.synchronize()
+    assert lora_matmul.launches - lm0 == 2 * 2 * cfg.num_layers  # in_proj, out_proj
+    assert ssd_scan.launches - ss0 == cfg.num_layers  # prefill only
+    assert flash_attention.launches == fa0
+    plain_cache = T.init_cache(cfg, 2, 48, device=cuda)
+    ref, plain_cache = T.prefill(merged, {"tokens": tokens}, cfg, plain_cache, kernels=False)
     ref_step, _ = T.decode_step(merged, tokens[:, -1:], plain_cache, 40, cfg)
     for got, want in ((logits, ref), (step, ref_step)):
         assert torch.isfinite(got).all()

@@ -132,9 +132,14 @@ def test_flash_plain_matches_pallas_and_ref(B, H, Kv, S, d, window, softcap, dty
     o = flash_attention(tq, tk, tv, window=window, softcap=softcap)
     assert o.dtype == TORCH[dtype] and o.shape == (B, H, S, d)
     tol = ATTN_TOL[dtype]
-    for ref in (jax_flash_attention(jq, jk, jv, window=window, softcap=softcap, bq=64, bk=64),
-                jax_flash_attention_ref(jq, jk, jv, window=window, softcap=softcap)):
-        np.testing.assert_allclose(_np(o), _np(ref), rtol=tol, atol=tol)
+    pallas = _np(jax_flash_attention(jq, jk, jv, window=window, softcap=softcap, bq=64, bk=64))
+    ref = _np(jax_flash_attention_ref(jq, jk, jv, window=window, softcap=softcap))
+    # on a failure, name all three distances, so that it shows which side moved
+    msg = (f"max|plain - pallas| = {np.abs(_np(o) - pallas).max():.3e}, "
+           f"max|plain - ref| = {np.abs(_np(o) - ref).max():.3e}, "
+           f"max|pallas - ref| = {np.abs(pallas - ref).max():.3e}")
+    for want in (pallas, ref):
+        np.testing.assert_allclose(_np(o), want, rtol=tol, atol=tol, err_msg=msg)
 
 
 @pytest.mark.parametrize("B,H,Kv,S,d,window,softcap,dtype",

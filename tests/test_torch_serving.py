@@ -152,13 +152,19 @@ def _run(code_or_args, timeout=120):
 
 
 def test_port_imports_neither_jax_nor_reference():
-    """The port and chip_smoke.py (imported, not run) load no jax and no repro.*."""
-    res = _run("import sys, repro_torch, repro_torch.bridge, repro_torch.launch.serve\n"
+    """Every module of the port, and chip_smoke.py (imported, not run), load
+    no jax and no repro.*."""
+    res = _run("import importlib, pkgutil, sys, repro_torch\n"
+               "mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.')]\n"
+               "for name in mods: importlib.import_module(name)\n"
                f"sys.path.insert(0, {str(ROOT)!r}); import chip_smoke\n"
                "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
-               "print(bad)\n")
+               "print(len(mods), bad)\n")
     assert res.returncode == 0, res.stderr
-    assert res.stdout.strip() == "[]", res.stdout
+    n, bad = res.stdout.strip().split(" ", 1)
+    assert bad == "[]", res.stdout
+    # the walk found the package's modules, the kernels' and the models' too
+    assert int(n) >= len(list((ROOT / "src" / "repro_torch").rglob("*.py"))) - 1, res.stdout
 
 
 def test_serve_cli_on_cpu():
