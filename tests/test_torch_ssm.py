@@ -215,12 +215,11 @@ def test_ssd_decode_step_matches_reference():
     np.testing.assert_allclose(_np(h), _np(jh), rtol=SAME_SUMS, atol=SAME_SUMS)
 
 
-@pytest.mark.parametrize("s", [24, 1])
-@pytest.mark.parametrize("kernels", [True, False])
+@pytest.mark.parametrize("s,kernels", [(24, True), (24, False), (1, True)])
 def test_apply_mamba_matches_reference(setup, s, kernels):
-    """One block, from a non-zero cache (prefill for s > 1, decode for s = 1)
-    and without one; the port's adapters unmerged against the reference's
-    merged weights."""
+    """One block, from a non-zero cache (prefill for s > 1, decode for s = 1,
+    which takes no prefill switch) and without one; the port's adapters
+    unmerged against the reference's merged weights."""
     cfg, jcfg = setup["cfg"], setup["jcfg"]
     jp = _layer(setup["jmerged"]["groups"]["sub_0"]["mamba"])
     p = _layer(setup["params"]["groups"]["sub_0"]["mamba"])
