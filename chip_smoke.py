@@ -15,17 +15,26 @@ then, for each path:
                card at the path's shapes, with stated tolerances;
   3. slice   — the model (bf16, batch 8, prompt 512, 32 new tokens, random
                weights and non-zero adapters from seeded generators) served
-               once through ``decode_tokens``, every kernel's launch count set
-               to 0 just before and read just after; then the kernel path's
-               prefill/decode logits against the plain path (merged weights,
-               ``_attend_full`` / ``ssd_chunked``) and against fp32;
-  4. timings — CUDA-event times of each kernel, its plain version and one
-               library call (where one exists) at the path's shapes, beside
-               the least time the card could take; prefill ms and decode
-               tokens/s.
+               once through ``decode_tokens``, every kernel's launch count
+               (and per-variant count) set to 0 just before and read just
+               after: every LoRA launch must go through the prefill or decode
+               variant and every flash launch through the wgmma variant; then
+               the kernel path's prefill/decode logits against the plain path
+               (merged weights, ``_attend_full`` / ``ssd_chunked``) and
+               against fp32;
+  4. timings — CUDA-event times (``ms``), CUDA-graph replay times
+               (``graph_ms``) and ``torch.profiler`` device times
+               (``device_ms``; the graph's time where the profiler keeps
+               losing kernel records, as ``device_ms_by`` says) of each
+               kernel, its plain version and one library call (where one
+               exists) at the path's shapes, beside
+               the least time the card could take and the first port's time
+               for the same kernel, and the host's cost of a LoRA launch (``host_ms``);
+               prefill ms and decode tokens/s.
 
-Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
-last ``{"ok": true, "device": {...}}``. Details go to ``build/chip_smoke/``.
+Prints the compiled kernels' registers and spills, the card's name and power
+limit, a ``{"kernels": [...]}`` line, and last ``{"ok": true, "device":
+{...}}``. Details go to ``build/chip_smoke/``.
 Without a CUDA card it exits non-zero before printing any result.
 """
 
@@ -34,6 +43,8 @@ from __future__ import annotations
 import collections
 import json
 import math
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -65,6 +76,22 @@ BATCH, PROMPT, NEW = 8, 512, 32
 ADAPTER_B_STD = 0.05  # std of the non-zero B drawn for the adapters
 ARCHS = ("fedsllm-100m", "mamba2-130m")
 KERNELS = {"lora_matmul": lora_matmul, "flash_attention": flash_attention, "ssd_scan": ssd_scan}
+# per-variant launch counters of the kernels that have variants
+VARIANTS = {"lora_matmul": lora_matmul.variant_launches,
+            "flash_attention": flash_attention.variant_launches}
+# µs per launch of the first port's kernels, before their Hopper redesign
+# (this script on an NVIDIA H100 80GB HBM3 at 700 W; PERF.md §6), keyed by
+# kernel and (M, K, N)
+EARLIER_US = {
+    ("lora_matmul", 4096, 768, 768): 93.3, ("lora_matmul", 4096, 768, 256): 74.5,
+    ("lora_matmul", 4096, 768, 2048): 221.2, ("lora_matmul", 4096, 2048, 768): 218.4,
+    ("lora_matmul", 8, 768, 768): 63.8, ("lora_matmul", 8, 768, 256): 62.9,
+    ("lora_matmul", 8, 768, 2048): 63.5, ("lora_matmul", 8, 2048, 768): 160.3,
+    ("lora_matmul", 4096, 768, 3352): 325.3, ("lora_matmul", 4096, 1536, 768): 169.3,
+    ("lora_matmul", 8, 768, 3352): 63.6, ("lora_matmul", 8, 1536, 768): 122.1,
+    ("flash_attention",): 140.2, ("ssd_scan",): 485.1,
+}
+DECODE_TARGET_MS = 0.010  # the decode LoRA's device-time target per launch
 
 
 def log(msg: str) -> None:
@@ -81,24 +108,158 @@ def bf16_ulps(ref, n: float = 2.0) -> float:
     return n * 2.0 ** -7 * ref.float().abs().max().item()
 
 
-def device_ms(fn) -> tuple[float, list, list]:
-    """Device time of the CUDA kernels one call of fn runs (torch.profiler),
-    the kernels that take most of it, and the host ops that take most host time."""
+TRACES = 2  # torch.profiler traces taken before a lossy one is given up
+TRACE_LOG = collections.Counter()  # traces kept / lost, for the summary
+TRACE_PAD_S = 0.1  # idle host time at each end of a trace's window
+
+
+def trace(fn):
+    """The CUDA kernel and host op records of one torch.profiler trace of fn().
+    The profiler may drop a kernel whose device timestamps fall outside the
+    trace's window on the host's clock; the idle pad at each end keeps a
+    small offset between the two clocks from dropping the first or last
+    kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(TRACE_PAD_S)
         fn()
         torch.cuda.synchronize()
+        time.sleep(TRACE_PAD_S)
     events = prof.key_averages()
-    kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA),
-                     key=lambda e: -e.self_device_time_total)
-    host = sorted((e for e in events if e.device_type == DeviceType.CPU),
-                  key=lambda e: -e.self_cpu_time_total)
-    total = sum(e.self_device_time_total for e in kernels) / 1e3
-    return (total, [(e.key[:90], e.self_device_time_total / 1e3, e.count) for e in kernels[:10]],
-            [(e.key[:90], e.self_cpu_time_total / 1e3, e.count) for e in host[:10]])
+    return ([e for e in events if e.device_type == DeviceType.CUDA],
+            [e for e in events if e.device_type == DeviceType.CPU])
+
+
+def port_launches() -> int:
+    return sum(fn.launches for fn in KERNELS.values())
+
+
+def device_ms(fn) -> tuple[float | None, list, list]:
+    """Device time of the CUDA kernels one call of fn runs (torch.profiler),
+    the kernels that take most of it, and the host ops that take most host
+    time. A trace with fewer kernel records than the port's kernels launched
+    in it (their counters say how many) lost records: it is taken again, and
+    after TRACES lossy traces the device time is None (not measured)."""
+    for _ in range(TRACES):
+        before = port_launches()
+        kernels, host = trace(fn)
+        launched = port_launches() - before
+        recorded = sum(e.count for e in kernels)
+        if kernels and recorded >= launched:
+            TRACE_LOG["kept"] += 1
+            kernels.sort(key=lambda e: -e.self_device_time_total)
+            host.sort(key=lambda e: -e.self_cpu_time_total)
+            total = sum(e.self_device_time_total for e in kernels) / 1e3
+            return (total,
+                    [(e.key[:90], e.self_device_time_total / 1e3, e.count) for e in kernels[:10]],
+                    [(e.key[:90], e.self_cpu_time_total / 1e3, e.count) for e in host[:10]])
+        TRACE_LOG["lost"] += 1
+        log(f"[timing] torch.profiler recorded {recorded} kernels where the port alone "
+            f"launched {launched}: a lossy trace")
+    return None, [], []
+
+
+def graph_ms(fn, arg_sets, iters: int = 30) -> float:
+    """Mean device time per call of fn(*args): `iters` calls cycling through
+    `arg_sets` captured into one CUDA graph and replayed between two CUDA
+    events. Free of the host's launch cost, as the profiler's time is, and
+    independent of the profiler; it includes the graph's gaps between kernels."""
+    for args in arg_sets[:2]:
+        fn(*args)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(*arg_sets[i % len(arg_sets)])
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    graph.reset()
+    return start.elapsed_time(end) / iters
+
+
+def device_time_ms(fn, arg_sets, iters: int = 30) -> dict:
+    """Mean device time per call of fn(*args), two ways: ``graph_ms`` (CUDA
+    graph replay, always taken) and the CUDA kernels' time in a torch.profiler
+    trace of `iters` calls cycling through `arg_sets`. Every call launches its
+    main kernel once, so a trace whose most recorded kernel has fewer than
+    `iters` records is lossy: it is taken again, and after TRACES lossy
+    traces ``device_ms`` is the graph's time. ``device_ms_by`` says which."""
+    out = {"graph_ms": graph_ms(fn, arg_sets, iters)}
+    for _ in range(TRACES):
+        kernels, _ = trace(lambda: [fn(*arg_sets[i % len(arg_sets)]) for i in range(iters)])
+        recorded = max((e.count for e in kernels), default=0)
+        if recorded >= iters:
+            TRACE_LOG["kept"] += 1
+            total = sum(e.self_device_time_total for e in kernels) / 1e3 / iters
+            return {"device_ms": total, "device_ms_by": "profiler", **out}
+        TRACE_LOG["lost"] += 1
+        log(f"[timing] torch.profiler recorded {recorded} of {iters} launches: a lossy trace")
+    return {"device_ms": out["graph_ms"], "device_ms_by": "cuda_graph", **out}
+
+
+def share(part: float | None, whole: float) -> float | None:
+    return None if part is None else part / whole
+
+
+def library(times: dict | None) -> dict:
+    """A library call's device times (from device_time_ms) under the row's
+    ``library_`` keys, all None where no library call computes the function."""
+    keys = ("device_ms", "device_ms_by", "graph_ms")
+    return {f"library_{k}": None if times is None else times[k] for k in keys}
+
+
+def judge(row: dict) -> dict:
+    """The row's verdicts: floor (event time at most half its earlier time,
+    which was event-timed too; and the same for the device time, which the
+    host's launch cost does not hide), target (device time no slower than
+    the library call's, or at most 10 µs at decode), and its device time's
+    share of the bound."""
+    key = (row["kernel"], row["M"], row["K"], row["N"]) if row["kernel"] == "lora_matmul" \
+        else (row["kernel"],)
+    earlier = EARLIER_US.get(key)
+    row["earlier_ms"] = earlier / 1e3 if earlier else None
+    row["floor_met"] = None if earlier is None else row["ms"] <= earlier / 2e3
+    row["floor_met_device"] = None if earlier is None else row["device_ms"] <= earlier / 2e3
+    row["bound_share"] = row["bound_ms"] / row["device_ms"]
+    if row.get("variant") == "decode":
+        row["target"], row["target_met"] = "device_ms <= 0.010", row["device_ms"] <= DECODE_TARGET_MS
+    elif row.get("library_device_ms") is not None:
+        row["target"] = "device_ms <= library_device_ms"
+        row["target_met"] = row["device_ms"] <= row["library_device_ms"]
+    else:
+        row["target"], row["target_met"] = None, None
+    return row
+
+
+def ran_variant(name: str, fn) -> str:
+    """The one variant of kernel `name` that a call of fn launches."""
+    before = dict(VARIANTS[name])
+    fn()
+    moved = [k for k, v in VARIANTS[name].items() if v != before[k]]
+    assert len(moved) == 1, moved
+    return moved[0]
+
+
+def host_ms(fn, arg_sets, iters: int = 200) -> float:
+    """Host time per call of fn(*args) (perf_counter, no synchronisation in
+    the loop): the cost of a launch through the wrapper, which bounds the
+    event-timed ``ms`` from below."""
+    for args in arg_sets[:3]:
+        fn(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(iters):
+        fn(*arg_sets[i % len(arg_sets)])
+    t = (time.perf_counter() - t0) / iters * 1e3
+    torch.cuda.synchronize()
+    return t
 
 
 def time_ms(fn, arg_sets, iters: int) -> float:
@@ -134,6 +295,18 @@ def lora_shapes(cfg) -> collections.Counter:
         return collections.Counter([(D, 2 * d_inner + 2 * N + H), (d_inner, D)])
     q, kv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
     return collections.Counter([(D, q), (D, kv), (D, kv), (q, D), (D, F), (D, F), (F, D)])
+
+
+def path_variants(cfg) -> dict[str, dict[str, int]]:
+    """Launches of each variant in one decode_tokens call: the prefill's LoRA
+    products (M = B·S) through the prefill variant, the decode steps' (M = B)
+    through the decode variant, flash through the wgmma variant; none through
+    the first port's kernels."""
+    per_forward = sum(lora_shapes(cfg).values()) * cfg.num_layers
+    ssm = cfg.layer_pattern == "M"
+    return {"lora_matmul": {"prefill": per_forward, "decode": per_forward * (NEW - 1),
+                            "generic": 0},
+            "flash_attention": {"wgmma": 0 if ssm else cfg.num_layers, "wmma": 0}}
 
 
 def path_kernels(cfg) -> dict[str, int]:
@@ -209,6 +382,28 @@ def ssd_work(B, S, H, P, N, chunk, esize, h0):
 # ---------------------------------------------------------------------------
 
 
+def ptxas_summary(text: str) -> list[dict]:
+    """Registers, spills and static shared memory of each compiled kernel,
+    from ``nvcc -Xptxas -v`` output; names demangled by ``c++filt``."""
+    rows, name = [], None
+    for line in text.splitlines():
+        if m := re.search(r"Compiling entry function '(\w+)'", line):
+            name = m.group(1)
+        elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            rows.append({"kernel": name, "spill_stores": int(m.group(1)),
+                         "spill_loads": int(m.group(2))})
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            smem = re.search(r"(\d+) bytes smem", line)
+            rows[-1].update(registers=int(m.group(1)), static_smem=int(smem.group(1)) if smem else 0)
+            name = None
+    if shutil.which("c++filt"):  # else the mangled names stay
+        names = subprocess.run(["c++filt"], input="\n".join(r["kernel"] for r in rows),
+                               capture_output=True, text=True).stdout.splitlines()
+        for r, demangled in zip(rows, names):
+            r["kernel"] = re.sub(r"\(anonymous namespace\)::|\(.*|^void ", "", demangled)
+    return rows
+
+
 def phase_build() -> dict:
     t0 = time.perf_counter()
     logs = _build.build()
@@ -216,7 +411,10 @@ def phase_build() -> dict:
     (OUT / "build_log.txt").write_text("\n".join(f"== {k}\n{v}" for k, v in logs.items()))
     log(f"[build] {len(logs)} kernel(s) compiled in {seconds:.1f} s "
         f"into {_build.BUILD_DIR.relative_to(ROOT)} (ptxas output: {(OUT / 'build_log.txt').relative_to(ROOT)})")
-    return {"seconds": seconds}
+    ptxas = ptxas_summary("\n".join(logs.values()))
+    for row in ptxas:
+        log(f"[build] {json.dumps(row)}")
+    return {"seconds": seconds, "ptxas": ptxas}
 
 
 def phase_kernels(cfg, dev) -> dict:
@@ -337,16 +535,21 @@ def phase_slice(cfg, dev, params, lora, prompt) -> dict:
     torch.cuda.synchronize()
     for fn in KERNELS.values():
         fn.launches = 0
+    for counts in VARIANTS.values():
+        for kind in counts:
+            counts[kind] = 0
     t0 = time.perf_counter()
     tokens = decode_tokens(params, cfg, prompt, NEW, lora=lora, device=dev)
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in KERNELS.items()}
+    variants = {name: dict(counts) for name, counts in VARIANTS.items()}
     log(f"[slice] {cfg.name}: decode_tokens {tuple(tokens.shape)} in {serve_s:.3f} s "
-        f"(first call), launches {launches}")
+        f"(first call), launches {launches}, by variant {variants}")
     assert tokens.shape == (BATCH, NEW) and tokens.dtype == torch.int64
     assert bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all())
     assert launches == path_kernels(cfg), (launches, path_kernels(cfg))
+    assert variants == path_variants(cfg), (variants, path_variants(cfg))
 
     # kernel path against the plain path (merged weights, _attend_full /
     # ssd_chunked), and both against the same function in fp32 (W + scale·A·B
@@ -394,7 +597,8 @@ def phase_slice(cfg, dev, params, lora, prompt) -> dict:
         floor = max(2 * errs[f"{stage}_plain_vs_fp32"], 1e-3)
         assert errs[f"{stage}_kernel_vs_fp32"] <= floor, errs
     assert bool((same | tie).all()), (tok.tolist(), plain_tok.tolist(), gap.tolist())
-    return {"launches": launches, "serve_first_call_s": serve_s, "errors": errs,
+    return {"launches": launches, "variants": variants, "serve_first_call_s": serve_s,
+            "errors": errs,
             "tokens_equal": int(same.sum()), "ties": int(tie.sum())}
 
 
@@ -419,11 +623,16 @@ def phase_timings(cfg, dev, params, lora, prompt) -> dict:
             nbytes, ops = lora_work(M, K, N, r)
             sets = [lora_inputs(gen, M, K, N, r, dev) for _ in range(n_sets(nbytes))]
             b_ms, b_by = bound_ms(nbytes, ops)
-            shapes.append(dict(kernel="lora_matmul", M=M, K=K, N=N, r=r,
-                               launches=n * calls_per_layer * cfg.num_layers,
-                               ms=time_ms(lora_call, sets, 200), plain_ms=time_ms(lora_plain, sets, 50),
-                               library_ms=time_ms(lora_library, sets, 200),
-                               bound_ms=b_ms, bound_by=b_by))
+            shapes.append(judge(dict(
+                kernel="lora_matmul", M=M, K=K, N=N, r=r,
+                variant=ran_variant("lora_matmul", lambda: lora_call(*sets[0])),
+                launches=n * calls_per_layer * cfg.num_layers,
+                ms=time_ms(lora_call, sets, 200), **device_time_ms(lora_call, sets),
+                host_ms=host_ms(lora_call, sets),
+                plain_ms=time_ms(lora_plain, sets, 50),
+                library_ms=time_ms(lora_library, sets, 200),
+                **library(device_time_ms(lora_library, sets)),
+                bound_ms=b_ms, bound_by=b_by)))
             del sets
     shapes.append(ssd_timing(cfg, dev, gen) if cfg.layer_pattern == "M"
                   else flash_timing(cfg, dev, gen))
@@ -462,15 +671,16 @@ def phase_timings(cfg, dev, params, lora, prompt) -> dict:
     e2e = {"prefill_ms": prefill_ms, "decode_step_ms": step_ms,
            "decode_tokens_per_s": BATCH / (step_ms / 1e3),
            "serve_call_s": serve_s, "serve_tokens_per_s": BATCH * NEW / serve_s,
-           "prefill_device_ms": prefill_dev, "prefill_busy": prefill_dev / prefill_ms,
-           "decode_step_device_ms": step_dev, "decode_busy": step_dev / step_ms,
+           "prefill_device_ms": prefill_dev, "prefill_busy": share(prefill_dev, prefill_ms),
+           "decode_step_device_ms": step_dev, "decode_busy": share(step_dev, step_ms),
            "prefill_top_kernels": prefill_top, "decode_top_kernels": step_top,
            "decode_top_host_ops": step_host}
     log(f"[timing] {cfg.name}: prefill {prefill_ms:.3f} ms (B={BATCH}, S={PROMPT}); decode step "
         f"{step_ms:.3f} ms = {e2e['decode_tokens_per_s']:.1f} tokens/s; one decode_tokens call "
         f"{serve_s:.3f} s = {e2e['serve_tokens_per_s']:.1f} tokens/s")
-    log(f"[timing] {cfg.name}: device busy: prefill {prefill_dev:.3f} ms of kernels "
-        f"({e2e['prefill_busy']:.1%}), decode step {step_dev:.3f} ms ({e2e['decode_busy']:.1%})")
+    log(f"[timing] {cfg.name}: device busy (ms of kernels, share of the call; None: not "
+        f"measured): prefill {prefill_dev} ({e2e['prefill_busy']}), "
+        f"decode step {step_dev} ({e2e['decode_busy']})")
     for name, top in (("prefill device", prefill_top), ("decode device", step_top),
                       ("decode host", step_host)):
         for key, ms, count in top:
@@ -483,14 +693,22 @@ def flash_timing(cfg, dev, gen) -> dict:
     nbytes, ops = attn_work(BATCH, PROMPT, H, Kv, d, True, 0)
     sets = [attn_inputs(gen, BATCH, PROMPT, H, Kv, d, dev) for _ in range(n_sets(nbytes))]
     b_ms, b_by = bound_ms(nbytes, ops)
-    return dict(
+
+    def call(q, k, v):
+        return flash_attention(q, k, v, causal=True)
+
+    def sdpa(q, k, v):
+        return torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                                enable_gqa=True)
+
+    return judge(dict(
         kernel="flash_attention", B=BATCH, S=PROMPT, H=H, Kv=Kv, d=d, causal=True,
+        variant=ran_variant("flash_attention", lambda: call(*sets[0])),
         launches=cfg.num_layers,
-        ms=time_ms(lambda q, k, v: flash_attention(q, k, v, causal=True), sets, 100),
+        ms=time_ms(call, sets, 100), **device_time_ms(call, sets),
         plain_ms=time_ms(lambda q, k, v: flash_attention_ref(q, k, v, causal=True), sets, 20),
-        library_ms=time_ms(lambda q, k, v: torch.nn.functional.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), sets, 100),
-        bound_ms=b_ms, bound_by=b_by)
+        library_ms=time_ms(sdpa, sets, 100), **library(device_time_ms(sdpa, sets)),
+        bound_ms=b_ms, bound_by=b_by))
 
 
 def ssd_timing(cfg, dev, gen) -> dict:
@@ -513,14 +731,17 @@ def ssd_timing(cfg, dev, gen) -> dict:
     nbytes, ops = ssd_work(BATCH, PROMPT, H, P, N, cfg.ssm_chunk, 2, True)
     sets = [inputs() for _ in range(n_sets(nbytes))]
     b_ms, b_by = bound_ms(nbytes, ops)
-    return dict(
+
+    def call(x, dt, A, Bm, Cm, h):
+        return ssd_scan(x, dt, A, Bm, Cm, initial_state=h)
+
+    return judge(dict(
         kernel="ssd_scan", B=BATCH, S=PROMPT, H=H, P=P, N=N, chunk=cfg.ssm_chunk,
         launches=cfg.num_layers,
-        ms=time_ms(lambda x, dt, A, Bm, Cm, h: ssd_scan(x, dt, A, Bm, Cm, initial_state=h),
-                   sets, 50),
+        ms=time_ms(call, sets, 50), **device_time_ms(call, sets, 10),
         plain_ms=time_ms(ssd_scan_ref, sets, 3),
         chunked_ms=time_ms(lambda *a: M2.ssd_chunked(*a[:5], cfg.ssm_chunk, a[5]), sets, 10),
-        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+        library_ms=None, **library(None), bound_ms=b_ms, bound_by=b_by))
 
 
 def kernel_entries(results) -> list[dict]:
@@ -538,14 +759,24 @@ def kernel_entries(results) -> list[dict]:
     for name, (source, replaces) in meta.items():
         rows = [dict(s, path=arch) for arch, r in results.items()
                 for s in r["timings"]["shapes"] if s["kernel"] == name]
-        total = {k: sum(s[k] * s["launches"] for s in rows) for k in ("ms", "plain_ms", "bound_ms")}
-        lib = [s["library_ms"] for s in rows]
-        total["library_ms"] = (None if None in lib
-                               else sum(s["library_ms"] * s["launches"] for s in rows))
+        total = {k: sum(s[k] * s["launches"] for s in rows)
+                 for k in ("ms", "device_ms", "graph_ms", "plain_ms", "bound_ms")}
+        total["device_ms_by"] = dict(collections.Counter(s["device_ms_by"] for s in rows))
+        for key in ("library_ms", "library_device_ms", "library_graph_ms"):
+            lib = [s[key] for s in rows]
+            total[key] = None if None in lib else sum(s[key] * s["launches"] for s in rows)
+        verdicts = {v: f"{sum(bool(s[v]) for s in rows)}/{sum(s[v] is not None for s in rows)}"
+                    for v in ("floor_met", "floor_met_device", "target_met")}
+        verdicts["bound_half"] = f"{sum(s['bound_share'] >= 0.5 for s in rows)}/{len(rows)}"
         by_bytes = sum(s["bound_ms"] * s["launches"] for s in rows if s["bound_by"] == "bytes")
         by_path = {arch: r["slice"]["launches"][name] for arch, r in results.items()}
+        variants = collections.Counter()
+        for r in results.values():
+            variants.update(r["slice"]["variants"].get(name, {}))
         out.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                     "launches": sum(by_path.values()), "launches_by_path": by_path,
+                    "variants": dict(variants) if name in VARIANTS else None,
+                    "rows": verdicts,
                     "max_abs_err": max(r["checks"]["max_abs_err"].get(name, 0.0)
                                        for r in results.values()), **total,
                     "bound_by": "bytes" if by_bytes >= total["bound_ms"] / 2 else "operations",
@@ -584,10 +815,11 @@ def main() -> int:
     results = {arch: run_path(arch, dev) for arch in ARCHS}
     kernels = kernel_entries(results)
     (OUT / "chip_smoke.json").write_text(json.dumps(
-        {"nvidia_smi": smi, "build": build, "kernels": kernels,
+        {"nvidia_smi": smi, "build": build, "kernels": kernels, "traces": TRACE_LOG,
          "paths": {arch: {"checks": r["checks"], "slice": r["slice"],
                           "end_to_end": r["timings"]["end_to_end"]}
                    for arch, r in results.items()}}, indent=1))
+    log(f"[timing] torch.profiler traces kept {TRACE_LOG['kept']}, lost {TRACE_LOG['lost']}")
     print(smi)
     print(json.dumps({"kernels": [{k: v for k, v in e.items() if k != "shapes"}
                                   for e in kernels]}))

@@ -17,6 +17,7 @@ import re
 import torch
 
 from repro_torch.config import LoRAConfig, ModelConfig
+from repro_torch.device import resolve_device
 from repro_torch.models.layers import torch_dtype
 
 _KEY = re.compile(r"\['([^']*)'\]")
@@ -37,12 +38,13 @@ def _leaves(tree, path=()):
             yield path + (key,), value
 
 
-def init_lora(params, cfg: ModelConfig, seed: int = 1, device=None):
+def init_lora(params, cfg: ModelConfig, seed: int = 1, device="cuda"):
     """Adapters for every targeted weight of ``params``: A ~ N(0,1)/r, B = 0
-    (Δw = 0 at init), drawn from a generator seeded with ``seed``."""
+    (Δw = 0 at init), drawn from a generator on ``device`` seeded with ``seed``."""
+    device = resolve_device(device)
     lcfg = cfg.lora or LoRAConfig()
     r = lcfg.rank
-    gen = torch.Generator(device=device or "cpu").manual_seed(seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
     dtype = torch_dtype(cfg.param_dtype)
     out = {}
     for path, leaf in _leaves(params):

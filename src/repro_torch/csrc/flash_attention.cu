@@ -4,44 +4,312 @@
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py (_kernel,
 // flash_attention_pallas). Same numerics: scores, running max m, denominator
 // l and the output accumulator in fp32; scale 1/sqrt(d) before the softcap
-// c·tanh(s/c); masked scores set to -1e30; l clamped at 1e-30. Query head h
-// reads kv head h / (H / Kv), with no repeated K/V.
+// c·tanh(s/c); masked scores set to -1e30 (-inf in the wgmma variant: the
+// same weights); l clamped at 1e-30. Query head h reads kv head h / (H / Kv),
+// with no repeated K/V. P is rounded to bf16 for the P·V product, as flash
+// attention does on GPUs (the TPU kernel keeps it in fp32: that is the one
+// numerical difference). q, k, v and o are read and written in the model's
+// (B, S, heads, d) layout through strides, so no transposed copies are
+// made, and ragged Sq/Skv are masked in the kernel.
 //
 // What bounds it on the H100: at the serving path's prefill (S = 512,
 // d = 64, causal) the work is ~S/2 score columns per row against d-wide
-// rows of Q, K, V and O, i.e. O(S) operations per byte moved: tensor-core
-// throughput and the softmax's exp/max on the CUDA cores, not device memory.
+// rows of Q, K, V and O, O(S) operations per byte moved: tensor-core
+// throughput and the softmax's exponentials, not device memory.
 //
-// What the design does about it: the (S x S) scores never reach device
-// memory. One block of 4 warps owns a 64-row query tile of one (batch,
-// head) and walks over 64-row KV tiles only up to the causal frontier and
-// from the window's start, so fully masked tiles cost nothing. Q·Kᵀ and P·V
-// run on bf16 tensor cores (wmma) with fp32 accumulators; P is rounded to
-// bf16 for the P·V product, as flash attention does on GPUs (the TPU kernel
-// keeps it in fp32: that is the one numerical difference). Each warp keeps its
-// 16 rows' scores, P and output accumulator in shared memory, so the per-row
-// rescale by exp(m_prev - m_new) needs no knowledge of the fragment layout.
-// The kernel reads and writes the model's (B, S, heads, d) layout through
-// strides, so no transposed copies are made, and masks ragged Sq/Skv itself.
-// Simple on purpose: no cp.async/TMA pipelining and no wgmma yet.
+// Two variants, picked by the wrapper (kernels/flash_attention.py
+// ``variant``):
+//
+// * wgmma (d = 64, 16-byte aligned rows; the main path): one block per two
+//   64-row query tiles of one (batch, head), tile nq-1-i then tile i, so
+//   every block of a causal prefill has the same work and pays the start of
+//   its load pipeline once for both; the longest rows run first. A producer
+//   warp loads each Q tile once and K/V tiles through a 3-stage TMA ring
+//   (mbarriers, K and V signalled apart so Q·Kᵀ starts before V lands) that
+//   runs on across the two tiles, only the tiles up to the causal frontier
+//   and from the window's start. One consumer warpgroup computes S = Q·Kᵀ
+//   with wgmma (both operands in shared memory) into registers and runs the
+//   online softmax on the accumulator fragment (row max and sum over the 4 lanes of a quad,
+//   exp2 with scale·log2(e) folded in, masks only on the tiles at the
+//   diagonal, the window's edge and the ragged edge). P is converted to bf16
+//   in registers and fed as the register operand of the P·V wgmma (V from
+//   shared memory, MN-major). O stays in registers for the whole KV loop and
+//   is written once.
+// * wmma (head dims 16, 32, 128 and misaligned strides): the first port's
+//   kernel, wmma fragments with the scores and O in shared memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
+typedef __nv_bfloat162 bf162;
 
 namespace {
-
-constexpr int BQ = 64, BKV = 64;
-constexpr int NTHREADS = 128;  // 4 warps x 16 query rows
-constexpr float NEG_INF = -1e30f;
 
 struct Strides {  // element strides of a (batch, head, seq, d) view; d has stride 1
   long long b, h, s;
 };
+
+// KV tiles [begin, end) that hold at least one unmasked key for some row of
+// the 64-row query tile at q0
+__device__ __forceinline__ void kv_range(int q0, int Skv, int causal, int window, int& begin,
+                                         int& end) {
+  end = (Skv + 63) / 64;
+  if (causal) end = min(end, (q0 + 63) / 64 + 1);
+  begin = 0;
+  if (window > 0) {
+    const int lo = q0 - window - 63;
+    begin = lo < 0 ? 0 : lo / 64 + 1;
+  }
+}
+
+// ===========================================================================
+// wgmma: TMA + warpgroup MMA, d = 64
+// ===========================================================================
+namespace tc {
+
+constexpr int D = 64, BQ = 64, BKV = 64, STAGES = 3;
+constexpr int THREADS = 160;  // warpgroup 0 consumes, warp 4 produces
+constexpr int TILE = 64 * D * 2;  // one 64 x 64 bf16 tile, 128-byte rows: 8 KB
+constexpr size_t SMEM = 1024 + (2 + 2 * STAGES) * TILE + 128;
+constexpr float NEG = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+
+__global__ void __launch_bounds__(THREADS)
+kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+       const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ o, int H, int Kv, int Sq,
+       int Skv, Strides ost, int causal, int window, float softcap, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base =
+      reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~1023ull);
+  unsigned char* qs = base;                        // 2 tiles, one per pass
+  unsigned char* ks = base + 2 * TILE;             // STAGES tiles
+  unsigned char* vs = base + (2 + STAGES) * TILE;  // STAGES tiles
+  uint64_t* bars = reinterpret_cast<uint64_t*>(base + (2 + 2 * STAGES) * TILE);
+  uint64_t* qbar = bars;  // 2
+  uint64_t* kfull = bars + 2;
+  uint64_t* vfull = kfull + STAGES;
+  uint64_t* empty = vfull + STAGES;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int nq = (Sq + BQ - 1) / BQ;
+  const int bx = blockIdx.x;
+  const int passes = nq - 1 - bx > bx ? 2 : 1;  // the middle tile of an odd nq alone
+  const int h = blockIdx.y, bi = blockIdx.z;
+  const int kvh = h / (H / Kv);
+
+  if (tid == 0) {
+    hopper::mbar_init(&qbar[0], 1);
+    hopper::mbar_init(&qbar[1], 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&kfull[s], 1);
+      hopper::mbar_init(&vfull[s], 1);
+      hopper::mbar_init(&empty[s], 1);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == 4) {  // producer
+    if (lane == 0) {
+      hopper::prefetch_tensormap(&tm_q);
+      hopper::prefetch_tensormap(&tm_k);
+      hopper::prefetch_tensormap(&tm_v);
+      int i = 0;  // K/V tiles loaded so far, over both passes
+      for (int pass = 0; pass < passes; ++pass) {
+        const int q0 = (pass == 0 ? nq - 1 - bx : bx) * BQ;
+        int t_begin, t_end;
+        kv_range(q0, Skv, causal, window, t_begin, t_end);
+        hopper::mbar_arrive_expect_tx(&qbar[pass], TILE);
+        hopper::tma_load_4d(qs + pass * TILE, &tm_q, &qbar[pass], 0, q0, h, bi);
+        for (int t = t_begin; t < t_end; ++t, ++i) {
+          const int s = i % STAGES;
+          hopper::mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);
+          hopper::mbar_arrive_expect_tx(&kfull[s], TILE);
+          hopper::tma_load_4d(ks + s * TILE, &tm_k, &kfull[s], 0, t * BKV, kvh, bi);
+          hopper::mbar_arrive_expect_tx(&vfull[s], TILE);
+          hopper::tma_load_4d(vs + s * TILE, &tm_v, &vfull[s], 0, t * BKV, kvh, bi);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup: lane l of warp w holds rows ra = q0 + 16w + l/4 and
+  // rb = ra + 8, columns 8j + 2(l%4) + {0, 1} of every 64-wide fragment
+  const int q = lane % 4;
+  const bool capped = softcap > 0.f;
+  // p = 2^(s·factor − m): raw scores times scale·log2(e) inside the
+  // exponent's FMA, or, capped, scores already in the log2 domain. A masked
+  // score is -inf here, not -1e30: scaled inside an FMA, -1e30 would leave
+  // the rounding error of m (~1e22) in the exponent. Both give a weight of
+  // exactly 0 in fp32 on any row with an unmasked key; m starts at -1e30,
+  // so no -inf - -inf arises.
+  const float factor = capped ? 1.f : scale * LOG2E;
+  float oacc[32], sacc[32];
+#pragma unroll
+  for (int e = 0; e < 32; ++e) sacc[e] = 0.f;
+  int i = 0;  // K/V tiles consumed so far, over both passes
+  for (int pass = 0; pass < passes; ++pass) {
+    const int q0 = (pass == 0 ? nq - 1 - bx : bx) * BQ;
+    const int ra = q0 + warp * 16 + lane / 4, rb = ra + 8;
+    int t_begin, t_end;
+    kv_range(q0, Skv, causal, window, t_begin, t_end);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) oacc[e] = 0.f;
+    float m_a = NEG, m_b = NEG, l_a = 0.f, l_b = 0.f;  // l: this lane's share of the row sum
+
+    hopper::mbar_wait(&qbar[pass], 0);
+    // K-major, 128-byte rows
+    const uint64_t dq = hopper::make_desc(qs + pass * TILE, 16, 1024, 1);
+    for (int t = t_begin; t < t_end; ++t, ++i) {
+      const int s = i % STAGES;
+      hopper::mbar_wait(&kfull[s], (i / STAGES) & 1);
+      const uint64_t dk = hopper::make_desc(ks + s * TILE, 16, 1024, 1);    // K-major
+      const uint64_t dv = hopper::make_desc(vs + s * TILE, TILE, 1024, 1);  // MN-major
+      hopper::fence_operand(sacc);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hopper::wgmma_ss<0>(sacc, hopper::desc_add(dq, kk * 32), hopper::desc_add(dk, kk * 32),
+                            kk > 0);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_operand(sacc);
+
+      // the softcap, and masks only where a tile crosses an edge
+      const int k0 = t * BKV;
+      const bool edge = (k0 + BKV > Skv) || (causal && k0 + BKV - 1 > q0) ||
+                        (window > 0 && k0 <= q0 + BQ - 1 - window);
+      if (capped || edge) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float v = sacc[4 * j + e];
+            if (capped) v = softcap * tanhf(v * scale / softcap) * LOG2E;
+            if (edge) {
+              const int col = k0 + 8 * j + 2 * q + (e & 1), row = e < 2 ? ra : rb;
+              bool ok = col < Skv;
+              if (causal) ok = ok && col <= row;
+              if (window > 0) ok = ok && col > row - window;
+              v = ok ? v : -INFINITY;
+            }
+            sacc[4 * j + e] = v;
+          }
+      }
+      float mx_a = NEG, mx_b = NEG;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        mx_a = fmaxf(mx_a, fmaxf(sacc[4 * j + 0], sacc[4 * j + 1]));
+        mx_b = fmaxf(mx_b, fmaxf(sacc[4 * j + 2], sacc[4 * j + 3]));
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off *= 2) {
+        mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
+        mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
+      }
+      const float mn_a = fmaxf(m_a, mx_a * factor), mn_b = fmaxf(m_b, mx_b * factor);
+      const float corr_a = hopper::exp2_approx(m_a - mn_a);
+      const float corr_b = hopper::exp2_approx(m_b - mn_b);
+      m_a = mn_a;
+      m_b = mn_b;
+      float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        sacc[4 * j + 0] = hopper::exp2_approx(fmaf(sacc[4 * j + 0], factor, -mn_a));
+        sacc[4 * j + 1] = hopper::exp2_approx(fmaf(sacc[4 * j + 1], factor, -mn_a));
+        sacc[4 * j + 2] = hopper::exp2_approx(fmaf(sacc[4 * j + 2], factor, -mn_b));
+        sacc[4 * j + 3] = hopper::exp2_approx(fmaf(sacc[4 * j + 3], factor, -mn_b));
+        sum_a += sacc[4 * j + 0] + sacc[4 * j + 1];
+        sum_b += sacc[4 * j + 2] + sacc[4 * j + 3];
+        oacc[4 * j + 0] *= corr_a;
+        oacc[4 * j + 1] *= corr_a;
+        oacc[4 * j + 2] *= corr_b;
+        oacc[4 * j + 3] *= corr_b;
+      }
+      l_a = l_a * corr_a + sum_a;
+      l_b = l_b * corr_b + sum_b;
+
+      // O += P·V: P's accumulator fragment is the A operand's register layout
+      uint32_t pa[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          pa[kk][e] = hopper::pack_bf16(sacc[8 * kk + 2 * e], sacc[8 * kk + 2 * e + 1]);
+      hopper::mbar_wait(&vfull[s], (i / STAGES) & 1);
+      hopper::fence_operand(oacc);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BKV / 16; ++kk)
+        hopper::wgmma_rs<1>(oacc, pa[kk], hopper::desc_add(dv, kk * 16 * 128));
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_operand(oacc);
+      if (tid == 0) hopper::mbar_arrive(&empty[s]);  // K/V slot s is free
+    }
+
+#pragma unroll
+    for (int off = 1; off < 4; off *= 2) {
+      l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
+      l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
+    }
+    const float inv_a = 1.f / fmaxf(l_a, 1e-30f), inv_b = 1.f / fmaxf(l_b, 1e-30f);
+    bf16* ob = o + bi * ost.b + h * ost.h;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = 8 * j + 2 * q;
+      if (ra < Sq)
+        *reinterpret_cast<bf162*>(ob + ra * ost.s + col) =
+            __floats2bfloat162_rn(oacc[4 * j + 0] * inv_a, oacc[4 * j + 1] * inv_a);
+      if (rb < Sq)
+        *reinterpret_cast<bf162*>(ob + rb * ost.s + col) =
+            __floats2bfloat162_rn(oacc[4 * j + 2] * inv_b, oacc[4 * j + 3] * inv_b);
+    }
+  }
+}
+
+// q (B,H,Sq,64), k/v (B,Kv,Skv,64) as 4-D tensor maps {d, seq, head, batch}
+cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int H, int Kv,
+                   int Sq, int Skv, const Strides* st, int causal, int window, float softcap,
+                   float scale, cudaStream_t stream) {
+  static bool smem_set = false;
+  cudaError_t e = hopper::allow_smem(kernel, SMEM, smem_set);
+  if (e != cudaSuccess) return e;
+  CUtensorMap maps[3];
+  const bf16* ptrs[3] = {q, k, v};
+  for (int i = 0; i < 3; ++i) {
+    const uint64_t sizes[4] = {(uint64_t)D, (uint64_t)(i ? Skv : Sq), (uint64_t)(i ? Kv : H),
+                               (uint64_t)B};
+    const uint64_t strides[3] = {(uint64_t)st[i].s * 2, (uint64_t)st[i].h * 2,
+                                 (uint64_t)st[i].b * 2};
+    const uint32_t box[4] = {D, 64, 1, 1};
+    if ((e = hopper::make_tensor_map(&maps[i], ptrs[i], 4, sizes, strides, box, 128)) !=
+        cudaSuccess)
+      return e;
+  }
+  dim3 grid(((Sq + BQ - 1) / BQ + 1) / 2, H, B);
+  kernel<<<grid, THREADS, SMEM, stream>>>(maps[0], maps[1], maps[2], o, H, Kv, Sq, Skv, st[3],
+                                          causal, window, softcap, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
+// ===========================================================================
+// wmma: the first port's kernel, for the other head dims
+// ===========================================================================
+namespace legacy {
+
+constexpr int BQ = 64, BKV = 64;
+constexpr int NTHREADS = 128;  // 4 warps x 16 query rows
+constexpr float NEG_INF = -1e30f;
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -221,8 +489,8 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, 
                    int Sq, int Skv, const Strides* st, int causal, int window, float softcap,
                    float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
-  cudaError_t e = cudaFuncSetAttribute(flash_attention_kernel<D>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static bool smem_set = false;
+  cudaError_t e = hopper::allow_smem(flash_attention_kernel<D>, smem, smem_set);
   if (e != cudaSuccess) return e;
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
   flash_attention_kernel<D><<<grid, NTHREADS, smem, stream>>>(
@@ -230,18 +498,41 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, 
   return cudaGetLastError();
 }
 
+}  // namespace legacy
+
+bool valid(int B, int H, int Kv, int Sq, int Skv) {
+  return B > 0 && H > 0 && Kv > 0 && H % Kv == 0 && Sq > 0 && Skv > 0 && B <= 65535 &&
+         H <= 65535;
+}
+
 }  // namespace
 
 // q (B,H,Sq,D), k/v (B,Kv,Skv,D), o (B,H,Sq,D) as strided bf16 views whose
 // last dim is contiguous; strides = 12 element strides (batch, head, seq) of
-// q, k, v, o in that order. Launches on `stream`; returns cudaGetLastError().
-extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v, void* o, int B,
-                                    int H, int Kv, int Sq, int Skv, int D,
-                                    const long long* strides, int causal, int window,
-                                    float softcap, float scale, void* stream) {
-  if (B <= 0 || H <= 0 || Kv <= 0 || H % Kv != 0 || Sq <= 0 || Skv <= 0 || B > 65535 ||
-      H > 65535)
-    return (int)cudaErrorInvalidValue;
+// q, k, v, o in that order. Each entry launches one variant on `stream` and
+// returns cudaGetLastError() (cudaErrorInvalidValue for what it does not take).
+
+// wgmma: D = 64; every stride of q, k, v a multiple of 8 and their pointers
+// 16-byte aligned (TMA)
+extern "C" int flash_attention_wgmma_bf16(const void* q, const void* k, const void* v, void* o,
+                                          int B, int H, int Kv, int Sq, int Skv, int D,
+                                          const long long* strides, int causal, int window,
+                                          float softcap, float scale, void* stream) {
+  if (!valid(B, H, Kv, Sq, Skv) || D != tc::D) return (int)cudaErrorInvalidValue;
+  Strides st[4];
+  for (int i = 0; i < 4; ++i) st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+  return (int)tc::launch(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                         static_cast<const bf16*>(v), static_cast<bf16*>(o), B, H, Kv, Sq, Skv,
+                         st, causal, window, softcap, scale, static_cast<cudaStream_t>(stream));
+}
+
+// wmma: D in {16, 32, 64, 128}, any strides
+extern "C" int flash_attention_wmma_bf16(const void* q, const void* k, const void* v, void* o,
+                                         int B, int H, int Kv, int Sq, int Skv, int D,
+                                         const long long* strides, int causal, int window,
+                                         float softcap, float scale, void* stream) {
+  using namespace legacy;
+  if (!valid(B, H, Kv, Sq, Skv)) return (int)cudaErrorInvalidValue;
   Strides st[4];
   for (int i = 0; i < 4; ++i) st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
   const bf16 *qp = static_cast<const bf16*>(q), *kp = static_cast<const bf16*>(k);

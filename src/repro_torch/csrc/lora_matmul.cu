@@ -1,37 +1,475 @@
 // Fused LoRA matmul for Hopper (sm_90a):  y = x·W + scale·(x·A)·B.
 //
 // Replaces the TPU kernel src/repro/kernels/lora_matmul.py (_kernel,
-// lora_matmul_pallas): x (M,K), W (K,N), A (K,r), B (r,N), all bf16; fp32
-// accumulation; output cast to bf16.
+// lora_matmul_pallas): x (M,K), W (K,N), A (K,r), B (r,N), all bf16; x·W
+// and u = x·A accumulate in fp32 over K, u is folded as u·B in fp32 without
+// being rounded, and y is cast to bf16 once. x is read once for both
+// products.
 //
-// What bounds it on the H100: at prefill (M = batch·seq, thousands of rows)
-// the x·W product is tensor-core work (2·M·K·N operations against
-// 2·(M·K + K·N + M·N) bytes: well above the card's ~295 operations per byte),
-// so the bound is bf16 tensor-core throughput. At decode (M = batch, a
-// handful of rows) every byte of W is read for a few rows of output, so the
-// bound is reading W from device memory.
+// Three variants, picked by the wrapper from the shapes and alignment
+// (kernels/lora_matmul.py ``variant``), never by failure:
 //
-// What the design does about it: as on the TPU, the point is that x is read
-// once. One block owns a BM x BN output tile and walks over K; each x tile
-// staged in shared memory feeds both the frozen-weight product (x·W, bf16
-// wmma fragments with fp32 accumulators) and the low-rank product
-// u = x·A (BM x r, fp32), so the (M, r) intermediate never goes to device
-// memory and x is not read a second time. After the K loop the epilogue
-// folds scale·u·B in fp32 (r ≤ 64 multiply-adds per output) and casts.
-// Edges on M, N, K and r are masked in the loads (zero fill) and the store,
-// so decode (M = 4..8) and ragged shapes need no padded copies. This first
-// version is simple on purpose: no cp.async double buffering, no wgmma/TMA,
-// one fixed tile shape; making it fast is later work.
+// * prefill (M > 16, K, N, r multiples of 8, 16-byte aligned rows): what
+//   bounds it is bf16 tensor-core throughput (2·M·K·N operations against
+//   2·(M·K + K·N + M·N) bytes, far above the card's ~295 operations per
+//   byte). A producer warp keeps TMA loads of the x, W and A tiles of the
+//   next K steps in flight through a ring of up to 4 shared-memory stages
+//   (mbarriers signal full and empty slots). Two consumer warpgroups, 64
+//   rows of the 128-row tile each, run wgmma for x·W (fp32 accumulators in
+//   registers) and, from the same staged x tile, a second wgmma with n = 16
+//   or 64 for u = x·A (A's tile is 32 or 128 bytes wide, so it has its own
+//   swizzle and descriptor). The epilogue folds scale·u·B on the tensor
+//   cores too: scale·u (fp32, in registers) is split exactly into three bf16
+//   terms whose sum is its value, and three register-operand wgmmas add
+//   their products with the TMA-loaded B tile into the fp32 accumulators, so
+//   u is never rounded. The bf16 tile goes out through swizzled shared
+//   memory and TMA stores. The wrapper picks the tile width (64-256) so that
+//   the grid fills the 132 SMs in few waves. TMA zero-fills the ragged edges
+//   on load and clips them on store.
+// * decode (M <= 16): what bounds it is reading W once from device memory.
+//   A cluster of 8 blocks splits K; the clusters split N into 64-column
+//   slices (128 above N = 2048, to halve the clusters), so even N = 256
+//   keeps 32 SMs streaming. Each block streams its W sub-tile through a
+//   cp.async ring of up to 8 stages (16-byte copies, up to 32 KB in flight;
+//   no more slots than the block has rows, so a short K leaves room for
+//   more blocks on an SM) while it multiplies the rows that have arrived
+//   with fp32 FMAs, x's slice staying in shared memory; the same loop adds
+//   the rows' share of u = x·A from the A slice staged beside it. The blocks
+//   of a cluster add their partials of x·W and u through distributed shared
+//   memory in a fixed order (no atomics: the result is the same on every
+//   run), and each adds scale·u·B to its share of the output.
+// * generic (any other shape: misaligned rows, ranks that are not a
+//   multiple of 8): the first port's kernel, one 64x64x32 wmma tile with
+//   plain loads; no main-path shape reaches it.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
+namespace cg = cooperative_groups;
 using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
+typedef __nv_bfloat162 bf162;
 
 namespace {
+
+constexpr size_t SMEM_MAX = 227 * 1024;  // a block's shared memory on the H100
+
+// ===========================================================================
+// prefill: TMA + wgmma
+// ===========================================================================
+namespace prefill {
+
+constexpr int BM = 128, BK = 64;
+constexpr int THREADS = 288;  // warpgroups 0-1 consume (64 rows each), warp 8 produces
+
+template <int BN, int RP>
+struct Layout {
+  static constexpr int X_BYTES = BM * BK * 2;  // one 128-row box, 128-byte rows
+  static constexpr int W_BYTES = BK * BN * 2;  // BN/64 boxes of 64 K-rows x 64 columns
+  static constexpr int A_BYTES = BK * RP * 2;  // 64 K-rows x RP ranks
+  static constexpr int A_SLOT = (A_BYTES + 1023) / 1024 * 1024;
+  static constexpr int STAGE = X_BYTES + W_BYTES + A_SLOT;
+  static constexpr int B_BYTES = RP * BN * 2;  // the B tile: BN/64 boxes of RP rows x 64 columns
+  static constexpr int FIXED = B_BYTES + 256 + 1024;  // + barriers + alignment slack
+  static constexpr int FIT = (int)((SMEM_MAX - FIXED) / STAGE);
+  static constexpr int STAGES = FIT < 4 ? FIT : 4;
+  static constexpr size_t SMEM = FIXED + (size_t)STAGES * STAGE;
+  static constexpr uint32_t TX = X_BYTES + W_BYTES + A_BYTES;  // bytes landing per stage
+  static_assert(STAGES >= 2, "tile too large for shared memory");
+  static_assert(BM * BN * 2 <= STAGES * STAGE, "the output tile reuses the stages");
+  static_assert(BN % 64 == 0 && BN <= 256 && (RP == 16 || RP == 64), "unsupported tile");
+};
+
+template <int BN, int RP>
+__global__ void __launch_bounds__(THREADS, 1)
+kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w,
+       const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_b,
+       const __grid_constant__ CUtensorMap tm_y, int K, float scale) {
+  using L = Layout<BN, RP>;
+  constexpr int STAGES = L::STAGES;
+  constexpr uint32_t A_SWIZZLE = RP == 16 ? 3 : 1;  // 32-byte rows : 128-byte rows
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base =
+      reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~1023ull);
+  unsigned char* bs = base + STAGES * L::STAGE;
+  uint64_t* full = reinterpret_cast<uint64_t*>(bs + L::B_BYTES);
+  uint64_t* empty = full + STAGES;
+  uint64_t* bfull = empty + STAGES;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int nk = (K + BK - 1) / BK;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);   // the producer's arrive + the bytes
+      hopper::mbar_init(&empty[s], 2);  // one arrive per consumer warpgroup
+    }
+    hopper::mbar_init(bfull, 1);
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == 8) {  // producer
+    if (lane == 0) {
+      hopper::prefetch_tensormap(&tm_x);
+      hopper::prefetch_tensormap(&tm_w);
+      hopper::prefetch_tensormap(&tm_a);
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % STAGES;
+        hopper::mbar_wait(&empty[s], ((kt / STAGES) & 1) ^ 1);
+        unsigned char* st = base + s * L::STAGE;
+        hopper::mbar_arrive_expect_tx(&full[s], L::TX);
+        hopper::tma_load_2d(st, &tm_x, &full[s], kt * BK, m0);
+#pragma unroll
+        for (int j = 0; j < BN / 64; ++j)
+          hopper::tma_load_2d(st + L::X_BYTES + j * BK * 128, &tm_w, &full[s], n0 + 64 * j,
+                              kt * BK);
+        hopper::tma_load_2d(st + L::X_BYTES + L::W_BYTES, &tm_a, &full[s], 0, kt * BK);
+        if (kt == 0) {  // the B tile, for the epilogue, behind the first stage
+          hopper::mbar_arrive_expect_tx(bfull, L::B_BYTES);
+#pragma unroll
+          for (int j = 0; j < BN / 64; ++j)
+            hopper::tma_load_2d(bs + j * RP * 128, &tm_b, bfull, n0 + 64 * j, 0);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows [64 wg, 64 wg + 64) of the tile
+  const int wg = warp / 4;
+  float acc[BN / 2], uacc[RP / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < RP / 2; ++i) uacc[i] = 0.f;
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % STAGES;
+    hopper::mbar_wait(&full[s], (kt / STAGES) & 1);
+    unsigned char* st = base + s * L::STAGE;
+    // x: K-major, 128-byte rows; W and A: MN-major (N contiguous), groups
+    // of 8 K-rows 1024 (W) or 8·2·RP (A) bytes apart, W's 64-column blocks
+    // BK·128 bytes apart
+    const uint64_t dx = hopper::make_desc(st + wg * 64 * BK * 2, 16, 1024, 1);
+    const uint64_t dw = hopper::make_desc(st + L::X_BYTES, BK * 128, 1024, 1);
+    const uint64_t da = hopper::make_desc(st + L::X_BYTES + L::W_BYTES, L::A_BYTES, 16 * RP,
+                                          A_SWIZZLE);
+    hopper::fence_operand(acc);
+    hopper::fence_operand(uacc);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint64_t dxk = hopper::desc_add(dx, kk * 32);
+      hopper::wgmma_ss<1>(acc, dxk, hopper::desc_add(dw, kk * 16 * 128));
+      hopper::wgmma_ss<1>(uacc, dxk, hopper::desc_add(da, kk * 16 * RP * 2));
+    }
+    hopper::wgmma_commit();
+    hopper::fence_operand(acc);
+    hopper::fence_operand(uacc);
+    hopper::wgmma_wait<1>();  // the previous stage's products are done: free its slot
+    if (kt > 0 && tid % 128 == 0) hopper::mbar_arrive(&empty[(kt - 1) % STAGES]);
+  }
+  hopper::wgmma_wait<0>();
+  hopper::fence_operand(acc);
+  hopper::fence_operand(uacc);
+
+  // fold: acc += (scale·u)·B on the tensor cores. Each fp32 value of
+  // scale·u is split into three bf16 terms h + m + l that sum to it exactly
+  // (8 significant bits each); u's accumulator fragment is the register
+  // layout of the A operand, 16 ranks per k-step.
+  hopper::mbar_wait(bfull, 0);
+  // B: MN-major, 128-byte rows; 64-column blocks RP·128 bytes apart
+  const uint64_t db = hopper::make_desc(bs, RP * 128, 1024, 1);
+#pragma unroll
+  for (int t = 0; t < 3; ++t) {  // h, then m, then l
+    uint32_t ua[RP / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < RP / 16; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float term[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float v = scale * uacc[8 * kk + 2 * e + i];
+          const float h = __bfloat162float(__float2bfloat16_rn(v));
+          const float m = __bfloat162float(__float2bfloat16_rn(v - h));
+          term[i] = t == 0 ? h : t == 1 ? m : v - h - m;
+        }
+        ua[kk][e] = hopper::pack_bf16(term[0], term[1]);
+      }
+    hopper::fence_operand(acc);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < RP / 16; ++kk)
+      hopper::wgmma_rs<1>(acc, ua[kk], hopper::desc_add(db, kk * 16 * 128));
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();  // the next term overwrites the A registers
+    hopper::fence_operand(acc);
+  }
+
+  // store: bf16 into 64 x 64 boxes of 128-byte swizzled rows (the stages are
+  // free once both warpgroups are done), then one TMA store per box
+  hopper::named_sync(1, 256);
+  const int q = lane % 4, row = (warp % 4) * 16 + lane / 4;  // and row + 8
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    unsigned char* box = base + (wg * (BN / 64) + j / 8) * 8192;
+    const int chunk = ((j % 8) ^ (row % 8)) * 16 + 4 * q;
+    *reinterpret_cast<uint32_t*>(box + row * 128 + chunk) =
+        hopper::pack_bf16(acc[4 * j + 0], acc[4 * j + 1]);
+    *reinterpret_cast<uint32_t*>(box + (row + 8) * 128 + chunk) =
+        hopper::pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+  hopper::fence_proxy_async();
+  hopper::named_sync(2 + wg, 128);
+  if (tid % 128 == 0) {
+#pragma unroll
+    for (int j = 0; j < BN / 64; ++j)
+      hopper::tma_store_2d(&tm_y, base + (wg * (BN / 64) + j) * 8192, n0 + 64 * j, m0 + 64 * wg);
+    hopper::tma_store_commit_and_wait();
+  }
+}
+
+template <int BN, int RP>
+cudaError_t launch(const bf16* x, const bf16* w, const bf16* a, const bf16* b, bf16* y, int M,
+                   int K, int N, int r, float scale, cudaStream_t stream) {
+  using L = Layout<BN, RP>;
+  static bool smem_set = false;
+  cudaError_t e = hopper::allow_smem(kernel<BN, RP>, L::SMEM, smem_set);
+  if (e != cudaSuccess) return e;
+  CUtensorMap tx, tw, ta, tb, ty;
+  const uint64_t xs[2] = {(uint64_t)K, (uint64_t)M}, xst[1] = {(uint64_t)K * 2};
+  const uint64_t ws[2] = {(uint64_t)N, (uint64_t)K}, wst[1] = {(uint64_t)N * 2};
+  const uint64_t as[2] = {(uint64_t)r, (uint64_t)K}, ast[1] = {(uint64_t)r * 2};
+  const uint64_t bsz[2] = {(uint64_t)N, (uint64_t)r}, ys[2] = {(uint64_t)N, (uint64_t)M};
+  const uint32_t xb[2] = {BK, BM}, wb[2] = {64, BK}, ab[2] = {RP, BK}, bb[2] = {64, RP};
+  const uint32_t yb[2] = {64, 64};
+  if ((e = hopper::make_tensor_map(&tx, x, 2, xs, xst, xb, 128)) != cudaSuccess) return e;
+  if ((e = hopper::make_tensor_map(&tw, w, 2, ws, wst, wb, 128)) != cudaSuccess) return e;
+  if ((e = hopper::make_tensor_map(&ta, a, 2, as, ast, ab, RP * 2)) != cudaSuccess) return e;
+  if ((e = hopper::make_tensor_map(&tb, b, 2, bsz, wst, bb, 128)) != cudaSuccess) return e;
+  if ((e = hopper::make_tensor_map(&ty, y, 2, ys, wst, yb, 128)) != cudaSuccess) return e;
+  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  kernel<BN, RP><<<grid, THREADS, L::SMEM, stream>>>(tx, tw, ta, tb, ty, K, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace prefill
+
+// ===========================================================================
+// decode: a cluster of 8 blocks splits K, cp.async ring, fp32 FMAs
+// ===========================================================================
+namespace decode {
+
+constexpr int CK = 8;         // blocks of a cluster; block `rank` takes K rows rank·kc + [0, kc)
+constexpr int KT = 32;        // W rows per ring slot
+constexpr int STAGES = 8;
+constexpr int THREADS = 256;  // 8 warps; warp g takes rows g, g + 8, ... of each slot
+
+// W ring slots of a block whose K slice is kc rows
+__host__ __device__ constexpr int ring_slots(int kc) { return kc / KT < STAGES ? kc / KT : STAGES; }
+
+// shared memory of a block whose cluster owns BN columns, in bytes (also
+// kernels/lora_matmul.py ``decode_smem_bytes``)
+__host__ __device__ constexpr size_t smem_bytes(int MT, int BN, int kc, int r) {
+  return (size_t)kc * MT * 4                     // x slice, fp32, [k][m]
+         + (size_t)ring_slots(kc) * KT * BN * 2  // W ring
+         + (size_t)kc * r * 2                    // A slice
+         + (size_t)r * BN * 2                    // B slice
+         + (size_t)8 * MT * (BN + r) * 4         // per-warp partials of x·W and u
+         + (size_t)MT * BN * 4                   // the block's partial of x·W
+         + (size_t)2 * MT * r * 4;               // the block's partial of u, and the whole u
+}
+
+// MT: rows of x padded to 8 or 16; BN: columns of a cluster's slice (64 or
+// 128: the wider slice halves the clusters of a wide N)
+template <int MT, int BN>
+__global__ void __cluster_dims__(CK, 1, 1) __launch_bounds__(THREADS)
+kernel(const bf16* __restrict__ x, const bf16* __restrict__ w, const bf16* __restrict__ a,
+       const bf16* __restrict__ b, bf16* __restrict__ y, int M, int K, int N, int r, int kc,
+       float scale) {
+  constexpr int CPT = BN / 32;  // columns per thread: lane p owns [CPT·p, CPT·p + CPT)
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* xs = reinterpret_cast<float*>(smem_raw);                 // kc x MT
+  bf16* ws = reinterpret_cast<bf16*>(xs + kc * MT);               // ring x KT x BN
+  bf16* as = ws + ring_slots(kc) * KT * BN;                       // kc x r
+  bf16* bs = as + kc * r;                                         // r x BN
+  float* red = reinterpret_cast<float*>(bs + r * BN);             // 8 x MT x (BN + r)
+  float* part = red + 8 * MT * (BN + r);                          // MT x BN
+  float* upart = part + MT * BN;                                  // MT x r
+  float* ufull = upart + MT * r;                                  // MT x r
+
+  const int tid = threadIdx.x;
+  const int rank = (int)cluster.block_rank();
+  const int n0 = blockIdx.y * BN;
+  const int kbeg = rank * kc, kend = min(K, kbeg + kc);
+  const int nrows = max(0, kend - kbeg);
+  const int nkt = (nrows + KT - 1) / KT;
+
+  // slot t % STAGES <- W rows [kbeg + t·KT, +KT) x columns [n0, n0 + BN), zero outside
+  auto load_w = [&](int t) {
+    for (int c = tid; c < KT * BN / 8; c += THREADS) {
+      const int row = c / (BN / 8), c8 = (c % (BN / 8)) * 8;
+      const int k = kbeg + t * KT + row, n = n0 + c8;
+      const bool ok = k < kend && n < N;
+      hopper::cp_async16(ws + (t % STAGES) * KT * BN + row * BN + c8,
+                         ok ? w + (size_t)k * N + n : w, ok ? 16 : 0);
+    }
+  };
+  // the A and B slices ride in the first group
+  for (int c = tid; c < kc * r / 8; c += THREADS) {
+    const int k = c / (r / 8), j = (c % (r / 8)) * 8;
+    const bool ok = kbeg + k < kend;
+    hopper::cp_async16(as + k * r + j, ok ? a + (size_t)(kbeg + k) * r + j : a, ok ? 16 : 0);
+  }
+  for (int c = tid; c < r * BN / 8; c += THREADS) {
+    const int j = c / (BN / 8), n = n0 + (c % (BN / 8)) * 8;
+    const bool ok = n < N;
+    hopper::cp_async16(bs + c * 8, ok ? b + (size_t)j * N + n : b, ok ? 16 : 0);
+  }
+#pragma unroll
+  for (int t = 0; t < STAGES - 1; ++t) {
+    if (t < nkt) load_w(t);
+    hopper::cp_async_commit();
+  }
+  // x's slice as fp32, zero past M and kend (coalesced reads along K)
+  for (int i = tid; i < MT * kc; i += THREADS) {
+    const int m = i / kc, k = i % kc;
+    xs[k * MT + m] = (m < M && k < nrows) ? __bfloat162float(x[(size_t)m * K + kbeg + k]) : 0.f;
+  }
+
+  // x·W over the block's rows: thread (g = warp, p = lane) owns CPT columns
+  // of the slice and, for 2p < r, ranks 2p, 2p+1 of u
+  const int g = tid / 32, p = tid % 32;
+  const bool has_u = 2 * p < r;
+  float acc[MT][CPT], uacc[MT][2];
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) acc[m][c] = 0.f;
+    uacc[m][0] = uacc[m][1] = 0.f;
+  }
+  for (int t = 0; t < nkt; ++t) {
+    if (t + STAGES - 1 < nkt) load_w(t + STAGES - 1);
+    hopper::cp_async_commit();
+    hopper::cp_async_wait<STAGES - 1>();  // slot t has landed (this thread's copies)
+    __syncthreads();                      // (everyone's, and x's slice)
+    const bf16* wt = ws + (t % STAGES) * KT * BN;
+#pragma unroll
+    for (int i = 0; i < KT / 8; ++i) {
+      const int kk = g + 8 * i;
+      float wv[CPT];
+#pragma unroll
+      for (int c = 0; c < CPT; c += 2) {
+        const float2 v =
+            __bfloat1622float2(*reinterpret_cast<const bf162*>(wt + kk * BN + CPT * p + c));
+        wv[c] = v.x;
+        wv[c + 1] = v.y;
+      }
+      const float4* xk = reinterpret_cast<const float4*>(xs + (t * KT + kk) * MT);
+      float2 av = make_float2(0.f, 0.f);
+      if (has_u)
+        av = __bfloat1622float2(*reinterpret_cast<const bf162*>(as + (t * KT + kk) * r + 2 * p));
+#pragma unroll
+      for (int m4 = 0; m4 < MT / 4; ++m4) {
+        const float4 xv = xk[m4];
+        const float xm[4] = {xv.x, xv.y, xv.z, xv.w};
+#pragma unroll
+        for (int i2 = 0; i2 < 4; ++i2) {
+#pragma unroll
+          for (int c = 0; c < CPT; ++c) acc[4 * m4 + i2][c] += xm[i2] * wv[c];
+          uacc[4 * m4 + i2][0] += xm[i2] * av.x;
+          uacc[4 * m4 + i2][1] += xm[i2] * av.y;
+        }
+      }
+    }
+    __syncthreads();  // slot t % STAGES is refilled next
+  }
+  hopper::cp_async_wait<0>();
+  const int RW = BN + r;  // a row of red: the slice's columns, then u's ranks
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+#pragma unroll
+    for (int c = 0; c < CPT; c += 2)
+      *reinterpret_cast<float2*>(red + (g * MT + m) * RW + CPT * p + c) =
+          make_float2(acc[m][c], acc[m][c + 1]);
+    if (has_u)
+      *reinterpret_cast<float2*>(red + (g * MT + m) * RW + BN + 2 * p) =
+          make_float2(uacc[m][0], uacc[m][1]);
+  }
+  __syncthreads();  // (also: the B slice has landed)
+
+  for (int i = tid; i < MT * RW; i += THREADS) {
+    float s = 0.f;
+#pragma unroll
+    for (int gg = 0; gg < 8; ++gg) s += red[gg * MT * RW + i];
+    const int m = i / RW, c = i % RW;
+    if (c < BN)
+      part[m * BN + c] = s;
+    else
+      upart[m * r + c - BN] = s;
+  }
+  const int P = MT * r;
+
+  cluster.sync();  // every block's partials are written
+  for (int i = tid; i < P; i += THREADS) {
+    float v[CK];
+#pragma unroll
+    for (int q = 0; q < CK; ++q) v[q] = cluster.map_shared_rank(upart, q)[i];
+    float s = 0.f;
+#pragma unroll
+    for (int q = 0; q < CK; ++q) s += v[q];
+    ufull[i] = s;
+  }
+  __syncthreads();
+  // this block's share of the output slice: y = Σ partials + scale · u·B
+  constexpr int PER = MT * BN / CK;
+  for (int i = tid; i < PER; i += THREADS) {
+    const int e = rank * PER + i, m = e / BN, n = n0 + e % BN;
+    if (m < M && n < N) {
+      float v[CK];
+#pragma unroll
+      for (int q = 0; q < CK; ++q) v[q] = cluster.map_shared_rank(part, q)[e];
+      float s = 0.f;
+#pragma unroll
+      for (int q = 0; q < CK; ++q) s += v[q];
+      float d = 0.f;
+#pragma unroll 8
+      for (int j = 0; j < r; ++j) d += ufull[m * r + j] * __bfloat162float(bs[j * BN + e % BN]);
+      y[(size_t)m * N + n] = __float2bfloat16(s + scale * d);
+    }
+  }
+  cluster.sync();  // the other blocks read this block's shared memory until here
+}
+
+template <int MT, int BN>
+cudaError_t launch(const bf16* x, const bf16* w, const bf16* a, const bf16* b, bf16* y, int M,
+                   int K, int N, int r, float scale, cudaStream_t stream) {
+  const int kc = ((K + CK - 1) / CK + KT - 1) / KT * KT;
+  const size_t smem = smem_bytes(MT, BN, kc, r);
+  if (smem > SMEM_MAX) return cudaErrorInvalidValue;
+  static bool smem_set = false;  // set once, to the most any shape may need
+  cudaError_t e = hopper::allow_smem(kernel<MT, BN>, SMEM_MAX, smem_set);
+  if (e != cudaSuccess) return e;
+  dim3 grid(CK, (N + BN - 1) / BN);
+  kernel<MT, BN><<<grid, THREADS, smem, stream>>>(x, w, a, b, y, M, K, N, r, kc, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace decode
+
+// ===========================================================================
+// generic: the first port's kernel (wmma, plain loads), for any other shape
+// ===========================================================================
+namespace generic {
 
 constexpr int BM = 64, BN = 64, BK = 32;
 constexpr int NTHREADS = 128;  // 4 warps, 2 x 2 over the output tile
@@ -166,23 +604,77 @@ template <int RF>
 cudaError_t launch(const bf16* x, const bf16* w, const bf16* a, const bf16* b, bf16* y, int M,
                    int K, int N, int r, float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<RF>();
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(lora_matmul_kernel<RF>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
+  static bool smem_set = false;
+  cudaError_t e = hopper::allow_smem(lora_matmul_kernel<RF>, smem, smem_set);
+  if (e != cudaSuccess) return e;
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   lora_matmul_kernel<RF><<<grid, NTHREADS, smem, stream>>>(x, w, a, b, y, M, K, N, r, scale);
   return cudaGetLastError();
 }
 
+}  // namespace generic
+
 }  // namespace
 
 // x (M,K), w (K,N), a (K,r), b (r,N), y (M,N): contiguous row-major bf16.
-// Launches on `stream`; returns cudaGetLastError() after the launch.
-extern "C" int lora_matmul_bf16(const void* x, const void* w, const void* a, const void* b,
-                                void* y, int M, int K, int N, int r, float scale,
-                                void* stream) {
+// Each entry launches one variant on `stream` and returns
+// cudaGetLastError() after the launch (cudaErrorInvalidValue for a shape
+// the variant does not take).
+
+// prefill: K, N, r multiples of 8, r <= 64, every pointer 16-byte aligned;
+// bn = the output tile's width (64, 128, 192, 256; 256 only for r <= 16)
+extern "C" int lora_matmul_prefill_bf16(const void* x, const void* w, const void* a,
+                                        const void* b, void* y, int M, int K, int N, int r,
+                                        float scale, int bn, void* stream) {
+  if (M <= 0 || K <= 0 || N <= 0 || r <= 0 || r > 64 || K % 8 || N % 8 || r % 8 ||
+      M > 65535 * prefill::BM)
+    return (int)cudaErrorInvalidValue;
+  const bf16 *xp = static_cast<const bf16*>(x), *wp = static_cast<const bf16*>(w);
+  const bf16 *ap = static_cast<const bf16*>(a), *bp = static_cast<const bf16*>(b);
+  bf16* yp = static_cast<bf16*>(y);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (r <= 16) {
+    switch (bn) {
+      case 64: return (int)prefill::launch<64, 16>(xp, wp, ap, bp, yp, M, K, N, r, scale, st);
+      case 128: return (int)prefill::launch<128, 16>(xp, wp, ap, bp, yp, M, K, N, r, scale, st);
+      case 192: return (int)prefill::launch<192, 16>(xp, wp, ap, bp, yp, M, K, N, r, scale, st);
+      case 256: return (int)prefill::launch<256, 16>(xp, wp, ap, bp, yp, M, K, N, r, scale, st);
+    }
+  } else {
+    switch (bn) {
+      case 64: return (int)prefill::launch<64, 64>(xp, wp, ap, bp, yp, M, K, N, r, scale, st);
+      case 128: return (int)prefill::launch<128, 64>(xp, wp, ap, bp, yp, M, K, N, r, scale, st);
+      case 192: return (int)prefill::launch<192, 64>(xp, wp, ap, bp, yp, M, K, N, r, scale, st);
+    }
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// decode: M <= 16, N and r multiples of 8, r <= 64, w, a and b 16-byte
+// aligned; bn = the columns of a cluster's slice (64 or 128)
+extern "C" int lora_matmul_decode_bf16(const void* x, const void* w, const void* a,
+                                       const void* b, void* y, int M, int K, int N, int r,
+                                       float scale, int bn, void* stream) {
+  if (M <= 0 || M > 16 || K <= 0 || N <= 0 || r <= 0 || r > 64 || N % 8 || r % 8 ||
+      (bn != 64 && bn != 128) || (N + bn - 1) / bn > 65535)
+    return (int)cudaErrorInvalidValue;
+  const bf16 *xp = static_cast<const bf16*>(x), *wp = static_cast<const bf16*>(w);
+  const bf16 *ap = static_cast<const bf16*>(a), *bp = static_cast<const bf16*>(b);
+  bf16* yp = static_cast<bf16*>(y);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bn == 64) {
+    if (M <= 8) return (int)decode::launch<8, 64>(xp, wp, ap, bp, yp, M, K, N, r, scale, st);
+    return (int)decode::launch<16, 64>(xp, wp, ap, bp, yp, M, K, N, r, scale, st);
+  }
+  if (M <= 8) return (int)decode::launch<8, 128>(xp, wp, ap, bp, yp, M, K, N, r, scale, st);
+  return (int)decode::launch<16, 128>(xp, wp, ap, bp, yp, M, K, N, r, scale, st);
+}
+
+// generic: any shape with r <= 64
+extern "C" int lora_matmul_generic_bf16(const void* x, const void* w, const void* a,
+                                        const void* b, void* y, int M, int K, int N, int r,
+                                        float scale, void* stream) {
+  using namespace generic;
   if (M <= 0 || K <= 0 || N <= 0 || r <= 0 || r > 64 || M > 65535 * BM)
     return (int)cudaErrorInvalidValue;
   const bf16 *xp = static_cast<const bf16*>(x), *wp = static_cast<const bf16*>(w);

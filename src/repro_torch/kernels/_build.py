@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface (no PyTorch headers), so
 ``nvcc`` builds it in seconds into ``build/repro_torch_kernels/`` at the root
 of the checkout (git-ignored). The library's file name carries a digest of
-its source and flags, so an edited source is rebuilt and an unchanged one is
+its source, the headers it includes from ``csrc/`` (``hopper.cuh``) and the
+flags, so an edited source or header is rebuilt and an unchanged one is
 loaded as it is. A failed build raises; nothing falls back.
 """
 
@@ -12,9 +13,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -32,10 +36,28 @@ def _nvcc() -> str:
     return nvcc
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def sources(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and every header of ``csrc/`` it includes, directly
+    or through another header."""
+    out, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop()
+        if path in out:
+            continue
+        out.append(path)
+        todo += [CSRC / inc.decode() for inc in _INCLUDE.findall(path.read_bytes())
+                 if (CSRC / inc.decode()).exists()]
+    return out
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names=KERNELS) -> dict[str, str]:
@@ -75,6 +97,18 @@ def load(name: str) -> ctypes.CDLL:
         lib.repro_error_string.restype = ctypes.c_char_p
         _libs[name] = lib
     return _libs[name]
+
+
+def launch(lib: ctypes.CDLL, fn, name: str, device: torch.device, *args) -> None:
+    """Call the C entry ``fn(*args, stream)`` on ``device``'s current stream
+    and raise if it returned an error. The raw stream handle and the device
+    switch (only when ``device`` is not the current one) keep the host's
+    cost per launch small: decode launches hundreds of kernels a step."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index != torch.cuda.current_device():
+        with torch.cuda.device(index):
+            return launch(lib, fn, name, device, *args)
+    check(lib, fn(*args, torch._C._cuda_getCurrentRawStream(index)), name)
 
 
 def check(lib: ctypes.CDLL, err: int, name: str) -> None:

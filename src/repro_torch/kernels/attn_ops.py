@@ -1,16 +1,18 @@
 """Public wrapper of flash attention (after ``repro/kernels/attn_ops.py``).
 
-A tensor on the CPU goes to the plain version; a CUDA tensor launches the
-CUDA kernel (bf16, head dim 32/64/128) or raises. Unlike the reference
+A tensor on the CPU goes to the plain version; a CUDA tensor launches one of
+the CUDA kernel's variants (bf16, head dim 16/32/64/128; picked by
+``variant`` of ``flash_attention.py``) or raises. Unlike the reference
 wrapper, nothing is padded and ragged lengths never fall back: the kernel
-masks the edge itself. ``flash_attention.launches`` counts kernel launches."""
+masks the edge itself. ``flash_attention.launches`` counts kernel launches,
+``flash_attention.variant_launches`` counts them by variant."""
 
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.attn_ref import flash_attention_ref
-from repro_torch.kernels.flash_attention import HEAD_DIMS, flash_attention_cuda
+from repro_torch.kernels.flash_attention import HEAD_DIMS, flash_attention_cuda, variant
 
 
 def _check(q, k, v):
@@ -43,11 +45,15 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, softcap: f
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window, softcap=softcap)
-    o = flash_attention_cuda(q, k, v, causal, window, softcap)
+    kind = variant(q.shape[-1], [s for t in (q, k, v) for s in t.stride()[:3]],
+                   [t.data_ptr() for t in (q, k, v)])
+    o = flash_attention_cuda(q, k, v, causal, window, softcap, kind)
     flash_attention.launches += 1
+    flash_attention.variant_launches[kind] += 1
     return o
 
 
 flash_attention.launches = 0
+flash_attention.variant_launches = {"wgmma": 0, "wmma": 0}
 
 __all__ = ["flash_attention", "flash_attention_ref"]

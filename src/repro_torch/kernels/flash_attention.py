@@ -1,5 +1,11 @@
-"""Binding of the flash attention CUDA kernel (``csrc/flash_attention.cu``),
-the port of ``repro/kernels/flash_attention.py``'s Pallas kernel."""
+"""Binding of the flash attention CUDA kernels (``csrc/flash_attention.cu``),
+the port of ``repro/kernels/flash_attention.py``'s Pallas kernel, and the
+rule that picks one of its two variants:
+
+* ``wgmma``: TMA + warpgroup MMA with the softmax in registers, head dim 64
+  (the main path) with 16-byte aligned rows;
+* ``wmma``: the first port's kernel, head dims 16, 32, 128 and any strides.
+"""
 
 from __future__ import annotations
 
@@ -11,32 +17,44 @@ import torch
 
 from repro_torch.kernels import _build
 
-HEAD_DIMS = (16, 32, 64, 128)  # the kernel's compiled head widths
+HEAD_DIMS = (16, 32, 64, 128)  # the kernels' compiled head widths
+WGMMA_HEAD_DIMS = (64,)
+
+
+def variant(d: int, strides, pointers) -> str:
+    """The variant for head dim ``d``, the (batch, head, seq) element strides
+    of q, k and v, and their data pointers: TMA needs every stride a
+    positive multiple of 8 elements (16 bytes) and 16-byte aligned pointers."""
+    aligned = (all(s > 0 and s % 8 == 0 for s in strides)
+               and all(p % 16 == 0 for p in pointers))
+    return "wgmma" if d in WGMMA_HEAD_DIMS and aligned else "wmma"
 
 
 @functools.cache
-def _entry():
+def _entries():
     lib = _build.load("flash_attention")
-    fn = lib.flash_attention_bf16
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                   + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int,
-                      ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return lib, fn
+    fns = {}
+    for name in ("wgmma", "wmma"):
+        fn = getattr(lib, f"flash_attention_{name}_bf16")
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                       + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int,
+                          ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    return lib, fns
 
 
-def flash_attention_cuda(q, k, v, causal: bool, window: int, softcap: float):
+def flash_attention_cuda(q, k, v, causal: bool, window: int, softcap: float, kind: str):
     """q (B,H,Sq,d), k/v (B,Kv,Skv,d): bf16 views on one CUDA device whose last
-    dim is contiguous. Returns (B,H,Sq,d) laid out in memory as (B,Sq,H,d),
-    the model's layout, so the caller's transpose back is free."""
-    lib, fn = _entry()
+    dim is contiguous; ``kind`` is the variant (see ``variant``). Returns
+    (B,H,Sq,d) laid out in memory as (B,Sq,H,d), the model's layout, so the
+    caller's transpose back is free."""
+    lib, fns = _entries()
     B, H, Sq, d = q.shape
     Kv, Skv = k.shape[1], k.shape[2]
     o = torch.empty((B, Sq, H, d), dtype=q.dtype, device=q.device).transpose(1, 2)
     strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, o) for s in t.stride()[:3]))
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H, Kv, Sq, Skv, d,
-                 strides, int(causal), int(window), float(softcap), 1.0 / math.sqrt(d),
-                 torch.cuda.current_stream().cuda_stream)
-    _build.check(lib, err, "flash_attention")
+    _build.launch(lib, fns[kind], f"flash_attention ({kind})", q.device, q.data_ptr(),
+                  k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H, Kv, Sq, Skv, d, strides,
+                  int(causal), int(window), float(softcap), 1.0 / math.sqrt(d))
     return o

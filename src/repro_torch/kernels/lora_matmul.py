@@ -1,35 +1,103 @@
-"""Binding of the fused LoRA matmul CUDA kernel (``csrc/lora_matmul.cu``),
-the port of ``repro/kernels/lora_matmul.py``'s Pallas kernel."""
+"""Binding of the fused LoRA matmul CUDA kernels (``csrc/lora_matmul.cu``),
+the port of ``repro/kernels/lora_matmul.py``'s Pallas kernel, and the rule
+that picks one of its three variants from the shapes and alignment:
+
+* ``prefill`` (M > 16): TMA + wgmma, output tiles 128 x ``prefill_tile_n``;
+* ``decode`` (M <= 16): clusters of 8 blocks splitting K, W streamed by cp.async,
+  slices of ``decode_tile_n`` columns;
+* ``generic``: the first port's wmma kernel, for misaligned rows or ranks
+  that are not a multiple of 8.
+"""
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
 from repro_torch.kernels import _build
 
-MAX_RANK = 64  # the kernel holds u = x·A in at most four 16-wide fragments
+MAX_RANK = 64  # the kernels hold u = x·A in at most 64 columns
+DECODE_MAX_M = 16  # the decode variant's rows (x·W by FMAs, x in shared memory)
+SMS = 132  # streaming multiprocessors of an H100 SXM
+MAX_SMEM = 227 * 1024  # a block's shared memory
+PREFILL_BM = 128
+DECODE_SPLIT, DECODE_KT, DECODE_STAGES = 8, 32, 8
+
+
+def decode_tile_n(N: int) -> int:
+    """Columns of a decode cluster's slice: 128 above N = 2048 halves the
+    clusters of a wide N (mamba2's in_proj, N = 3352), 64 below keeps more
+    SMs streaming W."""
+    return 128 if N > 2048 else 64
+
+
+def decode_smem_bytes(M: int, K: int, r: int, bn: int = 64) -> int:
+    """Shared memory of one decode block (csrc/lora_matmul.cu ``decode::smem_bytes``)."""
+    mt = 8 if M <= 8 else 16
+    kc = math.ceil(math.ceil(K / DECODE_SPLIT) / DECODE_KT) * DECODE_KT
+    ring = min(DECODE_STAGES, kc // DECODE_KT)  # W ring slots
+    return (kc * mt * 4 + ring * DECODE_KT * bn * 2 + kc * r * 2 + r * bn * 2
+            + 8 * mt * (bn + r) * 4 + mt * bn * 4 + 2 * mt * r * 4)
+
+
+def variant(M: int, K: int, N: int, r: int, aligned: bool) -> str:
+    """The variant that computes this shape. ``aligned``: every operand's
+    pointer is 16-byte aligned (TMA and 16-byte copies need it, and rows of
+    K, N, r elements a multiple of 8)."""
+    if aligned and K % 8 == 0 and N % 8 == 0 and r % 8 == 0 and r <= MAX_RANK:
+        if M > DECODE_MAX_M:
+            return "prefill"
+        if decode_smem_bytes(M, K, r, decode_tile_n(N)) <= MAX_SMEM:
+            return "decode"
+    return "generic"
+
+
+def prefill_tile_n(M: int, N: int, r: int) -> int:
+    """The prefill tile's width: the fewest waves of 128 x BN tiles over the
+    card's SMs, each wave costing BN + 32 (the epilogue and pipeline fill);
+    the wider tile on a tie. Rank above 16 leaves no registers for 256."""
+    options = (64, 128, 192, 256) if r <= 16 else (64, 128, 192)
+    rows = math.ceil(M / PREFILL_BM)
+
+    def cost(bn):
+        return math.ceil(rows * math.ceil(N / bn) / SMS) * (bn + 32), -bn
+
+    return min(options, key=cost)
 
 
 @functools.cache
-def _entry():
+def _entries():
     lib = _build.load("lora_matmul")
-    fn = lib.lora_matmul_bf16
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib, fn
+    args = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float]
+    fns = {}
+    for name, extra in (("prefill", [ctypes.c_int]), ("decode", [ctypes.c_int]),
+                        ("generic", [])):
+        fn = getattr(lib, f"lora_matmul_{name}_bf16")
+        fn.argtypes = args + extra + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    return lib, fns
 
 
-def lora_matmul_cuda(x, w, a, b, scale: float):
-    """x (M,K), w (K,N), a (K,r), b (r,N): contiguous bf16 on one CUDA device."""
-    lib, fn = _entry()
+@functools.lru_cache(maxsize=1024)
+def plan(M: int, K: int, N: int, r: int, aligned: bool) -> tuple[str, tuple]:
+    """The variant of a shape and its extra launch arguments (looked up once
+    per shape: the decode loop calls the same few shapes hundreds of times)."""
+    kind = variant(M, K, N, r, aligned)
+    extra = {"prefill": (prefill_tile_n(M, N, r),), "decode": (decode_tile_n(N),)}
+    return kind, extra.get(kind, ())
+
+
+def lora_matmul_cuda(x, w, a, b, scale: float, kind: str, extra: tuple = ()):
+    """x (M,K), w (K,N), a (K,r), b (r,N): contiguous bf16 on one CUDA device;
+    ``kind`` and ``extra`` from ``plan``."""
+    lib, fns = _entries()
     M, K = x.shape
     N, r = w.shape[1], a.shape[1]
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(), y.data_ptr(),
-                 M, K, N, r, float(scale), torch.cuda.current_stream().cuda_stream)
-    _build.check(lib, err, "lora_matmul")
+    _build.launch(lib, fns[kind], f"lora_matmul ({kind})", x.device, x.data_ptr(), w.data_ptr(),
+                  a.data_ptr(), b.data_ptr(), y.data_ptr(), M, K, N, r, float(scale), *extra)
     return y

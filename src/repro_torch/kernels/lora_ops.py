@@ -1,14 +1,16 @@
 """Public wrapper of the fused LoRA matmul (after ``repro/kernels/lora_ops.py``).
 
 Flattens leading dims and checks its inputs. A tensor on the CPU goes to the
-plain version; a CUDA tensor launches the CUDA kernel (bf16 only) or raises.
-``lora_matmul.launches`` counts kernel launches."""
+plain version; a CUDA tensor launches one of the CUDA kernel's variants
+(bf16 only, picked from the shapes by ``plan`` of ``lora_matmul.py``) or raises.
+``lora_matmul.launches`` counts kernel launches, and
+``lora_matmul.variant_launches`` counts them by variant."""
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.lora_matmul import MAX_RANK, lora_matmul_cuda
+from repro_torch.kernels.lora_matmul import MAX_RANK, lora_matmul_cuda, plan
 from repro_torch.kernels.lora_ref import lora_matmul_ref
 
 
@@ -43,11 +45,15 @@ def lora_matmul(x, w, a, b, *, scale: float = 1.0):
     if x.device.type == "cpu":
         y = lora_matmul_ref(x2, w, a, b, scale=scale)
     else:
-        y = lora_matmul_cuda(x2, w, a, b, scale)
+        aligned = not (x2.data_ptr() | w.data_ptr() | a.data_ptr() | b.data_ptr()) % 16
+        kind, extra = plan(x2.shape[0], K, N, a.shape[1], aligned)
+        y = lora_matmul_cuda(x2, w, a, b, scale, kind, extra)
         lora_matmul.launches += 1
+        lora_matmul.variant_launches[kind] += 1
     return y.reshape(*lead, N)
 
 
 lora_matmul.launches = 0
+lora_matmul.variant_launches = {"prefill": 0, "decode": 0, "generic": 0}
 
 __all__ = ["lora_matmul", "lora_matmul_ref"]

@@ -43,9 +43,7 @@ def ssd_scan_cuda(x, dt, A, Bm, Cm, initial_state):
     strides = (ctypes.c_longlong * 10)(*x.stride()[:3], *dt.stride(), *Bm.stride()[:2],
                                        *Cm.stride()[:2])
     h0 = initial_state.data_ptr() if initial_state is not None else None
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), h0,
-                 y.data_ptr(), h_final.data_ptr(), B, S, H, P, N, strides,
-                 int(x.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
-    _build.check(lib, err, "ssd_scan")
+    _build.launch(lib, fn, "ssd_scan", x.device, x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+                  Bm.data_ptr(), Cm.data_ptr(), h0, y.data_ptr(), h_final.data_ptr(), B, S, H, P,
+                  N, strides, int(x.dtype == torch.bfloat16))
     return y, h_final

@@ -21,11 +21,12 @@ import torch
 
 from repro_torch.config import get_arch, smoke_variant
 from repro_torch.core.lora import init_lora
+from repro_torch.device import resolve_device
 from repro_torch.kernels.attn_ops import flash_attention
 from repro_torch.kernels.lora_ops import lora_matmul
 from repro_torch.kernels.ssd_ops import ssd_scan
 from repro_torch.models import transformer as T
-from repro_torch.serving.decode import decode_tokens, resolve_device
+from repro_torch.serving.decode import decode_tokens
 
 
 def main(argv=None):

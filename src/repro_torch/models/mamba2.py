@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
+from repro_torch.device import resolve_device
 from repro_torch.kernels.ssd_ops import ssd_scan
 from repro_torch.models import layers as L
 
@@ -181,7 +182,8 @@ def apply_mamba(p, u, cfg: ModelConfig, cache=None, *, adapters=None, kernels: b
     return L.project(g, p["out_proj"], ad.get("out_proj"))
 
 
-def init_mamba_cache(cfg: ModelConfig, batch: int, dtype, device=None):
+def init_mamba_cache(cfg: ModelConfig, batch: int, dtype, device="cuda"):
+    device = resolve_device(device)
     d_inner, H, P, N, conv_ch = dims(cfg)
     conv_state = torch.zeros((batch, cfg.ssm_conv_width - 1, conv_ch), dtype=dtype, device=device)
     ssd_state = torch.zeros((batch, H, P, N), dtype=torch.float32, device=device)

@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.core.lora import layer_adapters
+from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
 
@@ -92,11 +93,12 @@ def apply_group(gp, x, cfg: ModelConfig, *, cache=None, cache_pos=None, position
 # ---------------------------------------------------------------------------
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, device=None):
+def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"):
     """Random weights with the reference's shapes and scales, drawn from a
     ``torch.Generator`` on ``device`` seeded with ``seed``."""
     _require_ported(cfg)
-    gen = torch.Generator(device=device or "cpu").manual_seed(seed)
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
     tree = {"embed": L.init_embed(gen, cfg, device)}
     layers = [init_sublayer(gen, cfg, device) for _ in range(cfg.num_layers)]
 
@@ -146,12 +148,13 @@ def forward(params, batch, cfg: ModelConfig, *, lora=None, kernels=True):
 # ---------------------------------------------------------------------------
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None, device=None):
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None, device="cuda"):
     """Zero cache ``{"groups": {"sub_0": ...}}`` with the layer stack leading:
     ``{"attn": (k, v)}``, each ``(num_groups, B, max_seq, Kv, hd)``, for
     ``G``; ``{"ssm": (conv_state, ssd_state)}`` for ``M`` (``max_seq`` unused:
     the state does not grow)."""
     _require_ported(cfg)
+    device = resolve_device(device)
     dtype = dtype or L.torch_dtype(cfg.dtype)
     ng = cfg.num_layers
     if cfg.layer_pattern == "M":

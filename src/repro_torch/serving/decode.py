@@ -14,6 +14,7 @@ from typing import Any, NamedTuple, Optional
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
 
 
@@ -48,15 +49,6 @@ def make_decode_fn(cfg: ModelConfig, sample: str = "greedy", temperature: float 
         return DecodeState(cache, state.pos + 1, nxt), logits
 
     return decode_fn
-
-
-def resolve_device(device) -> torch.device:
-    """The device a caller asked for; asking for CUDA without a GPU raises."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device 'cuda' requested but no CUDA GPU is available; "
-                           "pass device='cpu' to run the plain versions on the CPU")
-    return dev
 
 
 def _to(tree, device):

@@ -56,6 +56,51 @@ def test_lora_kernel_matches_plain(cuda, M, K, N, r):
     assert err <= _bf16_ulps(ref), (err, _bf16_ulps(ref))
 
 
+@pytest.mark.parametrize("M,K,N,r,expected", [
+    # M around the decode/prefill threshold (16)
+    (1, 768, 768, 16, "decode"), (8, 768, 768, 16, "decode"), (16, 768, 768, 16, "decode"),
+    (17, 768, 768, 16, "prefill"), (4096, 768, 768, 16, "prefill"),
+    # N not a multiple of the tile; 300 is not a multiple of 8 either
+    (8, 768, 3352, 16, "decode"), (4096, 768, 3352, 16, "prefill"),
+    (8, 768, 300, 16, "generic"), (300, 768, 300, 16, "generic"),
+    # K not a multiple of the stage depth (64 for prefill, 8 x 32 for decode)
+    (8, 776, 256, 16, "decode"), (1000, 776, 256, 16, "prefill"), (13, 40, 64, 16, "decode"),
+    (4096, 2048, 768, 16, "prefill"), (8, 2048, 768, 16, "decode"),
+    # ranks
+    (8, 768, 768, 1, "generic"), (4096, 768, 768, 1, "generic"),
+    (8, 768, 768, 8, "decode"), (512, 768, 768, 8, "prefill"),
+    (8, 768, 768, 64, "decode"), (512, 768, 768, 64, "prefill"),
+    (4096, 768, 2048, 64, "prefill"), (200, 768, 2048, 32, "prefill"),
+])
+def test_lora_variants_at_their_edges(cuda, M, K, N, r, expected):
+    """Each variant against the plain version around its edges; the wrapper's
+    per-variant counter shows which one ran."""
+    gen = torch.Generator(device=cuda).manual_seed(M + 3 * N + r)
+    x = torch.randn((M, K), generator=gen, device=cuda).bfloat16()
+    w, a, b = (torch.randn(s, generator=gen, device=cuda).mul(0.05).bfloat16()
+               for s in ((K, N), (K, r), (r, N)))
+    before = dict(lora_matmul.variant_launches)
+    y = lora_matmul(x, w, a, b, scale=2.0)
+    torch.cuda.synchronize()
+    moved = {k: v - before[k] for k, v in lora_matmul.variant_launches.items()}
+    assert moved == {k: int(k == expected) for k in moved}, moved
+    ref = lora_matmul_ref(x, w, a, b, scale=2.0)
+    err = (y.float() - ref.float()).abs().max().item()
+    assert err <= _bf16_ulps(ref), (err, _bf16_ulps(ref))
+
+
+def test_lora_decode_is_deterministic(cuda):
+    """The decode variant adds the cluster's partials in a fixed order: the
+    same inputs give the same bits."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.randn((8, 2048), generator=gen, device=cuda).bfloat16()
+    w, a, b = (torch.randn(s, generator=gen, device=cuda).mul(0.05).bfloat16()
+               for s in ((2048, 768), (2048, 16), (16, 768)))
+    first = lora_matmul(x, w, a, b, scale=2.0)
+    for _ in range(3):
+        assert torch.equal(lora_matmul(x, w, a, b, scale=2.0), first)
+
+
 def test_lora_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
     x, w, a, b = (torch.randn(s, device=cuda) for s in ((8, 64), (64, 32), (64, 4), (4, 32)))
     with pytest.raises(TypeError):
@@ -90,6 +135,55 @@ def test_flash_kernel_matches_plain(cuda, B, H, Kv, Sq, Skv, d, causal, window, 
     # below one output ulp; the plain version keeps P in fp32)
     err = (o.float() - ref.float()).abs().max().item()
     assert err <= _bf16_ulps(ref), (err, _bf16_ulps(ref))
+
+
+@pytest.mark.parametrize("B,H,Kv,Sq,Skv,d,causal,window,softcap,expected", [
+    (2, 12, 4, 1, 1, 64, True, 0, 0.0, "wgmma"),
+    (2, 12, 4, 63, 63, 64, True, 0, 0.0, "wgmma"),
+    (2, 12, 4, 65, 65, 64, True, 0, 0.0, "wgmma"),
+    (8, 12, 4, 512, 512, 64, True, 0, 0.0, "wgmma"),
+    (2, 12, 4, 512, 512, 64, True, 100, 30.0, "wgmma"),  # window and softcap together
+    (2, 12, 4, 65, 65, 64, True, 16, 0.0, "wgmma"),
+    (2, 12, 4, 100, 300, 64, False, 0, 0.0, "wgmma"),  # non-causal, Skv > Sq
+    (2, 12, 4, 300, 100, 64, False, 0, 20.0, "wgmma"),  # non-causal, Skv < Sq
+    (2, 12, 4, 1, 512, 64, False, 0, 0.0, "wgmma"),
+    # query heads per kv head: 1, 2, 4 and 12 (blocks of 1, 2, 4 and 4 heads)
+    (2, 4, 4, 130, 130, 64, True, 0, 0.0, "wgmma"),
+    (2, 8, 4, 130, 130, 64, True, 0, 0.0, "wgmma"),
+    (2, 8, 2, 130, 130, 64, True, 0, 0.0, "wgmma"),
+    (1, 12, 1, 200, 200, 64, True, 0, 0.0, "wgmma"),
+    (2, 4, 2, 100, 100, 16, True, 0, 0.0, "wmma"),
+    (2, 4, 2, 100, 100, 32, True, 0, 0.0, "wmma"),
+    (2, 4, 2, 100, 100, 128, True, 0, 0.0, "wmma"),
+])
+def test_flash_variants_at_their_edges(cuda, B, H, Kv, Sq, Skv, d, causal, window, softcap,
+                                       expected):
+    gen = torch.Generator(device=cuda).manual_seed(Sq * 3 + Skv + d)
+    q = torch.randn((B, Sq, H, d), generator=gen, device=cuda).bfloat16().transpose(1, 2)
+    k, v = (torch.randn((B, Skv, Kv, d), generator=gen, device=cuda).bfloat16().transpose(1, 2)
+            for _ in range(2))
+    before = dict(flash_attention.variant_launches)
+    o = flash_attention(q, k, v, causal=causal, window=window, softcap=softcap)
+    torch.cuda.synchronize()
+    moved = {k_: v_ - before[k_] for k_, v_ in flash_attention.variant_launches.items()}
+    assert moved == {k_: int(k_ == expected) for k_ in moved}, moved
+    ref = flash_attention_ref(q, k, v, causal=causal, window=window, softcap=softcap)
+    err = (o.float() - ref.float()).abs().max().item()
+    assert err <= _bf16_ulps(ref), (err, _bf16_ulps(ref))
+
+
+def test_flash_misaligned_rows_take_the_wmma_variant(cuda):
+    """d = 64 views whose rows are not 16-byte aligned cannot be read by TMA."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    buf = torch.randn((2 * 100 * 4 * 64 + 1,), generator=gen, device=cuda).bfloat16()
+    q = buf[1:].view(2, 100, 4, 64).transpose(1, 2)  # one element off
+    k = torch.randn((2, 100, 2, 64), generator=gen, device=cuda).bfloat16().transpose(1, 2)
+    before = flash_attention.variant_launches["wmma"]
+    o = flash_attention(q, k, k, causal=True)
+    torch.cuda.synchronize()
+    assert flash_attention.variant_launches["wmma"] == before + 1
+    ref = flash_attention_ref(q, k, k, causal=True)
+    assert (o.float() - ref.float()).abs().max().item() <= _bf16_ulps(ref)
 
 
 def test_bf16_smoke_serving_runs_the_kernels(cuda):

@@ -19,6 +19,8 @@ from repro.kernels.lora_ref import lora_matmul_ref as jax_lora_matmul_ref
 from repro.models import layers as jax_layers
 from repro_torch.kernels.attn_ops import flash_attention
 from repro_torch.kernels.attn_ref import flash_attention_ref
+from repro_torch.kernels import flash_attention as flash_binding
+from repro_torch.kernels import lora_matmul as lora_binding
 from repro_torch.kernels.lora_ops import lora_matmul
 from repro_torch.kernels.lora_ref import lora_matmul_ref
 from repro_torch.models import layers as torch_layers
@@ -99,6 +101,76 @@ def test_lora_wrapper_rejects_bad_inputs():
         lora_matmul(x, w.t().contiguous().t(), a, b)
     with pytest.raises(ValueError):
         lora_matmul(x, w, a, b.t())
+
+
+@pytest.mark.parametrize("M,K,N,r,aligned,expected", [
+    # every main-path shape: prefill (M = 8 x 512) and decode (M = 8)
+    *[(M, K, N, 16, True, "prefill" if M > 16 else "decode")
+      for M in (4096, 8) for K, N in ((768, 768), (768, 256), (768, 2048), (2048, 768),
+                                      (768, 3352), (1536, 768))],
+    (16, 768, 768, 16, True, "decode"), (17, 768, 768, 16, True, "prefill"),
+    (1, 768, 768, 16, True, "decode"),
+    (8, 768, 300, 16, True, "generic"),  # N % 8
+    (4096, 772, 768, 16, True, "generic"),  # K % 8
+    (8, 768, 768, 1, True, "generic"), (4096, 768, 768, 5, True, "generic"),  # r % 8
+    (4096, 768, 768, 80, True, "generic"),  # r above 64
+    (8, 768, 768, 16, False, "generic"), (4096, 768, 768, 16, False, "generic"),  # misaligned
+    (8, 200_000, 768, 64, True, "generic"),  # the decode block's K slice overflows shared memory
+])
+def test_lora_variant_rule(M, K, N, r, aligned, expected):
+    """The wrapper's choice of CUDA variant is a pure function of the shapes
+    and the alignment, checked here without the card."""
+    assert lora_binding.variant(M, K, N, r, aligned) == expected
+    kind, extra = lora_binding.plan(M, K, N, r, aligned)
+    assert kind == expected
+    want = {"prefill": (lora_binding.prefill_tile_n(M, N, r),),
+            "decode": (lora_binding.decode_tile_n(N),)}
+    assert extra == want.get(kind, ())
+
+
+@pytest.mark.parametrize("N,r,expected", [
+    (256, 16, 64), (768, 16, 192), (2048, 16, 256), (3352, 16, 192),
+    (2048, 64, 128),  # no 256-wide tile above rank 16
+])
+def test_lora_prefill_tile_fills_the_card(N, r, expected):
+    """At M = 4096 (32 row tiles) the tile width puts the grid in the fewest
+    waves over 132 SMs; N = 768 at 192 is one wave of 128 tiles."""
+    bn = lora_binding.prefill_tile_n(4096, N, r)
+    assert bn == expected
+    if N in (256, 768):
+        assert 32 * -(-N // bn) == 128  # one wave
+
+
+def test_lora_decode_slice_width():
+    assert [lora_binding.decode_tile_n(N) for N in (256, 768, 2048, 3352)] == [64, 64, 64, 128]
+
+
+def test_lora_decode_smem_matches_the_kernel_layout():
+    """decode_smem_bytes mirrors csrc/lora_matmul.cu decode::smem_bytes:
+    M=8, K=768, r=16 -> kc = 96 rows per block of the cluster, 3 ring slots."""
+    kc, mt, r = 96, 8, 16
+    want = kc * mt * 4 + 3 * 32 * 64 * 2 + kc * r * 2 + r * 64 * 2 + 8 * mt * (64 + r) * 4 \
+        + mt * 64 * 4 + 2 * mt * r * 4
+    assert lora_binding.decode_smem_bytes(8, 768, 16) == want
+
+
+S_ = 512  # the sequence length in the strides below
+
+
+@pytest.mark.parametrize("d,strides,pointers,expected", [
+    (64, [S_ * 12 * 64, 64, 12 * 64] * 3, [0, 4096, 8192], "wgmma"),  # the model's layout
+    (64, [512 * 64 * 12, 512 * 64, 64] * 3, [256] * 3, "wgmma"),  # contiguous (B, H, S, d)
+    (64, [S_ * 12 * 64, 64, 12 * 64] * 3, [2, 4096, 8192], "wmma"),  # q 2 bytes off
+    (64, [100 * 4 * 64 + 1, 64, 4 * 64] + [S_ * 12 * 64, 64, 12 * 64] * 2, [0] * 3, "wmma"),
+    (64, [0, 64, 12 * 64] * 3, [0] * 3, "wmma"),  # a broadcast batch
+    (16, [S_ * 4 * 16, 16, 4 * 16] * 3, [0] * 3, "wmma"),
+    (32, [S_ * 4 * 32, 32, 4 * 32] * 3, [0] * 3, "wmma"),
+    (128, [S_ * 4 * 128, 128, 4 * 128] * 3, [0] * 3, "wmma"),
+])
+def test_flash_variant_rule(d, strides, pointers, expected):
+    """Head dim 64 with TMA-aligned strides and pointers takes the wgmma
+    variant; everything else the first port's wmma kernel."""
+    assert flash_binding.variant(d, strides, pointers) == expected
 
 
 # ---------------------------------------------------------------------------

@@ -49,8 +49,8 @@ def setup():
     prompt = rng.integers(0, cfg.vocab_size, (B, S), dtype=np.int32)
     return dict(jcfg=jcfg, cfg=cfg, jparams=jparams, jlora=jl,
                 jmerged=jax_lora.merge(jparams, jl, jcfg),
-                params=params_from_numpy(jax.device_get(jparams)),
-                lora=lora_from_numpy(jax.device_get(jl)), prompt=prompt)
+                params=params_from_numpy(jax.device_get(jparams), device="cpu"),
+                lora=lora_from_numpy(jax.device_get(jl), device="cpu"), prompt=prompt)
 
 
 def _close(a, b):
@@ -60,13 +60,13 @@ def _close(a, b):
 
 def test_init_cache_and_params_match_reference_shapes(setup):
     jc = JT.init_cache(setup["jcfg"], B, S + NEW)
-    tc = T.init_cache(setup["cfg"], B, S + NEW)
+    tc = T.init_cache(setup["cfg"], B, S + NEW, device="cpu")
     assert jax.tree.map(lambda a: a.shape, jc) == \
         jax.tree.map(lambda a: tuple(a.shape), tc, is_leaf=lambda t: isinstance(t, torch.Tensor))
-    own = T.init_params(setup["cfg"], seed=0)
+    own = T.init_params(setup["cfg"], seed=0, device="cpu")
     shapes = lambda tree, leaf: jax.tree.map(lambda a: tuple(a.shape), tree, is_leaf=leaf)
     assert shapes(own, lambda t: isinstance(t, torch.Tensor)) == shapes(setup["jparams"], None)
-    own_lora = torch_lora.init_lora(own, setup["cfg"])
+    own_lora = torch_lora.init_lora(own, setup["cfg"], device="cpu")
     assert {k: (tuple(v["A"].shape), tuple(v["B"].shape)) for k, v in own_lora.items()} == \
         {k: (v["A"].shape, v["B"].shape) for k, v in setup["jlora"].items()}
     assert all(not v["B"].any() for v in own_lora.values())
@@ -90,7 +90,7 @@ def test_forward_and_prefill_logits_match_reference(setup):
     _close(logits, jlogits)
 
     jlogits, jcache = JT.prefill(setup["jmerged"], jbatch, jcfg, JT.init_cache(jcfg, B, S + NEW))
-    cache = T.init_cache(cfg, B, S + NEW)
+    cache = T.init_cache(cfg, B, S + NEW, device="cpu")
     logits, cache = T.prefill(setup["params"], {"tokens": tokens}, cfg, cache, lora=setup["lora"])
     _close(logits, jlogits)
     for a, b in zip(jax.tree.leaves(jcache), jax.tree.leaves(cache)):
@@ -101,7 +101,7 @@ def test_decode_step_logits_match_reference_each_step(setup):
     cfg, jcfg, prompt = setup["cfg"], setup["jcfg"], setup["prompt"]
     jbatch = {"tokens": jnp.asarray(prompt), "labels": jnp.asarray(prompt)}
     jlogits, jcache = JT.prefill(setup["jmerged"], jbatch, jcfg, JT.init_cache(jcfg, B, S + NEW))
-    cache = T.init_cache(cfg, B, S + NEW)
+    cache = T.init_cache(cfg, B, S + NEW, device="cpu")
     _, cache = T.prefill(setup["params"], {"tokens": torch.from_numpy(prompt).long()}, cfg, cache,
                          lora=setup["lora"])
     tok = jnp.argmax(jlogits[:, -1:, :], axis=-1)
@@ -134,6 +134,41 @@ def test_decode_tokens_on_cuda_raises_without_gpu(setup):
         pytest.skip("a GPU is present")
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         decode_tokens(setup["params"], setup["cfg"], torch.from_numpy(setup["prompt"]).long(), 2)
+
+
+@pytest.mark.parametrize("builder", ["init_params", "init_cache", "init_lora",
+                                     "init_mamba_cache", "tensor_from_numpy",
+                                     "params_from_numpy", "lora_from_numpy"])
+def test_builders_default_to_the_card(setup, builder):
+    """Called without a device, every public builder asks for CUDA: without a
+    GPU it raises rather than building on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    from repro_torch import bridge
+    from repro_torch.models import mamba2 as M2
+
+    cfg = setup["cfg"]
+    calls = {
+        "init_params": lambda: T.init_params(cfg),
+        "init_cache": lambda: T.init_cache(cfg, B, S + NEW),
+        "init_lora": lambda: torch_lora.init_lora(setup["params"], cfg),
+        "init_mamba_cache": lambda: M2.init_mamba_cache(get_arch("mamba2-130m"), B, torch.float32),
+        "tensor_from_numpy": lambda: bridge.tensor_from_numpy(np.zeros(3, np.float32)),
+        "params_from_numpy": lambda: bridge.params_from_numpy({"w": np.zeros(3, np.float32)}),
+        "lora_from_numpy": lambda: bridge.lora_from_numpy(
+            {"k": {"A": np.zeros((2, 1), np.float32), "B": np.zeros((1, 2), np.float32)}}),
+    }
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        calls[builder]()
+
+
+def test_unported_config_raises_before_the_device_check():
+    """init_params and init_cache check the config first: an unported config
+    is a NotImplementedError on any machine, not a device error."""
+    bad = smoke_variant(get_arch("fedsllm-100m")).replace(layer_pattern="GL")
+    for build in (lambda: T.init_params(bad), lambda: T.init_cache(bad, B, S)):
+        with pytest.raises(NotImplementedError):
+            build()
 
 
 def test_unported_configs_raise():

@@ -169,8 +169,8 @@ def setup():
     prompt = rng.integers(0, cfg.vocab_size, (B, S), dtype=np.int32)
     return dict(jcfg=jcfg, cfg=cfg, jparams=jparams, jlora=jl,
                 jmerged=jax_lora.merge(jparams, jl, jcfg),
-                params=params_from_numpy(jax.device_get(jparams)),
-                lora=lora_from_numpy(jax.device_get(jl)), prompt=prompt)
+                params=params_from_numpy(jax.device_get(jparams), device="cpu"),
+                lora=lora_from_numpy(jax.device_get(jl), device="cpu"), prompt=prompt)
 
 
 def _layer(tree, i=0):
@@ -179,11 +179,11 @@ def _layer(tree, i=0):
 
 def test_init_cache_and_params_match_reference_shapes(setup):
     jc = JT.init_cache(setup["jcfg"], B, S + NEW)
-    tc = T.init_cache(setup["cfg"], B, S + NEW)
+    tc = T.init_cache(setup["cfg"], B, S + NEW, device="cpu")
     leaf = lambda t: isinstance(t, torch.Tensor)
     assert jax.tree.map(lambda a: (a.shape, str(a.dtype)), jc) == \
         jax.tree.map(lambda a: (tuple(a.shape), str(a.dtype).split(".")[-1]), tc, is_leaf=leaf)
-    own = T.init_params(setup["cfg"], seed=0)
+    own = T.init_params(setup["cfg"], seed=0, device="cpu")
     assert jax.tree.map(lambda a: (tuple(a.shape), str(a.dtype).split(".")[-1]), own,
                         is_leaf=leaf) == \
         jax.tree.map(lambda a: (a.shape, str(a.dtype)), setup["jparams"])
@@ -255,7 +255,7 @@ def test_prefill_and_decode_steps_match_reference(setup, kernels):
     cfg, jcfg, prompt = setup["cfg"], setup["jcfg"], setup["prompt"]
     jbatch = {"tokens": jnp.asarray(prompt), "labels": jnp.asarray(prompt)}
     jlogits, jcache = JT.prefill(setup["jmerged"], jbatch, jcfg, JT.init_cache(jcfg, B, S + NEW))
-    cache = T.init_cache(cfg, B, S + NEW)
+    cache = T.init_cache(cfg, B, S + NEW, device="cpu")
     logits, cache = T.prefill(setup["params"], {"tokens": torch.from_numpy(prompt).long()}, cfg,
                               cache, lora=setup["lora"], kernels=kernels)
     np.testing.assert_allclose(_np(logits), _np(jlogits), rtol=LOGITS, atol=LOGITS)
