@@ -18,7 +18,7 @@ then, for each path:
                once through ``decode_tokens``, every kernel's launch count
                (and per-variant count) set to 0 just before and read just
                after: every LoRA launch must go through the prefill or decode
-               variant and every flash launch through the wgmma variant; then
+               variant, every flash and SSD launch through its wgmma variant; then
                the kernel path's prefill/decode logits against the plain path
                (merged weights, ``_attend_full`` / ``ssd_chunked``) and
                against fp32;
@@ -78,7 +78,8 @@ ARCHS = ("fedsllm-100m", "mamba2-130m")
 KERNELS = {"lora_matmul": lora_matmul, "flash_attention": flash_attention, "ssd_scan": ssd_scan}
 # per-variant launch counters of the kernels that have variants
 VARIANTS = {"lora_matmul": lora_matmul.variant_launches,
-            "flash_attention": flash_attention.variant_launches}
+            "flash_attention": flash_attention.variant_launches,
+            "ssd_scan": ssd_scan.variant_launches}
 # µs per launch of the first port's kernels, before their Hopper redesign
 # (this script on an NVIDIA H100 80GB HBM3 at 700 W; PERF.md §6), keyed by
 # kernel and (M, K, N)
@@ -300,13 +301,15 @@ def lora_shapes(cfg) -> collections.Counter:
 def path_variants(cfg) -> dict[str, dict[str, int]]:
     """Launches of each variant in one decode_tokens call: the prefill's LoRA
     products (M = B·S) through the prefill variant, the decode steps' (M = B)
-    through the decode variant, flash through the wgmma variant; none through
-    the first port's kernels."""
+    through the decode variant, flash and the SSD scan (one per layer of the
+    prefill) through their wgmma variants; none through the first port's
+    kernels."""
     per_forward = sum(lora_shapes(cfg).values()) * cfg.num_layers
     ssm = cfg.layer_pattern == "M"
     return {"lora_matmul": {"prefill": per_forward, "decode": per_forward * (NEW - 1),
                             "generic": 0},
-            "flash_attention": {"wgmma": 0 if ssm else cfg.num_layers, "wmma": 0}}
+            "flash_attention": {"wgmma": 0 if ssm else cfg.num_layers, "wmma": 0},
+            "ssd_scan": {"wgmma": cfg.num_layers if ssm else 0, "fma": 0}}
 
 
 def path_kernels(cfg) -> dict[str, int]:
@@ -411,7 +414,8 @@ def phase_build() -> dict:
     (OUT / "build_log.txt").write_text("\n".join(f"== {k}\n{v}" for k, v in logs.items()))
     log(f"[build] {len(logs)} kernel(s) compiled in {seconds:.1f} s "
         f"into {_build.BUILD_DIR.relative_to(ROOT)} (ptxas output: {(OUT / 'build_log.txt').relative_to(ROOT)})")
-    ptxas = ptxas_summary("\n".join(logs.values()))
+    ptxas = [dict(library=name, **row) for name, text in logs.items()
+             for row in ptxas_summary(text)]
     for row in ptxas:
         log(f"[build] {json.dumps(row)}")
     return {"seconds": seconds, "ptxas": ptxas}
@@ -472,27 +476,38 @@ def flash_checks(cfg, dev, gen, rows, errs) -> list:
 def ssd_checks(cfg, dev, gen, rows, errs) -> list:
     """y and the final state against the sequential recurrence, at the path's
     widths: the full prompt, a ragged S, an initial state, 8 reference
-    chunks, and the path's bf16 inputs. Tolerance 1e-4 of the largest
-    reference output, the reference's own (tests/test_kernels.py): all the
-    kernel's products are fp32 FMAs, only their order differs (and exp(cs_q
-    − cs_s) stands for a product of per-step decays)."""
+    chunks, in fp32 (the fma variant) and in bf16 (the wgmma variant), and
+    the prefill's own bf16 strided views of the conv output. Tolerance 1e-4
+    of the largest reference output, the reference's own
+    (tests/test_kernels.py): fma's products are fp32 FMAs, wgmma's take its
+    fp32 operands (decayed scores, state, w·x) as two bf16 terms each; both
+    sum in another order (and exp(cs_q − cs_s) stands for a product of
+    per-step decays)."""
     fails = []
     errs["ssd_scan"] = 0.0
     _, H, P, N, _ = M2.dims(cfg)
-    for S, h0, dtype in ((PROMPT, False, torch.float32), (200, False, torch.float32),
-                         (PROMPT, True, torch.float32), (8 * cfg.ssm_chunk, False, torch.float32),
-                         (PROMPT, True, torch.bfloat16)):
-        x, dt, A, Bm, Cm, state = ssd_inputs(gen, BATCH, S, H, P, N, dev, dtype, h0)
+    cases = [(S, h0, dtype, expected)
+             for dtype, expected in ((torch.float32, "fma"), (torch.bfloat16, "wgmma"))
+             for S, h0 in ((PROMPT, False), (200, True), (PROMPT, True), (8 * cfg.ssm_chunk, False))]
+    for S, h0, dtype, expected in cases + [(PROMPT, True, "views", "wgmma")]:
+        if dtype == "views":
+            x, dt, A, Bm, Cm, state = ssd_path_inputs(gen, cfg, dev)
+        else:
+            x, dt, A, Bm, Cm, state = ssd_inputs(gen, BATCH, S, H, P, N, dev, dtype, h0)
+        kind = ran_variant("ssd_scan", lambda: ssd_scan(x, dt, A, Bm, Cm, initial_state=state))
         y, h = ssd_scan(x, dt, A, Bm, Cm, initial_state=state)
         torch.cuda.synchronize()
         yr, hr = ssd_scan_ref(x, dt, A, Bm, Cm, state)
         for out, ref, what in ((y, yr, "y"), (h, hr, "final_state")):
             err = (out - ref).abs().max().item()
             tol = 1e-4 * ref.abs().max().item()
-            rows.append(dict(kernel="ssd_scan", out=what, B=BATCH, S=S, H=H, P=P, N=N,
-                             initial_state=h0, dtype=str(dtype).split(".")[-1], err=err, tol=tol))
+            rows.append(dict(kernel="ssd_scan", variant=kind, out=what, B=BATCH, S=S, H=H, P=P,
+                             N=N, initial_state=h0, dtype=str(dtype).split(".")[-1], err=err,
+                             tol=tol))
+            if kind != expected:
+                rows[-1]["expected_variant"] = expected
             errs["ssd_scan"] = max(errs["ssd_scan"], err)
-            if not err <= tol:
+            if not err <= tol or kind != expected:
                 fails.append(rows[-1])
     return fails
 
@@ -711,37 +726,47 @@ def flash_timing(cfg, dev, gen) -> dict:
         bound_ms=b_ms, bound_by=b_by))
 
 
-def ssd_timing(cfg, dev, gen) -> dict:
-    """The SSD scan as the prefill calls it: bf16 x, Bm, Cm as strided views
-    of the conv output (B, S, conv_ch), fp32 dt, an initial state from the
-    cache. Plain = the sequential recurrence (the wrapper's CPU version);
-    ``chunked_ms`` times the model's plain chunked path for comparison. No
-    single PyTorch call computes this function: no library time."""
+def ssd_path_inputs(gen, cfg, dev):
+    """The SSD scan's inputs as the prefill hands them over: bf16 x, Bm, Cm
+    as strided views of the conv output (B, S, conv_ch), fp32 dt, an initial
+    state from the cache."""
     d_inner, H, P, N, conv_ch = M2.dims(cfg)
+    xbc = torch.randn((BATCH, PROMPT, conv_ch), generator=gen, device=dev).mul(0.5).bfloat16()
+    dt = torch.nn.functional.softplus(torch.randn((BATCH, PROMPT, H), generator=gen,
+                                                  device=dev) - 2)
+    A = -torch.exp(torch.randn((H,), generator=gen, device=dev))
+    state = torch.randn((BATCH, H, P, N), generator=gen, device=dev)
+    return (xbc[..., :d_inner].unflatten(-1, (H, P)), dt, A, xbc[..., d_inner:d_inner + N],
+            xbc[..., d_inner + N:], state)
 
-    def inputs():
-        xbc = torch.randn((BATCH, PROMPT, conv_ch), generator=gen, device=dev).mul(0.5).bfloat16()
-        dt = torch.nn.functional.softplus(torch.randn((BATCH, PROMPT, H), generator=gen,
-                                                      device=dev) - 2)
-        A = -torch.exp(torch.randn((H,), generator=gen, device=dev))
-        state = torch.randn((BATCH, H, P, N), generator=gen, device=dev)
-        return (xbc[..., :d_inner].unflatten(-1, (H, P)), dt, A, xbc[..., d_inner:d_inner + N],
-                xbc[..., d_inner + N:], state)
 
+def ssd_timing(cfg, dev, gen) -> dict:
+    """The SSD scan as the prefill calls it (``ssd_path_inputs``). Plain =
+    the sequential recurrence (the wrapper's CPU version); ``chunked_ms``
+    times the model's plain chunked path (PyTorch einsums), which the
+    kernel's device time should be below (``below_chunked``). No single
+    PyTorch call computes this function: no library time."""
+    _, H, P, N, _ = M2.dims(cfg)
     nbytes, ops = ssd_work(BATCH, PROMPT, H, P, N, cfg.ssm_chunk, 2, True)
-    sets = [inputs() for _ in range(n_sets(nbytes))]
+    sets = [ssd_path_inputs(gen, cfg, dev) for _ in range(n_sets(nbytes))]
     b_ms, b_by = bound_ms(nbytes, ops)
 
     def call(x, dt, A, Bm, Cm, h):
         return ssd_scan(x, dt, A, Bm, Cm, initial_state=h)
 
-    return judge(dict(
+    def chunked(x, dt, A, Bm, Cm, h):
+        return M2.ssd_chunked(x, dt, A, Bm, Cm, cfg.ssm_chunk, h)
+
+    row = judge(dict(
         kernel="ssd_scan", B=BATCH, S=PROMPT, H=H, P=P, N=N, chunk=cfg.ssm_chunk,
+        variant=ran_variant("ssd_scan", lambda: call(*sets[0])),
         launches=cfg.num_layers,
         ms=time_ms(call, sets, 50), **device_time_ms(call, sets, 10),
         plain_ms=time_ms(ssd_scan_ref, sets, 3),
-        chunked_ms=time_ms(lambda *a: M2.ssd_chunked(*a[:5], cfg.ssm_chunk, a[5]), sets, 10),
+        chunked_ms=time_ms(chunked, sets, 10),
         library_ms=None, **library(None), bound_ms=b_ms, bound_by=b_by))
+    row["below_chunked"] = row["device_ms"] < row["chunked_ms"]
+    return row
 
 
 def kernel_entries(results) -> list[dict]:

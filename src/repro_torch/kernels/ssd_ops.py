@@ -1,17 +1,20 @@
 """Public wrapper of the SSD chunked scan (after ``repro/kernels/ssd_ops.py``).
 
 A tensor on the CPU goes to the plain version (the exact sequential
-recurrence); a CUDA tensor launches the CUDA kernel or raises. Unlike the
+recurrence); a CUDA tensor launches one of the CUDA kernel's variants
+(``wgmma`` or ``fma``, picked by ``variant`` of ``ssd_scan.py`` from shapes,
+dtypes, strides and pointers before the launch) or raises. Unlike the
 reference wrapper, a ragged S is masked inside the kernel (no padded copies),
 an initial state goes in and the final state comes out, and y is fp32.
-``ssd_scan.launches`` counts kernel launches."""
+``ssd_scan.launches`` counts kernel launches, ``ssd_scan.variant_launches``
+counts them by variant."""
 
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.ssd_ref import ssd_scan_ref
-from repro_torch.kernels.ssd_scan import MAX_SMEM, smem_bytes, ssd_scan_cuda
+from repro_torch.kernels.ssd_scan import MAX_SMEM, smem_bytes, ssd_scan_cuda, variant
 
 
 def _check(x, dt, A, Bm, Cm, initial_state):
@@ -45,9 +48,6 @@ def _check(x, dt, A, Bm, Cm, initial_state):
             raise ValueError("ssd_scan: dt's last dim and A must be contiguous")
         if initial_state is not None and not initial_state.is_contiguous():
             raise ValueError("ssd_scan: initial_state must be contiguous")
-        if smem_bytes(P, N) > MAX_SMEM:
-            raise ValueError(f"ssd_scan: P={P}, N={N} need {smem_bytes(P, N)} bytes of shared "
-                             f"memory, more than a block's {MAX_SMEM}")
     elif x.device.type != "cpu":
         raise ValueError(f"ssd_scan: unsupported device {x.device}")
 
@@ -60,11 +60,19 @@ def ssd_scan(x, dt, A, Bm, Cm, *, initial_state=None):
     _check(x, dt, A, Bm, Cm, initial_state)
     if x.device.type == "cpu":
         return ssd_scan_ref(x, dt, A, Bm, Cm, initial_state)
-    out = ssd_scan_cuda(x, dt, A, Bm, Cm, initial_state)
+    P, N = x.shape[-1], Bm.shape[-1]
+    kind = variant(x.dtype, P, N, [*x.stride()[:3], *Bm.stride()[:2], *Cm.stride()[:2]],
+                   [t.data_ptr() for t in (x, Bm, Cm)])
+    if smem_bytes(kind, P, N) > MAX_SMEM:
+        raise ValueError(f"ssd_scan: P={P}, N={N} need {smem_bytes(kind, P, N)} bytes of "
+                         f"shared memory ({kind} variant), more than a block's {MAX_SMEM}")
+    out = ssd_scan_cuda(x, dt, A, Bm, Cm, initial_state, kind)
     ssd_scan.launches += 1
+    ssd_scan.variant_launches[kind] += 1
     return out
 
 
 ssd_scan.launches = 0
+ssd_scan.variant_launches = {"wgmma": 0, "fma": 0}
 
 __all__ = ["ssd_scan", "ssd_scan_ref"]

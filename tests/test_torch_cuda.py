@@ -318,3 +318,78 @@ def test_bf16_smoke_mamba2_serving_runs_the_kernels(cuda):
         assert torch.isfinite(got).all()
         rel = ((got - want).norm() / want.norm()).item()
         assert rel <= 2e-2, rel
+
+
+def _ssd_views(cuda, B, S, H, P, N, h0, seed):
+    """bf16 x, Bm, Cm as the mamba2 prefill hands them over: views of one
+    (B, S, H·P + 2N) tensor (the conv output), not contiguous."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    xbc = torch.randn((B, S, H * P + 2 * N), generator=gen, device=cuda).mul(0.5).bfloat16()
+    x = xbc[..., :H * P].unflatten(-1, (H, P))
+    Bm, Cm = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+    dt = torch.nn.functional.softplus(torch.randn((B, S, H), generator=gen, device=cuda) - 2)
+    A = -torch.exp(torch.randn((H,), generator=gen, device=cuda))
+    state = torch.randn((B, H, P, N), generator=gen, device=cuda) if h0 else None
+    return x, dt, A, Bm, Cm, state
+
+
+@pytest.mark.parametrize("B,S,H,P,N,h0", [
+    (8, 512, 24, 64, 128, True),  # the mamba2-130m prefill
+    (2, 200, 24, 64, 128, True),  # ragged S
+    (2, 2048, 4, 64, 128, True),  # many chunks
+    (3, 1, 4, 64, 128, True),  # S = 1
+    (2, 65, 4, 64, 128, False),  # one step past a chunk
+    (2, 40, 2, 32, 64, True),  # the narrowest widths the variant takes
+    (1, 100, 3, 96, 192, True),  # three P slices, N = 192
+    (1, 130, 2, 32, 256, False),  # N = 256
+])
+def test_ssd_wgmma_matches_plain(cuda, B, S, H, P, N, h0):
+    x, dt, A, Bm, Cm, state = _ssd_views(cuda, B, S, H, P, N, h0, seed=S + N)
+    before = dict(ssd_scan.variant_launches)
+    y, h = ssd_scan(x, dt, A, Bm, Cm, initial_state=state)
+    torch.cuda.synchronize()
+    moved = {k: v - before[k] for k, v in ssd_scan.variant_launches.items()}
+    assert moved == {"wgmma": 1, "fma": 0}, moved
+    yr, hr = ssd_scan_ref(x, dt, A, Bm, Cm, state)
+    # 1e-4 of the largest output, the reference's own SSD tolerance: the
+    # variant's fp32 operands (G, h, w·x) go in as two bf16 terms each
+    for got, want in ((y, yr), (h, hr)):
+        assert torch.isfinite(got).all()
+        err = (got - want).abs().max().item()
+        assert err <= 1e-4 * want.abs().max().item(), (err, want.abs().max().item())
+
+
+@pytest.mark.parametrize("dtype,P,N,offset,expected", [
+    (torch.bfloat16, 64, 128, 0, "wgmma"),
+    (torch.float32, 64, 128, 0, "fma"),
+    (torch.bfloat16, 24, 40, 0, "fma"),  # P not a multiple of 32, N not of 64
+    (torch.bfloat16, 64, 320, 0, "fma"),  # N over 256
+    (torch.bfloat16, 64, 128, 1, "fma"),  # views not 16-byte aligned
+])
+def test_ssd_variants_route_by_shape_dtype_and_alignment(cuda, dtype, P, N, offset, expected):
+    B, S, H = 2, 70, 2
+    gen = torch.Generator(device=cuda).manual_seed(P + N + offset)
+    buf = torch.randn((B * S * (H * P + 2 * N) + offset,), generator=gen, device=cuda)
+    xbc = buf.mul(0.5).to(dtype)[offset:].view(B, S, H * P + 2 * N)
+    x = xbc[..., :H * P].unflatten(-1, (H, P))
+    Bm, Cm = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+    dt = torch.nn.functional.softplus(torch.randn((B, S, H), generator=gen, device=cuda))
+    A = -torch.exp(torch.randn((H,), generator=gen, device=cuda) * 0.3)
+    before = dict(ssd_scan.variant_launches)
+    y, h = ssd_scan(x, dt, A, Bm, Cm)
+    torch.cuda.synchronize()
+    moved = {k: v - before[k] for k, v in ssd_scan.variant_launches.items()}
+    assert moved == {k: int(k == expected) for k in moved}, moved
+    yr, hr = ssd_scan_ref(x, dt, A, Bm, Cm)
+    for got, want in ((y, yr), (h, hr)):
+        assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+def test_ssd_wgmma_is_deterministic(cuda):
+    """Every sum of the wgmma variant has a fixed order: the same inputs give
+    the same bits."""
+    x, dt, A, Bm, Cm, state = _ssd_views(cuda, 2, 300, 8, 64, 128, True, seed=9)
+    y0, h0 = ssd_scan(x, dt, A, Bm, Cm, initial_state=state)
+    for _ in range(3):
+        y, h = ssd_scan(x, dt, A, Bm, Cm, initial_state=state)
+        assert torch.equal(y, y0) and torch.equal(h, h0)

@@ -39,8 +39,10 @@ from repro.models import transformer as JT
 from repro.serving.decode import decode_tokens as jax_decode_tokens
 from repro_torch.bridge import lora_from_numpy, params_from_numpy
 from repro_torch.config import LoRAConfig, get_arch, smoke_variant
+from repro_torch.kernels import ssd_ref
+from repro_torch.kernels import ssd_scan as ssd_binding
 from repro_torch.kernels.ssd_ops import ssd_scan
-from repro_torch.kernels.ssd_ref import ssd_scan_ref
+from repro_torch.kernels.ssd_ref import ssd_scan_ref, ssd_scan_split_ref
 from repro_torch.models import mamba2 as M2
 from repro_torch.models import transformer as T
 from repro_torch.serving.decode import decode_tokens
@@ -122,6 +124,89 @@ def test_ssd_initial_and_final_state_match_reference_chunked(s, chunk):
         _close_rel(y, jy)
         _close_rel(h, jh)
     assert torch.equal(th0, torch.from_numpy(h0))  # the initial state is not written
+
+
+def _bf16_exact(a):
+    """a rounded to bf16 and back: values the wgmma variant reads exactly."""
+    return torch.from_numpy(a).bfloat16().float().numpy()
+
+
+# (B, S, H, P, N, the Pallas kernel's chunk, initial state)
+SPLIT_CASES = [(*case, False) for case in SSD_CASES] + [
+    (2, 200, 3, 32, 64, 64, True),  # ragged S from an initial state
+    (1, 512, 2, 64, 128, 256, False),  # mamba2-130m widths
+]
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk,with_state", SPLIT_CASES)
+def test_ssd_split_ref_matches_pallas_and_ref(b, s, h, p, n, chunk, with_state):
+    """The wgmma variant's arithmetic (chunks of 64, two-term bf16 splits of
+    G, h and w⊙x) within 1e-4 of the largest output of the reference's
+    Pallas kernel (interpret mode) and sequential oracle, or, from an
+    initial state, of its ssd_chunked; x, B and C bf16-rounded, as the
+    variant reads them."""
+    x, dt, A, Bm, Cm, h0 = _ssd_inputs(b, s, h, p, n, seed=s + p)
+    x, Bm, Cm = _bf16_exact(x), _bf16_exact(Bm), _bf16_exact(Cm)
+    h0 = h0 if with_state else None
+    jargs = [jnp.asarray(a) for a in (x, dt, A, Bm, Cm)]
+    y, h_final = ssd_scan_split_ref(*(torch.from_numpy(a) for a in (x, dt, A, Bm, Cm)),
+                                    None if h0 is None else torch.from_numpy(h0))
+    assert y.dtype == h_final.dtype == torch.float32
+    assert y.shape == (b, s, h, p) and h_final.shape == (b, h, p, n)
+    jy, jh = JM2.ssd_chunked(*jargs, chunk, initial_state=None if h0 is None else jnp.asarray(h0))
+    if h0 is None:
+        _close_rel(y, jax_ssd_scan(*jargs, chunk=chunk))
+        _close_rel(y, jax_ssd_scan_ref(*jargs))
+    _close_rel(y, jy)
+    _close_rel(h_final, jh)
+
+
+@pytest.mark.parametrize("dropped", [None, "G", "h", "xw"])
+def test_ssd_split_needs_two_terms_of_each_operand(dropped):
+    """The precision argument of the wgmma variant, at mamba2-130m widths with
+    the prefill's distributions: with hi + lo terms of G, h and w⊙x the
+    chunked arithmetic is within 1e-4 of the largest output of the sequential
+    recurrence; without the lo term of any one of them it is not."""
+    rng = np.random.default_rng(3)
+    b, s, h, p, n = 1, 512, 2, 64, 128
+    x = _bf16_exact(0.5 * rng.standard_normal((b, s, h, p), np.float32))
+    dt = np.log1p(np.exp(rng.standard_normal((b, s, h)) - 2)).astype(np.float32)
+    A = -np.exp(rng.standard_normal(h)).astype(np.float32)
+    Bm, Cm = (_bf16_exact(0.5 * rng.standard_normal((b, s, n), np.float32)) for _ in range(2))
+    h0 = rng.standard_normal((b, h, p, n)).astype(np.float32)
+    args = [torch.from_numpy(a) for a in (x, dt, A, Bm, Cm, h0)]
+    y_ref, h_ref = ssd_scan_ref(*args)
+    kept = tuple(o for o in ssd_ref.SPLIT_OPERANDS if o != dropped)
+    y, h_final = ssd_scan_split_ref(*args, lo_terms=kept)
+    err = max(float((y - y_ref).abs().max() / y_ref.abs().max()),
+              float((h_final - h_ref).abs().max() / h_ref.abs().max()))
+    assert (err <= SSD_REL) == (dropped is None), err
+
+
+@pytest.mark.parametrize("dtype,P,N,strides,pointers,expected", [
+    # the mamba2-130m prefill: views of the (B, S, 1792) conv output
+    (torch.bfloat16, 64, 128, (917504, 1792, 64, 917504, 1792, 917504, 1792), (0, 3072, 3328),
+     "wgmma"),
+    (torch.float32, 64, 128, (8, 8, 8, 8, 8, 8, 8), (0, 0, 0), "fma"),
+    (torch.bfloat16, 24, 40, (8, 8, 8, 8, 8, 8, 8), (0, 0, 0), "fma"),
+    (torch.bfloat16, 64, 320, (8, 8, 8, 8, 8, 8, 8), (0, 0, 0), "fma"),
+    (torch.bfloat16, 64, 128, (8, 8, 8, 8, 8, 8, 8), (0, 2, 0), "fma"),  # a pointer off 16 bytes
+    (torch.bfloat16, 64, 128, (8, 12, 8, 8, 8, 8, 8), (0, 0, 0), "fma"),  # a stride off 16 bytes
+])
+def test_ssd_variant_rule(dtype, P, N, strides, pointers, expected):
+    """The rule that routes a CUDA launch, decided before it from shapes,
+    dtypes, strides and pointers (the card tests run both variants)."""
+    assert ssd_binding.variant(dtype, P, N, strides, pointers) == expected
+
+
+def test_ssd_smem_bytes_mirror_the_kernel_layouts():
+    """smem_bytes mirrors csrc/ssd_scan.cu: tc::Layout<2>::SMEM at the main
+    path (1 KiB alignment + x, B, C of a chunk + h's and w⊙x's terms + the
+    chunk's cs, dt + the barrier: three blocks per SM) and simt::smem_floats."""
+    assert ssd_binding.smem_bytes("wgmma", 64, 128) == 1024 + 36864 + 16384 + 8192 + 512 + 8
+    assert 3 * (ssd_binding.smem_bytes("wgmma", 64, 128) + 1024) <= 228 * 1024
+    assert ssd_binding.smem_bytes("fma", 64, 128) == 4 * (64 * 129 + 32 * 64 + 2 * 32 * 129
+                                                          + 32 * 32 + 32)
 
 
 def test_ssd_wrapper_rejects_bad_inputs():
