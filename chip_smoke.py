@@ -7,10 +7,11 @@ Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``:
 
 Two serving paths, each at full width and depth: ``fedsllm-100m`` (dense,
 fused LoRA + flash attention) and ``mamba2-130m`` (SSM, fused LoRA + the SSD
-chunked scan). Phases, each of which fails the run (non-zero exit) on any miss:
+chunked scan); then the training path, one FedsLLM global round. Phases,
+each of which fails the run (non-zero exit) on any miss:
   1. build   — compile every CUDA kernel from ``src/repro_torch/csrc`` (one
                nvcc per source, all at once);
-then, for each path:
+then, for each serving path:
   2. kernels — each of its kernels against its plain PyTorch version on the
                card at the path's shapes, with stated tolerances;
   3. slice   — the model (bf16, batch 8, prompt 512, 32 new tokens, random
@@ -30,7 +31,19 @@ then, for each path:
                exists) at the path's shapes, beside
                the least time the card could take and the first port's time
                for the same kernel, and the host's cost of a LoRA launch (``host_ms``);
-               prefill ms and decode tokens/s.
+               prefill ms and decode tokens/s;
+and last
+  5. train   — (a) one round of smoke fedsllm-100m (fp32) on the card and on
+               the CPU from the same state and batches, agreeing within 1e-4;
+               (b) three rounds of full-width, full-depth fedsllm-100m (bf16,
+               K=4 clients of 8 x 256 tokens, I_loc=11, weighted FedAvg, one
+               client masked out of the second round) through
+               ``build_round_fn``, with finite metrics, no effect of the
+               masked client's batch, split == monolithic and bf16 against
+               fp32 within the limits of ``TRAIN_LIMITS``, and no kernel
+               launch (training runs no kernel: they are forward-only); round
+               seconds, ms per split forward/backward, peak memory and the
+               device's busy share and top operations of one pass.
 
 Prints the compiled kernels' registers and spills, the card's name and power
 limit, a ``{"kernels": [...]}`` line, and last ``{"ok": true, "device":
@@ -55,8 +68,12 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch.config import LoRAConfig, get_arch  # noqa: E402
+from repro_torch.api.aggregators import get_aggregator  # noqa: E402
+from repro_torch.config import FedsLLMConfig, LoRAConfig, get_arch, smoke_variant  # noqa: E402
+from repro_torch.core import fedsllm, split  # noqa: E402
+from repro_torch.core.delay_model import sample_network  # noqa: E402
 from repro_torch.core.lora import init_lora, merge  # noqa: E402
+from repro_torch.data.tokens import TokenStream, client_batches  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.attn_ops import flash_attention  # noqa: E402
 from repro_torch.kernels.attn_ref import flash_attention_ref  # noqa: E402
@@ -67,6 +84,7 @@ from repro_torch.kernels.ssd_ref import ssd_scan_ref  # noqa: E402
 from repro_torch.models import mamba2 as M2  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.serving.decode import decode_tokens  # noqa: E402
+from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
 OUT = ROOT / "build" / "chip_smoke"
 # NVIDIA H100 SXM data sheet: dense bf16 tensor-core peak, HBM3 bandwidth
@@ -824,6 +842,227 @@ def run_path(arch: str, dev) -> dict:
     return {"checks": checks, "slice": slice_res, "timings": timings}
 
 
+# ---------------------------------------------------------------------------
+# phase 5: training, FedsLLM global rounds through build_round_fn
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "fedsllm-100m"
+TRAIN_CUT = 1  # the reference Experiment's default cut, round(0.1 x 12 layers)
+TRAIN_K, TRAIN_B, TRAIN_S = 4, 8, 256  # clients; the reference CLI's default batch, sequence
+TRAIN_ETA = 0.5  # eta_train_max: I_loc = 11 by Lemma 2
+TRAIN_ROUNDS = 3
+TRAIN_MASKED = (1, 2)  # (round, client): the second round masks client 2 out
+# limits, written in PERF.md §2 before the first run on the card
+TRAIN_LIMITS = {
+    # smoke round, card against CPU (fp32, TF32 off): of the largest value,
+    # per adapter leaf and per metric
+    "card_vs_cpu": 1e-4,
+    # relative Frobenius per gradient leaf: the same autograd graph, cut or
+    # not; one bf16 rounding of a gradient if anything sums in another order
+    "split_vs_monolithic": 2.0 ** -8,
+    # relative, loss_round_start: bf16 activations through 12 layers move
+    # the fp32 logits by ~2% (the serving paths' logits vs fp32), and the
+    # loss averages that over 8192 tokens
+    "bf16_vs_fp32_loss": 1e-2,
+    # relative Frobenius of the aggregated update h̄ (h̄_c and h̄_s each): in
+    # bf16 the merged weights W + 2·A·B round away a small adapter step, and
+    # the round-start gradient is a sum of per-token terms that nearly cancel,
+    # so the two trajectories part within a round. The limit asks that the
+    # bf16 update be closer to the fp32 one than no update is
+    "bf16_vs_fp32_hbar": 1.0,
+}
+
+
+def to_dev(tree, dev):
+    return tree_map(lambda t: t.to(dev), tree)
+
+
+def leaf_gap(got, want) -> float:
+    """Largest |got - want| over the largest |want|, over the leaves' pairs."""
+    return max(((g.float().cpu() - w.float().cpu()).abs().max()
+                / w.float().cpu().abs().max().clamp(min=1e-30)).item()
+               for g, w in zip(tree_leaves(got), tree_leaves(want)))
+
+
+def flat(tree):
+    return torch.cat([x.float().flatten() for x in tree_leaves(tree)])
+
+
+def rel_frob(got, want) -> float:
+    """Relative Frobenius distance of two trees, all leaves at once."""
+    g, w = flat(got), flat(want)
+    return ((g - w).norm() / w.norm()).item()
+
+
+def cosine(a, b) -> float:
+    a, b = flat(a), flat(b)
+    return (torch.dot(a, b) / (a.norm() * b.norm())).item()
+
+
+def zero_counters() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+    for counts in VARIANTS.values():
+        for kind in counts:
+            counts[kind] = 0
+
+
+def train_parity(dev) -> dict:
+    """Part (a): one gd round of smoke fedsllm-100m (fp32) on the card and on
+    the CPU, from the same state and batches."""
+    cfg = smoke_variant(get_arch(TRAIN_ARCH))
+    K = 2
+    state = fedsllm.init_state(cfg, cut=TRAIN_CUT, seed=0, device="cpu")
+    batches = client_batches(TokenStream(2, 16, cfg.vocab_size, device="cpu"), 0, K)
+    round_fn = fedsllm.build_round_fn(cfg, FedsLLMConfig(num_clients=K), TRAIN_CUT, 0.9)
+    cpu_state, cpu_m = round_fn(state, batches)
+    card_state, card_m = round_fn(to_dev(state, dev), to_dev(batches, dev))
+    gaps = {"lora_c": leaf_gap(card_state.lora_c, cpu_state.lora_c),
+            "lora_s": leaf_gap(card_state.lora_s, cpu_state.lora_s),
+            **{k: leaf_gap(card_m[k], cpu_m[k]) for k in cpu_m}}
+    log(f"[train] (a) smoke round, card vs CPU (of the largest value): {json.dumps(gaps)}")
+    return gaps
+
+
+def timed(fn):
+    """fn()'s result and its time in ms between two CUDA events."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def phase_train(dev) -> dict:
+    """Part (a), then part (b): TRAIN_ROUNDS rounds of full fedsllm-100m."""
+    parity = train_parity(dev)
+    cfg = get_arch(TRAIN_ARCH)
+    fcfg = FedsLLMConfig(num_clients=TRAIN_K)
+    I_loc = fedsllm.local_iteration_count(fcfg, TRAIN_ETA)
+    passes = TRAIN_K * (1 + I_loc)  # round-start gradients, then I_loc steps, per client
+    weights = torch.as_tensor(sample_network(fcfg, seed=0).D_k, dtype=torch.float32, device=dev)
+    weighted = get_aggregator("weighted")
+    round_fn = fedsllm.build_round_fn(cfg, fcfg, TRAIN_CUT, TRAIN_ETA, aggregator=weighted)
+    stream = TokenStream(TRAIN_B, TRAIN_S, cfg.vocab_size, seed=0, device=dev)
+    state = fedsllm.init_state(cfg, cut=TRAIN_CUT, seed=0, device=dev)
+    masked_round, masked_client = TRAIN_MASKED
+    mask = torch.ones(TRAIN_K, device=dev)
+    mask[masked_client] = 0.0
+
+    zero_counters()
+    torch.cuda.reset_peak_memory_stats()
+    rounds = []
+    for r in range(TRAIN_ROUNDS):
+        batches = client_batches(stream, r, TRAIN_K)
+        m = mask if r == masked_round else None
+        prev = state
+        (state, metrics), ms = timed(lambda: round_fn(prev, batches, mask=m, weights=weights))
+        rec = {"round": r, "seconds": ms / 1e3, "ms_per_pass": ms / passes,
+               "masked_client": masked_client if m is not None else None,
+               **{k: v.item() for k, v in metrics.items()}}
+        if m is not None:
+            # the masked client's batch swapped for another: nothing may move
+            other = dict(batches, **{k: batches[k].clone() for k in ("tokens", "labels")})
+            spare = stream.batch_at(10 ** 6)
+            for k in ("tokens", "labels"):
+                other[k][masked_client] = spare[k]
+            again, _ = round_fn(prev, other, mask=m, weights=weights)
+            rec["masked_batch_effect"] = max(
+                (a.float() - b.float()).abs().max().item()
+                for a, b in zip(tree_leaves((again.lora_c, again.lora_s)),
+                                tree_leaves((state.lora_c, state.lora_s))))
+            del again
+        rounds.append(rec)
+        log(f"[train] (b) round {r}: {json.dumps(rec)}")
+    peak = torch.cuda.max_memory_allocated()
+    launches = {name: fn.launches for name, fn in KERNELS.items()}
+    log(f"[train] {TRAIN_ROUNDS} rounds of {passes} split passes (K={TRAIN_K}, B={TRAIN_B}, "
+        f"S={TRAIN_S}, I_loc={I_loc}); peak memory {peak / 2**30:.2f} GiB; kernel launches "
+        f"{launches}")
+
+    # bf16 against fp32: the last round again, from the upcast state
+    cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
+    round32 = fedsllm.build_round_fn(cfg32, fcfg, TRAIN_CUT, TRAIN_ETA, aggregator=weighted)
+    prev32 = tree_map(lambda t: t.float() if t.is_floating_point() else t, prev)
+    new32, metrics32 = round32(fedsllm.FedsLLMState(*prev32), batches, weights=weights)
+    bf16 = {"loss_round_start": abs(metrics["loss_round_start"].item()
+                                    / metrics32["loss_round_start"].item() - 1),
+            "loss_round_start_fp32": metrics32["loss_round_start"].item(),
+            "loss_local_final_fp32": metrics32["loss_local_final"].item(),
+            "h_c_norm_fp32": metrics32["h_c_norm"].item()}
+    for side in ("lora_c", "lora_s"):
+        h = tree_map(lambda a, b: a.float() - b.float(), getattr(state, side), getattr(prev, side))
+        h32 = tree_map(lambda a, b: a - b, getattr(new32, side), getattr(prev32, side))
+        bf16[f"hbar_{side[-1]}"] = rel_frob(h, h32)
+        bf16[f"hbar_{side[-1]}_cos"] = cosine(h, h32)
+    del new32, prev32
+    log(f"[train] bf16 vs fp32, round {TRAIN_ROUNDS - 1}: {json.dumps(bf16)}")
+
+    # split == monolithic, one client batch, the last state
+    batch = stream.batch_at(TRAIN_ROUNDS * TRAIN_K)
+    loss_s, dc, ds, info = split.split_value_and_grad(state.base, state.lora_c, state.lora_s,
+                                                      batch, cfg, TRAIN_CUT)
+    loss_m, mdc, mds = split.monolithic_value_and_grad(state.base, state.lora_c, state.lora_s,
+                                                       batch, cfg, TRAIN_CUT)
+    split_gap = max(rel_frob(a, b) for a, b in zip(tree_leaves((dc, ds)), tree_leaves((mdc, mds))))
+    log(f"[train] split vs monolithic: per-leaf relative Frobenius {split_gap:.3e}, loss "
+        f"{loss_s.item():.6f} vs {loss_m.item():.6f}; info {json.dumps(info)}")
+
+    # one split forward/backward: event time, device time and busy share
+    def one_pass():
+        return split.split_value_and_grad(state.base, state.lora_c, state.lora_s, batch, cfg,
+                                          TRAIN_CUT)
+
+    one_pass()
+    pass_ms = sum(timed(one_pass)[1] for _ in range(5)) / 5
+    dev_ms, top, host_top = device_ms(one_pass)
+    try:
+        pass_graph_ms, graph_error = graph_ms(one_pass, [()], iters=1), None
+    except RuntimeError as e:  # a measurement, not a check: say why it is missing
+        pass_graph_ms, graph_error = None, str(e)[:300]
+    pass_dev = dev_ms if dev_ms is not None else pass_graph_ms
+    profile = {"pass_ms": pass_ms, "pass_device_ms": dev_ms, "pass_graph_ms": pass_graph_ms,
+               "pass_device_ms_by": "profiler" if dev_ms is not None else "cuda_graph",
+               "graph_error": graph_error, "pass_busy": share(pass_dev, pass_ms),
+               "top_kernels": top, "top_host_ops": host_top}
+    log(f"[train] one split forward/backward: {pass_ms:.3f} ms (events), device "
+        f"{dev_ms} ms (profiler), {pass_graph_ms} ms (CUDA graph), busy {profile['pass_busy']}")
+    for name, rows in (("device", top), ("host", host_top)):
+        for key, ms, count in rows:
+            log(f"[profile] train pass {name} {ms:9.3f} ms  x{count:<5d} {key}")
+
+    fails = []
+    if max(parity.values()) > TRAIN_LIMITS["card_vs_cpu"]:
+        fails.append(f"card vs CPU {parity}")
+    if any(launches.values()):
+        fails.append(f"training launched kernels {launches}")
+    if not all(math.isfinite(r[k]) for r in rounds for k in
+               ("loss_round_start", "loss_local_final", "h_c_norm")):
+        fails.append("a metric is not finite")
+    if rounds[masked_round]["masked_batch_effect"] != 0.0:
+        fails.append(f"the masked client's batch moved the update by "
+                     f"{rounds[masked_round]['masked_batch_effect']}")
+    if not split_gap <= TRAIN_LIMITS["split_vs_monolithic"]:
+        fails.append(f"split vs monolithic {split_gap}")
+    if not bf16["loss_round_start"] <= TRAIN_LIMITS["bf16_vs_fp32_loss"]:
+        fails.append(f"bf16 vs fp32 loss {bf16['loss_round_start']}")
+    if not max(bf16["hbar_c"], bf16["hbar_s"]) <= TRAIN_LIMITS["bf16_vs_fp32_hbar"]:
+        fails.append(f"bf16 vs fp32 h̄ {bf16['hbar_c']}, {bf16['hbar_s']}")
+    result = {"config": {"arch": TRAIN_ARCH, "cut": TRAIN_CUT, "K": TRAIN_K, "B": TRAIN_B,
+                         "S": TRAIN_S, "eta": TRAIN_ETA, "I_loc": I_loc, "passes": passes,
+                         "aggregator": "weighted", "masked": TRAIN_MASKED},
+              "limits": TRAIN_LIMITS, "parity": parity, "rounds": rounds,
+              "peak_memory_bytes": peak, "launches": launches, "bf16_vs_fp32": bf16,
+              "split_vs_monolithic": split_gap, "info": info, "profile": profile,
+              "fails": fails}
+    (OUT / "train.json").write_text(json.dumps(result, indent=1))
+    if fails:
+        raise SystemExit(f"[train] {len(fails)} check(s) failed: {fails}")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -839,11 +1078,12 @@ def main() -> int:
     build = phase_build()
     results = {arch: run_path(arch, dev) for arch in ARCHS}
     kernels = kernel_entries(results)
+    train = phase_train(dev)
     (OUT / "chip_smoke.json").write_text(json.dumps(
         {"nvidia_smi": smi, "build": build, "kernels": kernels, "traces": TRACE_LOG,
          "paths": {arch: {"checks": r["checks"], "slice": r["slice"],
                           "end_to_end": r["timings"]["end_to_end"]}
-                   for arch, r in results.items()}}, indent=1))
+                   for arch, r in results.items()}, "train": train}, indent=1))
     log(f"[timing] torch.profiler traces kept {TRACE_LOG['kept']}, lost {TRACE_LOG['lost']}")
     print(smi)
     print(json.dumps({"kernels": [{k: v for k, v in e.items() if k != "shapes"}

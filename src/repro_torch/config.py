@@ -1,11 +1,12 @@
-"""Model and LoRA configuration for the PyTorch port.
+"""Model, LoRA and FedsLLM configuration for the PyTorch port.
 
 The port's own copy of the configuration dataclasses of ``repro.config``: the
 fields are the same, so a registered architecture reads identically in both
 packages, but only the dense decoder (``family="dense"``, layer char ``G``)
 and the SSM (``family="ssm"``, layer char ``M``) are runnable here.
 ``ModelConfig`` keeps every field of the reference so that configuration
-modules copy over verbatim.
+modules copy over verbatim; ``FedsLLMConfig`` (the paper's §III/IV
+settings) is copied field for field.
 """
 
 from __future__ import annotations
@@ -100,6 +101,50 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class FedsLLMConfig:
+    """Paper Section III/IV settings (defaults = the paper's simulation)."""
+
+    num_clients: int = 50
+    area_m: float = 500.0  # 500 m x 500 m square, BS at centre
+    split_ratio_min: float = 0.1  # A_min
+    split_ratio_max: float = 0.9  # A_max
+    # Lemma constants
+    xi: float = 0.1  # ξ
+    delta: float = 0.1  # δ (local GD step size)
+    epsilon0: float = 1e-3  # ε0 target global accuracy
+    L_smooth: float = 1.0  # L (Lipschitz)
+    gamma_strong: float = 1.0  # γ (strong convexity)
+    # channel / radio
+    bandwidth_total_hz: float = 20e6  # B_c = B_s = 20 MHz
+    noise_psd_dbm_hz: float = -174.0  # N0
+    pathloss_const_db: float = 128.1
+    pathloss_exp: float = 37.6  # 128.1 + 37.6 log10(d_km)
+    shadow_std_db: float = 8.0
+    p_max_dbm: float = 10.0  # per-user max tx power
+    # compute
+    f_max_hz: float = 2e9  # client CPU 2 GHz
+    f_server_hz: float = 1e10  # main server (>> clients)
+    cycles_per_param_low: float = 1e4  # C_k ~ U[1,3]x1e4
+    cycles_per_param_high: float = 3e4
+    kappa: float = 1e-28  # effective switched capacitance
+    # data volumes
+    s_c_bits: float = 28.1e3  # client->fed server per round
+    s_bits: float = 281e3  # client->main server per local iteration
+    # dataset
+    num_samples: int = 60_021  # BlogFeedback [12]
+    sample_dim: int = 281
+    # eta sweep
+    eta_step: float = 0.01
+    # training-η policy (repro.api.Experiment): η* from the allocator is
+    # clamped to ≤ eta_train_max so Lemma 2 keeps a non-trivial local
+    # iteration count; joint per-round re-solves (reallocate=True) quantize
+    # the adopted η to the eta_bucket grid so the campaign reuses one jitted
+    # round function per bucket instead of recompiling every round
+    eta_train_max: float = 0.5
+    eta_bucket: float = 0.05
 
 
 _REGISTRY: dict[str, Callable[[], ModelConfig]] = {}

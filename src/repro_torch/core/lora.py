@@ -5,9 +5,14 @@ weight they adapt, e.g. ``"['groups']['sub_0']['attn']['wq']"``, with the
 layer-stack dim kept: ``{"A": (num_groups, d_in, r), "B": (num_groups, r, d_out)}``.
 
 Two ways to apply them, as in the reference:
-  * ``merge``      — W' = W + scale·A@B, the plain baseline;
+  * ``merge``      — W' = W + scale·A@B: the training path (autograd through
+    the merge gives dA and dB) and the plain serving baseline;
   * ``layer_adapters`` hands each projection its ``(A, B, scale)``, so that
-    ``layers.project`` runs the fused LoRA kernel without forming W'.
+    ``layers.project`` runs the fused LoRA kernel without forming W'
+    (serving only: the kernel is forward-only).
+
+``split_client_server`` / ``join_client_server`` cut the adapters at a group
+boundary, as the split-learning engine cuts the model.
 """
 
 from __future__ import annotations
@@ -76,6 +81,54 @@ def merge(params, lora, cfg: ModelConfig):
         return out
 
     return walk(params, ())
+
+
+def delta_norm(lora) -> torch.Tensor:
+    """||Δw|| over every adapter's A and B, in fp32 (a 0-d tensor)."""
+    sq = [torch.sum(torch.square(v["A"].float())) + torch.sum(torch.square(v["B"].float()))
+          for v in lora.values()]
+    return torch.sqrt(sum(sq))
+
+
+def lora_param_count(cfg: ModelConfig) -> int:
+    """Adapter parameter count (the delay model's |Δw|), from the shapes of
+    ``init_params`` on the meta device: no weights are drawn."""
+    from repro_torch.models.transformer import init_params
+
+    lcfg = cfg.lora or LoRAConfig()
+    total = 0
+    for path, leaf in _leaves(init_params(cfg, device="meta")):
+        if path[-1] in lcfg.targets and leaf.ndim >= 2:
+            total += leaf.shape[:-2].numel() * lcfg.rank * (leaf.shape[-2] + leaf.shape[-1])
+    return total
+
+
+def split_client_server(lora, cut_group: int):
+    """Cut the adapters at a group boundary: leaves under ``groups`` are
+    sliced along the layer stack (the first ``cut_group`` layers to the
+    client), embed-side adapters go to the client, the rest to the server."""
+    client, server = {}, {}
+    for pstr, ab in lora.items():
+        if "groups" in pstr:
+            client[pstr] = {k: v[:cut_group] for k, v in ab.items()}
+            server[pstr] = {k: v[cut_group:] for k, v in ab.items()}
+        elif "embed" in pstr:
+            client[pstr] = ab
+        else:
+            server[pstr] = ab
+    return client, server
+
+
+def join_client_server(client, server):
+    """Inverse of ``split_client_server``."""
+    out = {}
+    for pstr in list(client) + [p for p in server if p not in client]:
+        if pstr in client and pstr in server:
+            out[pstr] = {k: torch.cat([client[pstr][k], server[pstr][k]], dim=0)
+                         for k in client[pstr]}
+        else:
+            out[pstr] = client[pstr] if pstr in client else server[pstr]
+    return out
 
 
 def layer_adapters(lora, cfg: ModelConfig, index: int):

@@ -5,12 +5,15 @@ the CUDA kernel's variants (bf16, head dim 16/32/64/128; picked by
 ``variant`` of ``flash_attention.py``) or raises. Unlike the reference
 wrapper, nothing is padded and ragged lengths never fall back: the kernel
 masks the edge itself. ``flash_attention.launches`` counts kernel launches,
-``flash_attention.variant_launches`` counts them by variant."""
+``flash_attention.variant_launches`` counts them by variant.
+Forward-only: with grad mode on, an input that requires grad raises
+(``kernels.require_no_grad``), on every device."""
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import require_no_grad
 from repro_torch.kernels.attn_ref import flash_attention_ref
 from repro_torch.kernels.flash_attention import HEAD_DIMS, flash_attention_cuda, variant
 
@@ -43,6 +46,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, softcap: f
     contiguous last dim; query position i sees key positions j <= i (causal)
     and j > i - window (window > 0), both counted from 0."""
     _check(q, k, v)
+    require_no_grad("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window, softcap=softcap)
     kind = variant(q.shape[-1], [s for t in (q, k, v) for s in t.stride()[:3]],

@@ -4,12 +4,15 @@ Flattens leading dims and checks its inputs. A tensor on the CPU goes to the
 plain version; a CUDA tensor launches one of the CUDA kernel's variants
 (bf16 only, picked from the shapes by ``plan`` of ``lora_matmul.py``) or raises.
 ``lora_matmul.launches`` counts kernel launches, and
-``lora_matmul.variant_launches`` counts them by variant."""
+``lora_matmul.variant_launches`` counts them by variant.
+Forward-only: with grad mode on, an input that requires grad raises
+(``kernels.require_no_grad``), on every device."""
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import require_no_grad
 from repro_torch.kernels.lora_matmul import MAX_RANK, lora_matmul_cuda, plan
 from repro_torch.kernels.lora_ref import lora_matmul_ref
 
@@ -40,6 +43,7 @@ def _check(x, w, a, b):
 def lora_matmul(x, w, a, b, *, scale: float = 1.0):
     """y = x·W + scale·(x·A)·B with x (..., K), w (K, N), a (K, r), b (r, N)."""
     _check(x, w, a, b)
+    require_no_grad("lora_matmul", x, w, a, b)
     lead, K, N = x.shape[:-1], x.shape[-1], w.shape[1]
     x2 = x.reshape(-1, K)
     if x.device.type == "cpu":

@@ -7,12 +7,14 @@ dtypes, strides and pointers before the launch) or raises. Unlike the
 reference wrapper, a ragged S is masked inside the kernel (no padded copies),
 an initial state goes in and the final state comes out, and y is fp32.
 ``ssd_scan.launches`` counts kernel launches, ``ssd_scan.variant_launches``
-counts them by variant."""
+counts them by variant. Forward-only: with grad mode on, an input
+that requires grad raises (``kernels.require_no_grad``), on every device."""
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import require_no_grad
 from repro_torch.kernels.ssd_ref import ssd_scan_ref
 from repro_torch.kernels.ssd_scan import MAX_SMEM, smem_bytes, ssd_scan_cuda, variant
 
@@ -58,6 +60,7 @@ def ssd_scan(x, dt, A, Bm, Cm, *, initial_state=None):
     final state (B,H,P,N)), both fp32. The result does not depend on a chunk
     length, so none is taken: the kernel picks its own."""
     _check(x, dt, A, Bm, Cm, initial_state)
+    require_no_grad("ssd_scan", x, dt, A, Bm, Cm, initial_state)
     if x.device.type == "cpu":
         return ssd_scan_ref(x, dt, A, Bm, Cm, initial_state)
     P, N = x.shape[-1], Bm.shape[-1]

@@ -8,6 +8,9 @@ reference are dropped: one card holds everything.
 A targeted projection goes through ``project``: plain ``x @ W`` without an
 adapter, the fused LoRA kernel with one. Prefill attention goes through the
 flash kernel (``kernels=True``) or the plain ``_attend_full`` baseline.
+Training, as in the reference, passes no adapter (it merges them into W,
+``lora.merge``) and ``kernels=False``: the kernels are forward-only, and
+their wrappers raise on an input that requires grad.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
 from repro_torch.kernels.attn_ops import flash_attention
@@ -244,3 +248,48 @@ def lm_logits(p, x, cfg: ModelConfig):
     if cfg.logit_scale != 1.0:
         logits = logits * cfg.logit_scale
     return _softcap(logits, cfg.final_logit_softcap)
+
+
+def cross_entropy(logits, labels, mask=None):
+    """Mean token cross-entropy in fp32. logits (B,S,V), labels (B,S)."""
+    logits = logits.float()
+    nll = torch.logsumexp(logits, dim=-1) - logits.gather(-1, labels.long()[..., None])[..., 0]
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)
+
+
+def _chunk_nll_sum(xs, ls, ms, w, cfg: ModelConfig):
+    """Masked sum of one sequence chunk's token NLLs; logits fp32 (the
+    working type's products accumulated in fp32), then discarded."""
+    logits = xs.float() @ w.float()
+    if cfg.logit_scale != 1.0:
+        logits = logits * cfg.logit_scale
+    logits = _softcap(logits, cfg.final_logit_softcap)
+    gold = logits.gather(-1, ls.long()[..., None])[..., 0]
+    return torch.sum((torch.logsumexp(logits, dim=-1) - gold) * ms)
+
+
+def fused_cross_entropy(params_embed, x, labels, cfg: ModelConfig, mask=None, chunk: int = 256):
+    """Sequence-chunked CE, the reference's: each chunk's (B, chunk, V) fp32
+    logits are reduced to a masked NLL sum and discarded, and recomputed in
+    the backward (activation checkpointing, as the reference's
+    ``jax.checkpoint``), so the full (B, S, V) logits never exist. A ragged
+    S is padded to a chunk multiple with mask 0. Returns the masked mean."""
+    B, S, _ = x.shape
+    w = (params_embed["tokens"].T if cfg.tie_embeddings else params_embed["head"]).to(x.dtype)
+    chunk = min(chunk, S)
+    if mask is None:
+        mask = torch.ones((B, S), dtype=torch.float32, device=x.device)
+    if S % chunk:
+        pad = chunk - S % chunk
+        x, labels, mask = F.pad(x, (0, 0, 0, pad)), F.pad(labels, (0, pad)), F.pad(mask, (0, pad))
+    nll_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, x.shape[1], chunk):
+        ms = mask[:, i:i + chunk]
+        nll_sum = nll_sum + checkpoint(_chunk_nll_sum, x[:, i:i + chunk], labels[:, i:i + chunk],
+                                       ms, w, cfg, use_reentrant=False,
+                                       preserve_rng_state=False)
+        cnt = cnt + torch.sum(ms)
+    return nll_sum / torch.clamp(cnt, min=1.0)

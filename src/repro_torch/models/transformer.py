@@ -4,15 +4,20 @@ and ``M`` (a Mamba-2 SSD block, the ``ssm`` family). One char per group.
 
 Parameters keep the reference's tree: ``{"embed", "groups", "final_norm"}``
 with the group leaves stacked ``(num_groups, ...)``; the reference's
-``lax.scan`` over groups is a Python loop here, and the caches (KV
-``(num_groups, B, S, Kv, hd)``; SSM conv and SSD states) are updated in
-place (the reference carries a new cache through the scan; in place saves a
-cache copy per step).
+``lax.scan`` over groups is a Python loop here, over whatever stack it is
+given (the whole stack, or the split engine's client or server view), and
+the caches (KV ``(num_groups, B, S, Kv, hd)``; SSM conv and SSD states) are
+updated in place (the reference carries a new cache through the scan; in
+place saves a cache copy per step).
 
-``kernels`` (prefill only) picks the CUDA kernels of the prefill, flash
-attention and the SSD scan, or their plain baselines ``_attend_full`` and
-``ssd_chunked``. Adapted projections run the fused LoRA kernel whenever
-adapters are given.
+Two paths, as in the reference:
+  * training (``hidden_states``, ``loss_fn`` and ``core/split.py``) runs
+    merged weights (``lora.merge``), ``_attend_full`` and ``ssd_chunked``
+    under autograd, and no kernel: the kernels are forward-only;
+  * serving (``prefill``, ``decode_step``) takes the adapters unmerged:
+    adapted projections run the fused LoRA kernel, and ``kernels`` (prefill
+    only) picks the CUDA kernels of flash attention and the SSD scan or
+    their plain baselines ``_attend_full`` and ``ssd_chunked``.
 """
 
 from __future__ import annotations
@@ -95,10 +100,12 @@ def apply_group(gp, x, cfg: ModelConfig, *, cache=None, cache_pos=None, position
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"):
     """Random weights with the reference's shapes and scales, drawn from a
-    ``torch.Generator`` on ``device`` seeded with ``seed``."""
+    ``torch.Generator`` on ``device`` seeded with ``seed`` (on the meta
+    device: shapes only)."""
     _require_ported(cfg)
     device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    # the meta device holds shapes only (lora_param_count): nothing to draw
+    gen = None if device.type == "meta" else torch.Generator(device=device).manual_seed(seed)
     tree = {"embed": L.init_embed(gen, cfg, device)}
     layers = [init_sublayer(gen, cfg, device) for _ in range(cfg.num_layers)]
 
@@ -124,15 +131,26 @@ def _embed_inputs(params, batch, cfg: ModelConfig):
     return x, positions
 
 
+def _num_groups(groups) -> int:
+    while isinstance(groups, dict):
+        groups = next(iter(groups.values()))
+    return groups.shape[0]
+
+
 def _scan_groups(params, x, cfg: ModelConfig, *, cache=None, cache_pos=None, positions=None,
-                 lora=None, kernels=True):
-    """Run the stacked groups, writing the cache (if any) in place."""
+                 lora=None, kernels=True, offset=0, include_tail=True):
+    """Run the stacked groups ``params["groups"]``, writing the cache (if any)
+    in place. The stack may be a view of the model's (``groups[:cut]`` or
+    ``groups[cut:]``); ``offset`` is the layer of ``lora`` that goes with its
+    first group. The ported patterns are one char long, so no model has tail
+    layers and ``include_tail`` (the reference's switch for them) changes
+    nothing."""
     _require_ported(cfg)
-    for i in range(cfg.num_layers):
+    for i in range(_num_groups(params["groups"])):
         x = apply_group(_index(params["groups"], i), x, cfg,
                         cache=_index(cache["groups"], i) if cache else None,
                         cache_pos=cache_pos, positions=positions,
-                        adapters=layer_adapters(lora, cfg, i), kernels=kernels)
+                        adapters=layer_adapters(lora, cfg, offset + i), kernels=kernels)
     return x
 
 
@@ -141,6 +159,23 @@ def forward(params, batch, cfg: ModelConfig, *, lora=None, kernels=True):
     x, positions = _embed_inputs(params, batch, cfg)
     x = _scan_groups(params, x, cfg, positions=positions, lora=lora, kernels=kernels)
     return L.lm_logits(params["embed"], L.apply_norm(params["final_norm"], x, cfg), cfg)
+
+
+def hidden_states(params, batch, cfg: ModelConfig):
+    """The training path's forward up to the final norm. Returns (x, aux);
+    aux = 0, since no ported family has the reference's MoE aux loss."""
+    x, positions = _embed_inputs(params, batch, cfg)
+    x = _scan_groups(params, x, cfg, positions=positions, kernels=False)
+    return L.apply_norm(params["final_norm"], x, cfg), x.new_zeros((), dtype=torch.float32)
+
+
+def loss_fn(params, batch, cfg: ModelConfig, *, aux_weight=0.01):
+    """Training loss: sequence-chunked CE (``layers.fused_cross_entropy``) +
+    aux_weight·aux. Returns (loss, {"ce_loss", "moe_aux"})."""
+    x, aux = hidden_states(params, batch, cfg)
+    loss = L.fused_cross_entropy(params["embed"], x, batch["labels"], cfg,
+                                 mask=batch.get("mask"))
+    return loss + aux_weight * aux, {"ce_loss": loss, "moe_aux": aux}
 
 
 # ---------------------------------------------------------------------------

@@ -11,8 +11,10 @@ a machine with the card and without JAX; there the repository's
 import pytest
 import torch
 
-from repro_torch.config import get_arch, smoke_variant
+from repro_torch.config import FedsLLMConfig, get_arch, smoke_variant
+from repro_torch.core import fedsllm, split
 from repro_torch.core.lora import init_lora, merge
+from repro_torch.data.tokens import TokenStream, client_batches
 from repro_torch.kernels.attn_ops import flash_attention
 from repro_torch.kernels.attn_ref import flash_attention_ref
 from repro_torch.kernels.lora_ops import lora_matmul
@@ -20,6 +22,7 @@ from repro_torch.kernels.lora_ref import lora_matmul_ref
 from repro_torch.kernels.ssd_ops import ssd_scan
 from repro_torch.kernels.ssd_ref import ssd_scan_ref
 from repro_torch.models import transformer as T
+from repro_torch.tree import tree_leaves, tree_map
 
 pytestmark = pytest.mark.cuda
 
@@ -393,3 +396,95 @@ def test_ssd_wgmma_is_deterministic(cuda):
     for _ in range(3):
         y, h = ssd_scan(x, dt, A, Bm, Cm, initial_state=state)
         assert torch.equal(y, y0) and torch.equal(h, h0)
+
+
+# ---------------------------------------------------------------------------
+# training: the round runs no kernel, and the card computes what the CPU does
+# ---------------------------------------------------------------------------
+
+
+def _gap(got, want) -> float:
+    """Largest |got - want| over the largest |want|, over the leaves' pairs."""
+    return max(((g.float().cpu() - w.float().cpu()).abs().max()
+                / w.float().cpu().abs().max().clamp(min=1e-30)).item()
+               for g, w in zip(tree_leaves(got), tree_leaves(want)))
+
+
+def _smoke_train(K=2):
+    cfg = smoke_variant(get_arch("fedsllm-100m"))
+    state = fedsllm.init_state(cfg, cut=1, seed=0, device="cpu")
+    batches = client_batches(TokenStream(2, 16, cfg.vocab_size, device="cpu"), 0, K)
+    return cfg, state, batches
+
+
+@pytest.fixture
+def no_tf32():
+    """fp32 products in full fp32 on the card, as on the CPU."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+@pytest.mark.parametrize("algo", ["gd", "scaffold"])
+def test_smoke_round_on_card_equals_cpu_and_launches_no_kernel(cuda, no_tf32, algo):
+    """One round of smoke fedsllm-100m (fp32) on the card against the same
+    round on the CPU: adapters and metrics within 1e-4 of the largest value;
+    the kernels' launch counters stay at 0 (training runs no kernel)."""
+    cfg, state, batches = _smoke_train()
+    fcfg = FedsLLMConfig(num_clients=2)
+    fn = fedsllm.build_round_fn(cfg, fcfg, 1, 0.9, local_algo=algo)
+    extra = ()
+    if algo == "scaffold":
+        variates = fn.local_algo.init_variates((state.lora_c, state.lora_s), 3)
+        variates = tree_map(lambda v: v + 0.01, variates)
+        extra = (None, None, None, None, None, variates, torch.tensor([2, 0]))
+    want = fn(state, batches, *extra)
+    counts = {k: f.launches for k, f in (("lora", lora_matmul), ("flash", flash_attention),
+                                         ("ssd", ssd_scan))}
+    moved = lambda t: tree_map(lambda v: v.to(cuda) if isinstance(v, torch.Tensor) else v, t)
+    got = fn(moved(state), moved(batches), *moved(extra))
+    torch.cuda.synchronize()
+    assert counts == {k: f.launches for k, f in (("lora", lora_matmul), ("flash", flash_attention),
+                                                 ("ssd", ssd_scan))}
+    assert all(v.device.type == cuda.type for v in tree_leaves(got[0].lora_c))
+    for g, w in zip(got, want):
+        if isinstance(w, fedsllm.FedsLLMState):
+            g, w = (g.lora_c, g.lora_s), (w.lora_c, w.lora_s)
+        assert _gap(g, w) <= 1e-4, _gap(g, w)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_split_equals_monolithic_on_card(cuda, no_tf32, dtype):
+    cfg, state, batches = _smoke_train()
+    cfg = cfg.replace(dtype=dtype, param_dtype=dtype)
+    to = lambda t: t.to(device=cuda, dtype=getattr(torch, dtype)) if t.is_floating_point() \
+        else t.to(cuda)
+    base, lc, ls = (tree_map(to, t) for t in (state.base, state.lora_c, state.lora_s))
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for ab in list(lc.values()) + list(ls.values()):  # B = 0 at init hides dA
+        ab["B"] = (0.01 * torch.randn(ab["B"].shape, generator=gen, device=cuda)).to(ab["B"].dtype)
+    batch = {k: v[0].to(cuda) for k, v in batches.items()}
+    loss, dc, ds, _ = split.split_value_and_grad(base, lc, ls, batch, cfg, 1)
+    mloss, mdc, mds = split.monolithic_value_and_grad(base, lc, ls, batch, cfg, 1)
+    assert torch.equal(loss, mloss)
+    for a, b in zip(tree_leaves((dc, ds)), tree_leaves((mdc, mds))):
+        assert a.dtype == b.dtype == getattr(torch, dtype)
+        assert ((a.float() - b.float()).norm() / b.float().norm()).item() <= 1e-5
+
+
+def test_kernel_wrappers_raise_on_cuda_inputs_requiring_grad(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    r = lambda *shape: torch.randn(shape, generator=gen, device=cuda).bfloat16()
+    x, w, a, b = r(16, 64), r(64, 64), r(64, 16), r(16, 64)
+    q, k, v = r(1, 4, 32, 64), r(1, 2, 32, 64), r(1, 2, 32, 64)
+    xs, bm, cm = r(1, 64, 2, 64), r(1, 64, 64), r(1, 64, 64)
+    dt = torch.rand((1, 64, 2), generator=gen, device=cuda)
+    A = -torch.rand((2,), generator=gen, device=cuda)
+    before = (lora_matmul.launches, flash_attention.launches, ssd_scan.launches)
+    for call in (lambda: lora_matmul(x, w, a.requires_grad_(), b, scale=2.0),
+                 lambda: flash_attention(q.requires_grad_(), k, v),
+                 lambda: ssd_scan(xs, dt.requires_grad_(), A, bm, cm)):
+        with pytest.raises(RuntimeError, match="forward-only"):
+            call()
+    assert (lora_matmul.launches, flash_attention.launches, ssd_scan.launches) == before
