@@ -40,8 +40,10 @@ and last
                client masked out of the second round) through
                ``build_round_fn``, with finite metrics, no effect of the
                masked client's batch, split == monolithic and bf16 against
-               fp32 within the limits of ``TRAIN_LIMITS``, and no kernel
-               launch (training runs no kernel: they are forward-only); round
+               fp32 within the limits of ``TRAIN_LIMITS``, which must reject
+               wrong updates (h̄ scaled by 0.5, a client left out), and no
+               kernel launch in the phase (training runs no kernel: they are
+               forward-only); round
                seconds, ms per split forward/backward, peak memory and the
                device's busy share and top operations of one pass.
 
@@ -84,7 +86,7 @@ from repro_torch.kernels.ssd_ref import ssd_scan_ref  # noqa: E402
 from repro_torch.models import mamba2 as M2  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.serving.decode import decode_tokens  # noqa: E402
-from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
+from repro_torch.tree import tree_leaves, tree_map, tree_rel_gap  # noqa: E402
 
 OUT = ROOT / "build" / "chip_smoke"
 # NVIDIA H100 SXM data sheet: dense bf16 tensor-core peak, HBM3 bandwidth
@@ -860,28 +862,25 @@ TRAIN_LIMITS = {
     # relative Frobenius per gradient leaf: the same autograd graph, cut or
     # not; one bf16 rounding of a gradient if anything sums in another order
     "split_vs_monolithic": 2.0 ** -8,
-    # relative, loss_round_start: bf16 activations through 12 layers move
-    # the fp32 logits by ~2% (the serving paths' logits vs fp32), and the
-    # loss averages that over 8192 tokens
-    "bf16_vs_fp32_loss": 1e-2,
+    # relative, loss_round_start: about 10x the reading of the first runs on
+    # the card (4.6e-6): bf16 activations move the loss, a mean over 8192
+    # tokens, that little
+    "bf16_vs_fp32_loss": 5e-5,
     # relative Frobenius of the aggregated update h̄ (h̄_c and h̄_s each): in
     # bf16 the merged weights W + 2·A·B round away a small adapter step, and
     # the round-start gradient is a sum of per-token terms that nearly cancel,
-    # so the two trajectories part within a round. The limit asks that the
-    # bf16 update be closer to the fp32 one than no update is
-    "bf16_vs_fp32_hbar": 1.0,
+    # so the two trajectories part within a round (0.42 and 0.25 in the first
+    # runs): just above the larger reading
+    "bf16_vs_fp32_hbar": 0.6,
+    # ||h̄|| over ||h̄ in fp32|| (each side): the first runs' readings imply
+    # 0.80 or 1.03 (client side) and 0.94 or 1.00 (server side); an update
+    # scaled by 0.5 lands at 0.5 or below, inside the Frobenius limit above
+    "bf16_vs_fp32_hbar_norm": (0.7, 1.43),
 }
 
 
 def to_dev(tree, dev):
     return tree_map(lambda t: t.to(dev), tree)
-
-
-def leaf_gap(got, want) -> float:
-    """Largest |got - want| over the largest |want|, over the leaves' pairs."""
-    return max(((g.float().cpu() - w.float().cpu()).abs().max()
-                / w.float().cpu().abs().max().clamp(min=1e-30)).item()
-               for g, w in zip(tree_leaves(got), tree_leaves(want)))
 
 
 def flat(tree):
@@ -917,9 +916,9 @@ def train_parity(dev) -> dict:
     round_fn = fedsllm.build_round_fn(cfg, FedsLLMConfig(num_clients=K), TRAIN_CUT, 0.9)
     cpu_state, cpu_m = round_fn(state, batches)
     card_state, card_m = round_fn(to_dev(state, dev), to_dev(batches, dev))
-    gaps = {"lora_c": leaf_gap(card_state.lora_c, cpu_state.lora_c),
-            "lora_s": leaf_gap(card_state.lora_s, cpu_state.lora_s),
-            **{k: leaf_gap(card_m[k], cpu_m[k]) for k in cpu_m}}
+    gaps = {"lora_c": tree_rel_gap(card_state.lora_c, cpu_state.lora_c),
+            "lora_s": tree_rel_gap(card_state.lora_s, cpu_state.lora_s),
+            **{k: tree_rel_gap(card_m[k], cpu_m[k]) for k in cpu_m}}
     log(f"[train] (a) smoke round, card vs CPU (of the largest value): {json.dumps(gaps)}")
     return gaps
 
@@ -936,7 +935,9 @@ def timed(fn):
 
 
 def phase_train(dev) -> dict:
-    """Part (a), then part (b): TRAIN_ROUNDS rounds of full fedsllm-100m."""
+    """Part (a), then part (b): TRAIN_ROUNDS rounds of full fedsllm-100m. No
+    kernel may launch anywhere in the phase."""
+    zero_counters()
     parity = train_parity(dev)
     cfg = get_arch(TRAIN_ARCH)
     fcfg = FedsLLMConfig(num_clients=TRAIN_K)
@@ -951,7 +952,6 @@ def phase_train(dev) -> dict:
     mask = torch.ones(TRAIN_K, device=dev)
     mask[masked_client] = 0.0
 
-    zero_counters()
     torch.cuda.reset_peak_memory_stats()
     rounds = []
     for r in range(TRAIN_ROUNDS):
@@ -977,28 +977,55 @@ def phase_train(dev) -> dict:
         rounds.append(rec)
         log(f"[train] (b) round {r}: {json.dumps(rec)}")
     peak = torch.cuda.max_memory_allocated()
-    launches = {name: fn.launches for name, fn in KERNELS.items()}
     log(f"[train] {TRAIN_ROUNDS} rounds of {passes} split passes (K={TRAIN_K}, B={TRAIN_B}, "
-        f"S={TRAIN_S}, I_loc={I_loc}); peak memory {peak / 2**30:.2f} GiB; kernel launches "
-        f"{launches}")
+        f"S={TRAIN_S}, I_loc={I_loc}); peak memory {peak / 2**30:.2f} GiB")
 
     # bf16 against fp32: the last round again, from the upcast state
     cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
     round32 = fedsllm.build_round_fn(cfg32, fcfg, TRAIN_CUT, TRAIN_ETA, aggregator=weighted)
     prev32 = tree_map(lambda t: t.float() if t.is_floating_point() else t, prev)
     new32, metrics32 = round32(fedsllm.FedsLLMState(*prev32), batches, weights=weights)
+    hbar32 = {side: tree_map(lambda a, b: a - b, getattr(new32, side), getattr(prev32, side))
+              for side in ("lora_c", "lora_s")}
+    del new32, prev32
+
+    def hbar_stats(new_state, scale=(1.0, 1.0)) -> dict:
+        """h̄ of ``new_state`` (times ``scale``, per side) against fp32's."""
+        out = {}
+        for side, k in zip(("lora_c", "lora_s"), scale):
+            h = tree_map(lambda a, b: k * (a.float() - b.float()), getattr(new_state, side),
+                         getattr(prev, side))
+            out[f"hbar_{side[-1]}"] = rel_frob(h, hbar32[side])
+            out[f"hbar_{side[-1]}_norm"] = (flat(h).norm() / flat(hbar32[side]).norm()).item()
+            out[f"hbar_{side[-1]}_cos"] = cosine(h, hbar32[side])
+        return out
+
+    def hbar_misses(st: dict) -> list:
+        lo, hi = TRAIN_LIMITS["bf16_vs_fp32_hbar_norm"]
+        return [f"h̄_{c} {st[f'hbar_{c}']:.3f} (norm ratio {st[f'hbar_{c}_norm']:.3f})"
+                for c in ("c", "s") if not (st[f"hbar_{c}"] <= TRAIN_LIMITS["bf16_vs_fp32_hbar"]
+                                            and lo <= st[f"hbar_{c}_norm"] <= hi)]
+
     bf16 = {"loss_round_start": abs(metrics["loss_round_start"].item()
                                     / metrics32["loss_round_start"].item() - 1),
             "loss_round_start_fp32": metrics32["loss_round_start"].item(),
             "loss_local_final_fp32": metrics32["loss_local_final"].item(),
-            "h_c_norm_fp32": metrics32["h_c_norm"].item()}
-    for side in ("lora_c", "lora_s"):
-        h = tree_map(lambda a, b: a.float() - b.float(), getattr(state, side), getattr(prev, side))
-        h32 = tree_map(lambda a, b: a - b, getattr(new32, side), getattr(prev32, side))
-        bf16[f"hbar_{side[-1]}"] = rel_frob(h, h32)
-        bf16[f"hbar_{side[-1]}_cos"] = cosine(h, h32)
-    del new32, prev32
+            "h_c_norm_fp32": metrics32["h_c_norm"].item(), **hbar_stats(state)}
     log(f"[train] bf16 vs fp32, round {TRAIN_ROUNDS - 1}: {json.dumps(bf16)}")
+    # the h̄ limits must reject wrong updates: this round's scaled by 0.5, and
+    # the round again with the heaviest client left out of the average
+    heavy = int(torch.argmax(weights))
+    left_out = torch.ones(TRAIN_K, device=dev)
+    left_out[heavy] = 0.0
+    dropped, _ = round_fn(prev, batches, mask=left_out, weights=weights)
+    wrong = {"update x0.5": hbar_stats(state, (0.5, 0.5)),
+             "client side x0.5": hbar_stats(state, (0.5, 1.0)),
+             "server side x0.5": hbar_stats(state, (1.0, 0.5)),
+             f"client {heavy} left out": hbar_stats(dropped)}
+    del dropped
+    for name, st in wrong.items():
+        st["rejected_by"] = hbar_misses(st)
+        log(f"[train] wrong update '{name}': {json.dumps(st)}")
 
     # split == monolithic, one client batch, the last state
     batch = stream.batch_at(TRAIN_ROUNDS * TRAIN_K)
@@ -1033,6 +1060,8 @@ def phase_train(dev) -> dict:
         for key, ms, count in rows:
             log(f"[profile] train pass {name} {ms:9.3f} ms  x{count:<5d} {key}")
 
+    launches = {name: fn.launches for name, fn in KERNELS.items()}
+    log(f"[train] kernel launches in the phase: {launches}")
     fails = []
     if max(parity.values()) > TRAIN_LIMITS["card_vs_cpu"]:
         fails.append(f"card vs CPU {parity}")
@@ -1048,13 +1077,17 @@ def phase_train(dev) -> dict:
         fails.append(f"split vs monolithic {split_gap}")
     if not bf16["loss_round_start"] <= TRAIN_LIMITS["bf16_vs_fp32_loss"]:
         fails.append(f"bf16 vs fp32 loss {bf16['loss_round_start']}")
-    if not max(bf16["hbar_c"], bf16["hbar_s"]) <= TRAIN_LIMITS["bf16_vs_fp32_hbar"]:
-        fails.append(f"bf16 vs fp32 h̄ {bf16['hbar_c']}, {bf16['hbar_s']}")
+    if hbar_misses(bf16):
+        fails.append(f"bf16 vs fp32 {hbar_misses(bf16)}")
+    for name, st in wrong.items():
+        if not st["rejected_by"]:
+            fails.append(f"the h̄ limits let the wrong update '{name}' pass: {st}")
     result = {"config": {"arch": TRAIN_ARCH, "cut": TRAIN_CUT, "K": TRAIN_K, "B": TRAIN_B,
                          "S": TRAIN_S, "eta": TRAIN_ETA, "I_loc": I_loc, "passes": passes,
                          "aggregator": "weighted", "masked": TRAIN_MASKED},
               "limits": TRAIN_LIMITS, "parity": parity, "rounds": rounds,
               "peak_memory_bytes": peak, "launches": launches, "bf16_vs_fp32": bf16,
+              "wrong_updates": wrong,
               "split_vs_monolithic": split_gap, "info": info, "profile": profile,
               "fails": fails}
     (OUT / "train.json").write_text(json.dumps(result, indent=1))

@@ -17,21 +17,19 @@ aggregators. The round never reads a value back to the host: its metrics
 are 0-d tensors.
 
 Lemma 2 sets I_loc (v·log2(1/η)); Lemma 1 the number of global rounds
-(a/(1−η)); ``simulate_round_time`` prices a round's simulated wireless
-wall-clock from an allocation (``resource_alloc`` comes with the simulator
-slice). Still to come, each with a later slice: the two-tier aggregation
-(``two_tier``; ``hier_aggregate`` comes with ``net/topology.py``), the
-uplink codecs (``compressor``) and DP on the uploads (``dp_clip``;
-``core/privacy.py`` comes with the codecs).
+(a/(1−η)). Still to come, each with a later slice and raising
+``NotImplementedError`` until then: the two-tier aggregation (``two_tier``;
+``hier_aggregate`` comes with ``net/topology.py``), the uplink codecs
+(``compressor``), DP on the uploads (``dp_clip``; ``core/privacy.py`` comes
+with the codecs) and the simulated round wall-clock (``RoundTiming``,
+``simulate_round_time``; ``resource_alloc`` comes with the simulator layer).
 """
 
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
 from typing import Any, Callable, NamedTuple, Optional
 
-import numpy as np
 import torch
 
 from repro_torch.config import FedsLLMConfig, ModelConfig
@@ -39,7 +37,7 @@ from repro_torch.core import delay_model as dm
 from repro_torch.core import federated, lora as lora_lib, split
 from repro_torch.fl.local_algos import get_local_algo
 from repro_torch.models import transformer as T
-from repro_torch.tree import tree_index, tree_leaves, tree_map, tree_stack
+from repro_torch.tree import tree_index, tree_leaves, tree_map, tree_stack, weak
 
 
 class FedsLLMState(NamedTuple):
@@ -121,10 +119,10 @@ def build_round_fn(cfg: ModelConfig, fcfg: FedsLLMConfig, cut: int, eta: float,
             loss, (dc, ds) = client_grads(base, tree_map(torch.add, lc0, h[0]),
                                           tree_map(torch.add, ls0, h[1]), batch)
             # ∇G = ∇F_k(Δw+h) − ∇F_k(Δw) + ξ∇F(Δw)
-            g = (tree_map(lambda a, b, c: a - b + xi * c, dc, gk0[0], gbar[0]),
-                 tree_map(lambda a, b, c: a - b + xi * c, ds, gk0[1], gbar[1]))
+            g = (tree_map(lambda a, b, c: a - b + weak(xi, c) * c, dc, gk0[0], gbar[0]),
+                 tree_map(lambda a, b, c: a - b + weak(xi, c) * c, ds, gk0[1], gbar[1]))
             g = algo.correct(g, h, ctrl, ctrl_bar)
-            h = tree_map(lambda x, gx: x - delta * gx, h, g)
+            h = tree_map(lambda x, gx: x - weak(delta, gx) * gx, h, g)
         return h[0], h[1], loss
 
     def _round(state: FedsLLMState, batches, mask, weights, update_scale, algo_state,
@@ -194,26 +192,21 @@ def build_round_fn(cfg: ModelConfig, fcfg: FedsLLMConfig, cut: int, eta: float,
 
 
 # ---------------------------------------------------------------------------
-# Simulated wall-clock (delay model + an allocation)
+# Simulated wall-clock: needs an allocation from resource_alloc
 # ---------------------------------------------------------------------------
 
+_NEEDS_ALLOC = ("the simulated round wall-clock needs an allocation from core/resource_alloc.py, "
+                "which comes with the simulator layer, a later slice of the port "
+                "(ROADMAP queue 1 item 6)")
 
-@dataclass
+
 class RoundTiming:
-    """Per-global-round simulated wireless wall-clock (seconds)."""
+    """Per-global-round simulated wireless wall-clock: not ported yet."""
 
-    compute: np.ndarray  # (K,) eq. (10)
-    uplink_fed: np.ndarray  # (K,) t_c
-    uplink_main: np.ndarray  # (K,) V·t_s
-    total: np.ndarray  # (K,)
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(_NEEDS_ALLOC)
 
 
 def simulate_round_time(fcfg: FedsLLMConfig, net, alloc, eta: float,
                         model_params: Optional[int] = None) -> RoundTiming:
-    """``alloc``: an allocation with the split ratio ``A`` and the per-client
-    upload times ``t_c``, ``t_s`` (the reference's ``resource_alloc``)."""
-    V = dm.local_iters(fcfg, eta)
-    tau = dm.compute_time(fcfg, net, eta, alloc.A, model_params)
-    up_f = alloc.t_c
-    up_m = V * alloc.t_s
-    return RoundTiming(tau, up_f, up_m, tau + up_f + up_m)
+    raise NotImplementedError(_NEEDS_ALLOC)

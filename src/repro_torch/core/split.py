@@ -47,8 +47,7 @@ def client_forward(client_base, lora_c, batch, cfg: ModelConfig):
     """Embed + the first ``cut`` groups -> smashed activations (B, S, D)."""
     merged = lora_lib.merge(client_base, lora_c, cfg)
     x, positions = T._embed_inputs(merged, batch, cfg)
-    return T._scan_groups(merged, x, cfg, positions=positions, kernels=False,
-                          include_tail=False)
+    return T._scan_groups(merged, x, cfg, positions=positions, kernels=False)
 
 
 def server_forward_loss(server_base, lora_s, acts, batch, cfg: ModelConfig):
@@ -56,8 +55,7 @@ def server_forward_loss(server_base, lora_s, acts, batch, cfg: ModelConfig):
     reference adds 0.01·aux, a MoE term that no ported family has)."""
     merged = lora_lib.merge(server_base, lora_s, cfg)
     positions = torch.arange(acts.shape[1], device=acts.device)[None, :]
-    x = T._scan_groups(merged, acts, cfg, positions=positions, kernels=False,
-                       include_tail=True)
+    x = T._scan_groups(merged, acts, cfg, positions=positions, kernels=False)
     x = L.apply_norm(merged["final_norm"], x, cfg)
     return L.fused_cross_entropy(merged["embed"], x, batch["labels"], cfg,
                                  mask=batch.get("mask"))

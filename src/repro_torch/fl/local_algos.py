@@ -20,7 +20,7 @@ from __future__ import annotations
 from typing import Union
 
 from repro_torch.registry import Registry
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_map, weak
 
 local_algos: Registry = Registry("local_algo")
 
@@ -79,7 +79,7 @@ class FedProxLocal(LocalAlgo):
         return {"mu": self.mu}
 
     def correct(self, g, h, ctrl, ctrl_bar):
-        return tree_map(lambda gx, hx: gx + self.mu * hx, g, h)
+        return tree_map(lambda gx, hx: gx + weak(self.mu, hx) * hx, g, h)
 
 
 @local_algos.register("scaffold")
@@ -99,7 +99,8 @@ class ScaffoldLocal(LocalAlgo):
 
     def update_variates(self, variates, ctrl_bar, h, mask, I_loc: int, delta: float):
         inv = 1.0 / (float(I_loc) * float(delta))
-        new = tree_map(lambda ck, cb, hk: ck - cb[None] - inv * hk, variates, ctrl_bar, h)
+        new = tree_map(lambda ck, cb, hk: ck - cb[None] - weak(inv, hk) * hk,
+                       variates, ctrl_bar, h)
         if mask is None:
             return new
 

@@ -138,19 +138,18 @@ def _num_groups(groups) -> int:
 
 
 def _scan_groups(params, x, cfg: ModelConfig, *, cache=None, cache_pos=None, positions=None,
-                 lora=None, kernels=True, offset=0, include_tail=True):
+                 lora=None, kernels=True):
     """Run the stacked groups ``params["groups"]``, writing the cache (if any)
     in place. The stack may be a view of the model's (``groups[:cut]`` or
-    ``groups[cut:]``); ``offset`` is the layer of ``lora`` that goes with its
-    first group. The ported patterns are one char long, so no model has tail
-    layers and ``include_tail`` (the reference's switch for them) changes
-    nothing."""
+    ``groups[cut:]``), with ``lora`` cut to the same layers
+    (``lora.split_client_server``). The ported patterns are one char long, so
+    no model has the reference's tail layers."""
     _require_ported(cfg)
     for i in range(_num_groups(params["groups"])):
         x = apply_group(_index(params["groups"], i), x, cfg,
                         cache=_index(cache["groups"], i) if cache else None,
                         cache_pos=cache_pos, positions=positions,
-                        adapters=layer_adapters(lora, cfg, offset + i), kernels=kernels)
+                        adapters=layer_adapters(lora, cfg, i), kernels=kernels)
     return x
 
 

@@ -8,6 +8,8 @@ rebuilds ``t``.
 
 from __future__ import annotations
 
+from functools import lru_cache
+
 import torch
 
 
@@ -41,3 +43,25 @@ def tree_stack(trees):
 def tree_index(tree, i):
     """Row ``i`` of every leaf."""
     return tree_map(lambda x: x[i], tree)
+
+
+def tree_rel_gap(got, want) -> float:
+    """Largest |got - want| over the largest |want|, leaf by leaf, the worst
+    leaf's (in fp32, on the CPU)."""
+    return max(((g.float().cpu() - w.float().cpu()).abs().max()
+                / w.float().cpu().abs().max().clamp(min=1e-30)).item()
+               for g, w in zip(tree_leaves(got), tree_leaves(want)))
+
+
+@lru_cache(maxsize=None)
+def _rounded(x: float, dtype: torch.dtype) -> float:
+    return torch.tensor(x, dtype=dtype).item()
+
+
+def weak(x: float, like: torch.Tensor) -> float:
+    """The Python number ``x`` as JAX uses a weakly typed scalar next to
+    ``like``: rounded to ``like``'s dtype first. torch would otherwise apply
+    the unrounded value in fp32 (``0.1 * t`` on a bfloat16 ``t``), and the
+    product could land one bfloat16 step from the reference's. No device
+    work: the rounding happens on the host."""
+    return _rounded(float(x), like.dtype)

@@ -22,7 +22,7 @@ from repro_torch.kernels.lora_ref import lora_matmul_ref
 from repro_torch.kernels.ssd_ops import ssd_scan
 from repro_torch.kernels.ssd_ref import ssd_scan_ref
 from repro_torch.models import transformer as T
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_leaves, tree_map, tree_rel_gap
 
 pytestmark = pytest.mark.cuda
 
@@ -403,13 +403,6 @@ def test_ssd_wgmma_is_deterministic(cuda):
 # ---------------------------------------------------------------------------
 
 
-def _gap(got, want) -> float:
-    """Largest |got - want| over the largest |want|, over the leaves' pairs."""
-    return max(((g.float().cpu() - w.float().cpu()).abs().max()
-                / w.float().cpu().abs().max().clamp(min=1e-30)).item()
-               for g, w in zip(tree_leaves(got), tree_leaves(want)))
-
-
 def _smoke_train(K=2):
     cfg = smoke_variant(get_arch("fedsllm-100m"))
     state = fedsllm.init_state(cfg, cut=1, seed=0, device="cpu")
@@ -451,7 +444,7 @@ def test_smoke_round_on_card_equals_cpu_and_launches_no_kernel(cuda, no_tf32, al
     for g, w in zip(got, want):
         if isinstance(w, fedsllm.FedsLLMState):
             g, w = (g.lora_c, g.lora_s), (w.lora_c, w.lora_s)
-        assert _gap(g, w) <= 1e-4, _gap(g, w)
+        assert tree_rel_gap(g, w) <= 1e-4, tree_rel_gap(g, w)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
