@@ -45,7 +45,26 @@ and last
                kernel launch in the phase (training runs no kernel: they are
                forward-only); round
                seconds, ms per split forward/backward, peak memory and the
-               device's busy share and top operations of one pass.
+               device's busy share and top operations of one pass;
+  6. priced  — the round priced as the paper's §IV does and run two-tier:
+               (a) on the host, K=4 clients of ``geo-blockfade``'s seed-0
+               network attached to the ``edge-agg`` graph (2 edges) and,
+               for comparison, the ``star``: ``localize`` → ``allocate``
+               (``proposed`` with ``eta_search="coarse"``, ``EB``, ``FE``,
+               ``BA``) → ``round_timing`` (``HierRoundTiming``), checked
+               feasible, within each cell's bandwidth budget (Lemma 3), with
+               ``proposed`` no slower than the others and every time finite;
+               (b) on the card, from phase 5's last state and batches, one
+               two-tier round at the training η = min(η*, eta_train_max)
+               with the attachment one-hot (``build_round_fn(...,
+               two_tier=True)``), held against the flat round (the two-tier
+               ḡ of the same round-start gradients within 2^-8, the same
+               round in fp32 within 2^-8, the bf16 round's adapters within
+               ``PRICED_LIMITS``, which must reject a wrong cross-edge
+               weighting, beside the flat round with its clients
+               reordered), the masked client's batch without
+               effect, a ``median`` two-tier round finite, and no kernel
+               launch in the phase; round seconds, ms per pass, peak memory.
 
 Prints the compiled kernels' registers and spills, the card's name and power
 limit, a ``{"kernels": [...]}`` line, and last ``{"ok": true, "device":
@@ -71,8 +90,9 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.api.aggregators import get_aggregator  # noqa: E402
+from repro_torch.api.allocators import get_allocator  # noqa: E402
 from repro_torch.config import FedsLLMConfig, LoRAConfig, get_arch, smoke_variant  # noqa: E402
-from repro_torch.core import fedsllm, split  # noqa: E402
+from repro_torch.core import federated, fedsllm, split  # noqa: E402
 from repro_torch.core.delay_model import sample_network  # noqa: E402
 from repro_torch.core.lora import init_lora, merge  # noqa: E402
 from repro_torch.data.tokens import TokenStream, client_batches  # noqa: E402
@@ -85,8 +105,11 @@ from repro_torch.kernels.ssd_ops import ssd_scan  # noqa: E402
 from repro_torch.kernels.ssd_ref import ssd_scan_ref  # noqa: E402
 from repro_torch.models import mamba2 as M2  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.net.topology import get_topology  # noqa: E402
 from repro_torch.serving.decode import decode_tokens  # noqa: E402
-from repro_torch.tree import tree_leaves, tree_map, tree_rel_gap  # noqa: E402
+from repro_torch.sim.scenario import get_scenario  # noqa: E402
+from repro_torch.tree import (tree_index, tree_leaves, tree_map, tree_rel_gap,  # noqa: E402
+                              tree_stack)
 
 OUT = ROOT / "build" / "chip_smoke"
 # NVIDIA H100 SXM data sheet: dense bf16 tensor-core peak, HBM3 bandwidth
@@ -1093,6 +1116,242 @@ def phase_train(dev) -> dict:
     (OUT / "train.json").write_text(json.dumps(result, indent=1))
     if fails:
         raise SystemExit(f"[train] {len(fails)} check(s) failed: {fails}")
+    return result, {"cfg": cfg, "state": state, "batches": batches, "weights": weights,
+                    "stream": stream, "peak": peak}
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the round priced by the §IV allocator and run two-tier
+# ---------------------------------------------------------------------------
+
+PRICED_SCENARIO = "geo-blockfade"  # the legacy sample_network records no positions
+PRICED_TOPOLOGIES = ("edge-agg", "star")  # edge-agg: 2 edges, two-tier aggregation
+STRATEGIES = ("proposed", "EB", "FE", "BA")
+# relative width at which resource_alloc.solve_fixed_eta_exact ends its
+# bisection on T: 'proposed' lands up to this far above the optimum, so
+# above an EB allocation that is already optimal (a cell of one client)
+SOLVER_RTOL = 1e-5
+# limits, written in PERF.md §2 before the first run on the card
+PRICED_LIMITS = {
+    # relative Frobenius per leaf, ḡ of the same round-start gradients: for
+    # a mean aggregator two-tier equals flat but for the bf16 rounding of
+    # the edge means and fp32 associativity (2.5e-3 on the CPU, smoke model)
+    "two_tier_vs_flat_aggregate": 2.0 ** -8,
+    # relative Frobenius per leaf of the new adapters, the round in fp32
+    # from the upcast state: two-tier equals flat up to fp32 associativity,
+    # carried through the local steps (1.5e-6 on the CPU, smoke model)
+    "two_tier_vs_flat_round_fp32": 2.0 ** -8,
+    # the same in bf16: the bf16 round turns ulp-level differences of ḡ and
+    # h̄ into a 10-16% different update (the first run on the card: 0.140
+    # per leaf, h̄ 0.158 / 0.092), as phase 5's bf16-vs-fp32 h̄ shows; the
+    # seed is the bf16 rounding of the edge means (ḡ 2.59e-3), since the
+    # flat round with its clients reordered reads 0 (``reorder_gaps``); the
+    # reference's own bf16 two-tier round parts from its flat round too
+    # (2.2e-2 per leaf on the smoke model, tests/test_torch_net.py); about
+    # 2x the reading, which the cross-edge weighting made uniform (0.559)
+    # must fail
+    "two_tier_vs_flat_round_bf16": 0.3,
+}
+
+
+def cells_of(assign, K: int, M: int) -> list:
+    """Client indices of each cell (one cell of all K on the star)."""
+    if assign is None:
+        return [list(range(K))]
+    return [[k for k in range(K) if assign[k] == m] for m in range(M)]
+
+
+def price(name: str, fcfg, net0) -> dict:
+    """Localize, allocate with every strategy and time the round on graph
+    ``name``, on the host, as the reference Experiment's constructor does."""
+    topo = get_topology(name)
+    net, assign = topo.localize(fcfg, net0)
+    out = {"topology": name, "num_edges": topo.num_edges, "two_tier": topo.two_tier,
+           "assign": None if assign is None else [int(a) for a in assign], "strategies": {}}
+    for s in STRATEGIES:
+        t0 = time.perf_counter()
+        alloc = topo.allocate(fcfg, net, assign, get_allocator(s), strategy=s,
+                              eta_search="coarse")
+        solve_s = time.perf_counter() - t0
+        eta = min(float(alloc.eta), fcfg.eta_train_max)  # the training η the rounds run at
+        timing = topo.round_timing(fcfg, net, alloc, eta, assign)
+        times = {k: [float(x) for x in getattr(timing, k)]
+                 for k in ("compute", "uplink_fed", "uplink_main", "backhaul", "total")
+                 if getattr(timing, k, None) is not None}
+        usage = [{"b_c": float(sum(alloc.b_c[i] for i in c)) / net.B_c,
+                  "b_s": float(sum(alloc.b_s[i] for i in c)) / net.B_s}
+                 for c in cells_of(assign, net.K, topo.num_edges) if c]
+        out["strategies"][s] = {"T": float(alloc.T), "eta_star": float(alloc.eta),
+                                "eta_train": eta, "feasible": bool(alloc.feasible),
+                                "solve_s": solve_s, "bandwidth_share": usage,
+                                "round_s": max(times["total"]), "times": times}
+        log(f"[priced] {name} {s}: T {alloc.T:.1f} s, η* {alloc.eta:.2f}, feasible "
+            f"{alloc.feasible}, round {max(times['total']):.2f} s at η {eta:.2f}; "
+            f"solve {solve_s:.2f} s on the host; bandwidth share per cell {usage}")
+        for k, v in times.items():
+            log(f"[priced] {name} {s}   {k:11s} " + " ".join(f"{x:10.4f}" for x in v))
+    T = {s: r["T"] for s, r in out["strategies"].items()}
+    out["reduction_vs"] = {s: 1.0 - T["proposed"] / T[s] for s in ("EB", "FE", "BA")}
+    log(f"[priced] {name}: assignment {out['assign']}; proposed against EB/FE/BA "
+        f"{json.dumps(out['reduction_vs'])} (reduction of T)")
+    return out
+
+
+def priced_fails(p: dict) -> list:
+    fails = []
+    for s, r in p["strategies"].items():
+        if not r["feasible"]:
+            fails.append(f"{p['topology']} {s} infeasible")
+        if any(u["b_c"] > 1.0 + 1e-9 or u["b_s"] > 1.0 + 1e-9 for u in r["bandwidth_share"]):
+            fails.append(f"{p['topology']} {s} over its bandwidth budget {r['bandwidth_share']}")
+        if not all(math.isfinite(x) for v in r["times"].values() for x in v):
+            fails.append(f"{p['topology']} {s} has a time that is not finite")
+        if s != "proposed" and not p["strategies"]["proposed"]["T"] <= r["T"] * (1 + SOLVER_RTOL):
+            fails.append(f"{p['topology']} proposed T {p['strategies']['proposed']['T']} > "
+                         f"{s} T {r['T']}")
+    return fails
+
+
+def leaf_gaps(got, want) -> list:
+    """Relative Frobenius distance of each pair of leaves."""
+    return [rel_frob(g, w) for g, w in zip(tree_leaves(got), tree_leaves(want))]
+
+
+def phase_priced(dev, ctx) -> dict:
+    """Part (a) on the host, part (b) on the card from phase 5's last state
+    and batches. No kernel may launch anywhere in the phase."""
+    zero_counters()
+    fcfg = FedsLLMConfig(num_clients=TRAIN_K)
+    net0 = get_scenario(PRICED_SCENARIO).initial_network(fcfg, 0)
+    priced = {name: price(name, fcfg, net0) for name in PRICED_TOPOLOGIES}
+    fails = [f for p in priced.values() for f in priced_fails(p)]
+
+    p = priced["edge-agg"]
+    M, assign = p["num_edges"], p["assign"]
+    empty = [m for m in range(M) if m not in assign]
+    eta_star = p["strategies"]["proposed"]["eta_star"]
+    eta = min(eta_star, fcfg.eta_train_max)  # as the reference Experiment clamps it
+    I_loc = fedsllm.local_iteration_count(fcfg, eta)
+    passes = TRAIN_K * (1 + I_loc)
+    log(f"[priced] (b) edge-agg assignment {assign}"
+        + (f", empty cell(s) {empty}: run as drawn" if empty else "")
+        + f"; η* {eta_star:.4f}, training η {eta:.4f}, I_loc {I_loc}")
+    cfg, state, batches, weights = (ctx[k] for k in ("cfg", "state", "batches", "weights"))
+    onehot = torch.eye(M, device=dev)[torch.as_tensor(assign, device=dev)]
+    weighted = get_aggregator("weighted")
+
+    def round_fn(aggregator, two_tier=True, model=cfg):
+        return fedsllm.build_round_fn(model, fcfg, TRAIN_CUT, eta, aggregator=aggregator,
+                                      two_tier=two_tier)
+
+    two, flat = round_fn(weighted), round_fn(weighted, two_tier=False)
+    torch.cuda.reset_peak_memory_stats()
+    (two_state, two_m), ms = timed(lambda: two(state, batches, weights=weights, assign=onehot))
+    peak = torch.cuda.max_memory_allocated()
+    (flat_state, flat_m), flat_ms = timed(lambda: flat(state, batches, weights=weights))
+    rec = {"seconds": ms / 1e3, "ms_per_pass": ms / passes, "flat_seconds": flat_ms / 1e3,
+           "peak_memory_bytes": peak, "phase5_peak_memory_bytes": ctx["peak"],
+           **{k: v.item() for k, v in two_m.items()},
+           **{f"flat_{k}": v.item() for k, v in flat_m.items()}}
+
+    def new(st):
+        return st.lora_c, st.lora_s
+
+    round_gaps = leaf_gaps(new(two_state), new(flat_state))
+    hbar = {side: rel_frob(tree_map(lambda a, b: a.float() - b.float(), getattr(two_state, side),
+                                    getattr(state, side)),
+                           tree_map(lambda a, b: a.float() - b.float(), getattr(flat_state, side),
+                                    getattr(state, side)))
+            for side in ("lora_c", "lora_s")}
+
+    # ḡ of the same round-start gradients, two-tier against flat
+    grads = tree_stack([split.split_value_and_grad(state.base, state.lora_c, state.lora_s,
+                                                   tree_index(batches, k), cfg, TRAIN_CUT)[1:3]
+                        for k in range(TRAIN_K)])
+    agg_gaps = [g for side in (0, 1) for g in leaf_gaps(
+        federated.hier_aggregate(weighted, grads[side], onehot, weights=weights),
+        weighted(grads[side], weights=weights))]
+    del grads
+
+    # the same round in fp32 from the upcast state, two-tier against flat
+    cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
+    state32 = tree_map(lambda x: x.float() if x.is_floating_point() else x, state)
+    two32, _ = round_fn(weighted, model=cfg32)(state32, batches, weights=weights, assign=onehot)
+    flat32, _ = round_fn(weighted, two_tier=False, model=cfg32)(state32, batches,
+                                                               weights=weights)
+    round32_gaps = leaf_gaps(new(two32), new(flat32))
+    del state32, two32, flat32
+
+    # the flat round with its clients in reverse order: the same fp32 sums in
+    # another order, no two-tier code (the CPU test reads the reference's
+    # own two-tier-vs-flat gap)
+    rev = torch.arange(TRAIN_K - 1, -1, -1, device=dev)
+    rev_state, _ = flat(state, tree_map(lambda x: x[rev], batches), weights=weights[rev])
+    reorder_gaps = leaf_gaps(new(rev_state), new(flat_state))
+    del rev_state
+
+    # a wrong two-tier update the bf16 round limit must reject: the edges
+    # averaged uniformly, not by their clients' total weight
+    wrong_state, _ = round_fn(get_aggregator("fedavg"))(state, batches, weights=weights,
+                                                        assign=onehot)
+    wrong_gap = max(leaf_gaps(new(wrong_state), new(flat_state)))
+    del wrong_state, flat_state
+
+    # a client masked out: its batch swapped for another moves nothing
+    masked_client = TRAIN_MASKED[1]
+    mask = torch.ones(TRAIN_K, device=dev)
+    mask[masked_client] = 0.0
+    a, _ = two(state, batches, mask=mask, weights=weights, assign=onehot)
+    other = dict(batches, **{k: batches[k].clone() for k in ("tokens", "labels")})
+    spare = ctx["stream"].batch_at(10 ** 6 + 1)
+    for k in ("tokens", "labels"):
+        other[k][masked_client] = spare[k]
+    b, _ = two(state, other, mask=mask, weights=weights, assign=onehot)
+    masked_effect = max((x.float() - y.float()).abs().max().item()
+                        for x, y in zip(tree_leaves(new(a)), tree_leaves(new(b))))
+    del a, b
+
+    # median: the unrolled per-edge path
+    med_state, med_m = round_fn(get_aggregator("median"))(state, batches, weights=weights,
+                                                           assign=onehot)
+    med_finite = (all(math.isfinite(v.item()) for v in med_m.values())
+                  and all(bool(torch.isfinite(x).all()) for x in tree_leaves(new(med_state))))
+    del med_state
+
+    launches = {name: fn.launches for name, fn in KERNELS.items()}
+    card = {**rec, "round_gap_max": max(round_gaps), "round_gaps": round_gaps,
+            "round32_gap_max": max(round32_gaps), "round32_gaps": round32_gaps,
+            "hbar_gap": hbar, "reorder_gap_max": max(reorder_gaps), "reorder_gaps": reorder_gaps,
+            "aggregate_gap_max": max(agg_gaps), "aggregate_gaps": agg_gaps,
+            "wrong_cross_edge_weighting_gap": wrong_gap, "masked_client": masked_client,
+            "masked_batch_effect": masked_effect, "median_finite": med_finite,
+            "launches": launches}
+    summary = {k: v for k, v in card.items() if not k.endswith("gaps")}
+    log(f"[priced] (b) two-tier round: {json.dumps(summary)}")
+    if not card["aggregate_gap_max"] <= PRICED_LIMITS["two_tier_vs_flat_aggregate"]:
+        fails.append(f"two-tier ḡ vs flat {card['aggregate_gap_max']}")
+    if not card["round32_gap_max"] <= PRICED_LIMITS["two_tier_vs_flat_round_fp32"]:
+        fails.append(f"two-tier fp32 round vs flat {card['round32_gap_max']}")
+    if not card["round_gap_max"] <= PRICED_LIMITS["two_tier_vs_flat_round_bf16"]:
+        fails.append(f"two-tier bf16 round vs flat {card['round_gap_max']}")
+    if not wrong_gap > PRICED_LIMITS["two_tier_vs_flat_round_bf16"]:
+        fails.append(f"the round limit let a uniform cross-edge weighting pass: {wrong_gap}")
+    if not all(math.isfinite(rec[k]) for k in ("loss_round_start", "loss_local_final",
+                                               "h_c_norm")):
+        fails.append("a two-tier metric is not finite")
+    if masked_effect != 0.0:
+        fails.append(f"the masked client's batch moved the two-tier update by {masked_effect}")
+    if not med_finite:
+        fails.append("the median two-tier round is not finite")
+    if any(launches.values()):
+        fails.append(f"the priced phase launched kernels {launches}")
+    result = {"config": {"scenario": PRICED_SCENARIO, "seed": 0, "K": TRAIN_K, "M": M,
+                         "empty_cells": empty, "eta_star": eta_star, "eta_train": eta,
+                         "I_loc": I_loc, "passes": passes, "aggregator": "weighted"},
+              "limits": PRICED_LIMITS, "priced": priced, "card": card, "fails": fails}
+    (OUT / "priced.json").write_text(json.dumps(result, indent=1))
+    if fails:
+        raise SystemExit(f"[priced] {len(fails)} check(s) failed: {fails}")
     return result
 
 
@@ -1111,12 +1370,15 @@ def main() -> int:
     build = phase_build()
     results = {arch: run_path(arch, dev) for arch in ARCHS}
     kernels = kernel_entries(results)
-    train = phase_train(dev)
+    train, ctx = phase_train(dev)
+    priced = phase_priced(dev, ctx)
+    del ctx
     (OUT / "chip_smoke.json").write_text(json.dumps(
         {"nvidia_smi": smi, "build": build, "kernels": kernels, "traces": TRACE_LOG,
          "paths": {arch: {"checks": r["checks"], "slice": r["slice"],
                           "end_to_end": r["timings"]["end_to_end"]}
-                   for arch, r in results.items()}, "train": train}, indent=1))
+                   for arch, r in results.items()}, "train": train, "priced": priced},
+        indent=1))
     log(f"[timing] torch.profiler traces kept {TRACE_LOG['kept']}, lost {TRACE_LOG['lost']}")
     print(smi)
     print(json.dumps({"kernels": [{k: v for k, v in e.items() if k != "shapes"}

@@ -38,6 +38,11 @@ def _fedavg_weighted(stacked, weights=None, mask=None):
     return federated.fedavg(stacked, weights=weights, mask=mask)
 
 
+# the mean family takes hier_aggregate's batched fast path; "uniform"
+# members ignore the weights argument (Algorithm 1 as written)
+_fedavg_uniform.mean_family = "uniform"
+_fedavg_weighted.mean_family = "weighted"
+
 aggregators.register("median")(federated.coordinate_median)
 aggregators.register("trimmed_mean")(federated.trimmed_mean)
 aggregators.register("staleness")(federated.staleness_weighted)

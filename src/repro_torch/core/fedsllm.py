@@ -17,19 +17,20 @@ aggregators. The round never reads a value back to the host: its metrics
 are 0-d tensors.
 
 Lemma 2 sets I_loc (v·log2(1/η)); Lemma 1 the number of global rounds
-(a/(1−η)). Still to come, each with a later slice and raising
-``NotImplementedError`` until then: the two-tier aggregation (``two_tier``;
-``hier_aggregate`` comes with ``net/topology.py``), the uplink codecs
-(``compressor``), DP on the uploads (``dp_clip``; ``core/privacy.py`` comes
-with the codecs) and the simulated round wall-clock (``RoundTiming``,
-``simulate_round_time``; ``resource_alloc`` comes with the simulator layer).
+(a/(1−η)); ``simulate_round_time`` prices a round's simulated wall-clock
+from an allocation of ``resource_alloc``. Still to come, each with a later
+slice and raising ``NotImplementedError`` until then: the uplink codecs
+(``compressor``) and DP on the uploads (``dp_clip``; ``core/privacy.py``
+comes with the codecs).
 """
 
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 from typing import Any, Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.config import FedsLLMConfig, ModelConfig
@@ -81,12 +82,15 @@ def build_round_fn(cfg: ModelConfig, fcfg: FedsLLMConfig, cut: int, eta: float,
 
     batches: dict of tensors stacked (K, ...), one micro-dataset per client.
     mask: (K,) survivors, or None. weights: (K,) aggregation weights (e.g.
-    D_k), or None (uniform). key and assign are taken for the reference's
-    signature: they feed DP noise and the two-tier aggregation, neither
-    ported. update_scale: the server mixing rate α of Δw ← Δw + α·h̄ (a
-    scalar or 0-d tensor), None for α = 1. aggregator: (stacked,
-    weights=None, mask=None) -> tree, ``federated.fedavg`` by default,
-    applied to ḡ and to the updates. local_algo: a ``fl.local_algos`` name
+    D_k), or None (uniform). key is taken for the reference's signature (it
+    feeds DP noise, not ported). assign: (K, M) one-hot client→edge
+    membership, used only with ``two_tier=True`` (the ``edge-agg``
+    topology): every aggregation then runs per edge and across edges
+    (``federated.hier_aggregate``); ``assign=None`` aggregates flat.
+    update_scale: the server mixing rate α of Δw ← Δw + α·h̄ (a scalar or
+    0-d tensor), None for α = 1. aggregator: (stacked, weights=None,
+    mask=None) -> tree, ``federated.fedavg`` by default, applied to ḡ and
+    to the updates. local_algo: a ``fl.local_algos`` name
     or instance, ``gd`` by default. A stateful one (``scaffold``) takes two
     more arguments and returns a triple:
 
@@ -97,8 +101,6 @@ def build_round_fn(cfg: ModelConfig, fcfg: FedsLLMConfig, cut: int, eta: float,
     algo_ids: (C,) rows of ``algo_state`` that the cohort's batches belong to
     (None: the first C). The variates advance on the raw deviations h.
     """
-    if two_tier:
-        raise _later("two_tier=True", "federated.hier_aggregate (with net/topology.py)")
     split._require_no_codec(compressor)
     if dp_clip > 0.0:
         raise _later("dp_clip > 0", "core/privacy.py (with the uplink codecs, item 5)")
@@ -125,16 +127,23 @@ def build_round_fn(cfg: ModelConfig, fcfg: FedsLLMConfig, cut: int, eta: float,
             h = tree_map(lambda x, gx: x - weak(delta, gx) * gx, h, g)
         return h[0], h[1], loss
 
-    def _round(state: FedsLLMState, batches, mask, weights, update_scale, algo_state,
+    def _round(state: FedsLLMState, batches, mask, weights, assign, update_scale, algo_state,
                algo_ids):
         dev = state.round.device
         K = tree_leaves(batches)[0].shape[0]
         mask = None if mask is None else torch.as_tensor(mask, dtype=torch.float32, device=dev)
         weights = (None if weights is None
                    else torch.as_tensor(weights, dtype=torch.float32, device=dev))
+        if two_tier and assign is not None:
+            # hierarchical fed-server role: per edge, then across edges
+            assign = torch.as_tensor(assign, dtype=torch.float32, device=dev)
 
-        def agg(tree):
-            return aggregate(tree, weights=weights, mask=mask)
+            def agg(tree):
+                return federated.hier_aggregate(aggregate, tree, assign, weights=weights,
+                                                mask=mask)
+        else:
+            def agg(tree):
+                return aggregate(tree, weights=weights, mask=mask)
 
         # 2. round-start gradients per client (h = 0); ḡ on the fed server
         clients = [tree_index(batches, k) for k in range(K)]
@@ -179,12 +188,13 @@ def build_round_fn(cfg: ModelConfig, fcfg: FedsLLMConfig, cut: int, eta: float,
     if algo.stateful:
         def round_fn(state: FedsLLMState, batches, mask=None, key=None, weights=None,
                      assign=None, update_scale=None, algo_state=None, algo_ids=None):
-            return _round(state, batches, mask, weights, update_scale, algo_state, algo_ids)
+            return _round(state, batches, mask, weights, assign, update_scale, algo_state,
+                          algo_ids)
     else:
         def round_fn(state: FedsLLMState, batches, mask=None, key=None, weights=None,
                      assign=None, update_scale=None):
-            new_state, metrics, _ = _round(state, batches, mask, weights, update_scale,
-                                           None, None)
+            new_state, metrics, _ = _round(state, batches, mask, weights, assign,
+                                           update_scale, None, None)
             return new_state, metrics
 
     round_fn.local_algo = algo
@@ -192,21 +202,26 @@ def build_round_fn(cfg: ModelConfig, fcfg: FedsLLMConfig, cut: int, eta: float,
 
 
 # ---------------------------------------------------------------------------
-# Simulated wall-clock: needs an allocation from resource_alloc
+# Simulated wall-clock integration (delay model + allocator)
 # ---------------------------------------------------------------------------
 
-_NEEDS_ALLOC = ("the simulated round wall-clock needs an allocation from core/resource_alloc.py, "
-                "which comes with the simulator layer, a later slice of the port "
-                "(ROADMAP queue 1 item 6)")
 
-
+@dataclass
 class RoundTiming:
-    """Per-global-round simulated wireless wall-clock: not ported yet."""
+    """Per-global-round simulated wireless wall-clock (seconds)."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_NEEDS_ALLOC)
+    compute: np.ndarray  # (K,) eq. (10)
+    uplink_fed: np.ndarray  # (K,) t_c
+    uplink_main: np.ndarray  # (K,) V·t_s
+    total: np.ndarray  # (K,)
 
 
 def simulate_round_time(fcfg: FedsLLMConfig, net, alloc, eta: float,
                         model_params: Optional[int] = None) -> RoundTiming:
-    raise NotImplementedError(_NEEDS_ALLOC)
+    """Each client's round under ``alloc`` (a ``resource_alloc.Allocation``):
+    compute (eq. 10), the fed uplink t_c and V(η) main uplinks of t_s."""
+    V = dm.local_iters(fcfg, eta)
+    tau = dm.compute_time(fcfg, net, eta, alloc.A, model_params)
+    up_f = alloc.t_c
+    up_m = V * alloc.t_s
+    return RoundTiming(tau, up_f, up_m, tau + up_f + up_m)

@@ -46,7 +46,7 @@ from repro.fl.local_algos import get_local_algo as jax_get_local_algo
 from repro.models import layers as JL
 from repro.models import transformer as JT
 from repro_torch import bridge
-from repro_torch.api import aggregators
+from repro_torch.api import aggregators, allocators
 from repro_torch.config import FedsLLMConfig, LoRAConfig, get_arch, smoke_variant
 from repro_torch.core import delay_model as dm
 from repro_torch.core import federated, fedsllm, split
@@ -58,6 +58,8 @@ from repro_torch.kernels.lora_ops import lora_matmul
 from repro_torch.kernels.ssd_ops import ssd_scan
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.net import topology
+from repro_torch.sim import scenario
 from repro_torch.tree import tree_leaves, tree_map
 
 ONE_PASS = 1e-5
@@ -369,9 +371,13 @@ def test_local_algo_correct_matches_reference(name, kw):
             torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("registry,name", [("aggregators", "fedsum"), ("local_algos", "adam")])
+@pytest.mark.parametrize("registry,name", [("aggregators", "fedsum"), ("local_algos", "adam"),
+                                           ("scenarios", "rayleigh"), ("topologies", "mesh"),
+                                           ("allocators", "greedy")])
 def test_unknown_names_raise_listing_the_known(registry, name):
-    reg = {"aggregators": aggregators.aggregators, "local_algos": local_algos.local_algos}[registry]
+    reg = {"aggregators": aggregators.aggregators, "local_algos": local_algos.local_algos,
+           "scenarios": scenario.scenarios, "topologies": topology.topologies,
+           "allocators": allocators.allocators}[registry]
     with pytest.raises(KeyError, match="known"):
         reg.get(name)
 
@@ -519,10 +525,11 @@ def test_round_algebra_bf16_matches_reference_bitwise(round_setup_bf16, monkeypa
     fp32 cast back, scaffold's variates) against the reference, with the
     split gradient replaced on both sides by one they compute bit for bit.
     Two rounds: new adapters bit-identical and of the reference's dtypes;
-    the losses equal; h_c_norm (an fp32 sum over the stacked h_k) within
-    1e-4 and the variates within 1e-3 relative Frobenius (measured when
-    written: 3.9e-5 and 4.5e-4, from one bf16 step in 0.2% of the variates'
-    elements, its source in the reference not found)."""
+    the losses equal; scaffold's variates bit-identical (the reference's fp32
+    weighted sums compile into fused multiply-adds, which the port's fedavg
+    reproduces); h_c_norm, an fp32 sum of squares over the stacked h_k that
+    the two libraries add in different orders, within 1e-5 (1.7e-6 measured
+    with h_k bit-identical)."""
     s = round_setup_bf16
     monkeypatch.setattr(jax_split, "split_value_and_grad",
                         _surrogate_grads(lambda x, like: x.astype(like.dtype)))
@@ -536,11 +543,11 @@ def test_round_algebra_bf16_matches_reference_bitwise(round_setup_bf16, monkeypa
         _same_dtypes(m, jm)
         for k in ("loss_round_start", "loss_local_final"):
             _close(m[k], jm[k], 0.0, f"{name} r{r} {k}")
-        _close(m["h_c_norm"], jm["h_c_norm"], 1e-4, f"{name} r{r} h_c_norm")
+        _close(m["h_c_norm"], jm["h_c_norm"], 1e-5, f"{name} r{r} h_c_norm")
         if jalgo.stateful:
             _same_dtypes(var, jvar)
-            got, want = _flat(var), _flat(jvar, reference=True)
-            assert np.linalg.norm(got - want) / np.linalg.norm(want) <= 1e-3
+            for side in (0, 1):
+                _close_lora(var[side], jvar[side], 0.0, f"{name} r{r} variates")
 
 
 def test_round_fn_bf16_matches_reference(round_setup_bf16):
@@ -593,16 +600,11 @@ def test_init_state_matches_reference_shapes(round_setup):
     assert own.round.dtype == torch.int32 and int(own.round) == 0
 
 
-@pytest.mark.parametrize("what", ["two_tier", "compressor", "dp_clip", "RoundTiming",
-                                  "simulate_round_time"])
+@pytest.mark.parametrize("what", ["compressor", "dp_clip"])
 def test_later_slices_raise_not_implemented(round_setup, what):
-    kw = {"two_tier": {"two_tier": True}, "compressor": {"compressor": object()},
-          "dp_clip": {"dp_clip": 1.0}}.get(what)
+    kw = {"compressor": {"compressor": object()}, "dp_clip": {"dp_clip": 1.0}}[what]
     with pytest.raises(NotImplementedError, match="later slice"):
-        if kw is None:  # the simulated wall-clock needs resource_alloc
-            getattr(fedsllm, what)(FedsLLMConfig(), None, None, ETA)
-        else:
-            fedsllm.build_round_fn(round_setup["cfg"], FedsLLMConfig(), 1, ETA, **kw)
+        fedsllm.build_round_fn(round_setup["cfg"], FedsLLMConfig(), 1, ETA, **kw)
 
 
 @pytest.mark.parametrize("eta", [0.9, 0.5, 0.1])
