@@ -64,7 +64,23 @@ and last
                weighting, beside the flat round with its clients
                reordered), the masked client's batch without
                effect, a ``median`` two-tier round finite, and no kernel
-               launch in the phase; round seconds, ms per pass, peak memory.
+               launch in the phase; round seconds, ms per pass, peak memory;
+  7. campaign — the ``Experiment`` facade on full-width fedsllm-100m (bf16,
+               K=4, cohort 4, 8 x 256 tokens): (a) a 3-round campaign of
+               ``Experiment.from_config(..., scenario="blockfade",
+               topology="star", eta_search="warm")`` with per-round channel
+               re-sampling and joint re-allocation, a deadline that masks
+               round 0's slowest client and a checkpoint each round; a fresh
+               experiment resumes from round 2 and must end on the
+               uninterrupted run's state bit for bit, both under
+               ``torch.use_deterministic_algorithms(True)``; (b) at most one
+               round function per η bucket; (c) a round with the int8 uplink
+               codec (its uplink bits 8 per element + 32) and one with DP
+               (clip 1, noise 0.5: every client's clipped update within the
+               clip); (d) a smoke round of the facade on the card within 1e-4
+               of the CPU's; (e) no kernel launch in the phase. Prints
+               simulated T, η and the mask per round, device round seconds,
+               host seconds outside the round function and peak memory.
 
 Prints the compiled kernels' registers and spills, the card's name and power
 limit, a ``{"kernels": [...]}`` line, and last ``{"ok": true, "device":
@@ -77,6 +93,7 @@ from __future__ import annotations
 import collections
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -84,15 +101,22 @@ import sys
 import time
 from pathlib import Path
 
-import torch
+# cuBLAS is deterministic only with a fixed workspace, which must be set before
+# CUDA starts (phase 7 runs under torch.use_deterministic_algorithms)
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.api import Experiment  # noqa: E402
 from repro_torch.api.aggregators import get_aggregator  # noqa: E402
 from repro_torch.api.allocators import get_allocator  # noqa: E402
-from repro_torch.config import FedsLLMConfig, LoRAConfig, get_arch, smoke_variant  # noqa: E402
-from repro_torch.core import federated, fedsllm, split  # noqa: E402
+from repro_torch.config import (SHAPES, FedsLLMConfig, LoRAConfig, RunConfig, get_arch,  # noqa: E402
+                                smoke_variant)
+from repro_torch.core import federated, fedsllm, privacy, split  # noqa: E402
 from repro_torch.core.delay_model import sample_network  # noqa: E402
 from repro_torch.core.lora import init_lora, merge  # noqa: E402
 from repro_torch.data.tokens import TokenStream, client_batches  # noqa: E402
@@ -107,6 +131,7 @@ from repro_torch.models import mamba2 as M2  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.net.topology import get_topology  # noqa: E402
 from repro_torch.serving.decode import decode_tokens  # noqa: E402
+from repro_torch.sim import events  # noqa: E402
 from repro_torch.sim.scenario import get_scenario  # noqa: E402
 from repro_torch.tree import (tree_index, tree_leaves, tree_map, tree_rel_gap,  # noqa: E402
                               tree_stack)
@@ -1355,6 +1380,240 @@ def phase_priced(dev, ctx) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the Experiment facade, a campaign with checkpoint resume, codec and DP
+# ---------------------------------------------------------------------------
+
+CAMPAIGN_ROUNDS = 3
+CAMPAIGN_RESUME = 2  # the fresh experiment resumes from the checkpoint after 2 rounds
+DP_CLIP, DP_NOISE = 1.0, 0.5
+# limits, written in PERF.md §6 before the first run on the card
+CAMPAIGN_LIMITS = {
+    # smoke run_round of the facade, card against CPU (fp32, TF32 off): of
+    # the largest value, per adapter leaf and per metric (phase 5's limit)
+    "card_vs_cpu": 1e-4,
+    # every client's clipped update norm over the clip (fp32 scale, bf16 leaves)
+    "dp_clip_ratio": 1.0 + 1e-3,
+    # std of the DP noise on client 0's slot over σ·c, relative (~150k draws:
+    # the std's own standard error is 0.2%)
+    "dp_noise_std": 0.05,
+}
+
+
+class RoundClock:
+    """Times each round of an experiment: CUDA events and host seconds around
+    ``run_round`` (the round function), and the host seconds of the rest of
+    the campaign loop since the last round (re-sampling, the allocator's
+    re-solve, planning, the previous round's checkpoint)."""
+
+    def __init__(self, exp, name: str = "round"):
+        self.run_round, self.rows, self.mark = exp.run_round, [], time.perf_counter()
+        self.name = name
+        exp.run_round = self
+
+    def __call__(self, batches, **kw):
+        t = time.perf_counter()
+        res, ms = timed(lambda: self.run_round(batches, **kw))
+        self.last = {"device_round_s": ms / 1e3, "round_fn_host_s": time.perf_counter() - t}
+        return res
+
+    def on_round(self, rec) -> None:
+        now = time.perf_counter()
+        row = {"round": rec.round, **self.last,
+               "host_outside_round_fn_s": now - self.mark - self.last["round_fn_host_s"],
+               "alloc_T": float(rec.alloc.T), "eta": rec.eta, "round_time": rec.round_time,
+               "cumulative_time": rec.cumulative_time,
+               "mask": None if rec.mask is None else [float(m) for m in rec.mask],
+               "simulated_total": [float(x) for x in rec.timing.total], **rec.metrics}
+        self.mark = now
+        self.rows.append(row)
+        log(f"[campaign] {self.name} {rec.round}: T {row['alloc_T']:.1f} s, η {rec.eta:.2f}, mask "
+            f"{row['mask']}, simulated round {rec.round_time:.2f} s; device "
+            f"{row['device_round_s']:.3f} s, host outside round_fn "
+            f"{row['host_outside_round_fn_s']:.3f} s; loss {rec.metrics['loss_round_start']:.6f}")
+
+
+def same_bits(a, b) -> bool:
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(x.dtype == y.dtype and torch.equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
+def campaign_resume(dev, run_cfg, stream) -> tuple[dict, list]:
+    """Part (a) and (b): the campaign, then a fresh experiment resumed from
+    its round-2 checkpoint, both deterministic."""
+    ckpt, resumed_dir = OUT / "campaign_ckpt", OUT / "campaign_resume"
+    for d in (ckpt, resumed_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    kw = dict(scenario="blockfade", topology="star", eta_search="warm", device=dev)
+    t0 = time.perf_counter()
+    exp = Experiment.from_config(run_cfg, **kw)
+    ctor_s = time.perf_counter() - t0
+    net0, alloc0 = exp.net, exp.alloc  # the constructor's solve, for the fresh experiment
+    log(f"[campaign] {exp.describe()}; constructor {ctor_s:.1f} s on the host")
+    # round 0's simulated per-client times as the campaign will price them
+    # (events.round_state is pure): the deadline masks its slowest client
+    total0 = events.round_state(exp, exp.seed, 0, reallocate=True)[-1].total
+    deadline = float(np.mean(np.sort(total0)[-2:]))
+    camp = dict(num_rounds=CAMPAIGN_ROUNDS, stream=stream, cohort=TRAIN_K, deadline=deadline,
+                resample_channel=True, reallocate=True)
+    clock = RoundClock(exp)
+    torch.cuda.reset_peak_memory_stats()
+    res = exp.run(checkpoint_dir=str(ckpt), checkpoint_every=1, on_round=clock.on_round, **camp)
+    peak = torch.cuda.max_memory_allocated()
+
+    # the checkpoint after round 2 alone, resumed by a fresh experiment
+    shutil.copytree(ckpt, resumed_dir)
+    for name in os.listdir(resumed_dir):
+        if name.startswith("step_") and int(name.split("_")[1]) > CAMPAIGN_RESUME:
+            shutil.rmtree(resumed_dir / name)
+    fresh = Experiment.from_config(run_cfg, net=net0, alloc=alloc0, **kw)
+    fresh_clock = RoundClock(fresh, "resumed round")
+    rest = fresh.run(checkpoint_dir=str(resumed_dir), resume=True, on_round=fresh_clock.on_round,
+                     **camp)
+    resumed = {"rounds": [r.round for r in rest.records],
+               "state_bitwise": same_bits(rest.state, res.state),
+               "records_equal": all(a.metrics == b.metrics and a.round_time == b.round_time
+                                    and a.eta == b.eta for a, b in
+                                    zip(res.records[CAMPAIGN_RESUME:], rest.records)),
+               "total_time": [res.total_time, rest.total_time], "clock": fresh_clock.rows}
+    out = {"constructor_s": ctor_s, "deadline": deadline, "round0_simulated": list(total0),
+           "rounds": clock.rows, "peak_memory_bytes": peak, "total_time": res.total_time,
+           "trace_count": exp.trace_count, "eta_buckets": exp.eta_buckets, "resumed": resumed,
+           "describe": exp.describe()}
+    log(f"[campaign] (a) peak memory {peak / 2**30:.2f} GiB; resumed from round "
+        f"{CAMPAIGN_RESUME}: rounds {resumed['rounds']}, state bit for bit "
+        f"{resumed['state_bitwise']}, records equal {resumed['records_equal']}")
+    log(f"[campaign] (b) trace_count {exp.trace_count}, η buckets {exp.eta_buckets}")
+    fails = []
+    if resumed["rounds"] != list(range(CAMPAIGN_RESUME, CAMPAIGN_ROUNDS)):
+        fails.append(f"the resumed campaign ran rounds {resumed['rounds']}")
+    if not (resumed["state_bitwise"] and resumed["records_equal"]
+            and rest.total_time == res.total_time):
+        fails.append("the resumed campaign differs from the uninterrupted one")
+    if not any(r.stragglers for r in res.records):
+        fails.append("the deadline masked no client")
+    if any(r.survivors == 0 for r in res.records):
+        fails.append("a round masked every client")
+    if not exp.trace_count <= len(exp.eta_buckets):
+        fails.append(f"trace_count {exp.trace_count} > {len(exp.eta_buckets)} η buckets")
+    if not all(math.isfinite(v) for r in res.records for v in r.metrics.values()):
+        fails.append("a campaign metric is not finite")
+    del exp, fresh, res, rest
+    for d in (ckpt, resumed_dir):  # 249 MB a checkpoint: nothing to keep
+        shutil.rmtree(d, ignore_errors=True)
+    return out, fails
+
+
+def codec_and_dp(dev, run_cfg, stream) -> tuple[dict, list]:
+    """Part (c): one round through the int8 uplink, one with DP. These price
+    with ``EB`` (the campaign's ``proposed`` solve is phase 6's and (a)'s)."""
+    batches = client_batches(stream, 0, TRAIN_K)
+    fails, out = [], {}
+    exp = Experiment.from_config(run_cfg, allocator="EB", compressor="int8", device=dev)
+    info = split.split_value_and_grad(exp.state.base, exp.state.lora_c, exp.state.lora_s,
+                                      tree_index(batches, 0), exp.cfg, exp.cut,
+                                      compressor=exp.compressor)[3]
+    elems = TRAIN_B * TRAIN_S * exp.cfg.d_model
+    res, ms = timed(lambda: exp.run_round(batches))
+    out["int8"] = {"info": info, "elems": elems, "s_bits": exp.fcfg.s_bits, "round_s": ms / 1e3,
+                   **{k: v.item() for k, v in res.metrics.items()}}
+    log(f"[campaign] (c) int8 round: {json.dumps(out['int8'])}")
+    if info["smashed_bits_uplink"] != elems * 8 + 32:
+        fails.append(f"int8 uplink bits {info['smashed_bits_uplink']} != {elems * 8 + 32}")
+    if not all(math.isfinite(v.item()) for v in res.metrics.values()):
+        fails.append("an int8 metric is not finite")
+    del exp, res
+
+    seen = {}
+    noisy_fn = privacy.clip_and_noise_updates
+
+    def watched(stacked, gen, *, clip_norm, noise_multiplier):
+        noisy = noisy_fn(stacked, gen, clip_norm=clip_norm, noise_multiplier=noise_multiplier)
+        clean = noisy_fn(stacked, None, clip_norm=clip_norm)
+        K = tree_leaves(stacked)[0].shape[0]
+        seen["raw_norms"] = [privacy.global_norm(tree_index(stacked, k)).item() for k in range(K)]
+        seen["clipped_norms"] = [privacy.global_norm(tree_index(clean, k)).item()
+                                 for k in range(K)]
+        seen["others_exact"] = all(torch.equal(a[1:], b[1:]) for a, b in
+                                   zip(tree_leaves(noisy), tree_leaves(clean)))
+        noise = torch.cat([(a[0].float() - b[0].float()).flatten()
+                           for a, b in zip(tree_leaves(noisy), tree_leaves(clean))])
+        seen["noise_std"], seen["noise_mean"] = noise.std().item(), noise.mean().item()
+        seen["noise_n"] = noise.numel()
+        return noisy
+
+    exp = Experiment.from_config(run_cfg, allocator="EB", dp_clip=DP_CLIP, dp_noise=DP_NOISE,
+                                 device=dev)
+    privacy.clip_and_noise_updates = watched
+    try:
+        res, ms = timed(lambda: exp.run_round(batches))
+    finally:
+        privacy.clip_and_noise_updates = noisy_fn
+    out["dp"] = {"clip": DP_CLIP, "noise": DP_NOISE, "round_s": ms / 1e3, **seen,
+                 **{k: v.item() for k, v in res.metrics.items()}}
+    log(f"[campaign] (c) DP round: {json.dumps(out['dp'])}")
+    if not seen or max(seen["clipped_norms"]) > DP_CLIP * CAMPAIGN_LIMITS["dp_clip_ratio"]:
+        fails.append(f"a clipped update exceeds the clip: {seen.get('clipped_norms')}")
+    if not seen.get("others_exact"):
+        fails.append("DP noise reached a client slot other than client 0's")
+    if not abs(seen.get("noise_std", 0.0) / (DP_NOISE * DP_CLIP) - 1) <= \
+            CAMPAIGN_LIMITS["dp_noise_std"]:
+        fails.append(f"DP noise std {seen.get('noise_std')} is not σ·c = {DP_NOISE * DP_CLIP}")
+    if not all(math.isfinite(v.item()) for v in res.metrics.values()):
+        fails.append("a DP metric is not finite")
+    return out, fails
+
+
+def facade_parity(dev) -> dict:
+    """Part (d): one smoke round (fp32) of the facade on the card and on the
+    CPU, from the same state and batches."""
+    run_cfg = RunConfig(model=smoke_variant(get_arch(TRAIN_ARCH)), shape=SHAPES["train_4k"],
+                        fedsllm=FedsLLMConfig(num_clients=2))
+    cpu = Experiment.from_config(run_cfg, allocator="EB", device="cpu")
+    card = Experiment.from_config(run_cfg, allocator="EB", device=dev)
+    card.state = to_dev(cpu.state, dev)
+    batches = client_batches(TokenStream(2, 16, run_cfg.model.vocab_size, device="cpu"), 0, 2)
+    want, got = cpu.run_round(batches), card.run_round(to_dev(batches, dev))
+    return {"lora_c": tree_rel_gap(got.state.lora_c, want.state.lora_c),
+            "lora_s": tree_rel_gap(got.state.lora_s, want.state.lora_s),
+            **{k: tree_rel_gap(got.metrics[k], want.metrics[k]) for k in want.metrics}}
+
+
+def phase_campaign(dev) -> dict:
+    """Parts (a)-(d) on the card; no kernel may launch anywhere in the phase."""
+    zero_counters()
+    cfg = get_arch(TRAIN_ARCH)
+    run_cfg = RunConfig(model=cfg, shape=SHAPES["train_4k"],
+                        fedsllm=FedsLLMConfig(num_clients=TRAIN_K))
+    stream = TokenStream(TRAIN_B, TRAIN_S, cfg.vocab_size, seed=0, device=dev)
+    torch.use_deterministic_algorithms(True)
+    try:
+        campaign, fails = campaign_resume(dev, run_cfg, stream)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    rounds, more = codec_and_dp(dev, run_cfg, stream)
+    fails += more
+    parity = facade_parity(dev)
+    log(f"[campaign] (d) smoke round, card vs CPU (of the largest value): {json.dumps(parity)}")
+    if max(parity.values()) > CAMPAIGN_LIMITS["card_vs_cpu"]:
+        fails.append(f"card vs CPU {parity}")
+    launches = {name: fn.launches for name, fn in KERNELS.items()}
+    log(f"[campaign] (e) kernel launches in the phase: {launches}")
+    if any(launches.values()):
+        fails.append(f"the campaign phase launched kernels {launches}")
+    result = {"config": {"arch": TRAIN_ARCH, "K": TRAIN_K, "cohort": TRAIN_K, "B": TRAIN_B,
+                         "S": TRAIN_S, "rounds": CAMPAIGN_ROUNDS, "resume_from": CAMPAIGN_RESUME,
+                         "scenario": "blockfade", "topology": "star", "eta_search": "warm",
+                         "cublas_workspace": os.environ.get("CUBLAS_WORKSPACE_CONFIG")},
+              "limits": CAMPAIGN_LIMITS, "campaign": campaign, "codec_dp": rounds,
+              "parity": parity, "launches": launches, "fails": fails}
+    (OUT / "campaign.json").write_text(json.dumps(result, indent=1))
+    if fails:
+        raise SystemExit(f"[campaign] {len(fails)} check(s) failed: {fails}")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1373,11 +1632,13 @@ def main() -> int:
     train, ctx = phase_train(dev)
     priced = phase_priced(dev, ctx)
     del ctx
+    campaign = phase_campaign(dev)
     (OUT / "chip_smoke.json").write_text(json.dumps(
         {"nvidia_smi": smi, "build": build, "kernels": kernels, "traces": TRACE_LOG,
          "paths": {arch: {"checks": r["checks"], "slice": r["slice"],
                           "end_to_end": r["timings"]["end_to_end"]}
-                   for arch, r in results.items()}, "train": train, "priced": priced},
+                   for arch, r in results.items()}, "train": train, "priced": priced,
+         "campaign": campaign},
         indent=1))
     log(f"[timing] torch.profiler traces kept {TRACE_LOG['kept']}, lost {TRACE_LOG['lost']}")
     print(smi)

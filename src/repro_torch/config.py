@@ -1,4 +1,4 @@
-"""Model, LoRA and FedsLLM configuration for the PyTorch port.
+"""Model, LoRA, FedsLLM and run configuration for the PyTorch port.
 
 The port's own copy of the configuration dataclasses of ``repro.config``: the
 fields are the same, so a registered architecture reads identically in both
@@ -12,7 +12,7 @@ settings) is copied field for field.
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Callable, Optional
 
 
@@ -99,6 +99,16 @@ class ModelConfig:
         if self.family == "hybrid" and self.lru_width == 0:
             object.__setattr__(self, "lru_width", self.d_model)
 
+    @property
+    def group_size(self) -> int:
+        """Layers per scan group (one copy of the pattern)."""
+        return len(self.layer_pattern)
+
+    @property
+    def num_groups(self) -> int:
+        """Full scanned groups; remainder layers are an unscanned tail."""
+        return self.num_layers // self.group_size
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
@@ -145,6 +155,55 @@ class FedsLLMConfig:
     # round function per bucket instead of recompiling every round
     eta_train_max: float = 0.5
     eta_bucket: float = 0.05
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    kind: str  # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+    @property
+    def is_train(self) -> bool:
+        return self.kind == "train"
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32_768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524_288, 1),
+}
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.01
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    warmup_steps: int = 100
+    total_steps: int = 1_000
+    grad_clip: float = 1.0
+    optimizer: str = "adamw"  # adamw | sgd | adafactor
+    remat: str = "full"  # none | full | dots
+    seed: int = 0
+    microbatch: int = 0  # 0 = no accumulation
+    moment_dtype: str = "float32"
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    """What ``api.Experiment.from_config`` reads: the model, the §IV system
+    (paper defaults when None) and ``train.seed``. The reference's ``mesh``
+    field (a TPU mesh) has no counterpart on one card."""
+
+    model: ModelConfig
+    shape: ShapeConfig
+    train: TrainConfig = field(default_factory=TrainConfig)
+    fedsllm: Optional[FedsLLMConfig] = None
 
 
 _REGISTRY: dict[str, Callable[[], ModelConfig]] = {}

@@ -18,10 +18,7 @@ are 0-d tensors.
 
 Lemma 2 sets I_loc (v·log2(1/η)); Lemma 1 the number of global rounds
 (a/(1−η)); ``simulate_round_time`` prices a round's simulated wall-clock
-from an allocation of ``resource_alloc``. Still to come, each with a later
-slice and raising ``NotImplementedError`` until then: the uplink codecs
-(``compressor``) and DP on the uploads (``dp_clip``; ``core/privacy.py``
-comes with the codecs).
+from an allocation of ``resource_alloc``.
 """
 
 from __future__ import annotations
@@ -35,7 +32,7 @@ import torch
 
 from repro_torch.config import FedsLLMConfig, ModelConfig
 from repro_torch.core import delay_model as dm
-from repro_torch.core import federated, lora as lora_lib, split
+from repro_torch.core import federated, lora as lora_lib, privacy, split
 from repro_torch.fl.local_algos import get_local_algo
 from repro_torch.models import transformer as T
 from repro_torch.tree import tree_index, tree_leaves, tree_map, tree_stack, weak
@@ -66,15 +63,11 @@ def global_round_count(fcfg: FedsLLMConfig, eta: float) -> int:
     return max(1, int(math.ceil(dm.lemma_a(fcfg) / (1.0 - eta))))
 
 
-def _later(what: str, needs: str) -> NotImplementedError:
-    return NotImplementedError(f"{what}: needs {needs}, which a later slice of the port brings "
-                               "(ROADMAP queue 1)")
-
-
 def build_round_fn(cfg: ModelConfig, fcfg: FedsLLMConfig, cut: int, eta: float,
                    xi: Optional[float] = None, delta: Optional[float] = None,
-                   dp_clip: float = 0.0, aggregator: Optional[Callable] = None,
-                   compressor=None, two_tier: bool = False, local_algo=None) -> Callable:
+                   remat: bool = False, dp_clip: float = 0.0, dp_noise: float = 0.0,
+                   aggregator: Optional[Callable] = None, compressor=None, dp_seed: int = 0,
+                   two_tier: bool = False, local_algo=None) -> Callable:
     """The global-round function.
 
     round_fn(state, batches, mask=None, key=None, weights=None, assign=None,
@@ -82,15 +75,23 @@ def build_round_fn(cfg: ModelConfig, fcfg: FedsLLMConfig, cut: int, eta: float,
 
     batches: dict of tensors stacked (K, ...), one micro-dataset per client.
     mask: (K,) survivors, or None. weights: (K,) aggregation weights (e.g.
-    D_k), or None (uniform). key is taken for the reference's signature (it
-    feeds DP noise, not ported). assign: (K, M) one-hot client→edge
+    D_k), or None (uniform). assign: (K, M) one-hot client→edge
     membership, used only with ``two_tier=True`` (the ``edge-agg``
     topology): every aggregation then runs per edge and across edges
     (``federated.hier_aggregate``); ``assign=None`` aggregates flat.
     update_scale: the server mixing rate α of Δw ← Δw + α·h̄ (a scalar or
     0-d tensor), None for α = 1. aggregator: (stacked, weights=None,
     mask=None) -> tree, ``federated.fedavg`` by default, applied to ḡ and
-    to the updates. local_algo: a ``fl.local_algos`` name
+    to the updates. compressor: an ``api.compressors`` codec applied to the
+    smashed activations on the uplink (straight-through), or None. remat:
+    recompute each group's activations in the backward pass.
+    dp_clip/dp_noise: per-client L2 clip of the uploaded client-side updates
+    and the Gaussian noise multiplier on their sum (DP-FedAvg,
+    ``core/privacy.py``); 0 disables. key: the ``torch.Generator`` of the DP
+    noise, or None: the round's generator is then seeded from
+    ``SeedSequence([dp_seed, state.round])``, fresh noise every global round
+    (the reference folds the round into ``PRNGKey(dp_seed)``).
+    local_algo: a ``fl.local_algos`` name
     or instance, ``gd`` by default. A stateful one (``scaffold``) takes two
     more arguments and returns a triple:
 
@@ -99,11 +100,9 @@ def build_round_fn(cfg: ModelConfig, fcfg: FedsLLMConfig, cut: int, eta: float,
 
     algo_state: the (K, …)-stacked control variates of the whole population;
     algo_ids: (C,) rows of ``algo_state`` that the cohort's batches belong to
-    (None: the first C). The variates advance on the raw deviations h.
+    (None: the first C). The variates advance on the raw deviations h,
+    before any DP clip or noise.
     """
-    split._require_no_codec(compressor)
-    if dp_clip > 0.0:
-        raise _later("dp_clip > 0", "core/privacy.py (with the uplink codecs, item 5)")
     xi = fcfg.xi if xi is None else xi
     delta = fcfg.delta if delta is None else delta
     I_loc = local_iteration_count(fcfg, eta)
@@ -111,7 +110,8 @@ def build_round_fn(cfg: ModelConfig, fcfg: FedsLLMConfig, cut: int, eta: float,
     algo = get_local_algo("gd" if local_algo is None else local_algo)
 
     def client_grads(base, lc, ls, batch):
-        loss, dc, ds, _ = split.split_value_and_grad(base, lc, ls, batch, cfg, cut)
+        loss, dc, ds, _ = split.split_value_and_grad(base, lc, ls, batch, cfg, cut, remat=remat,
+                                                     compressor=compressor)
         return loss, (dc, ds)
 
     def one_client_round(base, lc0, ls0, gk0, gbar, batch, ctrl=None, ctrl_bar=None):
@@ -127,8 +127,8 @@ def build_round_fn(cfg: ModelConfig, fcfg: FedsLLMConfig, cut: int, eta: float,
             h = tree_map(lambda x, gx: x - weak(delta, gx) * gx, h, g)
         return h[0], h[1], loss
 
-    def _round(state: FedsLLMState, batches, mask, weights, assign, update_scale, algo_state,
-               algo_ids):
+    def _round(state: FedsLLMState, batches, mask, key, weights, assign, update_scale,
+               algo_state, algo_ids):
         dev = state.round.device
         K = tree_leaves(batches)[0].shape[0]
         mask = None if mask is None else torch.as_tensor(mask, dtype=torch.float32, device=dev)
@@ -174,6 +174,14 @@ def build_round_fn(cfg: ModelConfig, fcfg: FedsLLMConfig, cut: int, eta: float,
             new_algo_state = tree_map(lambda full, u: full.index_copy(0, ids, u.to(full.dtype)),
                                       algo_state, upd)
 
+        # 3b. optional DP on the uploaded client-side updates
+        if dp_clip > 0.0:
+            if key is None:
+                seed = np.random.SeedSequence([dp_seed, int(state.round)]).generate_state(1)[0]
+                key = torch.Generator().manual_seed(int(seed))
+            h_c = privacy.clip_and_noise_updates(h_c, key, clip_norm=dp_clip,
+                                                 noise_multiplier=dp_noise)
+
         # 4. aggregate + update (fed server for Δw_c, main server for Δw_s)
         alpha = 1.0 if update_scale is None else update_scale
         new_lc = federated.apply_update(state.lora_c, agg(h_c), alpha)
@@ -188,12 +196,12 @@ def build_round_fn(cfg: ModelConfig, fcfg: FedsLLMConfig, cut: int, eta: float,
     if algo.stateful:
         def round_fn(state: FedsLLMState, batches, mask=None, key=None, weights=None,
                      assign=None, update_scale=None, algo_state=None, algo_ids=None):
-            return _round(state, batches, mask, weights, assign, update_scale, algo_state,
-                          algo_ids)
+            return _round(state, batches, mask, key, weights, assign, update_scale,
+                          algo_state, algo_ids)
     else:
         def round_fn(state: FedsLLMState, batches, mask=None, key=None, weights=None,
                      assign=None, update_scale=None):
-            new_state, metrics, _ = _round(state, batches, mask, weights, assign,
+            new_state, metrics, _ = _round(state, batches, mask, key, weights, assign,
                                            update_scale, None, None)
             return new_state, metrics
 

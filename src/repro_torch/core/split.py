@@ -13,8 +13,7 @@ place of ``jax.vjp``:
 
 and equals ``monolithic_value_and_grad``, end-to-end autograd of the same
 function. Both sides train through ``lora.merge`` and the plain attention and
-SSD paths, never through a kernel (the kernels are forward-only). The uplink
-codecs are not ported yet: ``compressor`` must be None.
+SSD paths, never through a kernel (the kernels are forward-only).
 """
 
 from __future__ import annotations
@@ -43,19 +42,19 @@ def slice_base(params, cut: int) -> SplitParts:
     return SplitParts(client, server)
 
 
-def client_forward(client_base, lora_c, batch, cfg: ModelConfig):
+def client_forward(client_base, lora_c, batch, cfg: ModelConfig, *, remat=False):
     """Embed + the first ``cut`` groups -> smashed activations (B, S, D)."""
     merged = lora_lib.merge(client_base, lora_c, cfg)
     x, positions = T._embed_inputs(merged, batch, cfg)
-    return T._scan_groups(merged, x, cfg, positions=positions, kernels=False)
+    return T._scan_groups(merged, x, cfg, positions=positions, kernels=False, remat=remat)
 
 
-def server_forward_loss(server_base, lora_s, acts, batch, cfg: ModelConfig):
+def server_forward_loss(server_base, lora_s, acts, batch, cfg: ModelConfig, *, remat=False):
     """Remaining groups + final norm + head + CE loss on the main server (the
     reference adds 0.01·aux, a MoE term that no ported family has)."""
     merged = lora_lib.merge(server_base, lora_s, cfg)
     positions = torch.arange(acts.shape[1], device=acts.device)[None, :]
-    x = T._scan_groups(merged, acts, cfg, positions=positions, kernels=False)
+    x = T._scan_groups(merged, acts, cfg, positions=positions, kernels=False, remat=remat)
     x = L.apply_norm(merged["final_norm"], x, cfg)
     return L.fused_cross_entropy(merged["embed"], x, batch["labels"], cfg,
                                  mask=batch.get("mask"))
@@ -65,29 +64,34 @@ def _trainable(lora):
     return tree_map(lambda t: t.detach().requires_grad_(), lora)
 
 
-def _require_no_codec(compressor) -> None:
-    if compressor is not None:
-        raise NotImplementedError("compressor: the uplink codecs (api/compressors.py, "
-                                  "core/compression.py) come in a later slice of the port "
-                                  "(ROADMAP queue 1 item 5); pass compressor=None")
-
-
 def split_value_and_grad(params, lora_c, lora_s, batch, cfg: ModelConfig, cut: int,
-                         compressor=None):
-    """Algorithm-2 message flow. Returns (loss, dlora_c, dlora_s, info);
-    ``info`` holds the uplink and downlink byte counts (the delay model's s)."""
-    _require_no_codec(compressor)
+                         remat: bool = False, compressor=None):
+    """Algorithm-2 message flow. Returns (loss, dlora_c, dlora_s, info).
+
+    ``compressor`` (see ``repro_torch.api.compressors``) is applied to the
+    smashed activations on the client→server uplink, *outside* the client's
+    graph: the server differentiates w.r.t. the compressed activations and
+    the resulting dA_k flows straight through the codec back into the client
+    backward pass (straight-through split learning). ``info`` holds the
+    uplink and downlink volumes (the delay model's s); the allocator's
+    ``s_bits`` are rescaled by the codec's nominal ratio up front, in
+    ``repro_torch.api.Experiment``."""
     parts = slice_base(params, cut)
     lc, ls = _trainable(lora_c), _trainable(lora_s)
     with torch.enable_grad():
-        acts = client_forward(parts.client_base, lc, batch, cfg)
-        sent = acts.detach().requires_grad_()  # what crosses the uplink
-        loss = server_forward_loss(parts.server_base, ls, sent, batch, cfg)
+        acts = client_forward(parts.client_base, lc, batch, cfg, remat=remat)
+        sent = acts.detach()  # what crosses the uplink
+        if compressor is not None:
+            sent = compressor.apply(sent)
+        sent.requires_grad_()
+        loss = server_forward_loss(parts.server_base, ls, sent, batch, cfg, remat=remat)
         *dls, dacts = torch.autograd.grad(loss, tree_leaves(ls) + [sent])
         # the gradient of the smashed data returns to the client (dA_k)
         dlc = torch.autograd.grad(acts, tree_leaves(lc), grad_outputs=dacts)
-    uplink = acts.numel() * acts.element_size()
-    info = {"smashed_bytes": uplink, "smashed_bits_uplink": uplink * 8,
+    elems, bits = acts.numel(), acts.element_size() * 8
+    info = {"smashed_bytes": elems * acts.element_size(),
+            "smashed_bits_uplink": elems * bits if compressor is None
+            else compressor.bits(elems, bits),
             "grad_bytes": dacts.numel() * dacts.element_size()}
     return loss.detach(), tree_like(lc, dlc), tree_like(ls, dls), info
 

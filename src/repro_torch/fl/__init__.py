@@ -1,1 +1,3 @@
-"""Federated-learning strategies of the port (the reference's ``repro.fl``)."""
+"""Federated-learning strategy axes of the port (the reference's ``repro.fl``):
+``local_algos`` (``gd`` | ``fedprox`` | ``scaffold``) and ``workloads``
+(``iid`` | ``quantity-skew`` | ``length-skew`` | ``dirichlet``)."""

@@ -23,6 +23,7 @@ Two paths, as in the reference:
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
 from repro_torch.core.lora import layer_adapters
@@ -138,18 +139,24 @@ def _num_groups(groups) -> int:
 
 
 def _scan_groups(params, x, cfg: ModelConfig, *, cache=None, cache_pos=None, positions=None,
-                 lora=None, kernels=True):
+                 lora=None, kernels=True, remat=False):
     """Run the stacked groups ``params["groups"]``, writing the cache (if any)
     in place. The stack may be a view of the model's (``groups[:cut]`` or
     ``groups[cut:]``), with ``lora`` cut to the same layers
     (``lora.split_client_server``). The ported patterns are one char long, so
-    no model has the reference's tail layers."""
+    no model has the reference's tail layers. ``remat``: each group's
+    activations are recomputed in the backward pass instead of kept
+    (``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` per
+    group); the values and gradients are the same."""
     _require_ported(cfg)
     for i in range(_num_groups(params["groups"])):
-        x = apply_group(_index(params["groups"], i), x, cfg,
-                        cache=_index(cache["groups"], i) if cache else None,
-                        cache_pos=cache_pos, positions=positions,
-                        adapters=layer_adapters(lora, cfg, i), kernels=kernels)
+        def group(h, i=i):
+            return apply_group(_index(params["groups"], i), h, cfg,
+                               cache=_index(cache["groups"], i) if cache else None,
+                               cache_pos=cache_pos, positions=positions,
+                               adapters=layer_adapters(lora, cfg, i), kernels=kernels)
+
+        x = checkpoint(group, x, use_reentrant=False) if remat else group(x)
     return x
 
 

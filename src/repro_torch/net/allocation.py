@@ -68,8 +68,8 @@ def _infeasible(fcfg: FedsLLMConfig, strategy: str) -> Allocation:
 
     η is NaN on purpose — an infeasible round has no solved η*, and a
     fabricated finite value could silently be adopted as a training η by a
-    reallocating campaign (the reference's ``Experiment.set_eta`` and its
-    round-state guard both reject non-finite η with a loud error instead)."""
+    reallocating campaign (``Experiment.set_eta`` and the round-state guard
+    both reject non-finite η with a loud error instead)."""
     return Allocation(np.inf, np.nan, fcfg.split_ratio_min, None, None, None,
                       None, False, strategy)
 
@@ -82,18 +82,71 @@ def _transmit_time(bits: float, rate: np.ndarray) -> np.ndarray:
     return out
 
 
+def _broadcast_reps(fcfg: FedsLLMConfig, net: dm.Network, idx: np.ndarray,
+                    rep_idx: np.ndarray, a: Allocation) -> Allocation:
+    """Expand a representative-cell solve to the full cell.
+
+    Each non-representative member adopts the bandwidth split of its nearest
+    representative in client-side channel gain (the Lemma-3 split is
+    monotone in gain, so the nearest-gain rep's share is the right
+    multiplicity class), re-timed at the member's OWN gains — the combined
+    allocation still prices every client's real link, only the convex solve
+    was restricted."""
+    g = np.asarray(net.g_c, float)
+    order = np.argsort(g[rep_idx], kind="stable")
+    rg = g[rep_idx][order]
+    pos = np.searchsorted(rg, g[idx])
+    lo = np.clip(pos - 1, 0, len(rg) - 1)
+    hi = np.clip(pos, 0, len(rg) - 1)
+    nearer = np.where(np.abs(g[idx] - rg[lo]) <= np.abs(rg[hi] - g[idx]),
+                      lo, hi)
+    src = order[nearer]
+    b_c = np.asarray(a.b_c)[src]
+    b_s = np.asarray(a.b_s)[src]
+    r_c = dm.rate(b_c, g[idx], np.asarray(net.p_c_max)[idx], net.N0)
+    r_s = dm.rate(b_s, np.asarray(net.g_s)[idx],
+                  np.asarray(net.p_s_max)[idx], net.N0)
+    return dataclasses.replace(a, b_c=b_c, b_s=b_s,
+                               t_c=_transmit_time(fcfg.s_c_bits, r_c),
+                               t_s=_transmit_time(fcfg.s_bits, r_s))
+
+
 def _solve_cell(fcfg: FedsLLMConfig, net: dm.Network, idx: np.ndarray,
-                allocate_fn, *, extra_delay: Optional[np.ndarray] = None,
+                allocate_fn, *, population=None,
+                extra_delay: Optional[np.ndarray] = None,
                 **cell_kw) -> tuple:
-    """One cell's convex solve on its own clients: ``(idx, Allocation)``."""
+    """One cell's convex solve, population-aware: ``(idx, Allocation)``.
+
+    Without a population holding ``rep_ids`` (exact/compact, or mean-field
+    with reps ≥ K) this is exactly the legacy per-cell call — bit-identical.
+    With representatives, the solve runs on the cell's reps only, with the
+    cell's bandwidth pool scaled by the representative fraction so each rep
+    stands in for its multiplicity share of the population (the per-client
+    share of the pool is preserved in expectation); the solution is then
+    broadcast back to every member via :func:`_broadcast_reps`.  Cells whose
+    representatives don't cover them (no rep attached) fall back to the
+    exact solve.
+    """
+    rep = getattr(population, "rep_ids", None)
+    sub_idx = idx
+    if rep is not None:
+        rep_in = np.intersect1d(idx, rep)
+        if 0 < len(rep_in) < len(idx):
+            fcfg = dataclasses.replace(
+                fcfg, bandwidth_total_hz=(fcfg.bandwidth_total_hz
+                                          * len(rep_in) / len(idx)))
+            sub_idx = rep_in
     if extra_delay is not None:
-        cell_kw["extra_delay"] = np.asarray(extra_delay)[idx]
-    return idx, allocate_fn(fcfg, subnetwork(net, idx), **cell_kw)
+        cell_kw["extra_delay"] = np.asarray(extra_delay)[sub_idx]
+    a = allocate_fn(fcfg, subnetwork(net, sub_idx), **cell_kw)
+    if sub_idx is not idx and a.feasible and a.t_c is not None:
+        a = _broadcast_reps(fcfg, net, idx, sub_idx, a)
+    return idx, a
 
 
 def _combine(fcfg: FedsLLMConfig, net: dm.Network, assign: np.ndarray,
              topology, solved: list, eta: float,
-             strategy: str) -> Optional[Allocation]:
+             strategy: str, population=None) -> Optional[Allocation]:
     """Scatter per-cell solutions into (K,) arrays and price the combined
     allocation under the hierarchical critical path.  None if any cell was
     infeasible at this η.
@@ -113,7 +166,8 @@ def _combine(fcfg: FedsLLMConfig, net: dm.Network, assign: np.ndarray,
         b_c[idx], b_s[idx] = a.b_c, a.b_s
     alloc = Allocation(np.inf, eta, fcfg.split_ratio_min, t_c, t_s, b_c, b_s,
                        True, strategy)
-    timing = topology.round_timing(fcfg, net, alloc, eta, assign)
+    timing = topology.round_timing(fcfg, net, alloc, eta, assign,
+                                   population=population)
     total = np.asarray(timing.total, float)
     finite = total[np.isfinite(total)]
     worst = float(np.max(finite)) if finite.size else np.inf
@@ -203,6 +257,7 @@ def expected_backhaul_hop(fcfg: FedsLLMConfig, net: dm.Network,
 def solve_wait_aware(fcfg: FedsLLMConfig, net: dm.Network,
                      assign: np.ndarray, topology, allocate_fn, eta: float, *,
                      strategy: str = "proposed", model_params=None,
+                     population=None,
                      **kw) -> tuple[Optional[Allocation], WaitInfo]:
     """The damped allocation↔wait fixed point at one fixed η.
 
@@ -237,11 +292,13 @@ def solve_wait_aware(fcfg: FedsLLMConfig, net: dm.Network,
     eta = float(eta)
 
     def solve(extra: Optional[np.ndarray]) -> Optional[Allocation]:
-        solved = [_solve_cell(fcfg, net, idx, allocate_fn, extra_delay=extra,
+        solved = [_solve_cell(fcfg, net, idx, allocate_fn,
+                              population=population, extra_delay=extra,
                               model_params=model_params,
                               eta_grid=np.array([eta]), **kw)
                   for idx in cells]
-        return _combine(fcfg, net, assign, topology, solved, eta, strategy)
+        return _combine(fcfg, net, assign, topology, solved, eta, strategy,
+                        population=population)
 
     cap = int(getattr(topology, "wait_iters", 8))
     damping = float(getattr(topology, "wait_damping", 0.5))
@@ -284,6 +341,7 @@ def optimize_cells(fcfg: FedsLLMConfig, net: dm.Network,
                    assign: np.ndarray, topology, allocate_fn, *,
                    strategy: str = "proposed", model_params=None,
                    eta_search: str = "grid", eta0: Optional[float] = None,
+                   population=None,
                    **kw) -> Allocation:
     """Per-edge-cell (16)/(17): topology-level η sweep, independent convex
     cell subproblems at each fixed η (see the module docstring).
@@ -307,10 +365,11 @@ def optimize_cells(fcfg: FedsLLMConfig, net: dm.Network,
 
     if strategy in ("BA", "FE"):  # fixed η = 0.1, one solve per cell
         solved = [_solve_cell(fcfg, net, idx, allocate_fn,
+                              population=population,
                               model_params=model_params, **kw)
                   for idx in cells]
         combined = _combine(fcfg, net, assign, topology, solved, 0.1,
-                            strategy)
+                            strategy, population=population)
         return combined if combined is not None else _infeasible(fcfg, strategy)
 
     wait_aware = (strategy == "proposed"
@@ -323,14 +382,17 @@ def optimize_cells(fcfg: FedsLLMConfig, net: dm.Network,
         if wait_aware:
             cand, diag = solve_wait_aware(fcfg, net, assign, topology,
                                           allocate_fn, eta, strategy=strategy,
-                                          model_params=model_params, **kw)
+                                          model_params=model_params,
+                                          population=population, **kw)
             topology.wait_diag.append(diag)
             return cand
         solved = [_solve_cell(fcfg, net, idx, allocate_fn,
+                              population=population,
                               model_params=model_params,
                               eta_grid=np.array([eta]), **kw)
                   for idx in cells]
-        return _combine(fcfg, net, assign, topology, solved, eta, strategy)
+        return _combine(fcfg, net, assign, topology, solved, eta, strategy,
+                        population=population)
 
     best = None
     for eta in ra.eta_grid_for(fcfg, eta_search, eta0):

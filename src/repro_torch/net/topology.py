@@ -46,12 +46,9 @@ crosses into the round function is the one-hot assignment matrix of the
 ``edge-agg`` two-tier aggregation — like the straggler mask, it varies per
 round in value only.
 
-    topo = get_topology("edge-agg")
-    net, assign = topo.localize(fcfg, get_scenario("geo-blockfade")
-                                .initial_network(fcfg, seed))
-    alloc = topo.allocate(fcfg, net, assign, get_allocator("proposed"),
-                          strategy="proposed", eta_search="coarse")
-    timing = topo.round_timing(fcfg, net, alloc, alloc.eta, assign)
+    exp = Experiment.from_config(run_cfg, topology="edge-cloud",
+                                 scenario="geo-blockfade")
+    exp.run(num_rounds=20, stream=stream, reallocate=True)
 
 Non-star topologies need a geometry-carrying scenario (``geo-blockfade``,
 ``drift``, ``hetero``, ``outage``, ``shadowing`` — anything built on
@@ -139,14 +136,25 @@ class Topology:
     # -- allocation + timing ----------------------------------------------
     def allocate(self, fcfg: FedsLLMConfig, net: dm.Network,
                  assign: Optional[np.ndarray], allocate_fn, *,
-                 strategy: str = "proposed", **kw) -> Allocation:
-        """Solve (16)/(17) on this graph; flat = the legacy single-pool solve."""
+                 strategy: str = "proposed", population=None,
+                 **kw) -> Allocation:
+        """Solve (16)/(17) on this graph; flat = the legacy single-pool solve.
+
+        ``population`` (the 9th axis, ``repro_torch.pop``) is consumed here — NOT
+        forwarded into ``allocate_fn`` — because the registered allocators
+        know nothing about population models; hierarchical graphs hand it to
+        the per-cell machinery which may restrict solves to representative
+        clients.  The flat graph has no cells, so it is simply dropped.
+        """
+        del population
         return allocate_fn(fcfg, net, **kw)
 
     def round_timing(self, fcfg: FedsLLMConfig, net: dm.Network,
                      alloc: Allocation, eta: float,
-                     assign: Optional[np.ndarray]) -> RoundTiming:
+                     assign: Optional[np.ndarray],
+                     population=None) -> RoundTiming:
         """End-to-end per-client round time (max over the client's path)."""
+        del population  # flat graph: no queues for a population model to price
         return fedsllm.simulate_round_time(fcfg, net, alloc, eta)
 
     def backhaul_seconds(self, fcfg: FedsLLMConfig,
@@ -283,31 +291,48 @@ class HierTopology(Topology):
 
     def allocate(self, fcfg: FedsLLMConfig, net: dm.Network,
                  assign: Optional[np.ndarray], allocate_fn, *,
-                 strategy: str = "proposed", **kw) -> Allocation:
+                 strategy: str = "proposed", population=None,
+                 **kw) -> Allocation:
         return hier_alloc.optimize_cells(fcfg, net, assign, self,
-                                         allocate_fn, strategy=strategy, **kw)
+                                         allocate_fn, strategy=strategy,
+                                         population=population, **kw)
 
     def round_timing(self, fcfg: FedsLLMConfig, net: dm.Network,
                      alloc: Allocation, eta: float,
-                     assign: Optional[np.ndarray]) -> RoundTiming:
+                     assign: Optional[np.ndarray],
+                     population=None) -> RoundTiming:
         wireless = fedsllm.simulate_round_time(fcfg, net, alloc, eta)
         return hier_delay.compose(
             wireless,
             self.backhaul_hop(fcfg, assign, eta,
-                              np.asarray(wireless.total, float)),
+                              np.asarray(wireless.total, float),
+                              population=population),
             assign,
             self.downlink_hop(fcfg, assign))
 
     def backhaul_hop(self, fcfg: FedsLLMConfig, assign: np.ndarray,
-                     eta: float, totals: np.ndarray) -> np.ndarray:
+                     eta: float, totals: np.ndarray,
+                     population=None) -> np.ndarray:
         """(K,) backhaul hop given per-client wireless completion times —
         THE composition point for the edge→cloud leg (``round_timing`` and
         the pipelined execution schedule both price through it, so the
         serial-vs-queued dispatch lives in exactly one place).
+
+        A ``population`` model (``repro_torch.pop``) gets first refusal on the
+        queued hop: ``meanfield`` replaces the exact per-job queue replay
+        with its analytic per-cell arrival-rate model (O(K) vectorised,
+        no O(K²) processor-sharing stepping).  A population returning
+        ``None`` — or the serial pipe, which is already O(K) — falls back
+        to the exact pricing unchanged.
         """
         if self.backhaul_model == "serial":
             return self.backhaul_seconds(fcfg, assign, eta)
-        return self._queued_backhaul(fcfg, assign, eta, np.asarray(totals, float))
+        totals = np.asarray(totals, float)
+        if population is not None:
+            hop = population.queued_hop(self, fcfg, assign, eta, totals)
+            if hop is not None:
+                return hop
+        return self._queued_backhaul(fcfg, assign, eta, totals)
 
     def downlink_hop(self, fcfg: FedsLLMConfig,
                      assign: np.ndarray) -> Optional[np.ndarray]:

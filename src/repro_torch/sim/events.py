@@ -1,6 +1,5 @@
 """Per-round scenario events for multi-round campaigns (port of
-``repro/sim/events.py``, all but ``round_state``, which prices a round of an
-``Experiment`` and comes with the experiment facade).
+``repro/sim/events.py``).
 
 A training campaign is not one frozen channel draw: the §IV wireless network
 changes between global rounds (block fading — coherence ≫ one round, ≪ the
@@ -25,7 +24,7 @@ import numpy as np
 from repro_torch.config import FedsLLMConfig
 from repro_torch.core import delay_model as dm
 from repro_torch.core import federated
-from repro_torch.core.resource_alloc import Allocation
+from repro_torch.core.resource_alloc import Allocation, quantize_eta
 
 # Mixing stride between the campaign seed and the round index (same prime
 # idiom as ``federated.client_sample`` — distinct streams per round without
@@ -77,6 +76,62 @@ def localized_round_network(fcfg: FedsLLMConfig, campaign_seed: int,
     if topology is None:
         return net, None
     return topology.localize(fcfg, net)
+
+
+def round_state(exp, campaign_seed: int, round_idx: int, *,
+                base_alloc: Optional[Allocation] = None,
+                resample: bool = True, reallocate: bool = False,
+                realloc_search: str = "warm"):
+    """The full per-round pricing of round ``round_idx``, without mutating
+    the experiment: ``(net, assign, alloc, eta, timing)``.
+
+    This is the campaign loop's step (a) factored into a *pure* function of
+    ``(exp's constructor state, campaign_seed, round_idx)`` — the loop calls
+    it to advance the experiment, and the asynchronous execution schedules
+    (``repro_torch.des.schedules``) call it to price client run durations at
+    arbitrary round indices without disturbing the loop's state.  With
+    ``resample=False`` every round prices identically to the constructor
+    realisation (the frozen-channel semantics).  ``base_alloc`` is the last
+    *solved* allocation the stale-retiming path re-prices (defaults to the
+    experiment's current one); under ``reallocate=True`` the allocator
+    re-solves jointly and ``eta`` comes back quantized onto the
+    ``fcfg.eta_bucket`` grid exactly as ``Experiment.set_eta`` would adopt
+    it, so loop and schedule agree bit-for-bit on the round's timing.
+    """
+    fcfg = exp.fcfg
+    if not resample:
+        return exp.net, exp.assign, exp.alloc, exp.eta, exp.timing
+    # the population model (9th axis) may replace the exact queue pricing
+    # with its analytic mean-field model and restrict per-cell re-solves to
+    # representative clients; ``exact`` (and any unbound population) leaves
+    # every path below bit-identical
+    pop = getattr(exp, "population", None)
+    net, assign = localized_round_network(fcfg, campaign_seed, round_idx,
+                                          scenario=exp.scenario,
+                                          topology=exp.topology)
+    if reallocate:
+        kw = {"eta_search": realloc_search}
+        if realloc_search == "warm":
+            kw["eta0"] = exp._eta0
+        alloc = exp.topology.allocate(fcfg, net, assign, exp._allocate,
+                                      strategy=exp.allocator_name,
+                                      population=pop, **kw)
+        if not alloc.feasible or not np.isfinite(alloc.eta):
+            # an infeasible Allocation carries eta=nan on purpose — adopting
+            # a fabricated η would silently train on an unsolvable round
+            raise ValueError(
+                f"round {round_idx}: allocator {exp.allocator_name!r} found "
+                f"no feasible allocation on this round's network (scenario "
+                f"{exp.scenario.name!r}, topology {exp.topology.name!r}) — "
+                f"refusing to adopt η from an infeasible solve")
+        eta = quantize_eta(alloc.eta, fcfg.eta_bucket, fcfg.eta_train_max)
+    else:
+        alloc = retime_allocation(fcfg, net,
+                                  exp.alloc if base_alloc is None else base_alloc)
+        eta = exp.eta
+    timing = exp.topology.round_timing(fcfg, net, alloc, eta, assign,
+                                       population=pop)
+    return net, assign, alloc, eta, timing
 
 
 def _transmit_time(bits: float, rate: np.ndarray) -> np.ndarray:

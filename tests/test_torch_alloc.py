@@ -19,7 +19,7 @@ from repro.config import FedsLLMConfig as JaxFedsLLMConfig
 from repro.core import delay_model as jax_dm
 from repro.core import fedsllm as jax_fedsllm
 from repro.core import resource_alloc as jax_ra
-from repro_torch.api import allocators
+allocators = importlib.import_module("repro_torch.api.allocators")  # the package exports a Registry
 from repro_torch.config import FedsLLMConfig
 from repro_torch.core import delay_model as dm
 from repro_torch.core import fedsllm

@@ -29,7 +29,8 @@ from repro.net import allocation as jax_allocation
 from repro.net import delay as jax_delay
 from repro.net import topology as jax_topology
 from repro_torch import bridge
-from repro_torch.api import aggregators, allocators
+aggregators = importlib.import_module("repro_torch.api.aggregators")  # the package
+allocators = importlib.import_module("repro_torch.api.allocators")  # exports Registries
 from repro_torch.config import FedsLLMConfig
 from repro_torch.core import federated, fedsllm
 from repro_torch.core import resource_alloc as ra

@@ -23,6 +23,7 @@ measured gaps (each test says which).
 """
 
 import dataclasses
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -31,6 +32,7 @@ import pytest
 import torch
 
 from repro.api.aggregators import get_aggregator as jax_get_aggregator
+from repro.api.compressors import get_compressor as jax_get_compressor
 from repro.config import FedsLLMConfig as JaxFedsLLMConfig
 from repro.config import LoRAConfig as JaxLoRAConfig
 from repro.config import get_arch as jax_get_arch
@@ -46,7 +48,9 @@ from repro.fl.local_algos import get_local_algo as jax_get_local_algo
 from repro.models import layers as JL
 from repro.models import transformer as JT
 from repro_torch import bridge
-from repro_torch.api import aggregators, allocators
+aggregators = importlib.import_module("repro_torch.api.aggregators")  # the package
+allocators = importlib.import_module("repro_torch.api.allocators")  # exports Registries
+from repro_torch.api.compressors import get_compressor
 from repro_torch.config import FedsLLMConfig, LoRAConfig, get_arch, smoke_variant
 from repro_torch.core import delay_model as dm
 from repro_torch.core import federated, fedsllm, split
@@ -420,19 +424,21 @@ def round_setup_bf16():
     return _round_setup("bfloat16")
 
 
-def _round_fns(s, name, kw, exact=False):
+def _round_fns(s, name, kw, exact=False, jround_kw=None, round_kw=None):
     """The reference's round function (jitted) and the port's. ``exact``:
     XLA rounds every bfloat16 operation to bfloat16, as torch does, instead
-    of keeping fused chains in fp32 (its default excess precision)."""
+    of keeping fused chains in fp32 (its default excess precision).
+    ``jround_kw``/``round_kw``: more ``build_round_fn`` arguments of each."""
     jalgo = jax_get_local_algo(name, **kw)
     jfn = jax.jit(JF.build_round_fn(s["jcfg"], JaxFedsLLMConfig(num_clients=K_ROUND), 1, ETA,
-                                    local_algo=jalgo))
+                                    local_algo=jalgo, **(jround_kw or {})))
     if exact:
         opts = {"xla_allow_excess_precision": False}
         jitted = jfn
         jfn = lambda *a: jitted.lower(*a).compile(compiler_options=opts)(*a)  # noqa: E731
     fn = fedsllm.build_round_fn(s["cfg"], FedsLLMConfig(num_clients=K_ROUND), 1, ETA,
-                                local_algo=local_algos.get_local_algo(name, **kw))
+                                local_algo=local_algos.get_local_algo(name, **kw),
+                                **(round_kw or {}))
     return jalgo, jfn, fn
 
 
@@ -602,9 +608,21 @@ def test_init_state_matches_reference_shapes(round_setup):
 
 @pytest.mark.parametrize("what", ["compressor", "dp_clip"])
 def test_later_slices_raise_not_implemented(round_setup, what):
-    kw = {"compressor": {"compressor": object()}, "dp_clip": {"dp_clip": 1.0}}[what]
-    with pytest.raises(NotImplementedError, match="later slice"):
-        fedsllm.build_round_fn(round_setup["cfg"], FedsLLMConfig(), 1, ETA, **kw)
+    """The round options that this test once found refused (the uplink
+    codec, DP clipping) now run, and match the reference: two gd rounds with
+    the int8 codec, or with the uploads clipped to norm 1 (no noise, so both
+    sides are deterministic), new adapters and metrics within 1e-4."""
+    if what == "compressor":
+        jkw, kw = {"compressor": jax_get_compressor("int8")}, {"compressor": get_compressor("int8")}
+    else:
+        jkw = kw = {"dp_clip": 1.0, "dp_noise": 0.0}
+    jalgo, jfn, fn = _round_fns(round_setup, "gd", {}, jround_kw=jkw, round_kw=kw)
+    for r, ((_, state, m, _), (_, jstate, jm, _)) in enumerate(
+            _rounds(round_setup, jalgo, jfn, fn)):
+        for k in jm:
+            _close(m[k], jm[k], ROUND, f"{what} r{r} {k}")
+        _close_lora(state.lora_c, jstate.lora_c, ROUND, f"{what} r{r} lora_c")
+        _close_lora(state.lora_s, jstate.lora_s, ROUND, f"{what} r{r} lora_s")
 
 
 @pytest.mark.parametrize("eta", [0.9, 0.5, 0.1])
