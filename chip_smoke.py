@@ -7,13 +7,15 @@ Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``:
 
 Two serving paths, each at full width and depth: ``fedsllm-100m`` (dense,
 fused LoRA + flash attention) and ``mamba2-130m`` (SSM, fused LoRA + the SSD
-chunked scan); then the training path, one FedsLLM global round. Phases,
+chunked scan); then the training path, one FedsLLM global round, its pricing
+and campaigns; then the CLIs and examples. Phases,
 each of which fails the run (non-zero exit) on any miss:
   1. build   — compile every CUDA kernel from ``src/repro_torch/csrc`` (one
                nvcc per source, all at once);
 then, for each serving path:
   2. kernels — each of its kernels against its plain PyTorch version on the
-               card at the path's shapes, with stated tolerances;
+               card at the path's shapes, with stated tolerances, in bf16
+               and through the fp32 variants (and a LoRA rank of 80);
   3. slice   — the model (bf16, batch 8, prompt 512, 32 new tokens, random
                weights and non-zero adapters from seeded generators) served
                once through ``decode_tokens``, every kernel's launch count
@@ -32,7 +34,7 @@ then, for each serving path:
                the least time the card could take and the first port's time
                for the same kernel, and the host's cost of a LoRA launch (``host_ms``);
                prefill ms and decode tokens/s;
-and last
+then
   5. train   — (a) one round of smoke fedsllm-100m (fp32) on the card and on
                the CPU from the same state and batches, agreeing within 1e-4;
                (b) three rounds of full-width, full-depth fedsllm-100m (bf16,
@@ -80,17 +82,46 @@ and last
                clip); (d) a smoke round of the facade on the card within 1e-4
                of the CPU's; (e) no kernel launch in the phase. Prints
                simulated T, η and the mask per round, device round seconds,
-               host seconds outside the round function and peak memory.
+               host seconds outside the round function and peak memory;
+  8. cli     — the entry points a user runs, and the variants they need:
+               (a) the fp32 LoRA and flash variants and ranks above 64
+               (bf16 ``generic``, fp32) against their plain versions at
+               full width, TF32 off (limits ``CLI_LIMITS``), with event,
+               device, plain, library and bound times (fp32 bound by the
+               CUDA cores' 67 TFLOP/s); (b) ``launch.serve.main(["--smoke"])``
+               for both archs, every launch on the fp32 variants (SSD on
+               ``fma``) by the per-variant counters, plus ``--lora-rank 80``
+               in fp32 and in bf16 (``generic``), and the fp32 model's
+               logits through the kernels within 1e-4 of the plain path's;
+               the kernels timed at those shapes; (c) ``launch.train.main``
+               on full-width fedsllm-100m (bf16, AdamW, 20 steps of 8 x 256,
+               a checkpoint every 10): finite, falling loss, a second run
+               resumed from step 10 ending on the same params and optimizer
+               state bit for bit (deterministic algorithms), a microbatch-2
+               step against the full batch, no kernel launch; ms per step,
+               peak memory, busy share and top operations; (d) the
+               ``--fedsllm`` trainer (4 clients, 2 rounds, ``EB``) at full
+               width, its simulated times equal to the same command's with
+               ``--smoke --device cpu`` on the host; (e)
+               ``pipelined_split_grads`` (M = 4) at full width against the
+               full-batch split step; (f) ``repro_torch.examples.quickstart``
+               and ``serve_demo`` on the card, their prefills on the fp32
+               flash variant (and SSD ``fma``). Written to
+               ``build/chip_smoke/cli.json``.
 
 Prints the compiled kernels' registers and spills, the card's name and power
-limit, a ``{"kernels": [...]}`` line, and last ``{"ok": true, "device":
-{...}}``. Details go to ``build/chip_smoke/``.
+limit, a ``{"kernels": [...]}`` line (the three kernels on the bf16 serving
+paths, then each variant of the fp32 serve path of phase 8), and last
+``{"ok": true, "device": {...}}``. Details go to ``build/chip_smoke/``.
 Without a CUDA card it exits non-zero before printing any result.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
+import dataclasses
+import io
 import json
 import math
 import os
@@ -114,12 +145,14 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.api import Experiment  # noqa: E402
 from repro_torch.api.aggregators import get_aggregator  # noqa: E402
 from repro_torch.api.allocators import get_allocator  # noqa: E402
-from repro_torch.config import (SHAPES, FedsLLMConfig, LoRAConfig, RunConfig, get_arch,  # noqa: E402
-                                smoke_variant)
+from repro_torch.checkpoint import Checkpointer  # noqa: E402
+from repro_torch.config import (SHAPES, FedsLLMConfig, LoRAConfig, RunConfig,  # noqa: E402
+                                TrainConfig, get_arch, smoke_variant)
 from repro_torch.core import federated, fedsllm, privacy, split  # noqa: E402
 from repro_torch.core.delay_model import sample_network  # noqa: E402
 from repro_torch.core.lora import init_lora, merge  # noqa: E402
 from repro_torch.data.tokens import TokenStream, client_batches  # noqa: E402
+from repro_torch.examples import quickstart, serve_demo  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.attn_ops import flash_attention  # noqa: E402
 from repro_torch.kernels.attn_ref import flash_attention_ref  # noqa: E402
@@ -128,8 +161,10 @@ from repro_torch.kernels.lora_ref import lora_matmul_ref  # noqa: E402
 from repro_torch.kernels.ssd_ops import ssd_scan  # noqa: E402
 from repro_torch.kernels.ssd_ref import ssd_scan_ref  # noqa: E402
 from repro_torch.models import mamba2 as M2  # noqa: E402
+from repro_torch.launch import serve, steps, train  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.net.topology import get_topology  # noqa: E402
+from repro_torch.parallel.pipeline import pipelined_split_grads  # noqa: E402
 from repro_torch.serving.decode import decode_tokens  # noqa: E402
 from repro_torch.sim import events  # noqa: E402
 from repro_torch.sim.scenario import get_scenario  # noqa: E402
@@ -137,8 +172,11 @@ from repro_torch.tree import (tree_index, tree_leaves, tree_map, tree_rel_gap,  
                               tree_stack)
 
 OUT = ROOT / "build" / "chip_smoke"
-# NVIDIA H100 SXM data sheet: dense bf16 tensor-core peak, HBM3 bandwidth
+# NVIDIA H100 SXM data sheet: dense bf16 tensor-core peak, HBM3 bandwidth;
+# fp32 on the CUDA cores (the fp32 variants' bound: they use no tensor core,
+# since TF32 would miss the reference's fp32 tolerance)
 PEAK_BF16 = 989e12
+PEAK_FP32 = 67e12
 HBM_BYTES_PER_S = 3.35e12
 BATCH, PROMPT, NEW = 8, 512, 32
 ADAPTER_B_STD = 0.05  # std of the non-zero B drawn for the adapters
@@ -167,8 +205,8 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_BF16
+def bound_ms(nbytes: float, ops: float, peak: float = PEAK_BF16) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -375,8 +413,8 @@ def path_variants(cfg) -> dict[str, dict[str, int]]:
     per_forward = sum(lora_shapes(cfg).values()) * cfg.num_layers
     ssm = cfg.layer_pattern == "M"
     return {"lora_matmul": {"prefill": per_forward, "decode": per_forward * (NEW - 1),
-                            "generic": 0},
-            "flash_attention": {"wgmma": 0 if ssm else cfg.num_layers, "wmma": 0},
+                            "generic": 0, "fp32": 0},
+            "flash_attention": {"wgmma": 0 if ssm else cfg.num_layers, "wmma": 0, "fp32": 0},
             "ssd_scan": {"wgmma": cfg.num_layers if ssm else 0, "fma": 0}}
 
 
@@ -389,28 +427,28 @@ def path_kernels(cfg) -> dict[str, int]:
             "ssd_scan": cfg.num_layers if ssm else 0}
 
 
-def lora_inputs(gen, M, K, N, r, dev):
-    x = torch.randn((M, K), generator=gen, device=dev).bfloat16()
-    w, a, b = (torch.randn(s, generator=gen, device=dev).mul(0.05).bfloat16()
+def lora_inputs(gen, M, K, N, r, dev, dtype=torch.bfloat16):
+    x = torch.randn((M, K), generator=gen, device=dev).to(dtype)
+    w, a, b = (torch.randn(s, generator=gen, device=dev).mul(0.05).to(dtype)
                for s in ((K, N), (K, r), (r, N)))
     return x, w, a, b
 
 
-def lora_work(M, K, N, r):
-    nbytes = 2 * (M * K + K * N + K * r + r * N + M * N)
+def lora_work(M, K, N, r, esize=2):
+    nbytes = esize * (M * K + K * N + K * r + r * N + M * N)
     ops = 2 * M * K * N + 2 * M * K * r + 2 * M * r * N
     return nbytes, ops
 
 
-def attn_inputs(gen, B, S, H, Kv, d, dev):
+def attn_inputs(gen, B, S, H, Kv, d, dev, dtype=torch.bfloat16):
     """q, k, v in the model's (B, S, heads, d) layout, as (B, heads, S, d) views."""
-    q = torch.randn((B, S, H, d), generator=gen, device=dev).bfloat16().transpose(1, 2)
-    k, v = (torch.randn((B, S, Kv, d), generator=gen, device=dev).bfloat16().transpose(1, 2)
+    q = torch.randn((B, S, H, d), generator=gen, device=dev).to(dtype).transpose(1, 2)
+    k, v = (torch.randn((B, S, Kv, d), generator=gen, device=dev).to(dtype).transpose(1, 2)
             for _ in range(2))
     return q, k, v
 
 
-def attn_work(B, S, H, Kv, d, causal, window):
+def attn_work(B, S, H, Kv, d, causal, window, esize=2):
     qpos = torch.arange(S)[:, None]
     kpos = torch.arange(S)[None, :]
     mask = torch.ones((S, S), dtype=torch.bool)
@@ -419,7 +457,7 @@ def attn_work(B, S, H, Kv, d, causal, window):
     if window:
         mask &= kpos > qpos - window
     pairs = int(mask.sum())  # score entries this input needs
-    nbytes = 2 * (2 * B * H * S * d + 2 * B * Kv * S * d)
+    nbytes = esize * (2 * B * H * S * d + 2 * B * Kv * S * d)
     ops = 4 * B * H * pairs * d  # Q·Kᵀ and P·V
     return nbytes, ops
 
@@ -508,6 +546,27 @@ def phase_kernels(cfg, dev) -> dict:
             errs["lora_matmul"] = max(errs["lora_matmul"], err)
             if not err <= tol:
                 fails.append(rows[-1])
+    # the fp32 variant at the path's widths, and a rank above 64 (bf16 generic)
+    errs["lora_matmul/fp32"] = 0.0
+    cases = [(M, K, N, r, torch.float32, "fp32") for M in (8, BATCH * PROMPT)
+             for K, N in lora_shapes(cfg)]
+    K, N = next(iter(lora_shapes(cfg)))
+    cases += [(M, K, N, 80, torch.bfloat16, "generic") for M in (8, BATCH * PROMPT)]
+    for M, K, N, rank, dtype, expected in cases:
+        x, w, a, b = lora_inputs(gen, M, K, N, rank, dev, dtype)
+        kind = ran_variant("lora_matmul", lambda: lora_matmul(x, w, a, b, scale=lcfg.scale))
+        y = lora_matmul(x, w, a, b, scale=lcfg.scale)
+        torch.cuda.synchronize()
+        ref = lora_matmul_ref(x, w, a, b, scale=lcfg.scale)
+        err = (y.float() - ref.float()).abs().max().item()
+        fp32 = dtype == torch.float32
+        tol = CLI_LIMITS["lora_fp32"] * ref.abs().max().item() if fp32 else bf16_ulps(ref)
+        rows.append(dict(kernel="lora_matmul", M=M, K=K, N=N, r=rank,
+                         dtype=str(dtype).split(".")[-1], variant=kind, err=err, tol=tol))
+        if fp32:
+            errs["lora_matmul/fp32"] = max(errs["lora_matmul/fp32"], err)
+        if not err <= tol or kind != expected:
+            fails.append(rows[-1])
     if cfg.layer_pattern == "M":
         fails += ssd_checks(cfg, dev, gen, rows, errs)
     else:
@@ -537,6 +596,24 @@ def flash_checks(cfg, dev, gen, rows, errs) -> list:
                          window=window, softcap=softcap, err=err, tol=tol))
         errs["flash_attention"] = max(errs["flash_attention"], err)
         if not err <= tol:
+            fails.append(rows[-1])
+    # the fp32 variant at the path's widths: 2e-5 + 2e-5·|o| per element
+    errs["flash_attention/fp32"] = 0.0
+    for window, softcap in ((0, 0.0), (128, 0.0), (0, 50.0)):
+        q, k, v = attn_inputs(gen, BATCH, PROMPT, H, Kv, d, dev, torch.float32)
+        call = lambda: flash_attention(q, k, v, causal=True, window=window,  # noqa: E731
+                                       softcap=softcap)
+        kind = ran_variant("flash_attention", call)
+        o = call()
+        torch.cuda.synchronize()
+        ref = flash_attention_ref(q, k, v, causal=True, window=window, softcap=softcap)
+        excess = ((o - ref).abs() - CLI_LIMITS["flash_fp32"] * ref.abs()).max().item()
+        rows.append(dict(kernel="flash_attention", dtype="float32", B=BATCH, S=PROMPT, H=H,
+                         Kv=Kv, d=d, window=window, softcap=softcap, variant=kind,
+                         err=(o - ref).abs().max().item(), excess=excess,
+                         tol=CLI_LIMITS["flash_fp32"]))
+        errs["flash_attention/fp32"] = max(errs["flash_attention/fp32"], rows[-1]["err"])
+        if not excess <= CLI_LIMITS["flash_fp32"] or kind != "fp32":
             fails.append(rows[-1])
     return fails
 
@@ -1614,6 +1691,508 @@ def phase_campaign(dev) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the fp32 and high-rank variants, the smoke serve, the training CLI,
+# the pipelined split and the examples
+# ---------------------------------------------------------------------------
+
+CLI_ARCH = "fedsllm-100m"
+CLI_STEPS, CLI_CKPT_EVERY = 20, 10
+SMOKE_SERVE = (4, 32, 16)  # launch.serve's defaults: batch, prompt length, new tokens
+# limits, written in PERF.md §6 before the first run on the card
+CLI_LIMITS = {
+    # fp32 LoRA against its plain version: of the largest output, the
+    # reference's fp32 tolerance (tests/test_kernels.py)
+    "lora_fp32": 1e-5,
+    # fp32 flash: 2e-5 + 2e-5·|o| per element, the reference's
+    "flash_fp32": 2e-5,
+    # the fp32 smoke serve's logits, kernel path against plain, of the largest
+    "smoke_serve_logits": 1e-4,
+    # one step with microbatch=2 against the full batch, in fp32: relative
+    # Frobenius per leaf of the first moment (1 - β1)·clip(g), the gradient
+    # the AdamW update is made of (in bf16: ``microbatch_gaps``)
+    "microbatch_vs_full": 2.0 ** -8,
+    # pipelined_split_grads (M = 4) against the full-batch split step
+    "pipelined_loss": 1e-3,
+    "pipelined_grads": 2.0 ** -8,  # per leaf, phase 5's split-vs-monolithic
+}
+
+
+def lora_row(gen, dev, M, K, N, r, dtype, scale, launches=None, iters=100, **meta):
+    """Event, device, plain, library (addmm) and bound times of one LoRA
+    shape, beside its check against the plain version."""
+    esize = 4 if dtype == torch.float32 else 2
+    nbytes, ops = lora_work(M, K, N, r, esize)
+    sets = [lora_inputs(gen, M, K, N, r, dev, dtype) for _ in range(n_sets(nbytes))]
+    call = lambda x, w, a, b: lora_matmul(x, w, a, b, scale=scale)  # noqa: E731
+    plain = lambda x, w, a, b: lora_matmul_ref(x, w, a, b, scale=scale)  # noqa: E731
+    lib = lambda x, w, a, b: torch.addmm(x @ w, x @ a, b, alpha=scale)  # noqa: E731
+    y = call(*sets[0])
+    torch.cuda.synchronize()
+    ref = plain(*sets[0])
+    err = (y.float() - ref.float()).abs().max().item()
+    tol = (CLI_LIMITS["lora_fp32"] * ref.abs().max().item() if dtype == torch.float32
+           else bf16_ulps(ref))
+    b_ms, b_by = bound_ms(nbytes, ops, PEAK_FP32 if dtype == torch.float32 else PEAK_BF16)
+    row = dict(kernel="lora_matmul", M=M, K=K, N=N, r=r, dtype=str(dtype).split(".")[-1],
+               **meta, variant=ran_variant("lora_matmul", lambda: call(*sets[0])),
+               err=err, tol=tol, launches=launches, ms=time_ms(call, sets, iters),
+               **device_time_ms(call, sets), plain_ms=time_ms(plain, sets, max(5, iters // 4)),
+               library_ms=time_ms(lib, sets, iters), **library(device_time_ms(lib, sets)),
+               bound_ms=b_ms, bound_by=b_by)
+    row["bound_share"] = b_ms / row["device_ms"]
+    return row
+
+
+def flash_row(gen, dev, B, S, H, Kv, d, window=0, softcap=0.0, launches=None, iters=50):
+    nbytes, ops = attn_work(B, S, H, Kv, d, True, window, esize=4)
+    sets = [attn_inputs(gen, B, S, H, Kv, d, dev, torch.float32) for _ in range(n_sets(nbytes))]
+    call = lambda q, k, v: flash_attention(q, k, v, causal=True, window=window,  # noqa: E731
+                                           softcap=softcap)
+    plain = lambda q, k, v: flash_attention_ref(q, k, v, causal=True, window=window,  # noqa: E731
+                                                softcap=softcap)
+    o = call(*sets[0])
+    torch.cuda.synchronize()
+    ref = plain(*sets[0])
+    excess = ((o - ref).abs() - CLI_LIMITS["flash_fp32"] * ref.abs()).max().item()
+    lib = None
+    if not window and not softcap:  # SDPA has no window or softcap
+        lib = lambda q, k, v: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, is_causal=True, enable_gqa=True)
+    b_ms, b_by = bound_ms(nbytes, ops, PEAK_FP32)
+    row = dict(kernel="flash_attention", dtype="float32", B=B, S=S, H=H, Kv=Kv, d=d,
+               window=window, softcap=softcap,
+               variant=ran_variant("flash_attention", lambda: call(*sets[0])),
+               err=(o - ref).abs().max().item(), excess=excess, tol=CLI_LIMITS["flash_fp32"],
+               launches=launches, ms=time_ms(call, sets, iters), **device_time_ms(call, sets),
+               plain_ms=time_ms(plain, sets, max(5, iters // 5)),
+               library_ms=None if lib is None else time_ms(lib, sets, iters),
+               **library(None if lib is None else device_time_ms(lib, sets)),
+               bound_ms=b_ms, bound_by=b_by)
+    row["bound_share"] = b_ms / row["device_ms"]
+    return row
+
+
+def new_variants(dev) -> tuple[list, list]:
+    """Part (a): the fp32 and rank > 64 variants against their plain versions
+    (TF32 off), with their times, at full width (the smoke shapes are
+    ``smoke_serve_rows``')."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    rows, fails = [], []
+    scale = LoRAConfig().scale
+    full = get_arch(CLI_ARCH)
+    for M in (BATCH * PROMPT, BATCH):
+        for K, N in ((768, 768), (768, 256), (768, 2048), (2048, 768)):
+            rows.append(lora_row(gen, dev, M, K, N, 16, torch.float32, scale, expected="fp32",
+                                 at="full width"))
+    for r in (80, 128):
+        for dtype, expected in ((torch.bfloat16, "generic"), (torch.float32, "fp32")):
+            for M, K, N in ((BATCH * PROMPT, 768, 2048), (BATCH, 768, 768)):
+                rows.append(lora_row(gen, dev, M, K, N, r, dtype, scale, expected=expected,
+                                     at="rank > 64"))
+    H, Kv, d = full.num_heads, full.num_kv_heads, full.head_dim
+    for kw in (dict(B=BATCH, S=PROMPT, H=H, Kv=Kv, d=d), dict(B=2, S=PROMPT, H=8, Kv=2, d=128),
+               dict(B=BATCH, S=PROMPT, H=H, Kv=Kv, d=d, window=128),
+               dict(B=BATCH, S=PROMPT, H=H, Kv=Kv, d=d, softcap=50.0),
+               dict(B=2, S=300, H=4, Kv=2, d=32, window=64, softcap=30.0)):
+        rows.append(dict(flash_row(gen, dev, **kw), expected="fp32"))
+    for row in rows:
+        log(f"[cli] (a) {json.dumps(row)}")
+    return rows, row_fails(rows)
+
+
+def row_fails(rows) -> list:
+    """Rows whose variant is not the expected one or whose result is off its
+    plain version's beyond the row's limit."""
+    return [row for row in rows if row["variant"] != row["expected"] or not (
+        row["excess"] <= row["tol"] if "excess" in row else row["err"] <= row["tol"])]
+
+
+def counters() -> dict:
+    return {name: dict(fn.variant_launches) for name, fn in KERNELS.items()}
+
+
+def smoke_serve(dev) -> tuple[dict, list]:
+    """Part (b): ``launch.serve.main(["--smoke"])`` on the card for both
+    archs (every launch on the fp32 variants, SSD on ``fma``), the fp32
+    model's logits through the kernels against the plain path, and two
+    calls that reach ranks above 64: ``--smoke --lora-rank 80`` (fp32) and
+    full-width bf16 ``--lora-rank 80`` (``generic``)."""
+    out, fails = {}, []
+    B, P, NEW_S = SMOKE_SERVE
+    calls = {arch: ["--arch", arch, "--smoke"] for arch in ARCHS}
+    calls["fedsllm-100m rank 80 (fp32)"] = ["--smoke", "--lora-rank", "80"]
+    calls["fedsllm-100m rank 80 (bf16)"] = ["--lora-rank", "80", "--batch", "2",
+                                            "--prompt-len", "64", "--max-new", "4"]
+    allowed = {"fedsllm-100m": {"lora_matmul": "fp32", "flash_attention": "fp32"},
+               "mamba2-130m": {"lora_matmul": "fp32", "ssd_scan": "fma"},
+               "fedsllm-100m rank 80 (fp32)": {"lora_matmul": "fp32", "flash_attention": "fp32"},
+               "fedsllm-100m rank 80 (bf16)": {"lora_matmul": "generic",
+                                               "flash_attention": "wgmma"}}
+    for name, argv in calls.items():
+        zero_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as printed:
+            tokens = serve.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        variants = counters()
+        moved = {k: {v: n for v, n in c.items() if n} for k, c in variants.items()}
+        want = {k: {v} for k, v in allowed[name].items()}
+        ok = {k: set(v) for k, v in moved.items() if v} == want
+        out[name] = {"argv": argv, "seconds": seconds, "variants": variants,
+                     "tokens_shape": list(tokens.shape), "printed": printed.getvalue()}
+        log(f"[cli] (b) serve {' '.join(argv)}: {seconds:.2f} s, launches by variant {moved}")
+        new = int(argv[argv.index("--max-new") + 1]) if "--max-new" in argv else NEW_S
+        if not ok or tokens.shape[1] != new:
+            fails.append(f"serve {argv}: launches {moved}, expected only {allowed[name]}")
+    # the fp32 smoke model's logits through the kernels against the plain path
+    for arch in ARCHS:
+        cfg = smoke_variant(get_arch(arch))
+        params, lora, _ = make_model(cfg, dev)
+        tokens = torch.randint(0, cfg.vocab_size, (B, P), generator=torch.Generator(
+            device=dev).manual_seed(5), device=dev)
+        with torch.no_grad():
+            cache = T.init_cache(cfg, B, P + 1, device=dev)
+            logits, cache = T.prefill(params, {"tokens": tokens}, cfg, cache, lora=lora)
+            step, _ = T.decode_step(params, tokens[:, -1:], cache, P, cfg, lora=lora)
+            merged = merge(params, lora, cfg)
+            plain_cache = T.init_cache(cfg, B, P + 1, device=dev)
+            plain, plain_cache = T.prefill(merged, {"tokens": tokens}, cfg, plain_cache,
+                                           kernels=False)
+            plain_step, _ = T.decode_step(merged, tokens[:, -1:], plain_cache, P, cfg)
+        gaps = {stage: ((a - b).abs().max() / b.abs().max()).item()
+                for stage, a, b in (("prefill", logits, plain), ("decode", step, plain_step))}
+        out[f"{arch} logits"] = gaps
+        log(f"[cli] (b) {cfg.name}: kernel path vs plain, of the largest logit {gaps}")
+        if not max(gaps.values()) <= CLI_LIMITS["smoke_serve_logits"]:
+            fails.append(f"{cfg.name} logits {gaps}")
+    return out, fails
+
+
+def smoke_serve_rows(dev, launched: dict) -> tuple[list, list]:
+    """The fp32 serve path's kernels against their plain versions, with their
+    times, at the shapes one ``launch.serve --smoke`` call of each arch gives
+    them (B=4, prompt 32, 16 new tokens), each with its launches in that call."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    B, P, NEW_S = SMOKE_SERVE
+    rows = []
+    for arch in ARCHS:
+        cfg = smoke_variant(get_arch(arch))
+        lcfg = cfg.lora or LoRAConfig()
+        for M, calls in ((B * P, 1), (B, NEW_S - 1)):
+            for (K, N), n in lora_shapes(cfg).items():
+                rows.append(lora_row(gen, dev, M, K, N, lcfg.rank, torch.float32, lcfg.scale,
+                                     iters=50, launches=n * calls * cfg.num_layers, path=arch,
+                                     expected="fp32"))
+        if cfg.layer_pattern == "M":
+            _, H, Pd, N, _ = M2.dims(cfg)
+            nbytes, ops = ssd_work(B, P, H, Pd, N, cfg.ssm_chunk, 4, False)
+            sets = [ssd_inputs(gen, B, P, H, Pd, N, dev) for _ in range(4)]
+            call = lambda x, dt, A, Bm, Cm, h: ssd_scan(x, dt, A, Bm, Cm)  # noqa: E731
+            y, h = call(*sets[0])
+            torch.cuda.synchronize()
+            yr, hr = ssd_scan_ref(*sets[0][:5])
+            b_ms, b_by = bound_ms(nbytes, ops, PEAK_FP32)
+            row = dict(kernel="ssd_scan", path=arch, dtype="float32", B=B, S=P, H=H, P=Pd, N=N,
+                       variant=ran_variant("ssd_scan", lambda: call(*sets[0])), expected="fma",
+                       err=max((y - yr).abs().max().item(), (h - hr).abs().max().item()),
+                       tol=1e-4 * max(yr.abs().max().item(), hr.abs().max().item()),
+                       launches=cfg.num_layers, ms=time_ms(call, sets, 50),
+                       **device_time_ms(call, sets),
+                       plain_ms=time_ms(lambda x, dt, A, Bm, Cm, h: ssd_scan_ref(x, dt, A, Bm, Cm),
+                                        sets, 5),
+                       library_ms=None, **library(None), bound_ms=b_ms, bound_by=b_by)
+            row["bound_share"] = b_ms / row["device_ms"]
+            rows.append(row)
+        else:
+            rows.append(dict(flash_row(gen, dev, B, P, cfg.num_heads, cfg.num_kv_heads,
+                                       cfg.head_dim, launches=cfg.num_layers), path=arch,
+                             expected="fp32"))
+    for row in rows:
+        log(f"[cli] (b) serve-path row {json.dumps(row)}")
+    # the rows' launches are those the two smoke serve calls made
+    for name, variant in (("lora_matmul", "fp32"), ("flash_attention", "fp32"),
+                          ("ssd_scan", "fma")):
+        want = sum(launched[arch]["variants"][name][variant] for arch in ARCHS)
+        got = sum(r["launches"] for r in rows if r["kernel"] == name)
+        assert got == want, (name, got, want)
+    return rows, row_fails(rows)
+
+
+def cli_standard(dev) -> tuple[dict, list]:
+    """Part (c): the standard trainer at full width, its resume bit for bit,
+    a microbatched step against the full batch, and its step time."""
+    fails = []
+    ckpt, resumed = OUT / "cli_ckpt", OUT / "cli_resume"
+    for d in (ckpt, resumed):
+        shutil.rmtree(d, ignore_errors=True)
+    argv = ["--arch", CLI_ARCH, "--steps", str(CLI_STEPS), "--batch", str(TRAIN_B), "--seq",
+            str(TRAIN_S), "--ckpt-every", str(CLI_CKPT_EVERY), "--log-every", "1"]
+    zero_counters()
+    torch.use_deterministic_algorithms(True)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as printed:
+            train.main([*argv, "--ckpt-dir", str(ckpt)])
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        losses = [float(m.group(1)) for m in
+                  re.finditer(r"^step\s+\d+\s+loss (\S+)", printed.getvalue(), re.M)]
+        resumed.mkdir(parents=True)
+        name = f"step_{CLI_CKPT_EVERY:010d}"
+        shutil.copytree(ckpt / name, resumed / name)
+        with contextlib.redirect_stdout(io.StringIO()) as printed_resumed:
+            train.main([*argv, "--ckpt-dir", str(resumed)])
+    finally:
+        torch.use_deterministic_algorithms(False)
+    want, _ = Checkpointer(str(ckpt)).restore(CLI_STEPS)
+    got, _ = Checkpointer(str(resumed)).restore(CLI_STEPS)
+    bitwise = same_bits(got, want)
+    n_params = sum(t.numel() for t in tree_leaves(want[0]))
+    dtypes = sorted({str(t.dtype) for t in tree_leaves(want[0])})
+    moment_dtypes = sorted({str(t.dtype) for t in tree_leaves(want[1])})
+    del want, got
+    for d in (ckpt, resumed):  # 1.25 GB a checkpoint: nothing to keep
+        shutil.rmtree(d, ignore_errors=True)
+    log(f"[cli] (c) train {' '.join(argv)}: {seconds:.1f} s, losses {losses}, peak memory "
+        f"{peak / 2**30:.2f} GiB, {n_params} params {dtypes}, moments {moment_dtypes}; "
+        f"resumed from step {CLI_CKPT_EVERY}: bit for bit {bitwise}")
+    if len(losses) != CLI_STEPS or not all(math.isfinite(x) for x in losses):
+        fails.append(f"losses {losses}")
+    elif not losses[-1] < losses[0]:
+        fails.append(f"the loss did not fall: {losses[0]} -> {losses[-1]}")
+    if f"resumed from step {CLI_CKPT_EVERY}" not in printed_resumed.getvalue() or not bitwise:
+        fails.append("the resumed run differs from the uninterrupted one")
+
+    # the step itself: events, device time, busy share; microbatch 2 against full
+    cfg = get_arch(CLI_ARCH)
+    tcfg = TrainConfig(learning_rate=3e-4, total_steps=CLI_STEPS, warmup_steps=10, remat="none")
+    step_fn, opt = steps.make_train_step(cfg, tcfg)
+    params = T.init_params(cfg, seed=tcfg.seed, device=dev)
+    state0 = opt.init(params)
+    step0 = torch.zeros((), dtype=torch.int32, device=dev)
+    batch = TokenStream(TRAIN_B, TRAIN_S, cfg.vocab_size, seed=0, device=dev).batch_at(0)
+    full = step_fn(params, state0, step0, batch)
+    micro = microbatch_gaps(cfg, tcfg, params, full[1]["m"], batch)
+    p, st, stp = full[:3]
+    del full
+    p, st, stp, _ = step_fn(p, st, stp, batch)  # warm
+    times = []
+    for _ in range(5):
+        (p, st, stp, _), ms = timed(lambda: step_fn(p, st, stp, batch))
+        times.append(ms)
+    dev_ms, top, host_top = device_ms(lambda: step_fn(p, st, stp, batch))
+    step_ms = sum(times) / len(times)
+    profile = {"step_ms": times, "step_ms_mean": step_ms, "device_ms": dev_ms,
+               "busy": share(dev_ms, step_ms), "top_kernels": top, "top_host_ops": host_top}
+    log(f"[cli] (c) one train step (B={TRAIN_B}, S={TRAIN_S}): {step_ms:.2f} ms (events, mean of "
+        f"5: {[round(t, 2) for t in times]}), device {dev_ms} ms, busy {profile['busy']}")
+    for name, rows in (("device", top), ("host", host_top)):
+        for key, ms, count in rows:
+            log(f"[profile] train step {name} {ms:9.3f} ms  x{count:<5d} {key}")
+    fails += micro.pop("fails")
+    launches = {name: fn.launches for name, fn in KERNELS.items()}
+    if any(launches.values()):
+        fails.append(f"the trainer launched kernels {launches}")
+    return {"argv": argv, "seconds": seconds, "losses": losses, "peak_memory_bytes": peak,
+            "params": n_params, "param_dtypes": dtypes, "moment_dtypes": moment_dtypes,
+            "resumed_bitwise": bitwise, "microbatch": micro,
+            "profile": profile, "launches": launches}, fails
+
+
+def leaf_names(tree, path=()) -> list[str]:
+    if isinstance(tree, dict):
+        return [n for k, v in tree.items() for n in leaf_names(v, path + (k,))]
+    return ["/".join(path)]
+
+
+def microbatch_gaps(cfg, tcfg, params, m_full, batch) -> dict:
+    """One step with microbatch=2 against the full batch, by the AdamW first
+    moment (1 - β1)·clip(g), per leaf (relative Frobenius): in fp32 (the
+    params upcast), where only the accumulation differs (limit
+    ``microbatch_vs_full``); and in bf16, the trainer's working type, where
+    the two batch splits round their activation gradients differently: there
+    the microbatched step may be no further from the fp32 step than twice
+    the full batch's own distance from it, or 2^-8 (the rule phase 3 holds
+    the kernel path to)."""
+    micro_fn, opt = steps.make_train_step(cfg, dataclasses.replace(tcfg, microbatch=2))
+    step0 = torch.zeros((), dtype=torch.int32, device=batch["tokens"].device)
+    m_micro = micro_fn(params, opt.init(params), step0, batch)[1]["m"]
+    cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
+    p32 = tree_map(lambda t: t.float(), params)
+    fn32, opt32 = steps.make_train_step(cfg32, tcfg)
+    m32 = fn32(p32, opt32.init(p32), step0, batch)[1]["m"]
+    micro32_fn, _ = steps.make_train_step(cfg32, dataclasses.replace(tcfg, microbatch=2))
+    m32_micro = micro32_fn(p32, opt32.init(p32), step0, batch)[1]["m"]
+    rows = []
+    for name, a, b, c, d in zip(leaf_names(m_full), tree_leaves(m_full), tree_leaves(m_micro),
+                                tree_leaves(m32), tree_leaves(m32_micro)):
+        rows.append({"leaf": name, "bf16_micro_vs_full": rel_frob(b, a),
+                     "bf16_full_vs_fp32": rel_frob(a, c), "bf16_micro_vs_fp32": rel_frob(b, c),
+                     "fp32_micro_vs_full": rel_frob(d, c)})
+    fails = []
+    for r in rows:
+        log(f"[cli] (c) microbatch 2 vs full batch, first moment: {json.dumps(r)}")
+        limit = max(2 * r["bf16_full_vs_fp32"], 2.0 ** -8)
+        if not r["bf16_micro_vs_fp32"] <= limit:
+            fails.append(f"bf16 microbatch step {r}")
+        if not r["fp32_micro_vs_full"] <= CLI_LIMITS["microbatch_vs_full"]:
+            fails.append(f"fp32 microbatch step {r}")
+    return {"leaves": rows, "fails": fails,
+            **{k: max(r[k] for r in rows) for k in rows[0] if k != "leaf"}}
+
+
+def cli_fedsllm(dev) -> tuple[dict, list]:
+    """Part (d): the ``--fedsllm`` trainer at full width on the card, and the
+    same command on the host with ``--smoke --device cpu``: the simulated
+    times equal (the simulator ignores the model)."""
+    argv = ["--fedsllm", "--clients", "4", "--rounds", "2", "--allocator", "EB",
+            "--batch", str(TRAIN_B), "--seq", str(TRAIN_S)]
+    seen, run = [], Experiment.run
+
+    def recording(self, *a, **kw):
+        seen.append(run(self, *a, **kw))
+        return seen[-1]
+
+    Experiment.run = recording
+    printed, seconds = [], []
+    try:
+        for extra in ([], ["--smoke", "--device", "cpu"]):
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()) as out:
+                train.main([*argv, *extra])
+            seconds.append(time.perf_counter() - t0)
+            printed.append(out.getvalue())
+    finally:
+        Experiment.run = run
+    card, host = seen
+    times = [[(r.round_time, r.cumulative_time) for r in res.records] for res in (card, host)]
+    losses = [{k: float(v) for k, v in r.metrics.items()} for r in card.records]
+    log(f"[cli] (d) train {' '.join(argv)}: card {seconds[0]:.1f} s, host smoke "
+        f"{seconds[1]:.1f} s; "
+        f"simulated (round, cumulative) card {times[0]} host {times[1]}; losses {losses}")
+    log("[cli] (d) printed on the card:\n" + printed[0].rstrip())
+    fails = []
+    if times[0] != times[1] or card.total_time != host.total_time:
+        fails.append(f"simulated times differ: {times}")
+    if not all(math.isfinite(v) for r in losses for v in r.values()):
+        fails.append(f"losses {losses}")
+    return {"argv": argv, "seconds": seconds, "simulated": times, "losses": losses,
+            "printed": printed}, fails
+
+
+def cli_pipelined(dev) -> tuple[dict, list]:
+    """Part (e): ``pipelined_split_grads`` (M = 4) at full width against the
+    full-batch split step, adapters with non-zero B."""
+    cfg = get_arch(CLI_ARCH)
+    state = fedsllm.init_state(cfg, cut=TRAIN_CUT, seed=0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    for side in (state.lora_c, state.lora_s):
+        for ab in side.values():
+            ab["B"] = (torch.randn(ab["B"].shape, generator=gen, device=dev)
+                       * ADAPTER_B_STD).to(ab["B"].dtype)
+    batch = TokenStream(TRAIN_B, TRAIN_S, cfg.vocab_size, seed=0, device=dev).batch_at(0)
+
+    def full():
+        return split.split_value_and_grad(state.base, state.lora_c, state.lora_s, batch, cfg,
+                                          TRAIN_CUT)[:3]
+
+    def piped():
+        return pipelined_split_grads(state.base, state.lora_c, state.lora_s, batch, cfg,
+                                     TRAIN_CUT, 4)
+
+    (loss_f, dc_f, ds_f), (loss_p, dc_p, ds_p) = full(), piped()
+    loss_gap = abs(loss_p.item() / loss_f.item() - 1)
+    grad_gap = max(rel_frob(a, b) for a, b in zip(tree_leaves((dc_p, ds_p)),
+                                                   tree_leaves((dc_f, ds_f))))
+    ms = {name: [timed(fn)[1] for _ in range(3)] for name, fn in (("full", full),
+                                                                  ("pipelined", piped))}
+    log(f"[cli] (e) pipelined (M=4) vs full batch: loss {loss_gap:.3e}, grads per leaf "
+        f"{grad_gap:.3e}; ms {json.dumps(ms)}")
+    fails = []
+    if not loss_gap <= CLI_LIMITS["pipelined_loss"]:
+        fails.append(f"pipelined loss {loss_gap}")
+    if not grad_gap <= CLI_LIMITS["pipelined_grads"]:
+        fails.append(f"pipelined grads {grad_gap}")
+    return {"loss_gap": loss_gap, "grad_gap": grad_gap, "ms": ms}, fails
+
+
+def cli_examples(dev) -> tuple[dict, list]:
+    """Part (f): the quickstart and serve demo on the card; their prefills
+    launch the fp32 flash variant and, for mamba2, the SSD ``fma``."""
+    out, fails = {}, []
+    for name, mod in (("quickstart", quickstart), ("serve_demo", serve_demo)):
+        zero_counters()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as printed:
+            mod.main([])
+        torch.cuda.synchronize()
+        out[name] = {"seconds": time.perf_counter() - t0, "variants": counters(),
+                     "printed": printed.getvalue()}
+        log(f"[cli] (f) {name}: {out[name]['seconds']:.1f} s, launches by variant "
+            f"{out[name]['variants']}\n" + printed.getvalue().rstrip())
+    if not out["quickstart"]["variants"]["flash_attention"]["fp32"] > 0:
+        fails.append("quickstart launched no fp32 flash")
+    demo = out["serve_demo"]["variants"]
+    if not (demo["flash_attention"]["fp32"] > 0 and demo["ssd_scan"]["fma"] > 0):
+        fails.append(f"serve_demo launched {demo}")
+    return out, fails
+
+
+def phase_cli(dev) -> tuple[dict, list]:
+    t0 = time.perf_counter()
+    result, fails = {"limits": CLI_LIMITS}, []
+    for part, fn in (("variants", new_variants), ("serve", smoke_serve),
+                     ("standard", cli_standard), ("fedsllm", cli_fedsllm),
+                     ("pipelined", cli_pipelined), ("examples", cli_examples)):
+        t = time.perf_counter()
+        result[part], more = fn(dev)
+        result[f"{part}_seconds"] = time.perf_counter() - t
+        fails += more
+    rows, more = smoke_serve_rows(dev, result["serve"])
+    result["serve_rows"] = rows
+    result["fails"] = fails + more
+    result["seconds"] = time.perf_counter() - t0
+    (OUT / "cli.json").write_text(json.dumps(result, indent=1, default=str))
+    if result["fails"]:
+        raise SystemExit(f"[cli] {len(result['fails'])} check(s) failed: {result['fails']}")
+    return result, rows
+
+
+def variant_entries(rows) -> list[dict]:
+    """One entry per variant that the fp32 serve path (phase 8 (b)) runs:
+    times summed over the launches one ``launch.serve --smoke`` call of each
+    arch makes at each shape."""
+    meta = {"lora_matmul": ("fp32", "src/repro_torch/csrc/lora_matmul.cu",
+                            "src/repro/kernels/lora_matmul.py:51"),
+            "flash_attention": ("fp32", "src/repro_torch/csrc/flash_attention.cu",
+                                "src/repro/kernels/flash_attention.py:84"),
+            "ssd_scan": ("fma", "src/repro_torch/csrc/ssd_scan.cu",
+                         "src/repro/kernels/ssd_scan.py:71")}
+    out = []
+    for name, (variant, source, replaces) in meta.items():
+        mine = [r for r in rows if r["kernel"] == name]
+        assert all(r["variant"] == variant for r in mine), [r["variant"] for r in mine]
+        total = {k: sum(r[k] * r["launches"] for r in mine)
+                 for k in ("ms", "device_ms", "graph_ms", "plain_ms", "bound_ms")}
+        for key in ("library_ms", "library_device_ms"):
+            lib = [r[key] for r in mine]
+            total[key] = None if None in lib else sum(r[key] * r["launches"] for r in mine)
+        by_bytes = sum(r["bound_ms"] * r["launches"] for r in mine if r["bound_by"] == "bytes")
+        out.append({"name": f"{name}/{variant}", "route": "cuda", "source": source,
+                    "replaces": replaces, "variant": variant,
+                    "launches": sum(r["launches"] for r in mine),
+                    "max_abs_err": max(r.get("err", 0.0) for r in mine), **total,
+                    "bound_by": "bytes" if by_bytes >= total["bound_ms"] / 2 else "operations",
+                    "bound_peak": "fp32 CUDA cores, 67 TFLOP/s",
+                    "per": "one launch.serve --smoke call of each arch: B=4, prompt 32, "
+                           "16 new tokens, fp32"})
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1633,13 +2212,15 @@ def main() -> int:
     priced = phase_priced(dev, ctx)
     del ctx
     campaign = phase_campaign(dev)
+    cli, rows = phase_cli(dev)
+    kernels += variant_entries(rows)
     (OUT / "chip_smoke.json").write_text(json.dumps(
         {"nvidia_smi": smi, "build": build, "kernels": kernels, "traces": TRACE_LOG,
          "paths": {arch: {"checks": r["checks"], "slice": r["slice"],
                           "end_to_end": r["timings"]["end_to_end"]}
                    for arch, r in results.items()}, "train": train, "priced": priced,
-         "campaign": campaign},
-        indent=1))
+         "campaign": campaign, "cli": cli},
+        indent=1, default=str))
     log(f"[timing] torch.profiler traces kept {TRACE_LOG['kept']}, lost {TRACE_LOG['lost']}")
     print(smi)
     print(json.dumps({"kernels": [{k: v for k, v in e.items() if k != "shapes"}

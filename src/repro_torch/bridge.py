@@ -1,5 +1,5 @@
-"""Bring the reference's parameters, round state and batches into the port,
-and the port's adapters back out.
+"""Bring the reference's parameters, round state, optimizer state and
+batches into the port, and the port's adapters and optimizer state back out.
 
 The reference's trees hold JAX arrays; its side turns them into numpy
 (``jax.device_get`` / ``np.asarray``) and these functions make the port's
@@ -54,6 +54,19 @@ def batches_from_numpy(batches, device="cuda"):
     return {k: (torch.from_numpy(np.asarray(v).astype(np.int64)).to(device)
                 if np.issubdtype(np.asarray(v).dtype, np.integer) else tensor_from_numpy(v, device))
             for k, v in batches.items()}
+
+
+def opt_state_from_numpy(state, device="cuda"):
+    """The reference's optimizer state as tensors, its tree kept: adamw's
+    ``{"m", "v"}``, sgd's ``{"m"}`` (``{}`` without momentum) and adafactor's
+    ``{"f"}``, whose leaves are ``{"r", "c"}`` or ``{"v"}`` dicts."""
+    return params_from_numpy(state, device)
+
+
+def opt_state_to_numpy(state):
+    """An optimizer state of the port as numpy arrays (bfloat16 moments as
+    float32), for comparison with the reference's."""
+    return lora_to_numpy(state)
 
 
 def lora_to_numpy(tree):

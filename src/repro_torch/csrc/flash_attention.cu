@@ -17,7 +17,7 @@
 // rows of Q, K, V and O, O(S) operations per byte moved: tensor-core
 // throughput and the softmax's exponentials, not device memory.
 //
-// Two variants, picked by the wrapper (kernels/flash_attention.py
+// Three variants, picked by the wrapper (kernels/flash_attention.py
 // ``variant``):
 //
 // * wgmma (d = 64, 16-byte aligned rows; the main path): one block per two
@@ -37,6 +37,17 @@
 //   is written once.
 // * wmma (head dims 16, 32, 128 and misaligned strides): the first port's
 //   kernel, wmma fragments with the scores and O in shared memory.
+// * fp32 (fp32 inputs, head dims 16, 32, 64, 128, any strides; the smoke
+//   configs serve in fp32): SIMT, fp32 FMAs on the CUDA cores, P kept in
+//   fp32 as the TPU kernel keeps it. What bounds it is the fp32 CUDA-core
+//   rate. One block of 4 warps per 32 query rows of one (batch, head); a
+//   warp owns 8 rows. Per 32-key tile (K staged transposed and padded, so
+//   the lanes read neighbouring words), lane j computes the scores of key j
+//   for the warp's 8 rows (Q rows read as broadcast float4s), the online
+//   softmax reduces each row across the warp with shuffles, and P goes
+//   through a per-warp shared buffer into O += P·V, each lane holding O for
+//   its rows at d/32 columns (two half-warps of 4 rows at d = 16). Only the
+//   tiles up to the causal frontier and from the window's start are read.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -500,6 +511,214 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, 
 
 }  // namespace legacy
 
+// ===========================================================================
+// fp32: SIMT online softmax, for fp32 inputs
+// ===========================================================================
+namespace simt {
+
+constexpr int BQ = 32, BKV = 32;  // query rows of a block, keys of a tile
+constexpr int ROWS = 8;           // query rows of a warp
+constexpr int NTHREADS = 128;     // 4 warps
+constexpr int KLD = BKV + 1;      // K tile stored transposed (d x keys), padded
+constexpr float NEG_INF = -1e30f;
+
+template <int D>
+constexpr size_t smem_bytes() {
+  return (size_t)(BQ * D + D * KLD + BKV * D + NTHREADS / 32 * ROWS * BKV) * sizeof(float);
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// 4 consecutive floats of row `row` (base + row·stride, d contiguous) at
+// column c; zeros for a row at or past nrows
+__device__ __forceinline__ float4 load4(const float* __restrict__ base, long long stride,
+                                        int row, int nrows, int c, bool vec) {
+  if (row >= nrows) return make_float4(0.f, 0.f, 0.f, 0.f);
+  const float* p = base + row * stride + c;
+  if (vec) return *reinterpret_cast<const float4*>(p);
+  return make_float4(p[0], p[1], p[2], p[3]);
+}
+
+template <int D>
+__global__ void __launch_bounds__(NTHREADS)
+flash_attention_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, float* __restrict__ o, int H, int Kv,
+                            int Sq, int Skv, Strides qst, Strides kst, Strides vst, Strides ost,
+                            int causal, int window, float softcap, float scale) {
+  constexpr int DL = D < 32 ? D : 32;  // lanes across d in P·V
+  constexpr int RG = 32 / DL;          // row groups of a warp in P·V (2 at d = 16)
+  constexpr int RPL = ROWS / RG;       // rows of a lane in P·V
+  constexpr int EPL = D / DL;          // columns of a lane in P·V
+  constexpr int C4 = D / 4;            // float4s of a row
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem);  // BQ x D     query rows
+  float* kt = qs + BQ * D;                     // D x KLD    K tile, transposed
+  float* vs = kt + D * KLD;                    // BKV x D    V tile
+  float* ps = vs + BKV * D;                    // 4 warps x ROWS x BKV   probabilities
+
+  const int nq = (Sq + BQ - 1) / BQ;
+  const int q0 = (nq - 1 - (int)blockIdx.x) * BQ;  // longest causal rows first
+  const int h = blockIdx.y, bi = blockIdx.z;
+  const int kvh = h / (H / Kv);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row0 = warp * ROWS;
+  float* pw = ps + warp * ROWS * BKV;
+
+  const float* qb = q + bi * qst.b + h * qst.h;
+  const float* kb = k + bi * kst.b + kvh * kst.h;
+  const float* vb = v + bi * vst.b + kvh * vst.h;
+  float* ob = o + bi * ost.b + h * ost.h;
+  const bool q_vec = qst.s % 4 == 0 && (reinterpret_cast<uintptr_t>(qb) & 15) == 0;
+  const bool k_vec = kst.s % 4 == 0 && (reinterpret_cast<uintptr_t>(kb) & 15) == 0;
+  const bool v_vec = vst.s % 4 == 0 && (reinterpret_cast<uintptr_t>(vb) & 15) == 0;
+
+  for (int i = threadIdx.x; i < BQ * C4; i += NTHREADS)
+    *reinterpret_cast<float4*>(qs + (i / C4) * D + (i % C4) * 4) =
+        load4(qb, qst.s, q0 + i / C4, Sq, (i % C4) * 4, q_vec);
+
+  // KV tiles that hold at least one unmasked key for some row of this block
+  int t_end = (Skv + BKV - 1) / BKV;
+  if (causal) t_end = min(t_end, (q0 + BQ - 1) / BKV + 1);
+  int t_begin = 0;
+  if (window > 0) {
+    const int lo = q0 - window - (BKV - 1);
+    t_begin = lo < 0 ? 0 : lo / BKV + 1;
+  }
+
+  // the lane's place in P·V: column dim0 + e·DL (e < EPL) of rows rg·RPL + i (i < RPL)
+  const int dim0 = lane % DL, rg = lane / DL;
+  float m[ROWS], l[ROWS], acc[RPL][EPL];
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) m[r] = NEG_INF, l[r] = 0.f;
+#pragma unroll
+  for (int i = 0; i < RPL; ++i)
+#pragma unroll
+    for (int e = 0; e < EPL; ++e) acc[i][e] = 0.f;
+  const bool capped = softcap > 0.f;
+
+  for (int t = t_begin; t < t_end; ++t) {
+    const int k0 = t * BKV;
+    __syncthreads();  // the last tile's K and V are read
+    for (int i = threadIdx.x; i < BKV * C4; i += NTHREADS) {
+      const int j = i / C4, c = (i % C4) * 4;
+      const float4 kv4 = load4(kb, kst.s, k0 + j, Skv, c, k_vec);
+      kt[(c + 0) * KLD + j] = kv4.x;
+      kt[(c + 1) * KLD + j] = kv4.y;
+      kt[(c + 2) * KLD + j] = kv4.z;
+      kt[(c + 3) * KLD + j] = kv4.w;
+      *reinterpret_cast<float4*>(vs + j * D + c) = load4(vb, vst.s, k0 + j, Skv, c, v_vec);
+    }
+    __syncthreads();
+
+    // scores of key k0 + lane for the warp's rows
+    float s[ROWS];
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) s[r] = 0.f;
+#pragma unroll 4
+    for (int c = 0; c < D; c += 4) {
+      const float k_0 = kt[(c + 0) * KLD + lane], k_1 = kt[(c + 1) * KLD + lane];
+      const float k_2 = kt[(c + 2) * KLD + lane], k_3 = kt[(c + 3) * KLD + lane];
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) {
+        const float4 qv = *reinterpret_cast<const float4*>(qs + (row0 + r) * D + c);
+        s[r] = fmaf(qv.x, k_0, s[r]);
+        s[r] = fmaf(qv.y, k_1, s[r]);
+        s[r] = fmaf(qv.z, k_2, s[r]);
+        s[r] = fmaf(qv.w, k_3, s[r]);
+      }
+    }
+
+    // online softmax, row by row across the warp
+    const int kpos = k0 + lane;
+    float corr[ROWS];
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      const int qpos = q0 + row0 + r;
+      float x = s[r] * scale;
+      if (capped) x = softcap * tanhf(x / softcap);
+      bool ok = kpos < Skv;
+      if (causal) ok = ok && kpos <= qpos;
+      if (window > 0) ok = ok && kpos > qpos - window;
+      x = ok ? x : NEG_INF;
+      const float m_new = fmaxf(m[r], warp_max(x));
+      const float p = expf(x - m_new);
+      corr[r] = expf(m[r] - m_new);
+      l[r] = l[r] * corr[r] + warp_sum(p);
+      m[r] = m_new;
+      pw[r * BKV + lane] = p;
+    }
+    __syncwarp();
+
+    // O = corr·O + P·V for the lane's rows and columns
+#pragma unroll
+    for (int i = 0; i < RPL; ++i) {
+      float c;
+      if constexpr (RG == 2) c = rg ? corr[RPL + i] : corr[i];
+      else c = corr[i];
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) acc[i][e] *= c;
+    }
+#pragma unroll 2
+    for (int j = 0; j < BKV; j += 4) {
+      float vv[4][EPL];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) vv[jj][e] = vs[(j + jj) * D + dim0 + e * DL];
+#pragma unroll
+      for (int i = 0; i < RPL; ++i) {
+        const float4 pp = *reinterpret_cast<const float4*>(pw + (rg * RPL + i) * BKV + j);
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) {
+          acc[i][e] = fmaf(pp.x, vv[0][e], acc[i][e]);
+          acc[i][e] = fmaf(pp.y, vv[1][e], acc[i][e]);
+          acc[i][e] = fmaf(pp.z, vv[2][e], acc[i][e]);
+          acc[i][e] = fmaf(pp.w, vv[3][e], acc[i][e]);
+        }
+      }
+    }
+    __syncwarp();  // P is read before the next tile's scores overwrite it
+  }
+
+#pragma unroll
+  for (int i = 0; i < RPL; ++i) {
+    float li;
+    if constexpr (RG == 2) li = rg ? l[RPL + i] : l[i];
+    else li = l[i];
+    const int qpos = q0 + row0 + rg * RPL + i;
+    if (qpos >= Sq) continue;
+    const float inv = 1.f / fmaxf(li, 1e-30f);
+#pragma unroll
+    for (int e = 0; e < EPL; ++e) ob[qpos * ost.s + dim0 + e * DL] = acc[i][e] * inv;
+  }
+}
+
+template <int D>
+cudaError_t launch(const float* q, const float* k, const float* v, float* o, int B, int H,
+                   int Kv, int Sq, int Skv, const Strides* st, int causal, int window,
+                   float softcap, float scale, cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<D>();
+  static bool smem_set = false;
+  cudaError_t e = hopper::allow_smem(flash_attention_fp32_kernel<D>, smem, smem_set);
+  if (e != cudaSuccess) return e;
+  dim3 grid((Sq + BQ - 1) / BQ, H, B);
+  flash_attention_fp32_kernel<D><<<grid, NTHREADS, smem, stream>>>(
+      q, k, v, o, H, Kv, Sq, Skv, st[0], st[1], st[2], st[3], causal, window, softcap, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace simt
+
 bool valid(int B, int H, int Kv, int Sq, int Skv) {
   return B > 0 && H > 0 && Kv > 0 && H % Kv == 0 && Sq > 0 && Skv > 0 && B <= 65535 &&
          H <= 65535;
@@ -538,6 +757,28 @@ extern "C" int flash_attention_wmma_bf16(const void* q, const void* k, const voi
   const bf16 *qp = static_cast<const bf16*>(q), *kp = static_cast<const bf16*>(k);
   const bf16* vp = static_cast<const bf16*>(v);
   bf16* op = static_cast<bf16*>(o);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 16: return (int)launch<16>(qp, kp, vp, op, B, H, Kv, Sq, Skv, st, causal, window, softcap, scale, s);
+    case 32: return (int)launch<32>(qp, kp, vp, op, B, H, Kv, Sq, Skv, st, causal, window, softcap, scale, s);
+    case 64: return (int)launch<64>(qp, kp, vp, op, B, H, Kv, Sq, Skv, st, causal, window, softcap, scale, s);
+    case 128: return (int)launch<128>(qp, kp, vp, op, B, H, Kv, Sq, Skv, st, causal, window, softcap, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// fp32: fp32 q, k, v, o; D in {16, 32, 64, 128}, any strides
+extern "C" int flash_attention_fp32(const void* q, const void* k, const void* v, void* o, int B,
+                                    int H, int Kv, int Sq, int Skv, int D,
+                                    const long long* strides, int causal, int window,
+                                    float softcap, float scale, void* stream) {
+  using namespace simt;
+  if (!valid(B, H, Kv, Sq, Skv)) return (int)cudaErrorInvalidValue;
+  Strides st[4];
+  for (int i = 0; i < 4; ++i) st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+  const float *qp = static_cast<const float*>(q), *kp = static_cast<const float*>(k);
+  const float* vp = static_cast<const float*>(v);
+  float* op = static_cast<float*>(o);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 16: return (int)launch<16>(qp, kp, vp, op, B, H, Kv, Sq, Skv, st, causal, window, softcap, scale, s);

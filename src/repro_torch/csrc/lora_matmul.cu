@@ -1,12 +1,12 @@
 // Fused LoRA matmul for Hopper (sm_90a):  y = x·W + scale·(x·A)·B.
 //
 // Replaces the TPU kernel src/repro/kernels/lora_matmul.py (_kernel,
-// lora_matmul_pallas): x (M,K), W (K,N), A (K,r), B (r,N), all bf16; x·W
-// and u = x·A accumulate in fp32 over K, u is folded as u·B in fp32 without
-// being rounded, and y is cast to bf16 once. x is read once for both
-// products.
+// lora_matmul_pallas): x (M,K), W (K,N), A (K,r), B (r,N), all bf16 or all
+// fp32; x·W and u = x·A accumulate in fp32 over K, u is folded as u·B in
+// fp32 without being rounded, and y is cast to the inputs' type once. x is
+// read once for both products (once per rank chunk above 64 ranks).
 //
-// Three variants, picked by the wrapper from the shapes and alignment
+// Four variants, picked by the wrapper from the dtype, shapes and alignment
 // (kernels/lora_matmul.py ``variant``), never by failure:
 //
 // * prefill (M > 16, K, N, r multiples of 8, 16-byte aligned rows): what
@@ -38,9 +38,20 @@
 //   of a cluster add their partials of x·W and u through distributed shared
 //   memory in a fixed order (no atomics: the result is the same on every
 //   run), and each adds scale·u·B to its share of the output.
-// * generic (any other shape: misaligned rows, ranks that are not a
-//   multiple of 8): the first port's kernel, one 64x64x32 wmma tile with
-//   plain loads; no main-path shape reaches it.
+// * generic (any other bf16 shape: misaligned rows, ranks that are not a
+//   multiple of 8, ranks above 64): the first port's kernel, one 64x64x32
+//   wmma tile with plain loads, ranks in chunks of up to 64 (a pass over K
+//   for each further chunk of u, x re-read, W not); no main-path bf16 shape
+//   reaches it.
+// * fp32 (fp32 inputs, any shape and rank; the smoke configs serve in
+//   fp32): a tiled SIMT kernel, fp32 FMAs on the CUDA cores (TF32 would miss
+//   the reference's fp32 tolerance). What bounds it is the fp32 CUDA-core
+//   rate (67 TFLOP/s against 989 bf16 on the tensor cores): 128 x 128 output
+//   tiles, 256 threads each computing an 8 x 8 share from k-major x and W
+//   tiles in shared memory (float4 reads, two per operand per k), the next
+//   K step's tiles loaded into registers during this one's FMAs; u = x·A
+//   (up to 64 ranks at a time) from the same staged x tile, and each rank
+//   chunk's scale·u·B added into the fp32 accumulators at the end.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -509,7 +520,12 @@ constexpr size_t smem_bytes() {
   return loop > epi ? loop : epi;
 }
 
-// RF = number of 16-wide fragments covering the rank r (r ≤ 16·RF).
+// RF = number of 16-wide fragments of one rank chunk (RP = 16·RF ranks). A
+// rank above RP runs in chunks of RP: the first pass over K computes x·W and
+// the first chunk of u = x·A from the same staged x tile, each further pass
+// re-reads x for the next chunk of u (W is not read again), and each chunk's
+// u·B is added to the thread's fp32 share of the delta (registers), so
+// scale·u·B joins x·W once, unrounded, as for a single chunk.
 template <int RF>
 __global__ void __launch_bounds__(NTHREADS)
 lora_matmul_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
@@ -518,15 +534,16 @@ lora_matmul_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   constexpr int RP = 16 * RF;
   constexpr int AS_LD = RP + 8;
   constexpr int US_LD = RP + 4;
+  constexpr int PER_THREAD = BM * BN / NTHREADS;  // output elements of one thread
   extern __shared__ __align__(128) unsigned char smem[];
   // K loop
   bf16* xs = reinterpret_cast<bf16*>(smem);  // BM x XS_LD
   bf16* ws = xs + BM * XS_LD;                // BK x WS_LD
   bf16* as = ws + BK * WS_LD;                // BK x AS_LD
-  // epilogue: the same bytes, reused once the K loop is over
+  // epilogue: the same bytes, reused once a pass over K is over
   float* cs = reinterpret_cast<float*>(smem);  // BM x CS_LD   x·W tile
-  float* us = cs + BM * CS_LD;                 // BM x US_LD   u = x·A
-  float* bs = us + BM * US_LD;                 // RP x BN      B tile
+  float* us = cs + BM * CS_LD;                 // BM x US_LD   a chunk of u = x·A
+  float* bs = us + BM * US_LD;                 // RP x BN      the chunk's rows of B
 
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int warp = threadIdx.x / 32;
@@ -540,63 +557,83 @@ lora_matmul_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   for (int i = 0; i < 2; ++i)
 #pragma unroll
     for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+  float delta[PER_THREAD];
 #pragma unroll
-  for (int f = 0; f < RF; ++f) wmma::fill_fragment(uacc[f], 0.f);
+  for (int i = 0; i < PER_THREAD; ++i) delta[i] = 0.f;
 
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    load_tile<BM, BK>(xs, XS_LD, x, K, M, K, m0, k0, x_vec);
-    load_tile<BK, BN>(ws, WS_LD, w, N, K, N, k0, n0, w_vec);
-    load_tile<BK, RP>(as, AS_LD, a, r, K, r, k0, 0, a_vec);
-    __syncthreads();
+  const int chunks = (r + RP - 1) / RP;
+  for (int c = 0; c < chunks; ++c) {
+    const bool first = c == 0;  // the pass that also computes x·W
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2], fx;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
+    for (int f = 0; f < RF; ++f) wmma::fill_fragment(uacc[f], 0.f);
+    for (int k0 = 0; k0 < K; k0 += BK) {
+      load_tile<BM, BK>(xs, XS_LD, x, K, M, K, m0, k0, x_vec);
+      if (first) load_tile<BK, BN>(ws, WS_LD, w, N, K, N, k0, n0, w_vec);
+      load_tile<BK, RP>(as, AS_LD, a, r, K, r, k0, c * RP, a_vec);
+      __syncthreads();
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], xs + (wm * 32 + i * 16) * XS_LD + kk, XS_LD);
+      for (int kk = 0; kk < BK; kk += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2], fx;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
+        if (first) {
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        wmma::load_matrix_sync(fb, ws + kk * WS_LD + wn * 32 + j * 16, WS_LD);
+          for (int i = 0; i < 2; ++i)
+            wmma::load_matrix_sync(fa[i], xs + (wm * 32 + i * 16) * XS_LD + kk, XS_LD);
 #pragma unroll
-        for (int i = 0; i < 2; ++i) wmma::mma_sync(acc[i][j], fa[i], fb, acc[i][j]);
+          for (int j = 0; j < 2; ++j) {
+            wmma::load_matrix_sync(fb, ws + kk * WS_LD + wn * 32 + j * 16, WS_LD);
+#pragma unroll
+            for (int i = 0; i < 2; ++i) wmma::mma_sync(acc[i][j], fa[i], fb, acc[i][j]);
+          }
+        }
+        // low-rank path from the same staged x tile: warp w owns rows 16w..16w+15 of u
+        wmma::load_matrix_sync(fx, xs + warp * 16 * XS_LD + kk, XS_LD);
+#pragma unroll
+        for (int f = 0; f < RF; ++f) {
+          wmma::load_matrix_sync(fb, as + kk * AS_LD + f * 16, AS_LD);
+          wmma::mma_sync(uacc[f], fx, fb, uacc[f]);
+        }
       }
-      // low-rank path from the same staged x tile: warp w owns rows 16w..16w+15 of u
-      wmma::load_matrix_sync(fx, xs + warp * 16 * XS_LD + kk, XS_LD);
+      __syncthreads();
+    }
+
+    // this chunk's u·B, in fp32, into the thread's share of the delta
 #pragma unroll
-      for (int f = 0; f < RF; ++f) {
-        wmma::load_matrix_sync(fb, as + kk * AS_LD + f * 16, AS_LD);
-        wmma::mma_sync(uacc[f], fx, fb, uacc[f]);
-      }
+    for (int f = 0; f < RF; ++f)
+      wmma::store_matrix_sync(us + warp * 16 * US_LD + f * 16, uacc[f], US_LD,
+                              wmma::mem_row_major);
+    for (int idx = threadIdx.x; idx < RP * BN; idx += NTHREADS) {
+      const int j = idx / BN, n = idx % BN, gj = c * RP + j;
+      bs[idx] = (gj < r && n0 + n < N) ? __bfloat162float(b[(size_t)gj * N + n0 + n]) : 0.f;
     }
     __syncthreads();
+#pragma unroll
+    for (int i = 0; i < PER_THREAD; ++i) {
+      const int idx = threadIdx.x + i * NTHREADS;
+      const int m = idx / BN, n = idx % BN;
+      float d = 0.f;
+#pragma unroll 16
+      for (int j = 0; j < RP; ++j) d += us[m * US_LD + j] * bs[j * BN + n];
+      delta[i] += d;
+    }
+    __syncthreads();  // us and bs (over xs, ws, as) are read before the next pass loads
   }
 
-  // epilogue: y = acc + scale · u·B, in fp32
+  // epilogue: y = x·W + scale · u·B, in fp32
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
     for (int j = 0; j < 2; ++j)
       wmma::store_matrix_sync(cs + (wm * 32 + i * 16) * CS_LD + wn * 32 + j * 16, acc[i][j],
                               CS_LD, wmma::mem_row_major);
-#pragma unroll
-  for (int f = 0; f < RF; ++f)
-    wmma::store_matrix_sync(us + warp * 16 * US_LD + f * 16, uacc[f], US_LD,
-                            wmma::mem_row_major);
-  for (int idx = threadIdx.x; idx < RP * BN; idx += NTHREADS) {
-    const int j = idx / BN, n = idx % BN;
-    bs[idx] = (j < r && n0 + n < N) ? __bfloat162float(b[(size_t)j * N + n0 + n]) : 0.f;
-  }
   __syncthreads();
-  for (int idx = threadIdx.x; idx < BM * BN; idx += NTHREADS) {
+#pragma unroll
+  for (int i = 0; i < PER_THREAD; ++i) {
+    const int idx = threadIdx.x + i * NTHREADS;
     const int m = idx / BN, n = idx % BN;
     const int gm = m0 + m, gn = n0 + n;
-    if (gm < M && gn < N) {
-      float delta = 0.f;
-#pragma unroll
-      for (int j = 0; j < RP; ++j) delta += us[m * US_LD + j] * bs[j * BN + n];
-      y[(size_t)gm * N + gn] = __float2bfloat16(cs[m * CS_LD + n] + scale * delta);
-    }
+    if (gm < M && gn < N)
+      y[(size_t)gm * N + gn] = __float2bfloat16(cs[m * CS_LD + n] + scale * delta[i]);
   }
 }
 
@@ -613,6 +650,206 @@ cudaError_t launch(const bf16* x, const bf16* w, const bf16* a, const bf16* b, b
 }
 
 }  // namespace generic
+
+// ===========================================================================
+// fp32: tiled SIMT kernel, fp32 FMAs on the CUDA cores (no TF32)
+// ===========================================================================
+namespace fp32 {
+
+constexpr int BM = 128, BN = 128, BK = 16;
+constexpr int THREADS = 256;   // 16 x 16 threads, each an 8 x 8 share of the tile
+constexpr int XLD = BM + 4;    // x tile stored transposed (k-major), padded rows
+constexpr int MAX_RC = 64;     // ranks of u held at once (a chunk)
+
+template <int RC>
+constexpr size_t smem_bytes() {
+  return (size_t)(BK * XLD + BK * BN + BK * RC + RC * XLD + RC * BN) * sizeof(float);
+}
+
+// 4 consecutive floats at (row, col) of a row-major (nrows x ncols) matrix
+// with leading dimension ld; zeros outside it. One 16-byte load where the
+// four are inside and aligned (vec: ld % 4 == 0 and a 16-byte aligned base).
+__device__ __forceinline__ float4 load4(const float* __restrict__ p, int row, int col,
+                                        int nrows, int ncols, int ld, bool vec) {
+  if (row >= nrows) return make_float4(0.f, 0.f, 0.f, 0.f);
+  const float* q = p + (size_t)row * ld + col;
+  if (vec && col + 4 <= ncols) return *reinterpret_cast<const float4*>(q);
+  float v[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) v[j] = col + j < ncols ? q[j] : 0.f;
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ void unpack(float4 v, float* out) {
+  out[0] = v.x, out[1] = v.y, out[2] = v.z, out[3] = v.w;
+}
+
+// The thread's rows (and columns) of the tile: 4 at 4·t and 4 at 64 + 4·t.
+__device__ __forceinline__ int half_index(int t, int i) { return (i < 4 ? 0 : 64) + 4 * t + (i & 3); }
+
+// One pass over K: x·W into acc (when WITH_W) and ranks [r0, r0 + RC) of
+// u = x·A into u, from the same staged x tile. Global loads of the next K
+// step are issued into registers before the FMAs of this one.
+template <bool WITH_W, int RC>
+__device__ __forceinline__ void k_pass(const float* __restrict__ x, const float* __restrict__ w,
+                                       const float* __restrict__ a, float* xs, float* ws,
+                                       float* as, int M, int K, int N, int r, int m0, int n0,
+                                       int r0, bool x_vec, bool w_vec, bool a_vec,
+                                       float (&acc)[8][8], float (&u)[8][RC / 16]) {
+  constexpr int RPT = RC / 16;  // ranks of u per thread
+  constexpr int A_LOADS = BK * RC / 4;  // float4 loads of one A tile
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  float4 px[2], pw[2], pa = make_float4(0.f, 0.f, 0.f, 0.f);
+  auto fetch = [&](int k0) {
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const int i = tid + p * THREADS;
+      px[p] = load4(x, m0 + (i >> 2), k0 + (i & 3) * 4, M, K, K, x_vec);
+      if (WITH_W) pw[p] = load4(w, k0 + (i >> 5), n0 + (i & 31) * 4, K, N, N, w_vec);
+    }
+    if (tid < A_LOADS)
+      pa = load4(a, k0 + tid / (RC / 4), r0 + (tid % (RC / 4)) * 4, K, r, r, a_vec);
+  };
+  fetch(0);
+  for (int k0 = 0; k0 < K; k0 += BK) {
+    __syncthreads();  // the last step's tiles are read
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const int i = tid + p * THREADS, m = i >> 2, kq = (i & 3) * 4;
+      float v[4];
+      unpack(px[p], v);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) xs[(kq + j) * XLD + m] = v[j];
+      if (WITH_W) *reinterpret_cast<float4*>(ws + (i >> 5) * BN + (i & 31) * 4) = pw[p];
+    }
+    if (tid < A_LOADS)
+      *reinterpret_cast<float4*>(as + (tid / (RC / 4)) * RC + (tid % (RC / 4)) * 4) = pa;
+    __syncthreads();
+    if (k0 + BK < K) fetch(k0 + BK);
+#pragma unroll
+    for (int k = 0; k < BK; ++k) {
+      float xr[8], wr[8], ar[RPT];
+      unpack(*reinterpret_cast<const float4*>(xs + k * XLD + 4 * ty), xr);
+      unpack(*reinterpret_cast<const float4*>(xs + k * XLD + 64 + 4 * ty), xr + 4);
+      if (WITH_W) {
+        unpack(*reinterpret_cast<const float4*>(ws + k * BN + 4 * tx), wr);
+        unpack(*reinterpret_cast<const float4*>(ws + k * BN + 64 + 4 * tx), wr + 4);
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(xr[i], wr[j], acc[i][j]);
+      }
+#pragma unroll
+      for (int j = 0; j < RPT; ++j) ar[j] = as[k * RC + tx * RPT + j];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < RPT; ++j) u[i][j] = fmaf(xr[i], ar[j], u[i][j]);
+    }
+  }
+}
+
+// y = x·W + scale·(x·A)·B for one 128 x 128 tile of y. Ranks go in chunks of
+// RC: the first pass over K computes x·W and the first chunk of u, each
+// further pass only its chunk of u (re-reading x, not W). Each chunk's
+// scale·u is staged in shared memory (transposed) beside its rows of B, and
+// its product joins the fp32 accumulators of x·W: u is never rounded below
+// fp32.
+template <int RC>
+__global__ void __launch_bounds__(THREADS, 1)
+lora_matmul_fp32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                        const float* __restrict__ a, const float* __restrict__ b,
+                        float* __restrict__ y, int M, int K, int N, int r, float scale) {
+  constexpr int RPT = RC / 16;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* xs = reinterpret_cast<float*>(smem);  // BK x XLD   x tile, k-major
+  float* ws = xs + BK * XLD;                   // BK x BN    W tile
+  float* as = ws + BK * BN;                    // BK x RC    A tile (one chunk)
+  float* ut = as + BK * RC;                    // RC x XLD   scale·u, rank-major
+  float* bs = ut + RC * XLD;                   // RC x BN    the chunk's rows of B
+
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const bool x_vec = K % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  const bool w_vec = N % 4 == 0 && (reinterpret_cast<uintptr_t>(w) & 15) == 0;
+  const bool a_vec = r % 4 == 0 && (reinterpret_cast<uintptr_t>(a) & 15) == 0;
+  const bool b_vec = N % 4 == 0 && (reinterpret_cast<uintptr_t>(b) & 15) == 0;
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  for (int r0 = 0; r0 < r; r0 += RC) {
+    float u[8][RPT];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < RPT; ++j) u[i][j] = 0.f;
+    if (r0 == 0)
+      k_pass<true, RC>(x, w, a, xs, ws, as, M, K, N, r, m0, n0, r0, x_vec, w_vec, a_vec, acc, u);
+    else
+      k_pass<false, RC>(x, w, a, xs, ws, as, M, K, N, r, m0, n0, r0, x_vec, w_vec, a_vec, acc, u);
+
+    __syncthreads();  // the last chunk's ut and bs are read
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < RPT; ++j) ut[(tx * RPT + j) * XLD + half_index(ty, i)] = scale * u[i][j];
+    for (int i = tid; i < RC * BN / 4; i += THREADS) {
+      const int j = i / (BN / 4), n = (i % (BN / 4)) * 4;
+      *reinterpret_cast<float4*>(bs + j * BN + n) = load4(b, r0 + j, n0 + n, r, N, N, b_vec);
+    }
+    __syncthreads();
+    const int rows = min(RC, r - r0);
+    for (int j = 0; j < rows; ++j) {
+      float ur[8], br[8];
+      unpack(*reinterpret_cast<const float4*>(ut + j * XLD + 4 * ty), ur);
+      unpack(*reinterpret_cast<const float4*>(ut + j * XLD + 64 + 4 * ty), ur + 4);
+      unpack(*reinterpret_cast<const float4*>(bs + j * BN + 4 * tx), br);
+      unpack(*reinterpret_cast<const float4*>(bs + j * BN + 64 + 4 * tx), br + 4);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) acc[i][jj] = fmaf(ur[i], br[jj], acc[i][jj]);
+    }
+  }
+
+  const bool y_vec = N % 4 == 0 && (reinterpret_cast<uintptr_t>(y) & 15) == 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int gm = m0 + half_index(ty, i);
+    if (gm >= M) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int gn = n0 + h * 64 + 4 * tx;
+      float* dst = y + (size_t)gm * N + gn;
+      if (y_vec && gn + 4 <= N) {
+        *reinterpret_cast<float4*>(dst) =
+            make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (gn + j < N) dst[j] = acc[i][4 * h + j];
+      }
+    }
+  }
+}
+
+template <int RC>
+cudaError_t launch(const float* x, const float* w, const float* a, const float* b, float* y,
+                   int M, int K, int N, int r, float scale, cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<RC>();
+  static bool smem_set = false;
+  cudaError_t e = hopper::allow_smem(lora_matmul_fp32_kernel<RC>, smem, smem_set);
+  if (e != cudaSuccess) return e;
+  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  lora_matmul_fp32_kernel<RC><<<grid, THREADS, smem, stream>>>(x, w, a, b, y, M, K, N, r, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace fp32
 
 }  // namespace
 
@@ -670,13 +907,12 @@ extern "C" int lora_matmul_decode_bf16(const void* x, const void* w, const void*
   return (int)decode::launch<16, 128>(xp, wp, ap, bp, yp, M, K, N, r, scale, st);
 }
 
-// generic: any shape with r <= 64
+// generic: any shape and rank (ranks above 64 in chunks of 64)
 extern "C" int lora_matmul_generic_bf16(const void* x, const void* w, const void* a,
                                         const void* b, void* y, int M, int K, int N, int r,
                                         float scale, void* stream) {
   using namespace generic;
-  if (M <= 0 || K <= 0 || N <= 0 || r <= 0 || r > 64 || M > 65535 * BM)
-    return (int)cudaErrorInvalidValue;
+  if (M <= 0 || K <= 0 || N <= 0 || r <= 0 || M > 65535 * BM) return (int)cudaErrorInvalidValue;
   const bf16 *xp = static_cast<const bf16*>(x), *wp = static_cast<const bf16*>(w);
   const bf16 *ap = static_cast<const bf16*>(a), *bp = static_cast<const bf16*>(b);
   bf16* yp = static_cast<bf16*>(y);
@@ -687,6 +923,21 @@ extern "C" int lora_matmul_generic_bf16(const void* x, const void* w, const void
     case 3: return (int)launch<3>(xp, wp, ap, bp, yp, M, K, N, r, scale, st);
     default: return (int)launch<4>(xp, wp, ap, bp, yp, M, K, N, r, scale, st);
   }
+}
+
+// fp32: x, w, a, b, y in fp32, any shape and rank (ranks in chunks of at
+// most 64), any alignment
+extern "C" int lora_matmul_fp32(const void* x, const void* w, const void* a, const void* b,
+                                void* y, int M, int K, int N, int r, float scale, void* stream) {
+  using namespace fp32;
+  if (M <= 0 || K <= 0 || N <= 0 || r <= 0 || M > 65535 * BM) return (int)cudaErrorInvalidValue;
+  const float *xp = static_cast<const float*>(x), *wp = static_cast<const float*>(w);
+  const float *ap = static_cast<const float*>(a), *bp = static_cast<const float*>(b);
+  float* yp = static_cast<float*>(y);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (r <= 16) return (int)launch<16>(xp, wp, ap, bp, yp, M, K, N, r, scale, st);
+  if (r <= 32) return (int)launch<32>(xp, wp, ap, bp, yp, M, K, N, r, scale, st);
+  return (int)launch<MAX_RC>(xp, wp, ap, bp, yp, M, K, N, r, scale, st);
 }
 
 extern "C" const char* repro_error_string(int err) {

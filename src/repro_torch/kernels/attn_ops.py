@@ -1,8 +1,8 @@
 """Public wrapper of flash attention (after ``repro/kernels/attn_ops.py``).
 
 A tensor on the CPU goes to the plain version; a CUDA tensor launches one of
-the CUDA kernel's variants (bf16, head dim 16/32/64/128; picked by
-``variant`` of ``flash_attention.py``) or raises. Unlike the reference
+the CUDA kernel's variants (bf16 or fp32, head dim 16/32/64/128; picked
+by ``variant`` of ``flash_attention.py``) or raises. Unlike the reference
 wrapper, nothing is padded and ragged lengths never fall back: the kernel
 masks the edge itself. ``flash_attention.launches`` counts kernel launches,
 ``flash_attention.variant_launches`` counts them by variant.
@@ -33,8 +33,9 @@ def _check(q, k, v):
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention: the head dim must be contiguous")
     if q.device.type == "cuda":
-        if q.dtype != torch.bfloat16:
-            raise TypeError(f"flash_attention: the CUDA kernel takes bfloat16, got {q.dtype}")
+        if q.dtype not in (torch.bfloat16, torch.float32):
+            raise TypeError(f"flash_attention: the CUDA kernel takes bfloat16 or float32, "
+                            f"got {q.dtype}")
         if d not in HEAD_DIMS:
             raise ValueError(f"flash_attention: the CUDA kernel takes head dim in {HEAD_DIMS}, got {d}")
     elif q.device.type != "cpu":
@@ -50,7 +51,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, softcap: f
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window, softcap=softcap)
     kind = variant(q.shape[-1], [s for t in (q, k, v) for s in t.stride()[:3]],
-                   [t.data_ptr() for t in (q, k, v)])
+                   [t.data_ptr() for t in (q, k, v)], q.dtype == torch.float32)
     o = flash_attention_cuda(q, k, v, causal, window, softcap, kind)
     flash_attention.launches += 1
     flash_attention.variant_launches[kind] += 1
@@ -58,6 +59,6 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, softcap: f
 
 
 flash_attention.launches = 0
-flash_attention.variant_launches = {"wgmma": 0, "wmma": 0}
+flash_attention.variant_launches = {"wgmma": 0, "wmma": 0, "fp32": 0}
 
 __all__ = ["flash_attention", "flash_attention_ref"]

@@ -1,10 +1,13 @@
 """Binding of the flash attention CUDA kernels (``csrc/flash_attention.cu``),
 the port of ``repro/kernels/flash_attention.py``'s Pallas kernel, and the
-rule that picks one of its two variants:
+rule that picks one of its three variants:
 
-* ``wgmma``: TMA + warpgroup MMA with the softmax in registers, head dim 64
-  (the main path) with 16-byte aligned rows;
-* ``wmma``: the first port's kernel, head dims 16, 32, 128 and any strides.
+* ``wgmma``: TMA + warpgroup MMA with the softmax in registers, bf16, head
+  dim 64 (the main path) with 16-byte aligned rows;
+* ``wmma``: the first port's kernel, bf16, head dims 16, 32, 128 and any
+  strides;
+* ``fp32``: SIMT online softmax for fp32 inputs (fp32 FMAs, P in fp32),
+  every head dim and any strides.
 """
 
 from __future__ import annotations
@@ -21,10 +24,13 @@ HEAD_DIMS = (16, 32, 64, 128)  # the kernels' compiled head widths
 WGMMA_HEAD_DIMS = (64,)
 
 
-def variant(d: int, strides, pointers) -> str:
+def variant(d: int, strides, pointers, fp32: bool = False) -> str:
     """The variant for head dim ``d``, the (batch, head, seq) element strides
     of q, k and v, and their data pointers: TMA needs every stride a
-    positive multiple of 8 elements (16 bytes) and 16-byte aligned pointers."""
+    positive multiple of 8 elements (16 bytes) and 16-byte aligned pointers.
+    ``fp32``: the inputs are fp32, which only the ``fp32`` variant takes."""
+    if fp32:
+        return "fp32"
     aligned = (all(s > 0 and s % 8 == 0 for s in strides)
                and all(p % 16 == 0 for p in pointers))
     return "wgmma" if d in WGMMA_HEAD_DIMS and aligned else "wmma"
@@ -34,8 +40,9 @@ def variant(d: int, strides, pointers) -> str:
 def _entries():
     lib = _build.load("flash_attention")
     fns = {}
-    for name in ("wgmma", "wmma"):
-        fn = getattr(lib, f"flash_attention_{name}_bf16")
+    for name in ("wgmma", "wmma", "fp32"):
+        fn = getattr(lib, "flash_attention_fp32" if name == "fp32"
+                     else f"flash_attention_{name}_bf16")
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int,
                           ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
@@ -45,10 +52,10 @@ def _entries():
 
 
 def flash_attention_cuda(q, k, v, causal: bool, window: int, softcap: float, kind: str):
-    """q (B,H,Sq,d), k/v (B,Kv,Skv,d): bf16 views on one CUDA device whose last
-    dim is contiguous; ``kind`` is the variant (see ``variant``). Returns
-    (B,H,Sq,d) laid out in memory as (B,Sq,H,d), the model's layout, so the
-    caller's transpose back is free."""
+    """q (B,H,Sq,d), k/v (B,Kv,Skv,d): bf16 (fp32 for the ``fp32`` variant)
+    views on one CUDA device whose last dim is contiguous; ``kind`` is the
+    variant (see ``variant``). Returns (B,H,Sq,d) laid out in memory as
+    (B,Sq,H,d), the model's layout, so the caller's transpose back is free."""
     lib, fns = _entries()
     B, H, Sq, d = q.shape
     Kv, Skv = k.shape[1], k.shape[2]

@@ -5,8 +5,10 @@ that picks one of its three variants from the shapes and alignment:
 * ``prefill`` (M > 16): TMA + wgmma, output tiles 128 x ``prefill_tile_n``;
 * ``decode`` (M <= 16): clusters of 8 blocks splitting K, W streamed by cp.async,
   slices of ``decode_tile_n`` columns;
-* ``generic``: the first port's wmma kernel, for misaligned rows or ranks
-  that are not a multiple of 8.
+* ``generic``: the first port's wmma kernel, for misaligned rows, ranks
+  that are not a multiple of 8 and ranks above ``MAX_RANK`` (in chunks);
+* ``fp32``: a tiled SIMT kernel for fp32 inputs (fp32 FMAs, no TF32), any
+  shape and rank.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-MAX_RANK = 64  # the kernels hold u = x·A in at most 64 columns
+MAX_RANK = 64  # prefill and decode hold u = x·A in at most 64 columns; above, generic
 DECODE_MAX_M = 16  # the decode variant's rows (x·W by FMAs, x in shared memory)
 SMS = 132  # streaming multiprocessors of an H100 SXM
 MAX_SMEM = 227 * 1024  # a block's shared memory
@@ -43,10 +45,14 @@ def decode_smem_bytes(M: int, K: int, r: int, bn: int = 64) -> int:
             + 8 * mt * (bn + r) * 4 + mt * bn * 4 + 2 * mt * r * 4)
 
 
-def variant(M: int, K: int, N: int, r: int, aligned: bool) -> str:
+def variant(M: int, K: int, N: int, r: int, aligned: bool, fp32: bool = False) -> str:
     """The variant that computes this shape. ``aligned``: every operand's
     pointer is 16-byte aligned (TMA and 16-byte copies need it, and rows of
-    K, N, r elements a multiple of 8)."""
+    K, N, r elements a multiple of 8). ``fp32``: the operands are fp32 (the
+    others take bf16), whatever the shape, so no bf16 budget (such as
+    ``decode_smem_bytes``) is ever asked about an fp32 shape."""
+    if fp32:
+        return "fp32"
     if aligned and K % 8 == 0 and N % 8 == 0 and r % 8 == 0 and r <= MAX_RANK:
         if M > DECODE_MAX_M:
             return "prefill"
@@ -74,8 +80,8 @@ def _entries():
     args = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float]
     fns = {}
     for name, extra in (("prefill", [ctypes.c_int]), ("decode", [ctypes.c_int]),
-                        ("generic", [])):
-        fn = getattr(lib, f"lora_matmul_{name}_bf16")
+                        ("generic", []), ("fp32", [])):
+        fn = getattr(lib, "lora_matmul_fp32" if name == "fp32" else f"lora_matmul_{name}_bf16")
         fn.argtypes = args + extra + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fns[name] = fn
@@ -83,17 +89,17 @@ def _entries():
 
 
 @functools.lru_cache(maxsize=1024)
-def plan(M: int, K: int, N: int, r: int, aligned: bool) -> tuple[str, tuple]:
+def plan(M: int, K: int, N: int, r: int, aligned: bool, fp32: bool = False) -> tuple[str, tuple]:
     """The variant of a shape and its extra launch arguments (looked up once
     per shape: the decode loop calls the same few shapes hundreds of times)."""
-    kind = variant(M, K, N, r, aligned)
+    kind = variant(M, K, N, r, aligned, fp32)
     extra = {"prefill": (prefill_tile_n(M, N, r),), "decode": (decode_tile_n(N),)}
     return kind, extra.get(kind, ())
 
 
 def lora_matmul_cuda(x, w, a, b, scale: float, kind: str, extra: tuple = ()):
-    """x (M,K), w (K,N), a (K,r), b (r,N): contiguous bf16 on one CUDA device;
-    ``kind`` and ``extra`` from ``plan``."""
+    """x (M,K), w (K,N), a (K,r), b (r,N): contiguous, bf16 (fp32 for the
+    ``fp32`` variant), on one CUDA device; ``kind`` and ``extra`` from ``plan``."""
     lib, fns = _entries()
     M, K = x.shape
     N, r = w.shape[1], a.shape[1]

@@ -2,7 +2,8 @@
 
 Flattens leading dims and checks its inputs. A tensor on the CPU goes to the
 plain version; a CUDA tensor launches one of the CUDA kernel's variants
-(bf16 only, picked from the shapes by ``plan`` of ``lora_matmul.py``) or raises.
+(bf16 or fp32, any rank; picked from the dtype and shapes by ``plan`` of
+``lora_matmul.py``) or raises.
 ``lora_matmul.launches`` counts kernel launches, and
 ``lora_matmul.variant_launches`` counts them by variant.
 Forward-only: with grad mode on, an input that requires grad raises
@@ -13,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import require_no_grad
-from repro_torch.kernels.lora_matmul import MAX_RANK, lora_matmul_cuda, plan
+from repro_torch.kernels.lora_matmul import lora_matmul_cuda, plan
 from repro_torch.kernels.lora_ref import lora_matmul_ref
 
 
@@ -32,10 +33,9 @@ def _check(x, w, a, b):
     if not all(t.is_contiguous() for t in (x, w, a, b)):
         raise ValueError("lora_matmul: inputs must be contiguous")
     if x.device.type == "cuda":
-        if x.dtype != torch.bfloat16:
-            raise TypeError(f"lora_matmul: the CUDA kernel takes bfloat16, got {x.dtype}")
-        if r > MAX_RANK:
-            raise ValueError(f"lora_matmul: the CUDA kernel takes rank <= {MAX_RANK}, got {r}")
+        if x.dtype not in (torch.bfloat16, torch.float32):
+            raise TypeError(f"lora_matmul: the CUDA kernel takes bfloat16 or float32, "
+                            f"got {x.dtype}")
     elif x.device.type != "cpu":
         raise ValueError(f"lora_matmul: unsupported device {x.device}")
 
@@ -50,7 +50,7 @@ def lora_matmul(x, w, a, b, *, scale: float = 1.0):
         y = lora_matmul_ref(x2, w, a, b, scale=scale)
     else:
         aligned = not (x2.data_ptr() | w.data_ptr() | a.data_ptr() | b.data_ptr()) % 16
-        kind, extra = plan(x2.shape[0], K, N, a.shape[1], aligned)
+        kind, extra = plan(x2.shape[0], K, N, a.shape[1], aligned, x.dtype == torch.float32)
         y = lora_matmul_cuda(x2, w, a, b, scale, kind, extra)
         lora_matmul.launches += 1
         lora_matmul.variant_launches[kind] += 1
@@ -58,6 +58,6 @@ def lora_matmul(x, w, a, b, *, scale: float = 1.0):
 
 
 lora_matmul.launches = 0
-lora_matmul.variant_launches = {"prefill": 0, "decode": 0, "generic": 0}
+lora_matmul.variant_launches = {"prefill": 0, "decode": 0, "generic": 0, "fp32": 0}
 
 __all__ = ["lora_matmul", "lora_matmul_ref"]

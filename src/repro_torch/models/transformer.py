@@ -167,18 +167,24 @@ def forward(params, batch, cfg: ModelConfig, *, lora=None, kernels=True):
     return L.lm_logits(params["embed"], L.apply_norm(params["final_norm"], x, cfg), cfg)
 
 
-def hidden_states(params, batch, cfg: ModelConfig):
+def hidden_states(params, batch, cfg: ModelConfig, *, remat: bool = False,
+                  unroll: bool = False):
     """The training path's forward up to the final norm. Returns (x, aux);
-    aux = 0, since no ported family has the reference's MoE aux loss."""
+    aux = 0, since no ported family has the reference's MoE aux loss.
+    ``remat`` recomputes each group's activations in the backward pass
+    (``_scan_groups``); ``unroll`` is the reference's ``lax.scan`` unrolling,
+    which a Python loop has no use for: it is taken and ignored."""
     x, positions = _embed_inputs(params, batch, cfg)
-    x = _scan_groups(params, x, cfg, positions=positions, kernels=False)
+    x = _scan_groups(params, x, cfg, positions=positions, kernels=False, remat=remat)
     return L.apply_norm(params["final_norm"], x, cfg), x.new_zeros((), dtype=torch.float32)
 
 
-def loss_fn(params, batch, cfg: ModelConfig, *, aux_weight=0.01):
+def loss_fn(params, batch, cfg: ModelConfig, *, remat: bool = False, aux_weight=0.01,
+            unroll: bool = False):
     """Training loss: sequence-chunked CE (``layers.fused_cross_entropy``) +
-    aux_weight·aux. Returns (loss, {"ce_loss", "moe_aux"})."""
-    x, aux = hidden_states(params, batch, cfg)
+    aux_weight·aux. Returns (loss, {"ce_loss", "moe_aux"}). ``remat`` and
+    ``unroll`` as in ``hidden_states``."""
+    x, aux = hidden_states(params, batch, cfg, remat=remat)
     loss = L.fused_cross_entropy(params["embed"], x, batch["labels"], cfg,
                                  mask=batch.get("mask"))
     return loss + aux_weight * aux, {"ce_loss": loss, "moe_aux": aux}

@@ -1,2 +1,2 @@
-"""Split-learning pipelining models (the port of ``repro/parallel``'s numpy
-latency model; the microbatched split step comes later)."""
+"""Split-learning pipelining (the port of ``repro/parallel/pipeline.py``:
+the microbatched split step and the latency model)."""

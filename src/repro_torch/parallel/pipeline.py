@@ -1,5 +1,4 @@
-"""Split-learning microbatch pipelining: the latency model (port of the numpy
-half of ``repro/parallel/pipeline.py``).
+"""Split-learning microbatch pipelining (port of ``repro/parallel/pipeline.py``).
 
 Algorithm 2 is strictly sequential per local iteration:
     client fwd  →  uplink A_k  →  server fwd/bwd  →  downlink dA_k  →
@@ -8,6 +7,12 @@ so the client idles during server compute + transfers and vice versa.
 Splitting the local batch into M microbatches pipelines the stages
 (GPipe-style, applied across the *wireless* split): while the server
 processes microbatch j, the client already runs forward on j+1.
+
+``pipelined_split_grads`` is the numerically exact microbatched split
+value+grad: the mean over M microbatches equals the full-batch split step.
+On one card the microbatches run one after the other (a Python loop over
+``core/split.split_value_and_grad``); the overlap is what the latency model
+prices.
 
 ``pipeline_round_time`` is the latency model: the sequential cost
 M·(t_cl + t_up + t_srv + t_down + t_cl_bwd) collapses to
@@ -23,7 +28,36 @@ from typing import Any
 
 import numpy as np
 
+import torch
+
+from repro_torch.config import ModelConfig
 from repro_torch.core import delay_model as dm
+from repro_torch.core import split as split_lib
+from repro_torch.tree import tree_leaves, tree_map
+
+
+def pipelined_split_grads(params, lora_c, lora_s, batch, cfg: ModelConfig,
+                          cut: int, num_microbatches: int):
+    """Microbatched split step: (mean loss, mean dlora_c, mean dlora_s) over M
+    microbatches, the gradients accumulated in fp32 and scaled by 1/M (fp32
+    whatever the adapters' dtype, as the reference's). Equals the full-batch
+    split step when B % M == 0."""
+    B = tree_leaves(batch)[0].shape[0]
+    M = num_microbatches
+    assert B % M == 0, (B, M)
+    mb = B // M
+    f32 = lambda t: torch.zeros(t.shape, dtype=torch.float32, device=t.device)
+    loss_acc = torch.zeros((), dtype=torch.float32, device=tree_leaves(batch)[0].device)
+    dc_acc, ds_acc = tree_map(f32, lora_c), tree_map(f32, lora_s)
+    for i in range(M):
+        sub = tree_map(lambda x: x[i * mb:(i + 1) * mb], batch)
+        loss, dc, ds, _ = split_lib.split_value_and_grad(params, lora_c, lora_s, sub, cfg, cut)
+        loss_acc = loss_acc + loss
+        dc_acc = tree_map(torch.add, dc_acc, dc)
+        ds_acc = tree_map(torch.add, ds_acc, ds)
+    inv = 1.0 / M
+    scale = lambda t: tree_map(lambda x: x * inv, t)
+    return loss_acc * inv, scale(dc_acc), scale(ds_acc)
 
 
 def pipeline_round_time(stage_seconds: dict[str, np.ndarray | float],

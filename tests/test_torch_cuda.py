@@ -106,12 +106,121 @@ def test_lora_decode_is_deterministic(cuda):
 
 def test_lora_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
     x, w, a, b = (torch.randn(s, device=cuda) for s in ((8, 64), (64, 32), (64, 4), (4, 32)))
+    for dtype in (torch.float16, torch.float64):
+        with pytest.raises(TypeError):
+            lora_matmul(*(t.to(dtype) for t in (x, w, a, b)))
     with pytest.raises(TypeError):
-        lora_matmul(x, w, a, b)  # fp32
-    x, w = x.bfloat16(), w.bfloat16()
-    a, b = torch.randn((64, 80), device=cuda).bfloat16(), torch.randn((80, 32), device=cuda).bfloat16()
-    with pytest.raises(ValueError):
-        lora_matmul(x, w, a, b)  # rank above 64
+        lora_matmul(x, w.bfloat16(), a, b)  # mixed dtypes
+
+
+@pytest.fixture
+def no_tf32():
+    """fp32 products of the plain versions in full fp32 (TF32 would be the
+    side that is off at these limits)."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+F32, BF16 = torch.float32, torch.bfloat16
+
+
+@pytest.mark.parametrize("M,K,N,r,dtype,expected", [
+    # fp32: the smoke widths, fedsllm-100m's widths at prefill and decode,
+    # ragged shapes, ranks that are not a multiple of 4 or 8
+    (5, 64, 64, 16, F32, "fp32"), (32, 64, 128, 16, F32, "fp32"),
+    (4096, 768, 2048, 16, F32, "fp32"), (4096, 2048, 768, 16, F32, "fp32"),
+    (8, 768, 256, 16, F32, "fp32"), (8, 2048, 768, 16, F32, "fp32"),
+    (100, 200, 300, 8, F32, "fp32"), (3, 40, 24, 5, F32, "fp32"), (130, 96, 130, 33, F32, "fp32"),
+    # ranks above 64: bf16 through generic's rank chunks, fp32 through fp32's
+    (64, 768, 768, 80, BF16, "generic"), (4096, 768, 2048, 128, BF16, "generic"),
+    (8, 768, 768, 128, BF16, "generic"), (37, 96, 130, 100, BF16, "generic"),
+    (64, 768, 768, 80, F32, "fp32"), (4096, 768, 768, 128, F32, "fp32"),
+    (8, 768, 768, 200, F32, "fp32"), (37, 96, 130, 100, F32, "fp32"),
+])
+def test_lora_fp32_and_high_ranks_match_plain(cuda, no_tf32, M, K, N, r, dtype, expected):
+    """What the wrapper refused before: fp32 inputs and ranks above 64. Limits:
+    1e-5 of the largest output in fp32 (the reference's fp32 tolerance, both
+    sides full fp32 sums in another order), two bf16 ulps in bf16."""
+    gen = torch.Generator(device=cuda).manual_seed(M + 5 * N + r)
+    x = torch.randn((M, K), generator=gen, device=cuda).to(dtype)
+    w, a, b = (torch.randn(s, generator=gen, device=cuda).mul(0.05).to(dtype)
+               for s in ((K, N), (K, r), (r, N)))
+    before = dict(lora_matmul.variant_launches)
+    y = lora_matmul(x, w, a, b, scale=2.0)
+    torch.cuda.synchronize()
+    moved = {k: v - before[k] for k, v in lora_matmul.variant_launches.items()}
+    assert moved == {k: int(k == expected) for k in moved}, moved
+    assert y.dtype == dtype
+    ref = lora_matmul_ref(x, w, a, b, scale=2.0)
+    err = (y.float() - ref.float()).abs().max().item()
+    tol = 1e-5 * ref.abs().max().item() if dtype == F32 else _bf16_ulps(ref)
+    assert err <= tol, (err, tol)
+
+
+@pytest.mark.parametrize("B,H,Kv,Sq,Skv,d,causal,window,softcap", [
+    (2, 4, 2, 16, 16, 16, True, 0, 0.0),  # the smoke prefill
+    (2, 4, 2, 100, 100, 16, True, 0, 0.0),
+    (1, 4, 4, 256, 256, 32, True, 64, 0.0),  # window
+    (8, 12, 4, 512, 512, 64, True, 0, 0.0),  # fedsllm-100m's prefill
+    (2, 12, 4, 512, 512, 64, True, 128, 0.0),
+    (1, 2, 1, 128, 128, 64, True, 0, 50.0),  # softcap, MQA
+    (2, 12, 4, 200, 200, 64, True, 100, 50.0),  # ragged, window and softcap
+    (2, 4, 1, 70, 130, 128, False, 0, 0.0),  # non-causal, Skv != Sq
+    (2, 2, 2, 300, 300, 128, True, 32, 30.0),
+])
+def test_flash_fp32_matches_plain(cuda, no_tf32, B, H, Kv, Sq, Skv, d, causal, window, softcap):
+    """The fp32 variant at the reference's fp32 tolerance, 2e-5 + 2e-5·|o|
+    per element (tests/test_kernels.py): both keep P in fp32."""
+    gen = torch.Generator(device=cuda).manual_seed(Sq * 5 + d)
+    q = torch.randn((B, Sq, H, d), generator=gen, device=cuda).transpose(1, 2)
+    k, v = (torch.randn((B, Skv, Kv, d), generator=gen, device=cuda).transpose(1, 2)
+            for _ in range(2))
+    before = dict(flash_attention.variant_launches)
+    o = flash_attention(q, k, v, causal=causal, window=window, softcap=softcap)
+    torch.cuda.synchronize()
+    moved = {k_: v_ - before[k_] for k_, v_ in flash_attention.variant_launches.items()}
+    assert moved == {k_: int(k_ == "fp32") for k_ in moved}, moved
+    assert o.dtype == torch.float32
+    ref = flash_attention_ref(q, k, v, causal=causal, window=window, softcap=softcap)
+    excess = ((o - ref).abs() - 2e-5 * ref.abs()).max().item()
+    assert excess <= 2e-5, excess
+
+
+@pytest.mark.parametrize("arch,variants", [
+    ("fedsllm-100m", {"lora_matmul": "fp32", "flash_attention": "fp32"}),
+    ("mamba2-130m", {"lora_matmul": "fp32", "ssd_scan": "fma"}),
+])
+def test_fp32_smoke_serving_runs_the_fp32_variants(cuda, no_tf32, arch, variants):
+    """Prefill + one decode step of the fp32 smoke model, as ``launch.serve
+    --smoke`` runs it: every launch on the fp32 (or SSD ``fma``) variant,
+    logits within 1e-4 of the plain path's largest."""
+    cfg = smoke_variant(get_arch(arch))
+    params = T.init_params(cfg, seed=0, device=cuda)
+    lora = init_lora(params, cfg, seed=1, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    for ab in lora.values():
+        ab["B"] = torch.randn(ab["B"].shape, generator=gen, device=cuda) * 0.05
+    tokens = torch.randint(0, cfg.vocab_size, (2, 40), generator=gen, device=cuda)
+    kernels = {"lora_matmul": lora_matmul, "flash_attention": flash_attention,
+               "ssd_scan": ssd_scan}
+    before = {n: dict(fn.variant_launches) for n, fn in kernels.items()}
+    cache = T.init_cache(cfg, 2, 48, device=cuda)
+    logits, cache = T.prefill(params, {"tokens": tokens}, cfg, cache, lora=lora)
+    step, cache = T.decode_step(params, tokens[:, -1:], cache, 40, cfg, lora=lora)
+    torch.cuda.synchronize()
+    for name, fn in kernels.items():
+        moved = {k: v - before[name][k] for k, v in fn.variant_launches.items()}
+        assert all(n == 0 or k == variants.get(name) for k, n in moved.items()), (name, moved)
+        assert (sum(moved.values()) > 0) == (name in variants), (name, moved)
+    merged = merge(params, lora, cfg)
+    plain_cache = T.init_cache(cfg, 2, 48, device=cuda)
+    ref, plain_cache = T.prefill(merged, {"tokens": tokens}, cfg, plain_cache, kernels=False)
+    ref_step, _ = T.decode_step(merged, tokens[:, -1:], plain_cache, 40, cfg)
+    for got, want in ((logits, ref), (step, ref_step)):
+        err = (got - want).abs().max().item()
+        assert err <= 1e-4 * want.abs().max().item(), (err, want.abs().max().item())
 
 
 @pytest.mark.parametrize("B,H,Kv,Sq,Skv,d,causal,window,softcap", [
