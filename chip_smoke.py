@@ -107,11 +107,42 @@ then
                full-batch split step; (f) ``repro_torch.examples.quickstart``
                and ``serve_demo`` on the card, their prefills on the fp32
                flash variant (and SSD ``fma``). Written to
-               ``build/chip_smoke/cli.json``.
+               ``build/chip_smoke/cli.json``;
+  9. dense   — the rest of the dense family: (a) flash attention at
+               gemma2-9b's prefill (B=2, H=16, Kv=8, S=8192, head dim 256;
+               global and windowed 4096, with and without its softcap 50,
+               and a ragged S=300) in bf16 (``wmma``) and fp32 against the
+               plain version, with event, device, plain, SDPA and bound
+               times, and the LoRA kernel at every (M, K, N, r) that the
+               serves below launch, on the variant its rule picks, against
+               its plain version with its launches there and its times;
+               (b) gemma2-9b at full width and depth (42 layers, bf16)
+               served through ``decode_tokens`` (B=2, prompt 8192, 32 new
+               tokens; every launch counted by variant, 21 of the 42 flash
+               calls windowed, the L caches 4096 slots that wrap), its
+               greedy tokens against the plain path's, each of its 21
+               groups' update through the kernels no further from fp32
+               than twice the plain path's (from the same input), and at 4
+               layers
+               phase 3's logits rule, the ring-buffer decode against the
+               fp32 forward over the longer sequence and the fp32 model
+               served through the fp32 variants; (c) phi4-mini-3.8b and
+               starcoder2-7b (full depth) and command-r-35b (8 of 40 layers)
+               served at B=8, prompt 512, 32 new tokens, launches by
+               variant (starcoder2's and command-r's large-K down
+               projections take the ``generic`` LoRA variant at decode),
+               the rule, and flash at head dim 128; (d) a FedsLLM round of
+               full phi4-mini-3.8b and a split pass of full gemma2-9b
+               (remat) against monolithic, no kernel launch; (e) the four
+               smoke configs on the card against the CPU and through
+               ``launch.serve --smoke``. Written to
+               ``build/chip_smoke/dense.json``.
 
 Prints the compiled kernels' registers and spills, the card's name and power
 limit, a ``{"kernels": [...]}`` line (the three kernels on the bf16 serving
-paths, then each variant of the fp32 serve path of phase 8), and last
+paths, then each variant of the fp32 serve path of phase 8, then phase 9's
+flash variants at head dims 256 and 128 and the LoRA kernel on each of its
+serves), and last
 ``{"ok": true, "device": {...}}``. Details go to ``build/chip_smoke/``.
 Without a CUDA card it exits non-zero before printing any result.
 """
@@ -150,16 +181,19 @@ from repro_torch.config import (SHAPES, FedsLLMConfig, LoRAConfig, RunConfig,  #
                                 TrainConfig, get_arch, smoke_variant)
 from repro_torch.core import federated, fedsllm, privacy, split  # noqa: E402
 from repro_torch.core.delay_model import sample_network  # noqa: E402
-from repro_torch.core.lora import init_lora, merge  # noqa: E402
+from repro_torch.core.lora import init_lora, merge, split_client_server  # noqa: E402
 from repro_torch.data.tokens import TokenStream, client_batches  # noqa: E402
 from repro_torch.examples import quickstart, serve_demo  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import flash_attention as flash_binding  # noqa: E402
+from repro_torch.kernels import lora_matmul as lora_binding  # noqa: E402
 from repro_torch.kernels.attn_ops import flash_attention  # noqa: E402
 from repro_torch.kernels.attn_ref import flash_attention_ref  # noqa: E402
 from repro_torch.kernels.lora_ops import lora_matmul  # noqa: E402
 from repro_torch.kernels.lora_ref import lora_matmul_ref  # noqa: E402
 from repro_torch.kernels.ssd_ops import ssd_scan  # noqa: E402
 from repro_torch.kernels.ssd_ref import ssd_scan_ref  # noqa: E402
+from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import mamba2 as M2  # noqa: E402
 from repro_torch.launch import serve, steps, train  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
@@ -401,7 +435,8 @@ def lora_shapes(cfg) -> collections.Counter:
         d_inner, H, P, N, conv_ch = M2.dims(cfg)
         return collections.Counter([(D, 2 * d_inner + 2 * N + H), (d_inner, D)])
     q, kv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
-    return collections.Counter([(D, q), (D, kv), (D, kv), (q, D), (D, F), (D, F), (F, D)])
+    mlp = [(D, F)] * (1 if cfg.mlp_activation == "gelu" else 2) + [(F, D)]  # gelu: no gate
+    return collections.Counter([(D, q), (D, kv), (D, kv), (q, D)] + mlp)
 
 
 def path_variants(cfg) -> dict[str, dict[str, int]]:
@@ -657,7 +692,7 @@ def ssd_checks(cfg, dev, gen, rows, errs) -> list:
     return fails
 
 
-def make_model(cfg, dev):
+def make_model(cfg, dev, batch: int = BATCH, prompt_len: int = PROMPT):
     params = T.init_params(cfg, seed=0, device=dev)
     lora = init_lora(params, cfg, seed=1, device=dev)
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -676,7 +711,7 @@ def make_model(cfg, dev):
         m["D_skip"] = 1 + 0.5 * torch.randn(m["D_skip"].shape, generator=gen, device=dev)
         m["conv_b"] = (0.1 * torch.randn(m["conv_b"].shape, generator=gen, device=dev)
                        ).to(m["conv_b"].dtype)
-    prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen, device=dev)
+    prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=gen, device=dev)
     return params, lora, prompt
 
 
@@ -740,26 +775,19 @@ def phase_slice(cfg, dev, params, lora, prompt) -> dict:
             "decode_kernel_vs_plain": rel_err(step, plain_step),
             "decode_kernel_vs_fp32": rel_err(step, ref_step),
             "decode_plain_vs_fp32": rel_err(plain_step, ref_step)}
-    last_err = (logits[:, -1] - plain[:, -1]).abs().max().item()
-    # greedy tokens equal, except a row whose plain top-2 gap is within the
-    # two paths' measured logit error (a tie at this precision)
-    top2 = plain[:, -1].topk(2, dim=-1).values
-    gap = (top2[:, 0] - top2[:, 1])
-    same = tok == plain_tok
-    tie = (~same) & (gap <= 2 * last_err)
+    greedy = ties(logits[:, -1], plain[:, -1])
     log(f"[slice] {cfg.name}: logits relative errors " + json.dumps(errs))
-    log(f"[slice] first-step greedy tokens equal on {int(same.sum())}/{BATCH} rows, "
-        f"{int(tie.sum())} tie(s) within {2 * last_err:.3e}")
+    log(f"[slice] first-step greedy tokens equal on {greedy['equal']}/{BATCH} rows, "
+        f"{greedy['ties']} tie(s)")
     # the kernel path may be no further from fp32 than twice the plain bf16
     # path is (both round to bf16, at different places), or 1e-3 where the
     # working type is fp32 itself
     for stage in ("prefill", "decode"):
         floor = max(2 * errs[f"{stage}_plain_vs_fp32"], 1e-3)
         assert errs[f"{stage}_kernel_vs_fp32"] <= floor, errs
-    assert bool((same | tie).all()), (tok.tolist(), plain_tok.tolist(), gap.tolist())
+    assert greedy["ok"], (tok.tolist(), plain_tok.tolist())
     return {"launches": launches, "variants": variants, "serve_first_call_s": serve_s,
-            "errors": errs,
-            "tokens_equal": int(same.sum()), "ties": int(tie.sum())}
+            "errors": errs, "tokens_equal": greedy["equal"], "ties": greedy["ties"]}
 
 
 def phase_timings(cfg, dev, params, lora, prompt) -> dict:
@@ -1718,7 +1746,8 @@ CLI_LIMITS = {
 }
 
 
-def lora_row(gen, dev, M, K, N, r, dtype, scale, launches=None, iters=100, **meta):
+def lora_row(gen, dev, M, K, N, r, dtype, scale, launches=None, iters=100, device_iters=30,
+             **meta):
     """Event, device, plain, library (addmm) and bound times of one LoRA
     shape, beside its check against the plain version."""
     esize = 4 if dtype == torch.float32 else 2
@@ -1737,16 +1766,23 @@ def lora_row(gen, dev, M, K, N, r, dtype, scale, launches=None, iters=100, **met
     row = dict(kernel="lora_matmul", M=M, K=K, N=N, r=r, dtype=str(dtype).split(".")[-1],
                **meta, variant=ran_variant("lora_matmul", lambda: call(*sets[0])),
                err=err, tol=tol, launches=launches, ms=time_ms(call, sets, iters),
-               **device_time_ms(call, sets), plain_ms=time_ms(plain, sets, max(5, iters // 4)),
-               library_ms=time_ms(lib, sets, iters), **library(device_time_ms(lib, sets)),
+               **device_time_ms(call, sets, device_iters),
+               plain_ms=time_ms(plain, sets, max(5, iters // 4)), library_ms=time_ms(lib, sets, iters),
+               **library(device_time_ms(lib, sets, device_iters)),
                bound_ms=b_ms, bound_by=b_by)
     row["bound_share"] = b_ms / row["device_ms"]
     return row
 
 
-def flash_row(gen, dev, B, S, H, Kv, d, window=0, softcap=0.0, launches=None, iters=50):
-    nbytes, ops = attn_work(B, S, H, Kv, d, True, window, esize=4)
-    sets = [attn_inputs(gen, B, S, H, Kv, d, dev, torch.float32) for _ in range(n_sets(nbytes))]
+def attn_row(gen, dev, B, S, H, Kv, d, dtype, window=0, softcap=0.0, launches=None, iters=5,
+             **meta):
+    """One flash shape: the kernel against its plain version (bf16: 2 ulps of
+    the largest output; fp32: 2e-5 + 2e-5·|o|), with event, device, plain,
+    library and bound times. The library call is SDPA, where it computes the
+    same function: no softcap; a window as its boolean mask."""
+    fp32 = dtype == torch.float32
+    nbytes, ops = attn_work(B, S, H, Kv, d, True, window, esize=4 if fp32 else 2)
+    sets = [attn_inputs(gen, B, S, H, Kv, d, dev, dtype) for _ in range(n_sets(nbytes))]
     call = lambda q, k, v: flash_attention(q, k, v, causal=True, window=window,  # noqa: E731
                                            softcap=softcap)
     plain = lambda q, k, v: flash_attention_ref(q, k, v, causal=True, window=window,  # noqa: E731
@@ -1754,22 +1790,36 @@ def flash_row(gen, dev, B, S, H, Kv, d, window=0, softcap=0.0, launches=None, it
     o = call(*sets[0])
     torch.cuda.synchronize()
     ref = plain(*sets[0])
-    excess = ((o - ref).abs() - CLI_LIMITS["flash_fp32"] * ref.abs()).max().item()
+    err = (o.float() - ref.float()).abs().max().item()
+    if fp32:
+        tol = CLI_LIMITS["flash_fp32"]
+        excess = ((o - ref).abs() - tol * ref.abs()).max().item()
+        ok = excess <= tol
+    else:
+        tol, excess = bf16_ulps(ref), None
+        ok = err <= tol
+    del o, ref
     lib = None
-    if not window and not softcap:  # SDPA has no window or softcap
+    if not softcap:
+        mask = None
+        if window:
+            i = torch.arange(S, device=dev)
+            mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
         lib = lambda q, k, v: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
-            q, k, v, is_causal=True, enable_gqa=True)
-    b_ms, b_by = bound_ms(nbytes, ops, PEAK_FP32)
-    row = dict(kernel="flash_attention", dtype="float32", B=B, S=S, H=H, Kv=Kv, d=d,
-               window=window, softcap=softcap,
+            q, k, v, attn_mask=mask, is_causal=mask is None, enable_gqa=True)
+    b_ms, b_by = bound_ms(nbytes, ops, PEAK_FP32 if fp32 else PEAK_BF16)
+    row = dict(kernel="flash_attention", dtype=str(dtype).split(".")[-1], B=B, S=S, H=H, Kv=Kv,
+               d=d, window=window, softcap=softcap, **meta,
                variant=ran_variant("flash_attention", lambda: call(*sets[0])),
-               err=(o - ref).abs().max().item(), excess=excess, tol=CLI_LIMITS["flash_fp32"],
-               launches=launches, ms=time_ms(call, sets, iters), **device_time_ms(call, sets),
-               plain_ms=time_ms(plain, sets, max(5, iters // 5)),
+               err=err, excess=excess, tol=tol, ok=ok, launches=launches,
+               ms=time_ms(call, sets, iters), **device_time_ms(call, sets, iters),
+               plain_ms=time_ms(plain, sets, max(2, iters // 5)),
                library_ms=None if lib is None else time_ms(lib, sets, iters),
-               **library(None if lib is None else device_time_ms(lib, sets)),
+               **library(None if lib is None else device_time_ms(lib, sets, iters)),
                bound_ms=b_ms, bound_by=b_by)
     row["bound_share"] = b_ms / row["device_ms"]
+    del sets
+    torch.cuda.empty_cache()
     return row
 
 
@@ -1795,7 +1845,8 @@ def new_variants(dev) -> tuple[list, list]:
                dict(B=BATCH, S=PROMPT, H=H, Kv=Kv, d=d, window=128),
                dict(B=BATCH, S=PROMPT, H=H, Kv=Kv, d=d, softcap=50.0),
                dict(B=2, S=300, H=4, Kv=2, d=32, window=64, softcap=30.0)):
-        rows.append(dict(flash_row(gen, dev, **kw), expected="fp32"))
+        rows.append(dict(attn_row(gen, dev, dtype=torch.float32, iters=50, **kw),
+                         expected="fp32"))
     for row in rows:
         log(f"[cli] (a) {json.dumps(row)}")
     return rows, row_fails(rows)
@@ -1907,9 +1958,9 @@ def smoke_serve_rows(dev, launched: dict) -> tuple[list, list]:
             row["bound_share"] = b_ms / row["device_ms"]
             rows.append(row)
         else:
-            rows.append(dict(flash_row(gen, dev, B, P, cfg.num_heads, cfg.num_kv_heads,
-                                       cfg.head_dim, launches=cfg.num_layers), path=arch,
-                             expected="fp32"))
+            rows.append(dict(attn_row(gen, dev, B, P, cfg.num_heads, cfg.num_kv_heads,
+                                      cfg.head_dim, torch.float32, launches=cfg.num_layers,
+                                      iters=50), path=arch, expected="fp32"))
     for row in rows:
         log(f"[cli] (b) serve-path row {json.dumps(row)}")
     # the rows' launches are those the two smoke serve calls made
@@ -2193,6 +2244,617 @@ def variant_entries(rows) -> list[dict]:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the rest of the dense family, and flash attention at head dim 256
+# ---------------------------------------------------------------------------
+
+GEMMA = "gemma2-9b"
+GEMMA_SERVE = (2, 8192, 32)  # batch, prompt, new tokens
+GEMMA_RULE_LAYERS = 4  # 2 LG groups: the logits rule's depth (fp32 at 42 layers is 37 GB)
+GEMMA_FP32_NEW = 4  # new tokens of the fp32 serve through the kernels' fp32 variants
+# the dense configs served at B=8, prompt 512, 32 new tokens: depth (None: full)
+DENSE_SERVES = {"phi4-mini-3.8b": None, "starcoder2-7b": None, "command-r-35b": 8}
+DENSE_ARCHS = ("phi4-mini-3.8b", "starcoder2-7b", "command-r-35b", GEMMA)
+DENSE_TRAIN = {"arch": "phi4-mini-3.8b", "K": 2, "B": 4, "S": 256, "eta": 0.9, "cut": 1}
+LAST = 128  # prompt positions whose prefill logits the checks compare
+# limits, written in PERF.md §6 before the first run on the card
+# (and phase 8's: flash fp32 2e-5 + 2e-5·|o|; the fp32 serve through the
+# kernels against the plain fp32 path 1e-4 of the largest logit; phase 5's
+# split == monolithic 2^-8 per leaf)
+DENSE_LIMITS = {
+    # the fp32 decode step after an 8192-token prefill (ring caches of 4096
+    # slots) against the fp32 forward over the 8193 tokens, of the largest
+    # logit: the same function, summed in another order
+    "ring_vs_forward": 1e-4,
+    "smoke_card_vs_cpu": 1e-4,  # the fp32 smoke forward, of the largest logit
+}
+
+
+def dense_kernels(dev) -> tuple[list, list]:
+    """Part (a): flash at gemma2-9b's prefill shapes, bf16 (wmma) and fp32."""
+    gen = torch.Generator(device=dev).manual_seed(10)
+    cfg = get_arch(GEMMA)
+    B, S = GEMMA_SERVE[:2]
+    H, Kv, d, w, cap = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.sliding_window,
+                        cfg.attn_logit_softcap)
+    rows = []
+    for dtype, expected in ((torch.bfloat16, "wmma"), (torch.float32, "fp32")):
+        for window, softcap, case in ((0, cap, "global"), (w, cap, "local"),
+                                      (0, 0.0, "global, no softcap"),
+                                      (w, 0.0, "local, no softcap")):
+            rows.append(attn_row(gen, dev, B, S, H, Kv, d, dtype, window, softcap, case=case,
+                                 expected=expected))
+        rows.append(attn_row(gen, dev, B, 300, H, Kv, d, dtype, 64, 0.0, iters=20,
+                             case="ragged", expected=expected))
+    for row in rows:
+        log(f"[dense] (a) {json.dumps(row)}")
+    return rows, [r for r in rows if not r["ok"] or r["variant"] != r["expected"]]
+
+
+def dense_paths() -> list[tuple]:
+    """Phase 9's serves through decode_tokens: (path, cfg, B, S, new, fp32);
+    gemma2's 4-layer bf16 serve (the logits rule's) repeats the first's shapes."""
+    g = get_arch(GEMMA)
+    B, S, new = GEMMA_SERVE
+    paths = [(GEMMA, g, B, S, new, False),
+             (f"{GEMMA} fp32", g.replace(num_layers=GEMMA_RULE_LAYERS, dtype="float32",
+                                         param_dtype="float32"), B, S, GEMMA_FP32_NEW, True)]
+    for arch, layers in DENSE_SERVES.items():
+        cfg = get_arch(arch)
+        paths.append((arch, cfg.replace(num_layers=layers) if layers else cfg, BATCH, PROMPT, NEW,
+                      False))
+    return paths
+
+
+def dense_lora_rows(dev) -> tuple[list, list]:
+    """Part (a): every LoRA shape that phase 9's serves launch (the prefill's
+    M = B·S, the decode steps' M = B), held against its plain version (bf16:
+    2 ulps of the largest output; fp32: 1e-5 of it) on the variant that the
+    wrappers' rule gives it (``expected``, as ``dense_expected`` counts it),
+    with its launches in that serve and its times."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    rows = []
+    for path, cfg, B, S, new, fp32 in dense_paths():
+        dtype = torch.float32 if fp32 else torch.bfloat16
+        scale = (cfg.lora or LoRAConfig()).scale
+        for (M, K, N, r), n in sorted(lora_plan(cfg, B, S, new).items()):
+            stage = "prefill" if M == B * S else "decode"
+            # an fp32 prefill product of gemma2 takes ~50 ms: few timed calls
+            iters = {"prefill": 3 if fp32 else 10, "decode": 100}[stage]
+            rows.append(lora_row(gen, dev, M, K, N, r, dtype, scale, launches=n, iters=iters,
+                                 device_iters=min(iters, 30), path=path, stage=stage,
+                                 expected=lora_binding.variant(M, K, N, r, True, fp32)))
+            log(f"[dense] (a) {json.dumps(rows[-1])}")
+        torch.cuda.empty_cache()
+    return rows, row_fails(rows)
+
+
+@contextlib.contextmanager
+def recording_flash():
+    """The head dim, window and softcap of every flash call the model makes
+    (the wrapper, and its counts, still run)."""
+    calls, real = [], L.flash_attention
+
+    def record(q, k, v, **kw):
+        calls.append((q.shape[-1], kw["window"], kw["softcap"]))
+        return real(q, k, v, **kw)
+
+    L.flash_attention = record
+    try:
+        yield calls
+    finally:
+        L.flash_attention = real
+
+
+def counted_serve(params, cfg, prompt, new, lora, dev) -> tuple[torch.Tensor, dict]:
+    """The main path once, through decode_tokens, every count set to 0 just
+    before and read just after."""
+    torch.cuda.synchronize()
+    zero_counters()
+    torch.cuda.reset_peak_memory_stats()
+    with recording_flash() as calls:
+        t0 = time.perf_counter()
+        tokens = decode_tokens(params, cfg, prompt, new, lora=lora, device=dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    return tokens, {"seconds": seconds, "launches": {n: fn.launches for n, fn in KERNELS.items()},
+                    "variants": counters(), "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                    "flash_calls": {f"d={d} window={w} softcap={c}": n for (d, w, c), n in
+                                    collections.Counter(calls).items()}}
+
+
+def lora_plan(cfg, B, S, new) -> collections.Counter:
+    """(M, K, N, r) of each LoRA product in one decode_tokens call, with its
+    launches: the prefill's at M = B·S, the new-1 decode steps' at M = B."""
+    r = (cfg.lora or LoRAConfig()).rank
+    plan = collections.Counter()
+    for (K, N), n in lora_shapes(cfg).items():
+        plan[(B * S, K, N, r)] += n * cfg.num_layers
+        plan[(B, K, N, r)] += n * cfg.num_layers * (new - 1)
+    return plan
+
+
+def dense_expected(cfg, B, S, new, fp32=False) -> dict:
+    """Each variant's launches in one decode_tokens call, by the wrappers'
+    own rule (large-K down projections at decode go to ``generic`` where the
+    decode variant's shared memory runs out)."""
+    lora = dict.fromkeys(lora_matmul.variant_launches, 0)
+    for (M, K, N, r), n in lora_plan(cfg, B, S, new).items():
+        lora[lora_binding.variant(M, K, N, r, True, fp32)] += n
+    flash = dict.fromkeys(flash_attention.variant_launches, 0)
+    flash["fp32" if fp32 else "wgmma" if cfg.head_dim in flash_binding.WGMMA_HEAD_DIMS
+          else "wmma"] = cfg.num_layers
+    return {"lora_matmul": lora, "flash_attention": flash,
+            "ssd_scan": dict.fromkeys(ssd_scan.variant_launches, 0)}
+
+
+def served_fails(cfg, rec, B, S, new, fp32=False) -> list:
+    fails = []
+    want = dense_expected(cfg, B, S, new, fp32)
+    if rec["variants"] != want:
+        fails.append(f"{cfg.name}: launches by variant {rec['variants']}, expected {want}")
+    calls = rec["flash_calls"]
+    windowed = sum(n for k, n in calls.items() if "window=0 " not in k)
+    if (windowed != cfg.pattern.count("L") or sum(calls.values()) != cfg.num_layers
+            or not all(k.startswith(f"d={cfg.head_dim} ") for k in calls)):
+        fails.append(f"{cfg.name}: flash calls {calls}")
+    return fails
+
+
+def merge_in_place(params, lora, cfg) -> None:
+    """W = W + scale·A·B at every adapted leaf, in place, one stacked slice at
+    a time (``lora.merge``'s arithmetic without a second copy of the model)."""
+    scale = (cfg.lora or LoRAConfig()).scale
+    for pstr, ab in lora.items():
+        node = params
+        *path, last = re.findall(r"\['([^']*)'\]", pstr)
+        for key in path:
+            node = node[key]
+        w = node[last]
+        for i in range(w.shape[0]) if w.ndim == 3 else (slice(None),):
+            delta = torch.einsum("ir,ro->io", ab["A"][i].float(), ab["B"][i].float())
+            w[i].copy_((w[i].float() + delta * scale).to(w.dtype))
+
+
+def prefill_last(params, prompt, cfg, cache, *, lora=None, kernels=True, last=LAST):
+    """T.prefill's logits at the last ``last`` positions only (a long
+    prompt's (B, S, V) fp32 logits are GBs); ``cache=None`` is a forward."""
+    x, positions = T._embed_inputs(params, {"tokens": prompt}, cfg)
+    x = T._scan_groups(params, x, cfg, cache=cache, cache_pos=0, positions=positions,
+                       lora=lora, kernels=kernels, q_chunk=T._q_chunk(x.shape[1]))
+    x = L.apply_norm(params["final_norm"], x[:, -last:], cfg)
+    return L.lm_logits(params["embed"], x, cfg)
+
+
+def group_of(params, lora, g, cfg=None):
+    """Group ``g`` of the stack as a one-group stack: with ``cfg``, a copy in
+    cfg's dtype with its adapters merged (``merge_in_place``: rounded to bf16
+    as the plain path's weights are, or unrounded in fp32); else a view of
+    the weights and the group's adapters, unmerged, for the kernels."""
+    view = {"groups": tree_map(lambda t: t[g:g + 1], params["groups"])}
+    ad = {k: {n: v[g:g + 1] for n, v in ab.items()} for k, ab in lora.items() if "groups" in k}
+    if cfg is None:
+        return view, ad
+    dtype = torch.float32 if cfg.dtype == "float32" else None
+    copy = {"groups": tree_map(lambda t: t.to(dtype or t.dtype, copy=True), view["groups"])}
+    merge_in_place(copy, ad, cfg)
+    return copy
+
+
+def depth_checks(params, lora, prompt, cfg) -> tuple[dict, list]:
+    """The full-depth model group by group at the served prompt: each group
+    through the kernels (adapters unmerged), the plain bf16 path (merged) and
+    fp32 (merged, unrounded) from the same input, the plain path's hidden
+    state, with phase 3's rule on the group's update (output − input): the
+    kernel path no further from fp32 than twice the plain path (or 1e-3).
+    Beside it, each of the three run free from the embedding: how far apart
+    they drift with depth (no check)."""
+    cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
+    x, positions = T._embed_inputs(params, {"tokens": prompt}, cfg)
+    free = {"kernel": x, "plain": x,
+            "fp32": L.embed_tokens({"tokens": params["embed"]["tokens"]}, prompt, cfg32)}
+
+    def run(gp, h, c, ad=None):
+        return T._scan_groups(gp, h, c, positions=positions, lora=ad, kernels=ad is not None,
+                              include_tail=False)
+
+    per_group, fails = [], []
+    for g in range(T.n_full_groups(cfg)):
+        view, ad = group_of(params, lora, g)
+        plain_g, exact_g = group_of(params, lora, g, cfg), group_of(params, lora, g, cfg32)
+        h = free["plain"]
+        k, p, f = run(view, h, cfg, ad), run(plain_g, h, cfg), run(exact_g, h.float(), cfg32)
+        e = {"kernel_vs_fp32": rel_err(k.float() - h.float(), f - h.float()),
+             "plain_vs_fp32": rel_err(p.float() - h.float(), f - h.float())}
+        free.update(kernel=run(view, free["kernel"], cfg, ad), plain=p,
+                    fp32=run(exact_g, free["fp32"], cfg32))
+        e.update(free_kernel_vs_plain=rel_err(free["kernel"], p),
+                 free_kernel_vs_fp32=rel_err(free["kernel"], free["fp32"]),
+                 free_plain_vs_fp32=rel_err(p, free["fp32"]))
+        per_group.append(e)
+        if not e["kernel_vs_fp32"] <= max(2 * e["plain_vs_fp32"], 1e-3):
+            fails.append(f"{cfg.name}: group {g}'s update {e}")
+        del view, ad, plain_g, exact_g, k, f
+    worst = max(range(len(per_group)), key=lambda g: per_group[g]["kernel_vs_fp32"]
+                / max(2 * per_group[g]["plain_vs_fp32"], 1e-3))
+    log(f"[dense] {cfg.name} group by group ({len(per_group)} groups): the update's worst group "
+        f"{worst} {json.dumps(per_group[worst])}; run free, after group g: kernel vs plain "
+        f"{[round(e['free_kernel_vs_plain'], 4) for e in per_group]}, kernel vs fp32 "
+        f"{[round(e['free_kernel_vs_fp32'], 4) for e in per_group]}, plain vs fp32 "
+        f"{[round(e['free_plain_vs_fp32'], 4) for e in per_group]}")
+    return {"groups": per_group, "worst_group": worst}, fails
+
+
+def ties(kernel, plain) -> dict:
+    """Greedy tokens of the kernel and plain paths' last logits, equal except
+    a row whose plain top-2 gap is within twice their largest logit gap. At
+    gemma2-9b's 42 random layers the two bf16 paths drift apart (0.8, as
+    each does from fp32), so any token passes there: ``depth_checks`` is
+    the check at that depth."""
+    tok, ptok = kernel.argmax(-1), plain.argmax(-1)
+    top2 = plain.topk(2, dim=-1).values
+    tie = (tok != ptok) & (top2[:, 0] - top2[:, 1] <= 2 * (kernel - plain).abs().max())
+    return {"equal": int((tok == ptok).sum()), "ties": int(tie.sum()),
+            "ok": bool(((tok == ptok) | tie).all())}
+
+
+def dense_serve(cfg, dev, B, S, new, rule: bool, fp32_served: bool = False,
+                depth: bool = False) -> tuple[dict, list]:
+    """One config served through decode_tokens (the counted main path), its
+    prefill and decode timed; then, from the same weights, the kernel path's
+    and the plain path's last-positions prefill logits and one decode step
+    (teacher-forced to the same token), and with ``rule`` the same function
+    in fp32 (W + scale·A·B unrounded) and phase 3's rule: the kernel path no
+    further from fp32 than twice the plain path (or 1e-3); for a windowed
+    config also the fp32 decode step against the fp32 forward over S+1
+    tokens (the ring caches). ``fp32_served``: the fp32 model is also served
+    through the kernels' fp32 variants (counted) and held against the plain
+    fp32 path. ``depth``: ``depth_checks``, the rule group by group."""
+    t0 = time.perf_counter()
+    params, lora, prompt = make_model(cfg, dev, B, S)
+    tokens, rec = counted_serve(params, cfg, prompt, new, lora, dev)
+    fails = served_fails(cfg, rec, B, S, new)
+    log(f"[dense] {cfg.name} ({cfg.num_layers} layers): decode_tokens {tuple(tokens.shape)} in "
+        f"{rec['seconds']:.2f} s, peak {rec['peak_memory_bytes'] / 2**30:.2f} GiB, launches "
+        f"{rec['launches']}, by variant {rec['variants']}, flash calls {rec['flash_calls']}")
+    with torch.no_grad():
+        cache = T.init_cache(cfg, B, S + new, device=dev)
+        slots = {key: c["attn"][0].shape[2] for key, c in cache["groups"].items()}
+        out, prefill_ms = timed(lambda: T.prefill(params, {"tokens": prompt}, cfg, cache,
+                                                  lora=lora))
+        del out  # gemma2's (B, S, V) fp32 logits are 16.8 GB
+        torch.cuda.empty_cache()
+        tok = tokens[:, :1]
+        step_ms = []
+        for pos in range(S, S + new - 1):
+            (step, _), ms = timed(lambda: T.decode_step(params, tok, cache, pos, cfg, lora=lora))
+            step_ms.append(ms)
+            tok = step[:, -1:].argmax(-1)
+        del cache
+        rec.update(cache_slots=slots, prefill_ms=prefill_ms, decode_step_ms=sum(step_ms) / len(step_ms),
+                   decode_tokens_per_s=B / (sum(step_ms) / len(step_ms) / 1e3))
+        errs = {}
+        if depth:
+            rec["depth"], more = depth_checks(params, lora, prompt, cfg)
+            fails += more
+            torch.cuda.empty_cache()
+        cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
+        if rule:
+            exact = tree_map(lambda t: t.to(torch.float32, copy=True), params)
+            merge_in_place(exact, lora, cfg32)
+            cache = T.init_cache(cfg32, B, S + 1, device=dev)
+            ref = prefill_last(exact, prompt, cfg32, cache, kernels=False)
+            feed = ref[:, -1:].argmax(-1)
+            ref_step, _ = T.decode_step(exact, feed, cache, S, cfg32)
+            del cache
+            if cfg.sliding_window:
+                fwd = prefill_last(exact, torch.cat([prompt, feed], 1), cfg32, None,
+                                   kernels=False, last=1)
+                errs["ring_vs_forward"] = ((ref_step - fwd).abs().max()
+                                           / fwd.abs().max()).item()
+                if not errs["ring_vs_forward"] <= DENSE_LIMITS["ring_vs_forward"]:
+                    fails.append(f"{cfg.name}: ring decode vs forward {errs['ring_vs_forward']}")
+                del fwd
+            del exact
+            if fp32_served:
+                params32, lora32 = tree_map(lambda t: t.float(), (params, lora))
+                toks32, rec32 = counted_serve(params32, cfg32, prompt, GEMMA_FP32_NEW, lora32, dev)
+                fails += served_fails(cfg32, rec32, B, S, GEMMA_FP32_NEW, fp32=True)
+                cache = T.init_cache(cfg32, B, S + 1, device=dev)
+                got = prefill_last(params32, prompt, cfg32, cache, lora=lora32)
+                errs["fp32_served_vs_fp32_plain"] = ((got - ref).abs().max()
+                                                     / ref.abs().max()).item()
+                rec["fp32_served"] = rec32
+                log(f"[dense] {cfg32.name} served in fp32: launches by variant "
+                    f"{rec32['variants']}, flash calls {rec32['flash_calls']}, logits vs plain "
+                    f"fp32 {errs['fp32_served_vs_fp32_plain']:.3e} of the largest")
+                if not errs["fp32_served_vs_fp32_plain"] <= CLI_LIMITS["smoke_serve_logits"]:
+                    fails.append(f"{cfg.name}: fp32 served logits {errs}")
+                del params32, lora32, cache, got, toks32
+        else:
+            feed = tokens[:, :1]
+        cache = T.init_cache(cfg, B, S + 1, device=dev)
+        logits = prefill_last(params, prompt, cfg, cache, lora=lora)
+        step, _ = T.decode_step(params, feed, cache, S, cfg, lora=lora)
+        del cache
+        torch.cuda.empty_cache()
+        merge_in_place(params, lora, cfg)
+        cache = T.init_cache(cfg, B, S + 1, device=dev)
+        plain = prefill_last(params, prompt, cfg, cache, kernels=False)
+        plain_step, _ = T.decode_step(params, feed, cache, S, cfg)
+        del cache, params, lora
+    if not torch.equal(logits[:, -1].argmax(-1), tokens[:, 0]):
+        fails.append(f"{cfg.name}: decode_tokens' first token is not the prefill's argmax")
+    if not (torch.isfinite(logits).all() and torch.isfinite(step).all()):
+        fails.append(f"{cfg.name}: non-finite logits")
+    errs.update(prefill_kernel_vs_plain=rel_err(logits, plain),
+                decode_kernel_vs_plain=rel_err(step, plain_step))
+    greedy = {"prefill": ties(logits[:, -1], plain[:, -1]),
+              "decode": ties(step[:, -1], plain_step[:, -1])}
+    if rule:
+        errs.update(prefill_kernel_vs_fp32=rel_err(logits, ref),
+                    prefill_plain_vs_fp32=rel_err(plain, ref),
+                    decode_kernel_vs_fp32=rel_err(step, ref_step),
+                    decode_plain_vs_fp32=rel_err(plain_step, ref_step))
+        for stage in ("prefill", "decode"):
+            if not errs[f"{stage}_kernel_vs_fp32"] <= max(2 * errs[f"{stage}_plain_vs_fp32"],
+                                                         1e-3):
+                fails.append(f"{cfg.name}: {stage} logits rule {errs}")
+    if not all(g["ok"] for g in greedy.values()):
+        fails.append(f"{cfg.name}: greedy tokens {greedy}")
+    rec.update(errors=errs, greedy=greedy, seconds_total=time.perf_counter() - t0,
+               layers=cfg.num_layers, B=B, S=S, new=new)
+    log(f"[dense] {cfg.name}: prefill {prefill_ms:.1f} ms, decode step "
+        f"{rec['decode_step_ms']:.2f} ms = {rec['decode_tokens_per_s']:.1f} tokens/s; cache slots "
+        f"{slots}; errors {json.dumps(errs)}; greedy {greedy}")
+    torch.cuda.empty_cache()
+    return rec, fails
+
+
+def nonzero_b(lora, dev, seed: int) -> None:
+    """B drawn N(0, ADAPTER_B_STD²), in place: B = 0 (the init) makes every
+    A gradient zero."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for ab in lora.values():
+        ab["B"] = (torch.randn(ab["B"].shape, generator=gen, device=dev)
+                   * ADAPTER_B_STD).to(ab["B"].dtype)
+
+
+def leaf_gap(got, want) -> float:
+    return max(rel_frob(a, b) for a, b in zip(tree_leaves(got), tree_leaves(want)))
+
+
+def dense_train(dev) -> tuple[dict, list]:
+    """Part (d): a FedsLLM round of full phi4-mini-3.8b and a split pass of
+    full gemma2-9b (remat) against monolithic; no kernel may launch."""
+    zero_counters()
+    t = DENSE_TRAIN
+    cfg = get_arch(t["arch"])
+    fcfg = FedsLLMConfig(num_clients=t["K"])
+    I_loc = fedsllm.local_iteration_count(fcfg, t["eta"])
+    passes = t["K"] * (1 + I_loc)
+    state = fedsllm.init_state(cfg, cut=t["cut"], seed=0, device=dev)
+    nonzero_b(state.lora_c, dev, 1)
+    nonzero_b(state.lora_s, dev, 2)
+    stream = TokenStream(t["B"], t["S"], cfg.vocab_size, seed=0, device=dev)
+    batches = client_batches(stream, 0, t["K"])
+    weights = torch.tensor([3.0, 1.0], device=dev)
+    round_fn = fedsllm.build_round_fn(cfg, fcfg, t["cut"], t["eta"],
+                                      aggregator=get_aggregator("weighted"))
+    round_fn(state, batches, weights=weights)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    (new, metrics), ms = timed(lambda: round_fn(state, batches, weights=weights))
+    peak = torch.cuda.max_memory_allocated()
+    metrics = {k: v.item() for k, v in metrics.items()}
+    batch = stream.batch_at(t["K"])
+    _, dc, ds, info = split.split_value_and_grad(new.base, new.lora_c, new.lora_s, batch, cfg,
+                                                 t["cut"])
+    _, mdc, mds = split.monolithic_value_and_grad(new.base, new.lora_c, new.lora_s, batch, cfg,
+                                                  t["cut"])
+    gap = leaf_gap((dc, ds), (mdc, mds))
+
+    def one_pass():
+        return split.split_value_and_grad(new.base, new.lora_c, new.lora_s, batch, cfg, t["cut"])
+
+    pass_ms = sum(timed(one_pass)[1] for _ in range(3)) / 3
+    dev_ms, top, _ = device_ms(one_pass)
+    phi = {"config": dict(t, I_loc=I_loc, passes=passes, aggregator="weighted",
+                          weights=weights.tolist()),
+           "round_seconds": ms / 1e3, "ms_per_pass": ms / passes, "peak_memory_bytes": peak,
+           "metrics": metrics, "split_vs_monolithic": gap, "pass_ms": pass_ms,
+           "pass_device_ms": dev_ms, "pass_busy": share(dev_ms, pass_ms), "top_kernels": top}
+    log(f"[dense] (d) {cfg.name} round: {json.dumps({k: v for k, v in phi.items() if k != 'top_kernels'})}")
+    del state, new, dc, ds, mdc, mds, batches, round_fn
+    torch.cuda.empty_cache()
+
+    gcfg = get_arch(GEMMA)
+    params = T.init_params(gcfg, seed=0, device=dev)
+    lora = init_lora(params, gcfg, seed=1, device=dev)
+    nonzero_b(lora, dev, 3)
+    lc, ls = split_client_server(lora, 1)
+    del lora
+    batch = TokenStream(2, 256, gcfg.vocab_size, seed=1, device=dev).batch_at(0)
+    torch.cuda.reset_peak_memory_stats()
+    (loss, dc, ds, _), split_ms = timed(lambda: split.split_value_and_grad(
+        params, lc, ls, batch, gcfg, 1, remat=True))
+    split_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    (mloss, mdc, mds), mono_ms = timed(lambda: split.monolithic_value_and_grad(
+        params, lc, ls, batch, gcfg, 1))
+    mono_peak = torch.cuda.max_memory_allocated()
+    gemma = {"B": 2, "S": 256, "cut": 1, "remat": True, "loss": loss.item(),
+             "monolithic_loss": mloss.item(), "split_vs_monolithic": leaf_gap((dc, ds), (mdc, mds)),
+             "split_ms": split_ms, "monolithic_ms": mono_ms, "split_peak_memory_bytes": split_peak,
+             "monolithic_peak_memory_bytes": mono_peak}
+    log(f"[dense] (d) {gcfg.name} split pass: {json.dumps(gemma)}")
+    del params, lc, ls, dc, ds, mdc, mds
+    torch.cuda.empty_cache()
+    launches = {n: fn.launches for n, fn in KERNELS.items()}
+    fails = []
+    if any(launches.values()):
+        fails.append(f"training launched kernels {launches}")
+    if not all(math.isfinite(v) for v in metrics.values()):
+        fails.append(f"{cfg.name} round metrics {metrics}")
+    for name, g in ((cfg.name, gap), (gcfg.name, gemma["split_vs_monolithic"])):
+        if not g <= TRAIN_LIMITS["split_vs_monolithic"]:
+            fails.append(f"{name} split vs monolithic {g}")
+    if not (math.isfinite(gemma["loss"]) and math.isfinite(gemma["monolithic_loss"])):
+        fails.append(f"{gcfg.name} split loss {gemma}")
+    return {"phi4_round": phi, "gemma2_split": gemma, "launches": launches}, fails
+
+
+def dense_smoke(dev) -> tuple[dict, list]:
+    """Part (e): the four smoke variants (fp32) on the card: the forward
+    through the kernels' fp32 variants within 1e-4 of the CPU's plain
+    versions, and ``launch.serve --smoke --arch <each>`` on the fp32 variants
+    only."""
+    out, fails = {}, []
+    for arch in DENSE_ARCHS:
+        cfg = smoke_variant(get_arch(arch))
+        params, lora, prompt = make_model(cfg, torch.device("cpu"), 4, 40)
+        with torch.no_grad():
+            cpu = T.forward(params, {"tokens": prompt}, cfg, lora=lora)
+            zero_counters()
+            card = T.forward(to_dev(params, dev), {"tokens": prompt.to(dev)}, cfg,
+                             lora=to_dev(lora, dev))
+            torch.cuda.synchronize()
+        fwd = {"gap": ((card.cpu() - cpu).abs().max() / cpu.abs().max()).item(),
+               "variants": counters()}
+        zero_counters()
+        with contextlib.redirect_stdout(io.StringIO()) as printed:
+            tokens = serve.main(["--arch", arch, "--smoke"])
+        torch.cuda.synchronize()
+        served = {"variants": counters(), "tokens_shape": list(tokens.shape),
+                  "printed": printed.getvalue()}
+        out[arch] = {"forward": fwd, "serve": served}
+        log(f"[dense] (e) {cfg.name}: forward card vs CPU {fwd['gap']:.3e} of the largest; "
+            f"serve --smoke launches by variant {served['variants']}")
+        if not fwd["gap"] <= DENSE_LIMITS["smoke_card_vs_cpu"]:
+            fails.append(f"{cfg.name}: card vs CPU {fwd['gap']}")
+        for rec in (fwd, served):
+            moved = {k: {v for v, n in c.items() if n} for k, c in rec["variants"].items()}
+            if moved != {"lora_matmul": {"fp32"}, "flash_attention": {"fp32"}, "ssd_scan": set()}:
+                fails.append(f"{cfg.name}: launches {rec['variants']}")
+    return out, fails
+
+
+def dense_entries(rows, res) -> list[dict]:
+    """The kernels line's entries of the dense paths' flash variants: the
+    d=256 wmma variant (gemma2-9b's bf16 serve), the d=256 fp32 variant
+    (gemma2 at 4 layers served in fp32) and the d=128 wmma variant (the (c)
+    serves); times summed over the launches one serve call makes at each
+    shape, the library (SDPA) at the same shape without the softcap."""
+    gemma = res["gemma2"]
+    entries = []
+    for name, dtype, launched in (
+            ("flash_attention/wmma-d256", "bfloat16", gemma["variants"]["flash_attention"]),
+            ("flash_attention/fp32-d256", "float32",
+             res["gemma2_rule"]["fp32_served"]["variants"]["flash_attention"])):
+        mine = [r for r in rows if r["dtype"] == dtype]
+        kind = "fp32" if dtype == "float32" else "wmma"
+        n_global = launched[kind] // 2  # LG: half the layers windowed
+        shapes = []
+        for case, n in (("global", launched[kind] - n_global), ("local", n_global)):
+            row = next(r for r in mine if r["case"] == case)
+            lib = next(r for r in mine if r["case"] == f"{case}, no softcap")
+            shapes.append(dict(row, launches=n, **{k: lib[k] for k in lib if k.startswith("library")}))
+        entries.append(flash_entry(name, kind, shapes, max(r["err"] for r in mine),
+                                   "one decode_tokens call of gemma2-9b: B=2, prompt 8192" +
+                                   (", 4 layers, fp32" if kind == "fp32" else ", 42 layers")))
+    d128 = [dict(r, launches=res["serves"][r["path"]]["variants"]["flash_attention"]["wmma"])
+            for r in res["d128_rows"]]
+    entries.append(flash_entry("flash_attention/wmma-d128", "wmma", d128,
+                               max(r["err"] for r in d128),
+                               "one decode_tokens call of each (c) config: B=8, prompt 512"))
+    return entries
+
+
+def lora_entries(rows, res) -> list[dict]:
+    """The kernels line's entries of the LoRA kernel on phase 9's serves, one
+    per serve: its launches there, times summed over its launches at each
+    shape (``dense_lora_rows``)."""
+    counted = {GEMMA: res["gemma2"], f"{GEMMA} fp32": res["gemma2_rule"]["fp32_served"],
+               **res["serves"]}
+    out = []
+    for path, cfg, B, S, new, fp32 in dense_paths():
+        mine = [r for r in rows if r["path"] == path]
+        total = {k: sum(r[k] * r["launches"] for r in mine)
+                 for k in ("ms", "device_ms", "graph_ms", "plain_ms", "bound_ms", "library_ms",
+                           "library_device_ms")}
+        by_bytes = sum(r["bound_ms"] * r["launches"] for r in mine if r["bound_by"] == "bytes")
+        variants = collections.Counter()
+        for r in mine:
+            variants[r["variant"]] += r["launches"]
+        out.append({"name": f"lora_matmul/{path}", "route": "cuda",
+                    "source": "src/repro_torch/csrc/lora_matmul.cu",
+                    "replaces": "src/repro/kernels/lora_matmul.py:51", "variants": dict(variants),
+                    "launches": counted[path]["launches"]["lora_matmul"],
+                    "max_abs_err": max(r["err"] for r in mine), **total,
+                    "bound_by": "bytes" if by_bytes >= total["bound_ms"] / 2 else "operations",
+                    "library": "addmm(x·W, x·A, B, alpha=scale)",
+                    "per": f"one decode_tokens call of {cfg.name} ({cfg.num_layers} layers, "
+                           f"{'fp32' if fp32 else 'bf16'}): B={B}, prompt {S}, {new} new tokens"})
+    return out
+
+
+def flash_entry(name, kind, shapes, err, per) -> dict:
+    total = {k: sum(s[k] * s["launches"] for s in shapes)
+             for k in ("ms", "device_ms", "graph_ms", "plain_ms", "bound_ms")}
+    for key in ("library_ms", "library_device_ms"):
+        lib = [s[key] for s in shapes]
+        total[key] = None if None in lib else sum(s[key] * s["launches"] for s in shapes)
+    by_bytes = sum(s["bound_ms"] * s["launches"] for s in shapes if s["bound_by"] == "bytes")
+    return {"name": name, "route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:84", "variant": kind,
+            "launches": sum(s["launches"] for s in shapes), "max_abs_err": err, **total,
+            "bound_by": "bytes" if by_bytes >= total["bound_ms"] / 2 else "operations",
+            "library": "scaled_dot_product_attention at the same shape, without the softcap",
+            "per": per}
+
+
+def phase_dense(dev) -> tuple[dict, list]:
+    """Parts (a)-(e) of phase 9; written to build/chip_smoke/dense.json."""
+    t0 = time.perf_counter()
+    res, fails = {"limits": DENSE_LIMITS}, []
+    rows, more = dense_kernels(dev)
+    res["kernel_rows"], fails = rows, fails + more
+    res["lora_rows"], more = dense_lora_rows(dev)
+    fails += more
+    gcfg = get_arch(GEMMA)
+    B, S, new = GEMMA_SERVE
+    res["gemma2"], more = dense_serve(gcfg, dev, B, S, new, rule=False, depth=True)
+    fails += more
+    res["gemma2_rule"], more = dense_serve(gcfg.replace(num_layers=GEMMA_RULE_LAYERS), dev, B, S,
+                                           new, rule=True, fp32_served=True)
+    fails += more
+    slots = res["gemma2"]["cache_slots"]
+    if not (slots["sub_0"] == gcfg.sliding_window < S + new and slots["sub_1"] == S + new):
+        fails.append(f"gemma2 cache slots {slots}")
+    res["serves"], res["d128_rows"] = {}, []
+    gen = torch.Generator(device=dev).manual_seed(11)
+    for arch, layers in DENSE_SERVES.items():
+        cfg = get_arch(arch)
+        cfg = cfg.replace(num_layers=layers) if layers else cfg
+        res["serves"][arch], more = dense_serve(cfg, dev, BATCH, PROMPT, NEW, rule=True)
+        fails += more
+        row = attn_row(gen, dev, BATCH, PROMPT, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                       torch.bfloat16, iters=50, path=arch, expected="wmma")
+        log(f"[dense] (c) {json.dumps(row)}")
+        res["d128_rows"].append(row)
+        if not row["ok"] or row["variant"] != row["expected"]:
+            fails.append(row)
+    res["train"], more = dense_train(dev)
+    fails += more
+    res["smoke"], more = dense_smoke(dev)
+    fails += more
+    res["fails"], res["seconds"] = fails, time.perf_counter() - t0
+    (OUT / "dense.json").write_text(json.dumps(res, indent=1, default=str))
+    log(f"[dense] phase 9 in {res['seconds']:.1f} s")
+    if fails:
+        raise SystemExit(f"[dense] {len(fails)} check(s) failed: {fails}")
+    return res, dense_entries(rows, res) + lora_entries(res["lora_rows"], res)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2214,12 +2876,15 @@ def main() -> int:
     campaign = phase_campaign(dev)
     cli, rows = phase_cli(dev)
     kernels += variant_entries(rows)
+    dense, more = phase_dense(dev)
+    kernels += more
     (OUT / "chip_smoke.json").write_text(json.dumps(
         {"nvidia_smi": smi, "build": build, "kernels": kernels, "traces": TRACE_LOG,
          "paths": {arch: {"checks": r["checks"], "slice": r["slice"],
                           "end_to_end": r["timings"]["end_to_end"]}
                    for arch, r in results.items()}, "train": train, "priced": priced,
-         "campaign": campaign, "cli": cli},
+         "campaign": campaign, "cli": cli,
+         "dense": {k: dense[k] for k in ("gemma2", "gemma2_rule", "serves", "train")}},
         indent=1, default=str))
     log(f"[timing] torch.profiler traces kept {TRACE_LOG['kept']}, lost {TRACE_LOG['lost']}")
     print(smi)

@@ -100,6 +100,18 @@ class ModelConfig:
             object.__setattr__(self, "lru_width", self.d_model)
 
     @property
+    def pattern(self) -> str:
+        """Layer-type pattern tiled to full depth."""
+        p = self.layer_pattern
+        return (p * -(-self.num_layers // len(p)))[: self.num_layers]
+
+    def param_count(self, trainable_only: bool = False) -> int:
+        """Parameter count (``models.registry.count_params``)."""
+        from repro_torch.models.registry import count_params
+
+        return count_params(self, trainable_only=trainable_only)
+
+    @property
     def group_size(self) -> int:
         """Layers per scan group (one copy of the pattern)."""
         return len(self.layer_pattern)

@@ -1,3 +1,10 @@
 """Architecture configs — importing this package registers them."""
 
-from repro_torch.configs import fedsllm_paper, mamba2_130m  # noqa: F401
+from repro_torch.configs import (  # noqa: F401
+    command_r_35b,
+    fedsllm_paper,
+    gemma2_9b,
+    mamba2_130m,
+    phi4_mini_3_8b,
+    starcoder2_7b,
+)

@@ -105,8 +105,9 @@ def lora_param_count(cfg: ModelConfig) -> int:
 
 def split_client_server(lora, cut_group: int):
     """Cut the adapters at a group boundary: leaves under ``groups`` are
-    sliced along the layer stack (the first ``cut_group`` layers to the
-    client), embed-side adapters go to the client, the rest to the server."""
+    sliced along the group stack (the first ``cut_group`` groups, every
+    sub-layer of each, to the client), embed-side adapters go to the client,
+    the rest (tail layers) to the server."""
     client, server = {}, {}
     for pstr, ab in lora.items():
         if "groups" in pstr:
@@ -131,18 +132,22 @@ def join_client_server(client, server):
     return out
 
 
-def layer_adapters(lora, cfg: ModelConfig, index: int):
-    """The adapters of layer ``index`` of the stack ``params["groups"]``, as a
-    nested dict mirroring that layer's parameters, each leaf
-    ``(A[index], B[index], scale)``."""
+def layer_adapters(lora, cfg: ModelConfig, index, top: str = "groups"):
+    """The adapters of group ``index`` of the stack ``params["groups"]`` (or,
+    with ``index=None``, of the unstacked layer ``params[top]``, a tail
+    layer ``tail_<i>``), as a nested dict mirroring that group's or layer's
+    parameters, each leaf ``(A, B, scale)``."""
     scale = (cfg.lora or LoRAConfig()).scale
     out: dict = {}
     for pstr, ab in (lora or {}).items():
-        top, *path = _KEY.findall(pstr)
-        if top != "groups":
+        first, *path = _KEY.findall(pstr)
+        if first != "groups" and not first.startswith("tail_"):
             raise NotImplementedError(f"adapter outside the layer stack: {pstr}")
+        if first != top:
+            continue
         node = out
         for key in path[:-1]:
             node = node.setdefault(key, {})
-        node[path[-1]] = (ab["A"][index], ab["B"][index], scale)
+        a, b = (ab["A"], ab["B"]) if index is None else (ab["A"][index], ab["B"][index])
+        node[path[-1]] = (a, b, scale)
     return out

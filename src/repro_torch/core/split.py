@@ -1,7 +1,8 @@
 """Split-learning engine (paper Algorithm 2; port of ``repro/core/split.py``).
 
-The model is cut at a group boundary: the client runs embed + groups[:cut];
-the main server runs groups[cut:] + final norm + head + loss. Frozen base
+The model is cut at a group boundary (a group is one copy of the layer
+pattern): the client runs embed + groups[:cut]; the main server runs
+groups[cut:] + the tail layers + final norm + head + loss. Frozen base
 weights live on both sides; only LoRA updates and smashed activations move.
 
 ``split_value_and_grad`` keeps the paper's message flow, with autograd in
@@ -29,6 +30,16 @@ from repro_torch.models import transformer as T
 from repro_torch.tree import tree_leaves, tree_like, tree_map
 
 
+def _grad(out, leaves, grad_outputs=None) -> list:
+    """``torch.autograd.grad`` of ``out`` w.r.t. ``leaves``. A side with no
+    group (a cut at either end of the stack) holds adapters of zero size,
+    outside the graph: they take zero gradients; any other leaf outside the
+    graph still raises."""
+    live = [t for t in leaves if t.numel()]
+    got = iter(torch.autograd.grad(out, live, grad_outputs=grad_outputs) if live else ())
+    return [next(got) if t.numel() else torch.zeros_like(t) for t in leaves]
+
+
 class SplitParts(NamedTuple):
     client_base: Any  # params view with groups[:cut]
     server_base: Any  # params view with groups[cut:] (+ final norm and head)
@@ -46,7 +57,8 @@ def client_forward(client_base, lora_c, batch, cfg: ModelConfig, *, remat=False)
     """Embed + the first ``cut`` groups -> smashed activations (B, S, D)."""
     merged = lora_lib.merge(client_base, lora_c, cfg)
     x, positions = T._embed_inputs(merged, batch, cfg)
-    return T._scan_groups(merged, x, cfg, positions=positions, kernels=False, remat=remat)
+    return T._scan_groups(merged, x, cfg, positions=positions, kernels=False, remat=remat,
+                          include_tail=False)
 
 
 def server_forward_loss(server_base, lora_s, acts, batch, cfg: ModelConfig, *, remat=False):
@@ -85,9 +97,9 @@ def split_value_and_grad(params, lora_c, lora_s, batch, cfg: ModelConfig, cut: i
             sent = compressor.apply(sent)
         sent.requires_grad_()
         loss = server_forward_loss(parts.server_base, ls, sent, batch, cfg, remat=remat)
-        *dls, dacts = torch.autograd.grad(loss, tree_leaves(ls) + [sent])
+        *dls, dacts = _grad(loss, tree_leaves(ls) + [sent])
         # the gradient of the smashed data returns to the client (dA_k)
-        dlc = torch.autograd.grad(acts, tree_leaves(lc), grad_outputs=dacts)
+        dlc = _grad(acts, tree_leaves(lc), grad_outputs=dacts)
     elems, bits = acts.numel(), acts.element_size() * 8
     info = {"smashed_bytes": elems * acts.element_size(),
             "smashed_bits_uplink": elems * bits if compressor is None
@@ -105,5 +117,5 @@ def monolithic_value_and_grad(params, lora_c, lora_s, batch, cfg: ModelConfig, c
         acts = client_forward(parts.client_base, lc, batch, cfg)
         loss = server_forward_loss(parts.server_base, ls, acts, batch, cfg)
         n = len(tree_leaves(lc))
-        grads = torch.autograd.grad(loss, tree_leaves(lc) + tree_leaves(ls))
+        grads = _grad(loss, tree_leaves(lc) + tree_leaves(ls))
     return loss.detach(), tree_like(lc, grads[:n]), tree_like(ls, grads[n:])

@@ -15,7 +15,8 @@
 // What bounds it on the H100: at the serving path's prefill (S = 512,
 // d = 64, causal) the work is ~S/2 score columns per row against d-wide
 // rows of Q, K, V and O, O(S) operations per byte moved: tensor-core
-// throughput and the softmax's exponentials, not device memory.
+// throughput and the softmax's exponentials, not device memory. So is
+// gemma2-9b's prefill (S = 8192, d = 256, half its layers windowed to 4096).
 //
 // Three variants, picked by the wrapper (kernels/flash_attention.py
 // ``variant``):
@@ -35,10 +36,13 @@
 //   in registers and fed as the register operand of the P·V wgmma (V from
 //   shared memory, MN-major). O stays in registers for the whole KV loop and
 //   is written once.
-// * wmma (head dims 16, 32, 128 and misaligned strides): the first port's
-//   kernel, wmma fragments with the scores and O in shared memory.
-// * fp32 (fp32 inputs, head dims 16, 32, 64, 128, any strides; the smoke
-//   configs serve in fp32): SIMT, fp32 FMAs on the CUDA cores, P kept in
+// * wmma (head dims 16, 32, 128, 256 and misaligned strides): the first
+//   port's kernel, wmma fragments with the scores and O in shared memory. At
+//   d = 256 (gemma2) its tiles take 195,072 bytes of shared memory (Q, K, V
+//   64 x 264 bf16, P 64 x 72 bf16, S 64 x 68 and O 64 x 260 fp32): one block
+//   of 4 warps on an SM.
+// * fp32 (fp32 inputs, head dims 16, 32, 64, 128, 256, any strides; the
+//   smoke configs serve in fp32): SIMT, fp32 FMAs on the CUDA cores, P kept in
 //   fp32 as the TPU kernel keeps it. What bounds it is the fp32 CUDA-core
 //   rate. One block of 4 warps per 32 query rows of one (batch, head); a
 //   warp owns 8 rows. Per 32-key tile (K staged transposed and padded, so
@@ -46,8 +50,10 @@
 //   for the warp's 8 rows (Q rows read as broadcast float4s), the online
 //   softmax reduces each row across the warp with shuffles, and P goes
 //   through a per-warp shared buffer into O += P·V, each lane holding O for
-//   its rows at d/32 columns (two half-warps of 4 rows at d = 16). Only the
-//   tiles up to the causal frontier and from the window's start are read.
+//   its rows at d/32 columns (two half-warps of 4 rows at d = 16; 8 rows x 8
+//   columns, 64 accumulators, at d = 256, 103,424 bytes of shared memory).
+//   Only the tiles up to the causal frontier and from the window's start
+//   are read.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -745,7 +751,7 @@ extern "C" int flash_attention_wgmma_bf16(const void* q, const void* k, const vo
                          st, causal, window, softcap, scale, static_cast<cudaStream_t>(stream));
 }
 
-// wmma: D in {16, 32, 64, 128}, any strides
+// wmma: D in {16, 32, 64, 128, 256}, any strides
 extern "C" int flash_attention_wmma_bf16(const void* q, const void* k, const void* v, void* o,
                                          int B, int H, int Kv, int Sq, int Skv, int D,
                                          const long long* strides, int causal, int window,
@@ -763,11 +769,12 @@ extern "C" int flash_attention_wmma_bf16(const void* q, const void* k, const voi
     case 32: return (int)launch<32>(qp, kp, vp, op, B, H, Kv, Sq, Skv, st, causal, window, softcap, scale, s);
     case 64: return (int)launch<64>(qp, kp, vp, op, B, H, Kv, Sq, Skv, st, causal, window, softcap, scale, s);
     case 128: return (int)launch<128>(qp, kp, vp, op, B, H, Kv, Sq, Skv, st, causal, window, softcap, scale, s);
+    case 256: return (int)launch<256>(qp, kp, vp, op, B, H, Kv, Sq, Skv, st, causal, window, softcap, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// fp32: fp32 q, k, v, o; D in {16, 32, 64, 128}, any strides
+// fp32: fp32 q, k, v, o; D in {16, 32, 64, 128, 256}, any strides
 extern "C" int flash_attention_fp32(const void* q, const void* k, const void* v, void* o, int B,
                                     int H, int Kv, int Sq, int Skv, int D,
                                     const long long* strides, int causal, int window,
@@ -785,6 +792,7 @@ extern "C" int flash_attention_fp32(const void* q, const void* k, const void* v,
     case 32: return (int)launch<32>(qp, kp, vp, op, B, H, Kv, Sq, Skv, st, causal, window, softcap, scale, s);
     case 64: return (int)launch<64>(qp, kp, vp, op, B, H, Kv, Sq, Skv, st, causal, window, softcap, scale, s);
     case 128: return (int)launch<128>(qp, kp, vp, op, B, H, Kv, Sq, Skv, st, causal, window, softcap, scale, s);
+    case 256: return (int)launch<256>(qp, kp, vp, op, B, H, Kv, Sq, Skv, st, causal, window, softcap, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

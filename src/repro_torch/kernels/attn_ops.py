@@ -1,7 +1,7 @@
 """Public wrapper of flash attention (after ``repro/kernels/attn_ops.py``).
 
 A tensor on the CPU goes to the plain version; a CUDA tensor launches one of
-the CUDA kernel's variants (bf16 or fp32, head dim 16/32/64/128; picked
+the CUDA kernel's variants (bf16 or fp32, head dim 16/32/64/128/256; picked
 by ``variant`` of ``flash_attention.py``) or raises. Unlike the reference
 wrapper, nothing is padded and ragged lengths never fall back: the kernel
 masks the edge itself. ``flash_attention.launches`` counts kernel launches,

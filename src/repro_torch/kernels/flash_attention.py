@@ -4,8 +4,8 @@ rule that picks one of its three variants:
 
 * ``wgmma``: TMA + warpgroup MMA with the softmax in registers, bf16, head
   dim 64 (the main path) with 16-byte aligned rows;
-* ``wmma``: the first port's kernel, bf16, head dims 16, 32, 128 and any
-  strides;
+* ``wmma``: the first port's kernel, bf16, head dims 16, 32, 128 and 256
+  (gemma2-9b) and any strides;
 * ``fp32``: SIMT online softmax for fp32 inputs (fp32 FMAs, P in fp32),
   every head dim and any strides.
 """
@@ -20,7 +20,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-HEAD_DIMS = (16, 32, 64, 128)  # the kernels' compiled head widths
+HEAD_DIMS = (16, 32, 64, 128, 256)  # the kernels' compiled head widths
 WGMMA_HEAD_DIMS = (64,)
 
 

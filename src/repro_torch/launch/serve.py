@@ -5,7 +5,13 @@ Usage (on the GPU; ``--device cpu`` runs the plain versions on the CPU):
       --batch 8 --prompt-len 512 --max-new 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \
       --batch 8 --prompt-len 512 --max-new 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b \
+      --batch 2 --prompt-len 8192 --max-new 32
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke   # fp32, on the card
+
+``--arch`` takes every config the port runs: fedsllm-100m, mamba2-130m and
+the dense family (phi4-mini-3.8b, starcoder2-7b, command-r-35b, gemma2-9b,
+whose sliding-window layers keep a ring-buffer cache of 4096 slots).
 
 The adapters are freshly initialised (A ~ N(0,1)/r, B = 0, as a FedsLLM run
 starts), so the output equals the base model's; every adapted projection

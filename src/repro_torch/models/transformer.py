@@ -1,23 +1,27 @@
-"""Decoder stack (port of ``repro/models/transformer.py``) for two of the
-reference's layer chars: ``G`` (global attention + MLP, the ``dense`` family)
-and ``M`` (a Mamba-2 SSD block, the ``ssm`` family). One char per group.
+"""Decoder stack (port of ``repro/models/transformer.py``) for three of the
+reference's layer chars: ``G`` (global attention + MLP) and ``L``
+(sliding-window attention + MLP), the ``dense`` family with layer patterns
+``G`` and ``LG``, and ``M`` (a Mamba-2 SSD block, the ``ssm`` family).
 
 Parameters keep the reference's tree: ``{"embed", "groups", "final_norm"}``
-with the group leaves stacked ``(num_groups, ...)``; the reference's
+(plus ``tail_<i>`` layers where the depth is not a multiple of the pattern),
+where a group is one copy of the layer pattern, ``{"sub_0": ..., "sub_1":
+...}``, and its leaves are stacked ``(num_groups, ...)``. The reference's
 ``lax.scan`` over groups is a Python loop here, over whatever stack it is
 given (the whole stack, or the split engine's client or server view), and
-the caches (KV ``(num_groups, B, S, Kv, hd)``; SSM conv and SSD states) are
-updated in place (the reference carries a new cache through the scan; in
-place saves a cache copy per step).
+the caches (KV ``(num_groups, B, S_c, Kv, hd)``, with S_c the window for
+``L`` layers; SSM conv and SSD states) are updated in place (the reference
+carries a new cache through the scan; in place saves a cache copy per step).
 
 Two paths, as in the reference:
   * training (``hidden_states``, ``loss_fn`` and ``core/split.py``) runs
-    merged weights (``lora.merge``), ``_attend_full`` and ``ssd_chunked``
-    under autograd, and no kernel: the kernels are forward-only;
+    merged weights (``lora.merge``), the plain attentions and
+    ``ssd_chunked`` under autograd, and no kernel: the kernels are
+    forward-only;
   * serving (``prefill``, ``decode_step``) takes the adapters unmerged:
     adapted projections run the fused LoRA kernel, and ``kernels`` (prefill
     only) picks the CUDA kernels of flash attention and the SSD scan or
-    their plain baselines ``_attend_full`` and ``ssd_chunked``.
+    their plain baselines.
 """
 
 from __future__ import annotations
@@ -30,30 +34,58 @@ from repro_torch.core.lora import layer_adapters
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
+from repro_torch.tree import tree_map
 
 # (family, layer_pattern) pairs the port runs
-PORTED = {("dense", "G"), ("ssm", "M")}
+PORTED = {("dense", "G"), ("dense", "LG"), ("ssm", "M")}
+LONG_PREFILL, Q_CHUNK = 16384, 2048  # the reference's query chunking of long sequences
 
 
 def _require_ported(cfg: ModelConfig) -> None:
     unported = {"family/layer_pattern": (cfg.family, cfg.layer_pattern) not in PORTED,
-                "qk_norm": cfg.qk_norm, "use_bias": cfg.use_bias,
-                "use_post_norm": cfg.use_post_norm, "parallel_block": cfg.parallel_block,
-                "num_experts": bool(cfg.num_experts)}
+                "qk_norm": cfg.qk_norm, "num_experts": bool(cfg.num_experts)}
     bad = [k for k, v in unported.items() if v]
     if bad:
         raise NotImplementedError(f"{cfg.name}: not ported yet ({', '.join(bad)}); the port runs "
-                                  "the dense family with layer_pattern 'G' and the ssm family "
-                                  "with layer_pattern 'M'")
+                                  "the dense family with layer_pattern 'G' or 'LG' and the ssm "
+                                  "family with layer_pattern 'M'")
 
 
-def _index(tree, i):
-    """Slice i of every stacked leaf (views, so in-place cache writes land)."""
+def _slices(tree) -> list:
+    """The per-group trees of a stacked tree: every leaf unbound along its
+    first dim once (views, so in-place cache writes land). Under autograd
+    one unbind stacks the groups' gradients once; indexing the stack group
+    by group would zero-fill and add a whole-stack gradient for every group
+    (memory traffic growing with depth squared)."""
     if isinstance(tree, dict):
-        return {k: _index(v, i) for k, v in tree.items()}
+        parts = {k: _slices(v) for k, v in tree.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
     if isinstance(tree, tuple):
-        return tuple(_index(v, i) for v in tree)
-    return tree[i]
+        parts = [_slices(v) for v in tree]
+        return [tuple(p[i] for p in parts) for i in range(len(parts[0]))]
+    return list(torch.unbind(tree))
+
+
+# ---------------------------------------------------------------------------
+# Structure
+# ---------------------------------------------------------------------------
+
+
+def group_chars(cfg: ModelConfig) -> str:
+    return cfg.layer_pattern
+
+
+def n_full_groups(cfg: ModelConfig) -> int:
+    return cfg.num_layers // len(cfg.layer_pattern)
+
+
+def tail_chars(cfg: ModelConfig) -> str:
+    return cfg.layer_pattern[:cfg.num_layers % len(cfg.layer_pattern)]
+
+
+def _char_window(cfg: ModelConfig, ch: str) -> int:
+    return cfg.sliding_window if ch == "L" else 0
 
 
 # ---------------------------------------------------------------------------
@@ -61,37 +93,56 @@ def _index(tree, i):
 # ---------------------------------------------------------------------------
 
 
-def init_sublayer(gen, cfg: ModelConfig, device=None):
-    if cfg.layer_pattern == "M":
-        return {"norm1": L.init_norm(gen, cfg, cfg.d_model, device),
-                "mamba": M2.init_mamba(gen, cfg, device)}
-    return {"norm1": L.init_norm(gen, cfg, cfg.d_model, device),
-            "attn": L.init_attn(gen, cfg, device),
-            "norm2": L.init_norm(gen, cfg, cfg.d_model, device),
-            "mlp": L.init_mlp(gen, cfg, device)}
+def init_sublayer(gen, cfg: ModelConfig, ch: str, device=None):
+    p = {"norm1": L.init_norm(gen, cfg, cfg.d_model, device)}
+    if ch == "M":
+        p["mamba"] = M2.init_mamba(gen, cfg, device)
+        return p
+    if ch not in ("G", "L"):
+        raise ValueError(ch)
+    p["attn"] = L.init_attn(gen, cfg, device)
+    if not cfg.parallel_block:
+        p["norm2"] = L.init_norm(gen, cfg, cfg.d_model, device)
+    if cfg.use_post_norm:
+        p["post_norm1"] = L.init_norm(gen, cfg, cfg.d_model, device)
+        p["post_norm2"] = L.init_norm(gen, cfg, cfg.d_model, device)
+    p["mlp"] = L.init_mlp(gen, cfg, device)
+    return p
 
 
-def apply_sublayer(p, x, cfg: ModelConfig, *, cache=None, cache_pos=None, positions=None,
-                   adapters=None, kernels=True):
-    """One pre-norm layer: the reference's ``G`` or ``M`` branch."""
+def apply_sublayer(p, x, cfg: ModelConfig, ch: str, *, cache=None, cache_pos=None,
+                   positions=None, adapters=None, kernels=True, q_chunk=0):
+    """One pre-norm layer: the reference's ``G``/``L`` branch (with its post
+    norms and parallel block) or its ``M`` branch."""
     ad = adapters or {}
     h = L.apply_norm(p["norm1"], x, cfg)
-    if cfg.layer_pattern == "M":
+    if ch == "M":
         return x + M2.apply_mamba(p["mamba"], h, cfg, cache["ssm"] if cache else None,
                                   adapters=ad.get("mamba"), kernels=kernels)
-    x = x + L.attention(p["attn"], h, cfg, adapters=ad.get("attn"), positions=positions,
-                        cache=cache["attn"] if cache else None, cache_pos=cache_pos,
-                        kernels=kernels)
-    h2 = L.apply_norm(p["norm2"], x, cfg)
-    return x + L.apply_mlp(p["mlp"], h2, cfg, adapters=ad.get("mlp"))
+    a = L.attention(p["attn"], h, cfg, window=_char_window(cfg, ch), adapters=ad.get("attn"),
+                    positions=positions, cache=cache["attn"] if cache else None,
+                    cache_pos=cache_pos, kernels=kernels, q_chunk=q_chunk)
+    if cfg.use_post_norm:
+        a = L.apply_norm(p["post_norm1"], a, cfg)
+    if cfg.parallel_block:  # attention and MLP both read norm1's output
+        return x + a + L.apply_mlp(p["mlp"], h, cfg, adapters=ad.get("mlp"))
+    x = x + a
+    m = L.apply_mlp(p["mlp"], L.apply_norm(p["norm2"], x, cfg), cfg, adapters=ad.get("mlp"))
+    if cfg.use_post_norm:
+        m = L.apply_norm(p["post_norm2"], m, cfg)
+    return x + m
 
 
 def apply_group(gp, x, cfg: ModelConfig, *, cache=None, cache_pos=None, positions=None,
-                adapters=None, kernels=True):
+                adapters=None, kernels=True, q_chunk=0):
+    """One copy of the layer pattern: sub-layer ``sub_<i>`` for char i."""
     ad = adapters or {}
-    return apply_sublayer(gp["sub_0"], x, cfg, cache=cache["sub_0"] if cache else None,
-                          cache_pos=cache_pos, positions=positions, adapters=ad.get("sub_0"),
-                          kernels=kernels)
+    for i, ch in enumerate(group_chars(cfg)):
+        key = f"sub_{i}"
+        x = apply_sublayer(gp[key], x, cfg, ch, cache=cache[key] if cache else None,
+                           cache_pos=cache_pos, positions=positions, adapters=ad.get(key),
+                           kernels=kernels, q_chunk=q_chunk)
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -108,14 +159,11 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"):
     # the meta device holds shapes only (lora_param_count): nothing to draw
     gen = None if device.type == "meta" else torch.Generator(device=device).manual_seed(seed)
     tree = {"embed": L.init_embed(gen, cfg, device)}
-    layers = [init_sublayer(gen, cfg, device) for _ in range(cfg.num_layers)]
-
-    def stack(*leaves):
-        if isinstance(leaves[0], dict):
-            return {k: stack(*(g[k] for g in leaves)) for k in leaves[0]}
-        return torch.stack(leaves)
-
-    tree["groups"] = {"sub_0": stack(*layers)}
+    groups = [{f"sub_{i}": init_sublayer(gen, cfg, ch, device)
+               for i, ch in enumerate(group_chars(cfg))} for _ in range(n_full_groups(cfg))]
+    tree["groups"] = tree_map(lambda *leaves: torch.stack(leaves), *groups)
+    for i, ch in enumerate(tail_chars(cfg)):
+        tree[f"tail_{i}"] = init_sublayer(gen, cfg, ch, device)
     tree["final_norm"] = L.init_norm(gen, cfg, cfg.d_model, device)
     return tree
 
@@ -132,38 +180,44 @@ def _embed_inputs(params, batch, cfg: ModelConfig):
     return x, positions
 
 
-def _num_groups(groups) -> int:
-    while isinstance(groups, dict):
-        groups = next(iter(groups.values()))
-    return groups.shape[0]
+def _q_chunk(S: int) -> int:
+    return Q_CHUNK if S >= LONG_PREFILL else 0
 
 
 def _scan_groups(params, x, cfg: ModelConfig, *, cache=None, cache_pos=None, positions=None,
-                 lora=None, kernels=True, remat=False):
-    """Run the stacked groups ``params["groups"]``, writing the cache (if any)
-    in place. The stack may be a view of the model's (``groups[:cut]`` or
-    ``groups[cut:]``), with ``lora`` cut to the same layers
-    (``lora.split_client_server``). The ported patterns are one char long, so
-    no model has the reference's tail layers. ``remat``: each group's
-    activations are recomputed in the backward pass instead of kept
+                 lora=None, kernels=True, remat=False, q_chunk=0, include_tail=True):
+    """Run the stacked groups ``params["groups"]`` and then (``include_tail``)
+    the tail layers, writing the cache (if any) in place. The stack may be a
+    view of the model's (``groups[:cut]`` or ``groups[cut:]``), with
+    ``lora`` cut to the same groups (``lora.split_client_server``); the
+    client's side runs no tail. ``remat``: each group's activations are
+    recomputed in the backward pass instead of kept
     (``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` per
     group); the values and gradients are the same."""
     _require_ported(cfg)
-    for i in range(_num_groups(params["groups"])):
-        def group(h, i=i):
-            return apply_group(_index(params["groups"], i), h, cfg,
-                               cache=_index(cache["groups"], i) if cache else None,
-                               cache_pos=cache_pos, positions=positions,
-                               adapters=layer_adapters(lora, cfg, i), kernels=kernels)
+    groups = _slices(params["groups"])
+    caches = _slices(cache["groups"]) if cache else [None] * len(groups)
+    for i, (gp, gc) in enumerate(zip(groups, caches)):
+        def group(h, i=i, gp=gp, gc=gc):
+            return apply_group(gp, h, cfg, cache=gc, cache_pos=cache_pos, positions=positions,
+                               adapters=layer_adapters(lora, cfg, i), kernels=kernels,
+                               q_chunk=q_chunk)
 
         x = checkpoint(group, x, use_reentrant=False) if remat else group(x)
+    for i, ch in enumerate(tail_chars(cfg) if include_tail else ""):
+        key = f"tail_{i}"
+        x = apply_sublayer(params[key], x, cfg, ch, cache=cache[key] if cache else None,
+                           cache_pos=cache_pos, positions=positions,
+                           adapters=layer_adapters(lora, cfg, None, top=key), kernels=kernels,
+                           q_chunk=q_chunk)
     return x
 
 
 def forward(params, batch, cfg: ModelConfig, *, lora=None, kernels=True):
     """Full forward -> logits (B, S, V), fp32."""
     x, positions = _embed_inputs(params, batch, cfg)
-    x = _scan_groups(params, x, cfg, positions=positions, lora=lora, kernels=kernels)
+    x = _scan_groups(params, x, cfg, positions=positions, lora=lora, kernels=kernels,
+                     q_chunk=_q_chunk(x.shape[1]))
     return L.lm_logits(params["embed"], L.apply_norm(params["final_norm"], x, cfg), cfg)
 
 
@@ -175,7 +229,8 @@ def hidden_states(params, batch, cfg: ModelConfig, *, remat: bool = False,
     (``_scan_groups``); ``unroll`` is the reference's ``lax.scan`` unrolling,
     which a Python loop has no use for: it is taken and ignored."""
     x, positions = _embed_inputs(params, batch, cfg)
-    x = _scan_groups(params, x, cfg, positions=positions, kernels=False, remat=remat)
+    x = _scan_groups(params, x, cfg, positions=positions, kernels=False, remat=remat,
+                     q_chunk=_q_chunk(x.shape[1]))
     return L.apply_norm(params["final_norm"], x, cfg), x.new_zeros((), dtype=torch.float32)
 
 
@@ -195,22 +250,32 @@ def loss_fn(params, batch, cfg: ModelConfig, *, remat: bool = False, aux_weight=
 # ---------------------------------------------------------------------------
 
 
+def _sublayer_cache(cfg: ModelConfig, ch: str, batch: int, max_seq: int, dtype, device):
+    """``{"attn": (k, v)}``, each (B, S_c, Kv, hd) with S_c = min(window,
+    max_seq) for ``L`` (a ring buffer once S_c == window) and max_seq for
+    ``G``; ``{"ssm": (conv_state, ssd_state)}`` for ``M``."""
+    if ch == "M":
+        return {"ssm": M2.init_mamba_cache(cfg, batch, dtype, device)}
+    window = _char_window(cfg, ch)
+    S_c = min(window, max_seq) if window else max_seq
+    shape = (batch, S_c, cfg.num_kv_heads, cfg.head_dim)
+    return {"attn": tuple(torch.zeros(shape, dtype=dtype, device=device) for _ in range(2))}
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None, device="cuda"):
-    """Zero cache ``{"groups": {"sub_0": ...}}`` with the layer stack leading:
-    ``{"attn": (k, v)}``, each ``(num_groups, B, max_seq, Kv, hd)``, for
-    ``G``; ``{"ssm": (conv_state, ssd_state)}`` for ``M`` (``max_seq`` unused:
-    the state does not grow)."""
+    """Zero cache ``{"groups": {"sub_<i>": ...}, "tail_<i>": ...}`` of the
+    per-char caches of ``_sublayer_cache``, the group stack leading."""
     _require_ported(cfg)
     device = resolve_device(device)
     dtype = dtype or L.torch_dtype(cfg.dtype)
-    ng = cfg.num_layers
-    if cfg.layer_pattern == "M":
-        conv, ssd = M2.init_mamba_cache(cfg, batch, dtype, device)
-        return {"groups": {"sub_0": {"ssm": (conv.new_zeros((ng,) + conv.shape),
-                                             ssd.new_zeros((ng,) + ssd.shape))}}}
-    shape = (ng, batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
-    kv = tuple(torch.zeros(shape, dtype=dtype, device=device) for _ in range(2))
-    return {"groups": {"sub_0": {"attn": kv}}}
+    ng = n_full_groups(cfg)
+    cache = {"groups": {f"sub_{i}": tree_map(lambda a: a.new_zeros((ng,) + a.shape),
+                                             _sublayer_cache(cfg, ch, batch, max_seq, dtype,
+                                                             device))
+                        for i, ch in enumerate(group_chars(cfg))}}
+    for i, ch in enumerate(tail_chars(cfg)):
+        cache[f"tail_{i}"] = _sublayer_cache(cfg, ch, batch, max_seq, dtype, device)
+    return cache
 
 
 # ---------------------------------------------------------------------------
@@ -233,6 +298,6 @@ def prefill(params, batch, cfg: ModelConfig, cache, *, lora=None, kernels=True):
     """Prefill: run the full prompt, writing the cache. Returns (logits, cache)."""
     x, positions = _embed_inputs(params, batch, cfg)
     x = _scan_groups(params, x, cfg, cache=cache, cache_pos=0, positions=positions,
-                     lora=lora, kernels=kernels)
+                     lora=lora, kernels=kernels, q_chunk=_q_chunk(x.shape[1]))
     x = L.apply_norm(params["final_norm"], x, cfg)
     return L.lm_logits(params["embed"], x, cfg), cache

@@ -62,7 +62,9 @@ def decode_tokens(params, cfg: ModelConfig, prompt, max_new: int,
                   max_seq: Optional[int] = None, sample: str = "greedy", seed: int = 0, *,
                   lora=None, device="cuda"):
     """Prefill ``prompt`` (B, S) then generate: the prefill's argmax and
-    ``max_new - 1`` decoded tokens, (B, max_new). Runs on ``device``."""
+    ``max_new - 1`` decoded tokens, (B, max_new). Runs on ``device``. The
+    cache holds ``max_seq`` (default S + max_new) positions, a sliding-window
+    layer's min(window, max_seq) slots (``transformer.init_cache``)."""
     dev = resolve_device(device)
     params = _to(params, dev)
     lora = _to(lora, dev) if lora is not None else None

@@ -169,6 +169,9 @@ def test_lora_fp32_and_high_ranks_match_plain(cuda, no_tf32, M, K, N, r, dtype, 
     (2, 12, 4, 200, 200, 64, True, 100, 50.0),  # ragged, window and softcap
     (2, 4, 1, 70, 130, 128, False, 0, 0.0),  # non-causal, Skv != Sq
     (2, 2, 2, 300, 300, 128, True, 32, 30.0),
+    (1, 4, 2, 512, 512, 256, True, 0, 50.0),  # gemma2's head dim and softcap
+    (2, 4, 2, 300, 300, 256, True, 64, 50.0),  # ragged, window
+    (1, 2, 1, 70, 130, 256, False, 0, 0.0),
 ])
 def test_flash_fp32_matches_plain(cuda, no_tf32, B, H, Kv, Sq, Skv, d, causal, window, softcap):
     """The fp32 variant at the reference's fp32 tolerance, 2e-5 + 2e-5·|o|
@@ -267,6 +270,11 @@ def test_flash_kernel_matches_plain(cuda, B, H, Kv, Sq, Skv, d, causal, window, 
     (2, 4, 2, 100, 100, 16, True, 0, 0.0, "wmma"),
     (2, 4, 2, 100, 100, 32, True, 0, 0.0, "wmma"),
     (2, 4, 2, 100, 100, 128, True, 0, 0.0, "wmma"),
+    # gemma2's head dim: global and windowed layers with its softcap, ragged
+    (1, 16, 8, 1024, 1024, 256, True, 0, 50.0, "wmma"),
+    (1, 16, 8, 1024, 1024, 256, True, 256, 50.0, "wmma"),
+    (2, 4, 2, 300, 300, 256, True, 64, 0.0, "wmma"),
+    (2, 4, 1, 70, 130, 256, False, 0, 0.0, "wmma"),
 ])
 def test_flash_variants_at_their_edges(cuda, B, H, Kv, Sq, Skv, d, causal, window, softcap,
                                        expected):
@@ -282,6 +290,15 @@ def test_flash_variants_at_their_edges(cuda, B, H, Kv, Sq, Skv, d, causal, windo
     ref = flash_attention_ref(q, k, v, causal=causal, window=window, softcap=softcap)
     err = (o.float() - ref.float()).abs().max().item()
     assert err <= _bf16_ulps(ref), (err, _bf16_ulps(ref))
+
+
+def test_flash_wrapper_raises_on_other_head_dims(cuda):
+    """Head dims outside HEAD_DIMS (16-256) raise on the card; none falls
+    back to the plain version."""
+    for d in (48, 96, 512):
+        q = torch.zeros((1, 2, 8, d), device=cuda, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="head dim"):
+            flash_attention(q, q[:, :1], q[:, :1])
 
 
 def test_flash_misaligned_rows_take_the_wmma_variant(cuda):

@@ -166,11 +166,22 @@ S_ = 512  # the sequence length in the strides below
     (16, [S_ * 4 * 16, 16, 4 * 16] * 3, [0] * 3, "wmma"),
     (32, [S_ * 4 * 32, 32, 4 * 32] * 3, [0] * 3, "wmma"),
     (128, [S_ * 4 * 128, 128, 4 * 128] * 3, [0] * 3, "wmma"),
+    (256, [S_ * 16 * 256, 256, 16 * 256] * 3, [0] * 3, "wmma"),  # gemma2's prefill
+    (256, [S_ * 16 * 256, 256, 16 * 256] * 3, [2, 0, 0], "wmma"),  # misaligned too
 ])
 def test_flash_variant_rule(d, strides, pointers, expected):
     """Head dim 64 with TMA-aligned strides and pointers takes the wgmma
     variant; everything else the first port's wmma kernel."""
     assert flash_binding.variant(d, strides, pointers) == expected
+
+
+@pytest.mark.parametrize("d", flash_binding.HEAD_DIMS)
+def test_flash_variant_rule_fp32(d):
+    """fp32 inputs take the fp32 variant at every compiled head dim, 256
+    (gemma2's) included, whatever the strides."""
+    assert 256 in flash_binding.HEAD_DIMS
+    assert flash_binding.variant(d, [S_ * 4 * d, d, 4 * d] * 3, [0] * 3, fp32=True) == "fp32"
+    assert flash_binding.variant(d, [1] * 9, [2] * 3, fp32=True) == "fp32"
 
 
 # ---------------------------------------------------------------------------
@@ -187,6 +198,7 @@ ATTN_CASES = [
     (2, 2, 2, 64, 128, 32, 30.0, "float32"),  # window + softcap
     (2, 6, 2, 100, 32, 0, 0.0, "float32"),  # ragged S, GQA
     (1, 4, 2, 77, 64, 20, 0.0, "float32"),  # ragged S + window
+    (1, 2, 1, 128, 256, 64, 50.0, "float32"),  # gemma2's head dim, window and softcap
 ]
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 
