@@ -111,11 +111,14 @@ then
   9. dense   — the rest of the dense family: (a) flash attention at
                gemma2-9b's prefill (B=2, H=16, Kv=8, S=8192, head dim 256;
                global and windowed 4096, with and without its softcap 50,
-               and a ragged S=300) in bf16 (``wmma``) and fp32 against the
+               and a ragged S=300) in bf16 (``wgmma``) and fp32, and once
+               with q misaligned for TMA (bf16 ``wmma``), against the
                plain version, with event, device, plain, SDPA and bound
                times, and the LoRA kernel at every (M, K, N, r) that the
                serves below launch, on the variant its rule picks, against
-               its plain version with its launches there and its times;
+               its plain version with its launches there and its times,
+               and the decode variant at each of those decode shapes with
+               every cluster split of K (1-8 blocks), held and timed;
                (b) gemma2-9b at full width and depth (42 layers, bf16)
                served through ``decode_tokens`` (B=2, prompt 8192, 32 new
                tokens; every launch counted by variant, 21 of the 42 flash
@@ -129,8 +132,9 @@ then
                served through the fp32 variants; (c) phi4-mini-3.8b and
                starcoder2-7b (full depth) and command-r-35b (8 of 40 layers)
                served at B=8, prompt 512, 32 new tokens, launches by
-               variant (starcoder2's and command-r's large-K down
-               projections take the ``generic`` LoRA variant at decode),
+               variant (every bf16 LoRA launch on ``prefill`` or
+               ``decode``, starcoder2's and command-r's large-K down
+               projections included; every flash launch on ``wgmma``),
                the rule, and flash at head dim 128; (d) a FedsLLM round of
                full phi4-mini-3.8b and a split pass of full gemma2-9b
                (remat) against monolithic, no kernel launch; (e) the four
@@ -475,9 +479,14 @@ def lora_work(M, K, N, r, esize=2):
     return nbytes, ops
 
 
-def attn_inputs(gen, B, S, H, Kv, d, dev, dtype=torch.bfloat16):
-    """q, k, v in the model's (B, S, heads, d) layout, as (B, heads, S, d) views."""
-    q = torch.randn((B, S, H, d), generator=gen, device=dev).to(dtype).transpose(1, 2)
+def attn_inputs(gen, B, S, H, Kv, d, dev, dtype=torch.bfloat16, misaligned=False):
+    """q, k, v in the model's (B, S, heads, d) layout, as (B, heads, S, d)
+    views; ``misaligned``: q one element off a 16-byte boundary (TMA cannot
+    read it)."""
+    q = torch.randn((B, S, H, d), generator=gen, device=dev).to(dtype)
+    if misaligned:
+        q = torch.empty(q.numel() + 1, dtype=dtype, device=dev)[1:].view_as(q).copy_(q)
+    q = q.transpose(1, 2)
     k, v = (torch.randn((B, S, Kv, d), generator=gen, device=dev).to(dtype).transpose(1, 2)
             for _ in range(2))
     return q, k, v
@@ -1775,14 +1784,15 @@ def lora_row(gen, dev, M, K, N, r, dtype, scale, launches=None, iters=100, devic
 
 
 def attn_row(gen, dev, B, S, H, Kv, d, dtype, window=0, softcap=0.0, launches=None, iters=5,
-             **meta):
+             misaligned=False, **meta):
     """One flash shape: the kernel against its plain version (bf16: 2 ulps of
     the largest output; fp32: 2e-5 + 2e-5·|o|), with event, device, plain,
     library and bound times. The library call is SDPA, where it computes the
     same function: no softcap; a window as its boolean mask."""
     fp32 = dtype == torch.float32
     nbytes, ops = attn_work(B, S, H, Kv, d, True, window, esize=4 if fp32 else 2)
-    sets = [attn_inputs(gen, B, S, H, Kv, d, dev, dtype) for _ in range(n_sets(nbytes))]
+    sets = [attn_inputs(gen, B, S, H, Kv, d, dev, dtype, misaligned)
+            for _ in range(n_sets(nbytes))]
     call = lambda q, k, v: flash_attention(q, k, v, causal=True, window=window,  # noqa: E731
                                            softcap=softcap)
     plain = lambda q, k, v: flash_attention_ref(q, k, v, causal=True, window=window,  # noqa: E731
@@ -1809,7 +1819,7 @@ def attn_row(gen, dev, B, S, H, Kv, d, dtype, window=0, softcap=0.0, launches=No
             q, k, v, attn_mask=mask, is_causal=mask is None, enable_gqa=True)
     b_ms, b_by = bound_ms(nbytes, ops, PEAK_FP32 if fp32 else PEAK_BF16)
     row = dict(kernel="flash_attention", dtype=str(dtype).split(".")[-1], B=B, S=S, H=H, Kv=Kv,
-               d=d, window=window, softcap=softcap, **meta,
+               d=d, window=window, softcap=softcap, misaligned=misaligned, **meta,
                variant=ran_variant("flash_attention", lambda: call(*sets[0])),
                err=err, excess=excess, tol=tol, ok=ok, launches=launches,
                ms=time_ms(call, sets, iters), **device_time_ms(call, sets, iters),
@@ -2271,14 +2281,16 @@ DENSE_LIMITS = {
 
 
 def dense_kernels(dev) -> tuple[list, list]:
-    """Part (a): flash at gemma2-9b's prefill shapes, bf16 (wmma) and fp32."""
+    """Part (a): flash at gemma2-9b's prefill shapes, bf16 (wgmma) and fp32,
+    and once with q's rows misaligned for TMA (bf16 wmma, the first port's
+    kernel)."""
     gen = torch.Generator(device=dev).manual_seed(10)
     cfg = get_arch(GEMMA)
     B, S = GEMMA_SERVE[:2]
     H, Kv, d, w, cap = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.sliding_window,
                         cfg.attn_logit_softcap)
     rows = []
-    for dtype, expected in ((torch.bfloat16, "wmma"), (torch.float32, "fp32")):
+    for dtype, expected in ((torch.bfloat16, "wgmma"), (torch.float32, "fp32")):
         for window, softcap, case in ((0, cap, "global"), (w, cap, "local"),
                                       (0, 0.0, "global, no softcap"),
                                       (w, 0.0, "local, no softcap")):
@@ -2286,6 +2298,8 @@ def dense_kernels(dev) -> tuple[list, list]:
                                  expected=expected))
         rows.append(attn_row(gen, dev, B, 300, H, Kv, d, dtype, 64, 0.0, iters=20,
                              case="ragged", expected=expected))
+    rows.append(attn_row(gen, dev, B, 300, H, Kv, d, torch.bfloat16, 64, cap, iters=20,
+                         misaligned=True, case="misaligned", expected="wmma"))
     for row in rows:
         log(f"[dense] (a) {json.dumps(row)}")
     return rows, [r for r in rows if not r["ok"] or r["variant"] != r["expected"]]
@@ -2327,6 +2341,42 @@ def dense_lora_rows(dev) -> tuple[list, list]:
             log(f"[dense] (a) {json.dumps(rows[-1])}")
         torch.cuda.empty_cache()
     return rows, row_fails(rows)
+
+
+def decode_split_sweep(dev) -> tuple[list, list]:
+    """Part (a): the decode variant at every bf16 decode shape of phase 9's
+    serves with each cluster split of K from 1 to 8 blocks, against its
+    plain version (2 bf16 ulps of the largest output at every split), its
+    CUDA-graph device time at each; ``rule`` is the split the wrapper takes
+    (``lora_matmul.decode_split``), ``best`` the fastest here."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    shapes = sorted({(M, K, N, r) for _, cfg, B, S, new, fp32 in dense_paths() if not fp32
+                     for (M, K, N, r) in lora_plan(cfg, B, S, new) if M == B})
+    rows, fails = [], []
+    for M, K, N, r in shapes:
+        nbytes, _ = lora_work(M, K, N, r)
+        sets = [lora_inputs(gen, M, K, N, r, dev) for _ in range(n_sets(nbytes))]
+        bn = lora_binding.decode_tile_n(N)
+        ref = lora_matmul_ref(*sets[0], scale=2.0)
+        row = dict(M=M, K=K, N=N, r=r, bn=bn, rule=lora_binding.decode_split(K, N), ms={}, err={})
+        for split in range(1, lora_binding.DECODE_MAX_SPLIT + 1):
+            fn = lambda x, w, a, b: lora_binding.lora_matmul_cuda(  # noqa: E731
+                x, w, a, b, 2.0, "decode", (bn, split))
+            y = fn(*sets[0])
+            torch.cuda.synchronize()
+            row["err"][split] = (y.float() - ref.float()).abs().max().item()
+            row["ms"][split] = graph_ms(fn, sets)
+        row["tol"] = bf16_ulps(ref)
+        row["best"] = min(row["ms"], key=row["ms"].get)
+        row["library_graph_ms"] = graph_ms(
+            lambda x, w, a, b: torch.addmm(x @ w, x @ a, b, alpha=2.0), sets)
+        rows.append(row)
+        log(f"[dense] (a) decode split {json.dumps(row)}")
+        if not max(row["err"].values()) <= row["tol"]:
+            fails.append(row)
+        del sets, ref
+    torch.cuda.empty_cache()
+    return rows, fails
 
 
 @contextlib.contextmanager
@@ -2376,8 +2426,8 @@ def lora_plan(cfg, B, S, new) -> collections.Counter:
 
 def dense_expected(cfg, B, S, new, fp32=False) -> dict:
     """Each variant's launches in one decode_tokens call, by the wrappers'
-    own rule (large-K down projections at decode go to ``generic`` where the
-    decode variant's shared memory runs out)."""
+    own rule: bf16 LoRA products on ``prefill`` and ``decode`` (none on
+    ``generic``), flash on ``wgmma`` (none on ``wmma``)."""
     lora = dict.fromkeys(lora_matmul.variant_launches, 0)
     for (M, K, N, r), n in lora_plan(cfg, B, S, new).items():
         lora[lora_binding.variant(M, K, N, r, True, fp32)] += n
@@ -2740,18 +2790,18 @@ def dense_smoke(dev) -> tuple[dict, list]:
 
 def dense_entries(rows, res) -> list[dict]:
     """The kernels line's entries of the dense paths' flash variants: the
-    d=256 wmma variant (gemma2-9b's bf16 serve), the d=256 fp32 variant
-    (gemma2 at 4 layers served in fp32) and the d=128 wmma variant (the (c)
+    d=256 wgmma variant (gemma2-9b's bf16 serve), the d=256 fp32 variant
+    (gemma2 at 4 layers served in fp32) and the d=128 wgmma variant (the (c)
     serves); times summed over the launches one serve call makes at each
     shape, the library (SDPA) at the same shape without the softcap."""
     gemma = res["gemma2"]
     entries = []
     for name, dtype, launched in (
-            ("flash_attention/wmma-d256", "bfloat16", gemma["variants"]["flash_attention"]),
+            ("flash_attention/wgmma-d256", "bfloat16", gemma["variants"]["flash_attention"]),
             ("flash_attention/fp32-d256", "float32",
              res["gemma2_rule"]["fp32_served"]["variants"]["flash_attention"])):
-        mine = [r for r in rows if r["dtype"] == dtype]
-        kind = "fp32" if dtype == "float32" else "wmma"
+        kind = "fp32" if dtype == "float32" else "wgmma"
+        mine = [r for r in rows if r["dtype"] == dtype and r["variant"] == kind]
         n_global = launched[kind] // 2  # LG: half the layers windowed
         shapes = []
         for case, n in (("global", launched[kind] - n_global), ("local", n_global)):
@@ -2761,9 +2811,9 @@ def dense_entries(rows, res) -> list[dict]:
         entries.append(flash_entry(name, kind, shapes, max(r["err"] for r in mine),
                                    "one decode_tokens call of gemma2-9b: B=2, prompt 8192" +
                                    (", 4 layers, fp32" if kind == "fp32" else ", 42 layers")))
-    d128 = [dict(r, launches=res["serves"][r["path"]]["variants"]["flash_attention"]["wmma"])
+    d128 = [dict(r, launches=res["serves"][r["path"]]["variants"]["flash_attention"]["wgmma"])
             for r in res["d128_rows"]]
-    entries.append(flash_entry("flash_attention/wmma-d128", "wmma", d128,
+    entries.append(flash_entry("flash_attention/wgmma-d128", "wgmma", d128,
                                max(r["err"] for r in d128),
                                "one decode_tokens call of each (c) config: B=8, prompt 512"))
     return entries
@@ -2820,6 +2870,8 @@ def phase_dense(dev) -> tuple[dict, list]:
     res["kernel_rows"], fails = rows, fails + more
     res["lora_rows"], more = dense_lora_rows(dev)
     fails += more
+    res["decode_splits"], more = decode_split_sweep(dev)
+    fails += more
     gcfg = get_arch(GEMMA)
     B, S, new = GEMMA_SERVE
     res["gemma2"], more = dense_serve(gcfg, dev, B, S, new, rule=False, depth=True)
@@ -2838,7 +2890,7 @@ def phase_dense(dev) -> tuple[dict, list]:
         res["serves"][arch], more = dense_serve(cfg, dev, BATCH, PROMPT, NEW, rule=True)
         fails += more
         row = attn_row(gen, dev, BATCH, PROMPT, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
-                       torch.bfloat16, iters=50, path=arch, expected="wmma")
+                       torch.bfloat16, iters=50, path=arch, expected="wgmma")
         log(f"[dense] (c) {json.dumps(row)}")
         res["d128_rows"].append(row)
         if not row["ok"] or row["variant"] != row["expected"]:
@@ -2856,6 +2908,7 @@ def phase_dense(dev) -> tuple[dict, list]:
 
 
 def main() -> int:
+    t0 = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -2887,6 +2940,7 @@ def main() -> int:
          "dense": {k: dense[k] for k in ("gemma2", "gemma2_rule", "serves", "train")}},
         indent=1, default=str))
     log(f"[timing] torch.profiler traces kept {TRACE_LOG['kept']}, lost {TRACE_LOG['lost']}")
+    log(f"[done] chip_smoke in {time.perf_counter() - t0:.1f} s")
     print(smi)
     print(json.dumps({"kernels": [{k: v for k, v in e.items() if k != "shapes"}
                                   for e in kernels]}))

@@ -16,31 +16,39 @@
 // d = 64, causal) the work is ~S/2 score columns per row against d-wide
 // rows of Q, K, V and O, O(S) operations per byte moved: tensor-core
 // throughput and the softmax's exponentials, not device memory. So is
-// gemma2-9b's prefill (S = 8192, d = 256, half its layers windowed to 4096).
+// gemma2-9b's prefill (S = 8192, d = 256, half its layers windowed to 4096)
+// and the other dense configs' (d = 128).
 //
 // Three variants, picked by the wrapper (kernels/flash_attention.py
 // ``variant``):
 //
-// * wgmma (d = 64, 16-byte aligned rows; the main path): one block per two
-//   64-row query tiles of one (batch, head), tile nq-1-i then tile i, so
-//   every block of a causal prefill has the same work and pays the start of
-//   its load pipeline once for both; the longest rows run first. A producer
-//   warp loads each Q tile once and K/V tiles through a 3-stage TMA ring
-//   (mbarriers, K and V signalled apart so Q·Kᵀ starts before V lands) that
-//   runs on across the two tiles, only the tiles up to the causal frontier
-//   and from the window's start. One consumer warpgroup computes S = Q·Kᵀ
-//   with wgmma (both operands in shared memory) into registers and runs the
-//   online softmax on the accumulator fragment (row max and sum over the 4 lanes of a quad,
+// * wgmma (d = 64, 128, 256 with 16-byte aligned rows; the main path): one
+//   block per two query tiles of one (batch, head), tile nq-1-i then tile i,
+//   so every block of a causal prefill has the same work and pays the start
+//   of its load pipeline once for both; the longest rows run first. A
+//   producer loads each Q tile once and K/V tiles through a TMA ring
+//   (mbarriers; K and V signalled and freed apart, so Q·Kᵀ starts before V
+//   lands and K's slot refills before V's) that runs on across the two
+//   tiles, only the tiles up to the causal frontier and from the window's
+//   start. Rows wider than 64 bf16 arrive as one TMA
+//   box per 64-column block (the 128-byte swizzle's width), so Q·Kᵀ walks
+//   the column blocks every 4 k-steps and P·V's B operand (V, MN-major)
+//   spans them at one tile's stride. Consumer warpgroups (one at d = 64 and
+//   128, two blocks an SM at d = 128; two of 64 rows each at d = 256, whose
+//   O takes 128 registers a thread) compute S = Q·Kᵀ with wgmma (both
+//   operands in shared memory) into registers and run the online softmax on
+//   the accumulator fragment (row max and sum over the 4 lanes of a quad,
 //   exp2 with scale·log2(e) folded in, masks only on the tiles at the
-//   diagonal, the window's edge and the ragged edge). P is converted to bf16
-//   in registers and fed as the register operand of the P·V wgmma (V from
-//   shared memory, MN-major). O stays in registers for the whole KV loop and
-//   is written once.
-// * wmma (head dims 16, 32, 128, 256 and misaligned strides): the first
-//   port's kernel, wmma fragments with the scores and O in shared memory. At
-//   d = 256 (gemma2) its tiles take 195,072 bytes of shared memory (Q, K, V
-//   64 x 264 bf16, P 64 x 72 bf16, S 64 x 68 and O 64 x 260 fp32): one block
-//   of 4 warps on an SM.
+//   diagonal, the window's edge and the ragged edge; the softcap as
+//   1 - 2/(2^x + 1)). P is converted to bf16 in registers and fed as the
+//   register operand of the P·V wgmma (n = d, V from shared memory), which
+//   runs while the next tile's softmax does. O stays in registers for the
+//   whole KV loop and is written once.
+// * wmma (head dims 16 and 32, and any head dim with misaligned strides):
+//   the first port's kernel, wmma fragments with the scores and O in shared
+//   memory. At d = 256 its tiles take 195,072 bytes of shared memory (Q, K,
+//   V 64 x 264 bf16, P 64 x 72 bf16, S 64 x 68 and O 64 x 260 fp32): one
+//   block of 4 warps on an SM.
 // * fp32 (fp32 inputs, head dims 16, 32, 64, 128, 256, any strides; the
 //   smoke configs serve in fp32): SIMT, fp32 FMAs on the CUDA cores, P kept in
 //   fp32 as the TPU kernel keeps it. What bounds it is the fp32 CUDA-core
@@ -72,46 +80,207 @@ struct Strides {  // element strides of a (batch, head, seq, d) view; d has stri
   long long b, h, s;
 };
 
-// KV tiles [begin, end) that hold at least one unmasked key for some row of
-// the 64-row query tile at q0
-__device__ __forceinline__ void kv_range(int q0, int Skv, int causal, int window, int& begin,
-                                         int& end) {
+// 64-key tiles [begin, end) that hold at least one unmasked key for some row
+// of the `rows`-row query tile at q0
+__device__ __forceinline__ void kv_range(int q0, int rows, int Skv, int causal, int window,
+                                         int& begin, int& end) {
   end = (Skv + 63) / 64;
-  if (causal) end = min(end, (q0 + 63) / 64 + 1);
+  if (causal) end = min(end, (q0 + rows - 1) / 64 + 1);
   begin = 0;
   if (window > 0) {
     const int lo = q0 - window - 63;
     begin = lo < 0 ? 0 : lo / 64 + 1;
   }
+  // at least one tile: a window that starts past the last key (non-causal,
+  // Skv < Sq) leaves the last tile, all masked, and an output of 0
+  begin = min(begin, end - 1);
 }
 
 // ===========================================================================
-// wgmma: TMA + warpgroup MMA, d = 64
+// wgmma: TMA + warpgroup MMA, d = 64, 128, 256
 // ===========================================================================
 namespace tc {
 
-constexpr int D = 64, BQ = 64, BKV = 64, STAGES = 3;
-constexpr int THREADS = 160;  // warpgroup 0 consumes, warp 4 produces
-constexpr int TILE = 64 * D * 2;  // one 64 x 64 bf16 tile, 128-byte rows: 8 KB
-constexpr size_t SMEM = 1024 + (2 + 2 * STAGES) * TILE + 128;
+constexpr int BKV = 64;
 constexpr float NEG = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
-__global__ void __launch_bounds__(THREADS)
+// Per head dim: NWG consumer warpgroups of 64 query rows each (a block's
+// query tile is 64·NWG rows), a ring of STAGES K/V tiles, QBUFS query tiles
+// (2: both passes' tiles load up front; 1: the second pass's once the first
+// is done with it) and MINB blocks an SM, so that another warpgroup's
+// products run during one's softmax: at d = 64 three blocks (the launch
+// bound holds registers to 136), at d = 128 two (96 KB each), at d = 256 a
+// second warpgroup of the block (Q, K and V take 192 KB).
+// PWARPS: the producer's warps. At d = 256 it is a whole warpgroup that
+// gives its registers to the consumers (REGS: 232 a thread, for O's 128
+// accumulators; with a lone producer warp the 9 warps' registers are split
+// evenly, 168 a thread, and O spills).
+template <int D> struct Cfg;
+template <> struct Cfg<64> {
+  static constexpr int NWG = 1, STAGES = 3, QBUFS = 2, MINB = 3, PWARPS = 1, REGS = 0;
+};
+template <> struct Cfg<128> {
+  static constexpr int NWG = 1, STAGES = 2, QBUFS = 2, MINB = 2, PWARPS = 1, REGS = 0;
+};
+template <> struct Cfg<256> {
+  static constexpr int NWG = 2, STAGES = 2, QBUFS = 1, MINB = 1, PWARPS = 4, REGS = 232;
+};
+constexpr int PRODUCER_REGS = 40;  // 128 x 40 + 256 x 232 <= the SM's 65,536
+
+template <int D>
+struct Layout {
+  static constexpr int NWG = Cfg<D>::NWG, STAGES = Cfg<D>::STAGES, QBUFS = Cfg<D>::QBUFS;
+  static constexpr int BQ = 64 * NWG;  // query rows of a block
+  // the consumer warpgroups, then the producer
+  static constexpr int THREADS = 128 * NWG + 32 * Cfg<D>::PWARPS;
+  // A tile of R rows is stored as D/64 column blocks of R rows x 128 bytes
+  // (64 bf16, the 128-byte swizzle's width), one TMA box each, 1024-aligned.
+  static constexpr int Q_BYTES = BQ * D * 2;
+  static constexpr int KV_BYTES = BKV * D * 2;
+  static constexpr size_t SMEM = 1024 + QBUFS * Q_BYTES + 2 * STAGES * KV_BYTES + 256;
+  static_assert(SMEM <= 227 * 1024, "tiles too large for shared memory");
+};
+
+// c·tanh(x·scale/c) in the log2 domain (times log2 e), as 1 - 2/(2^(2x·scale·log2(e)/c) + 1):
+// two special-function ops, against a dozen instructions and a branch in
+// tanhf. Its absolute error (~1e-7 of c) is what reaches the exponent.
+__device__ __forceinline__ float softcap_log2(float x, float cap_in2, float cap_out) {
+  return fmaf(-2.f * cap_out, __fdividef(1.f, hopper::exp2_approx(x * cap_in2) + 1.f), cap_out);
+}
+
+// S (64 x 64) = Q·Kᵀ for one warpgroup: K-major Q and K with 128-byte rows,
+// k-step kk reading 32 bytes of column block kk/4 (column blocks `qblock`
+// and one 64-row tile apart)
+template <int D>
+__device__ __forceinline__ void issue_qk(float (&sacc)[32], uint64_t dq, uint64_t dk, int qblock) {
+  hopper::fence_operand(sacc);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    hopper::wgmma_ss<0>(sacc, hopper::desc_add(dq, (kk / 4) * qblock + (kk % 4) * 32),
+                        hopper::desc_add(dk, (kk / 4) * BKV * 128 + (kk % 4) * 32), kk > 0);
+  hopper::wgmma_commit();
+}
+
+// O += P·V: P's bf16 fragment as the register operand, V MN-major (its
+// column blocks one 64-row tile apart, 8-row groups 1024 bytes)
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&oacc)[D / 2], const uint32_t (&pa)[4][4],
+                                         const unsigned char* v) {
+  const uint64_t dv = hopper::make_desc(v, BKV * 128, 1024, 1);
+  hopper::fence_operand(oacc);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BKV / 16; ++kk)
+    hopper::wgmma_rs<1>(oacc, pa[kk], hopper::desc_add(dv, kk * 16 * 128));
+  hopper::wgmma_commit();
+}
+
+// The online softmax of one 64-key tile (first key k0) on a warpgroup's
+// score fragment: the softcap, masks only where the tile crosses an edge of
+// the warpgroup's rows (first row q0; the lane's rows ra, rb), the running
+// max m and sum l, and P = 2^(s·factor − m) in place. Returns O's rescale
+// factors. A masked score is -inf here, not -1e30: scaled inside an FMA,
+// -1e30 would leave the rounding error of m (~1e22) in the exponent. Both
+// give a weight of exactly 0 in fp32 on any row with an unmasked key; m
+// starts at -1e30, so no -inf - -inf arises.
+struct Softmax {
+  int Skv, causal, window;
+  bool capped;
+  float factor, cap_in2, cap_out;  // see the consumer's set-up
+
+  __device__ __forceinline__ void tile(float (&sacc)[32], int k0, int q0, int ra, int rb, int q,
+                                       float& m_a, float& m_b, float& l_a, float& l_b,
+                                       float& corr_a, float& corr_b) const {
+    const bool edge = (k0 + BKV > Skv) || (causal && k0 + BKV - 1 > q0) ||
+                      (window > 0 && k0 <= q0 + 63 - window);
+    if (capped || edge) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float v = sacc[4 * j + e];
+          if (capped) v = softcap_log2(v, cap_in2, cap_out);
+          if (edge) {
+            const int col = k0 + 8 * j + 2 * q + (e & 1), row = e < 2 ? ra : rb;
+            bool ok = col < Skv;
+            if (causal) ok = ok && col <= row;
+            if (window > 0) ok = ok && col > row - window;
+            v = ok ? v : -INFINITY;
+          }
+          sacc[4 * j + e] = v;
+        }
+    }
+    float mx_a = NEG, mx_b = NEG;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      mx_a = fmaxf(mx_a, fmaxf(sacc[4 * j + 0], sacc[4 * j + 1]));
+      mx_b = fmaxf(mx_b, fmaxf(sacc[4 * j + 2], sacc[4 * j + 3]));
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off *= 2) {
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
+    }
+    const float mn_a = fmaxf(m_a, mx_a * factor), mn_b = fmaxf(m_b, mx_b * factor);
+    corr_a = hopper::exp2_approx(m_a - mn_a);
+    corr_b = hopper::exp2_approx(m_b - mn_b);
+    m_a = mn_a;
+    m_b = mn_b;
+    float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      sacc[4 * j + 0] = hopper::exp2_approx(fmaf(sacc[4 * j + 0], factor, -mn_a));
+      sacc[4 * j + 1] = hopper::exp2_approx(fmaf(sacc[4 * j + 1], factor, -mn_a));
+      sacc[4 * j + 2] = hopper::exp2_approx(fmaf(sacc[4 * j + 2], factor, -mn_b));
+      sacc[4 * j + 3] = hopper::exp2_approx(fmaf(sacc[4 * j + 3], factor, -mn_b));
+      sum_a += sacc[4 * j + 0] + sacc[4 * j + 1];
+      sum_b += sacc[4 * j + 2] + sacc[4 * j + 3];
+    }
+    l_a = l_a * corr_a + sum_a;
+    l_b = l_b * corr_b + sum_b;
+  }
+};
+
+// P's accumulator fragment is the A operand's register layout
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[4][4], const float (&sacc)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      pa[kk][e] = hopper::pack_bf16(sacc[8 * kk + 2 * e], sacc[8 * kk + 2 * e + 1]);
+}
+
+// keeps P's registers unchanged until the P·V wgmma that reads them is done
+__device__ __forceinline__ void hold(const uint32_t (&pa)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" ::"r"(pa[kk][e]) : "memory");
+}
+
+template <int D>
+__global__ void __launch_bounds__(Layout<D>::THREADS, Cfg<D>::MINB)
 kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
        const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ o, int H, int Kv, int Sq,
        int Skv, Strides ost, int causal, int window, float softcap, float scale) {
+  using Lay = Layout<D>;
+  constexpr int NWG = Lay::NWG, STAGES = Lay::STAGES, QBUFS = Lay::QBUFS, BQ = Lay::BQ;
+  constexpr int QB = Lay::Q_BYTES, KVB = Lay::KV_BYTES;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base =
       reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~1023ull);
-  unsigned char* qs = base;                        // 2 tiles, one per pass
-  unsigned char* ks = base + 2 * TILE;             // STAGES tiles
-  unsigned char* vs = base + (2 + STAGES) * TILE;  // STAGES tiles
-  uint64_t* bars = reinterpret_cast<uint64_t*>(base + (2 + 2 * STAGES) * TILE);
-  uint64_t* qbar = bars;  // 2
-  uint64_t* kfull = bars + 2;
+  unsigned char* qs = base;                       // QBUFS query tiles
+  unsigned char* ks = base + QBUFS * QB;          // STAGES tiles
+  unsigned char* vs = ks + STAGES * KVB;          // STAGES tiles
+  uint64_t* bars = reinterpret_cast<uint64_t*>(vs + STAGES * KVB);
+  uint64_t* qfull = bars;  // QBUFS
+  uint64_t* qempty = qfull + QBUFS;
+  uint64_t* kfull = qempty + QBUFS;  // STAGES each
   uint64_t* vfull = kfull + STAGES;
-  uint64_t* empty = vfull + STAGES;
+  uint64_t* kempty = vfull + STAGES;
+  uint64_t* vempty = kempty + STAGES;
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int nq = (Sq + BQ - 1) / BQ;
@@ -121,19 +290,23 @@ kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtenso
   const int kvh = h / (H / Kv);
 
   if (tid == 0) {
-    hopper::mbar_init(&qbar[0], 1);
-    hopper::mbar_init(&qbar[1], 1);
+    for (int s = 0; s < QBUFS; ++s) {
+      hopper::mbar_init(&qfull[s], 1);
+      hopper::mbar_init(&qempty[s], NWG);  // one arrive per consumer warpgroup
+    }
     for (int s = 0; s < STAGES; ++s) {
       hopper::mbar_init(&kfull[s], 1);
       hopper::mbar_init(&vfull[s], 1);
-      hopper::mbar_init(&empty[s], 1);
+      hopper::mbar_init(&kempty[s], NWG);
+      hopper::mbar_init(&vempty[s], NWG);
     }
     hopper::fence_barrier_init();
   }
   __syncthreads();
 
-  if (warp == 4) {  // producer
-    if (lane == 0) {
+  if (warp >= 4 * NWG) {  // producer
+    if constexpr (Cfg<D>::REGS > 0) hopper::setmaxnreg_dec<PRODUCER_REGS>();
+    if (warp == 4 * NWG && lane == 0) {
       hopper::prefetch_tensormap(&tm_q);
       hopper::prefetch_tensormap(&tm_k);
       hopper::prefetch_tensormap(&tm_v);
@@ -141,136 +314,115 @@ kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtenso
       for (int pass = 0; pass < passes; ++pass) {
         const int q0 = (pass == 0 ? nq - 1 - bx : bx) * BQ;
         int t_begin, t_end;
-        kv_range(q0, Skv, causal, window, t_begin, t_end);
-        hopper::mbar_arrive_expect_tx(&qbar[pass], TILE);
-        hopper::tma_load_4d(qs + pass * TILE, &tm_q, &qbar[pass], 0, q0, h, bi);
+        kv_range(q0, BQ, Skv, causal, window, t_begin, t_end);
+        const int slot = pass % QBUFS;
+        hopper::mbar_wait(&qempty[slot], ((pass / QBUFS) & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(&qfull[slot], QB);
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c)
+          hopper::tma_load_4d(qs + slot * QB + c * BQ * 128, &tm_q, &qfull[slot], 64 * c, q0, h,
+                              bi);
+        // K and V of a slot are freed apart: K once its Q·Kᵀ is done, V once
+        // its P·V is, a tile later
         for (int t = t_begin; t < t_end; ++t, ++i) {
-          const int s = i % STAGES;
-          hopper::mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);
-          hopper::mbar_arrive_expect_tx(&kfull[s], TILE);
-          hopper::tma_load_4d(ks + s * TILE, &tm_k, &kfull[s], 0, t * BKV, kvh, bi);
-          hopper::mbar_arrive_expect_tx(&vfull[s], TILE);
-          hopper::tma_load_4d(vs + s * TILE, &tm_v, &vfull[s], 0, t * BKV, kvh, bi);
+          const int s = i % STAGES, parity = ((i / STAGES) & 1) ^ 1;
+          hopper::mbar_wait(&kempty[s], parity);
+          hopper::mbar_arrive_expect_tx(&kfull[s], KVB);
+#pragma unroll
+          for (int c = 0; c < D / 64; ++c)
+            hopper::tma_load_4d(ks + s * KVB + c * BKV * 128, &tm_k, &kfull[s], 64 * c, t * BKV,
+                                kvh, bi);
+          hopper::mbar_wait(&vempty[s], parity);
+          hopper::mbar_arrive_expect_tx(&vfull[s], KVB);
+#pragma unroll
+          for (int c = 0; c < D / 64; ++c)
+            hopper::tma_load_4d(vs + s * KVB + c * BKV * 128, &tm_v, &vfull[s], 64 * c, t * BKV,
+                                kvh, bi);
         }
       }
     }
     return;
   }
 
-  // consumer warpgroup: lane l of warp w holds rows ra = q0 + 16w + l/4 and
-  // rb = ra + 8, columns 8j + 2(l%4) + {0, 1} of every 64-wide fragment
-  const int q = lane % 4;
-  const bool capped = softcap > 0.f;
+  if constexpr (Cfg<D>::REGS > 0) hopper::setmaxnreg_inc<Cfg<D>::REGS>();
+  // consumer warpgroup wg owns rows [64 wg, 64 wg + 64) of the block's query
+  // tile: lane l of its warp w holds rows ra = q0 + 16w + l/4 and rb = ra + 8,
+  // columns 8j + 2(l%4) + {0, 1} of every fragment
+  const int wg = warp / 4, w = warp % 4, q = lane % 4;
+  const bool leader = tid % 128 == 0;
   // p = 2^(s·factor − m): raw scores times scale·log2(e) inside the
-  // exponent's FMA, or, capped, scores already in the log2 domain. A masked
-  // score is -inf here, not -1e30: scaled inside an FMA, -1e30 would leave
-  // the rounding error of m (~1e22) in the exponent. Both give a weight of
-  // exactly 0 in fp32 on any row with an unmasked key; m starts at -1e30,
-  // so no -inf - -inf arises.
-  const float factor = capped ? 1.f : scale * LOG2E;
-  float oacc[32], sacc[32];
+  // exponent's FMA, or, capped, scores already in the log2 domain
+  const bool capped = softcap > 0.f;
+  const Softmax sm{Skv, causal, window, capped, capped ? 1.f : scale * LOG2E,
+                   capped ? 2.f * LOG2E * scale / softcap : 0.f, softcap * LOG2E};
+  float oacc[D / 2], sacc[32];
+  uint32_t pa[4][4];
 #pragma unroll
   for (int e = 0; e < 32; ++e) sacc[e] = 0.f;
   int i = 0;  // K/V tiles consumed so far, over both passes
   for (int pass = 0; pass < passes; ++pass) {
-    const int q0 = (pass == 0 ? nq - 1 - bx : bx) * BQ;
-    const int ra = q0 + warp * 16 + lane / 4, rb = ra + 8;
+    const int qb0 = (pass == 0 ? nq - 1 - bx : bx) * BQ;  // the block's first row
+    const int q0 = qb0 + 64 * wg;                          // this warpgroup's
+    const int ra = q0 + w * 16 + lane / 4, rb = ra + 8;
     int t_begin, t_end;
-    kv_range(q0, Skv, causal, window, t_begin, t_end);
+    kv_range(qb0, BQ, Skv, causal, window, t_begin, t_end);
 #pragma unroll
-    for (int e = 0; e < 32; ++e) oacc[e] = 0.f;
+    for (int e = 0; e < D / 2; ++e) oacc[e] = 0.f;
     float m_a = NEG, m_b = NEG, l_a = 0.f, l_b = 0.f;  // l: this lane's share of the row sum
+    float corr_a, corr_b;
 
-    hopper::mbar_wait(&qbar[pass], 0);
-    // K-major, 128-byte rows
-    const uint64_t dq = hopper::make_desc(qs + pass * TILE, 16, 1024, 1);
-    for (int t = t_begin; t < t_end; ++t, ++i) {
-      const int s = i % STAGES;
-      hopper::mbar_wait(&kfull[s], (i / STAGES) & 1);
-      const uint64_t dk = hopper::make_desc(ks + s * TILE, 16, 1024, 1);    // K-major
-      const uint64_t dv = hopper::make_desc(vs + s * TILE, TILE, 1024, 1);  // MN-major
-      hopper::fence_operand(sacc);
-      hopper::wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        hopper::wgmma_ss<0>(sacc, hopper::desc_add(dq, kk * 32), hopper::desc_add(dk, kk * 32),
-                            kk > 0);
-      hopper::wgmma_commit();
-      hopper::wgmma_wait<0>();
-      hopper::fence_operand(sacc);
+    const int slot = pass % QBUFS;
+    hopper::mbar_wait_opaque(&qfull[slot], (pass / QBUFS) & 1);
+    const uint64_t dq = hopper::make_desc(qs + slot * QB + wg * 64 * 128, 16, 1024, 1);
 
-      // the softcap, and masks only where a tile crosses an edge
-      const int k0 = t * BKV;
-      const bool edge = (k0 + BKV > Skv) || (causal && k0 + BKV - 1 > q0) ||
-                        (window > 0 && k0 <= q0 + BQ - 1 - window);
-      if (capped || edge) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            float v = sacc[4 * j + e];
-            if (capped) v = softcap * tanhf(v * scale / softcap) * LOG2E;
-            if (edge) {
-              const int col = k0 + 8 * j + 2 * q + (e & 1), row = e < 2 ? ra : rb;
-              bool ok = col < Skv;
-              if (causal) ok = ok && col <= row;
-              if (window > 0) ok = ok && col > row - window;
-              v = ok ? v : -INFINITY;
-            }
-            sacc[4 * j + e] = v;
-          }
+    // the first tile's scores and P (O is still 0)
+    int s = i % STAGES;
+    hopper::mbar_wait_opaque(&kfull[s], (i / STAGES) & 1);
+    issue_qk<D>(sacc, dq, hopper::make_desc(ks + s * KVB, 16, 1024, 1), BQ * 128);
+    hopper::wgmma_wait<0>();
+    hopper::fence_operand(sacc);
+    if (leader) hopper::mbar_arrive(&kempty[s]);  // K slot s is free (of this warpgroup)
+    sm.tile(sacc, t_begin * BKV, q0, ra, rb, q, m_a, m_b, l_a, l_b, corr_a, corr_b);
+    pack_p(pa, sacc);
+    // Then tile t's softmax runs while the tensor cores do tile t-1's P·V:
+    // Q·Kᵀ of tile t and P·V of tile t-1 are issued together, the scores
+    // waited for alone, and O rescaled once P·V is done.
+    for (int t = t_begin + 1; t < t_end; ++t) {
+      const int sp = s;  // tile t-1's slot
+      ++i;
+      s = i % STAGES;
+      hopper::mbar_wait_opaque(&kfull[s], (i / STAGES) & 1);
+      hopper::mbar_wait_opaque(&vfull[sp], ((i - 1) / STAGES) & 1);
+      issue_qk<D>(sacc, dq, hopper::make_desc(ks + s * KVB, 16, 1024, 1), BQ * 128);
+      issue_pv<D>(oacc, pa, vs + sp * KVB);
+      hopper::wgmma_wait<1>();  // Q·Kᵀ of tile t is done
+      hopper::fence_operand(sacc);
+      sm.tile(sacc, t * BKV, q0, ra, rb, q, m_a, m_b, l_a, l_b, corr_a, corr_b);
+      hopper::wgmma_wait<0>();  // P·V of tile t-1 is done
+      hopper::fence_operand(oacc);
+      hold(pa);
+      if (leader) {
+        hopper::mbar_arrive(&kempty[s]);
+        hopper::mbar_arrive(&vempty[sp]);
       }
-      float mx_a = NEG, mx_b = NEG;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        mx_a = fmaxf(mx_a, fmaxf(sacc[4 * j + 0], sacc[4 * j + 1]));
-        mx_b = fmaxf(mx_b, fmaxf(sacc[4 * j + 2], sacc[4 * j + 3]));
-      }
-#pragma unroll
-      for (int off = 1; off < 4; off *= 2) {
-        mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
-        mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
-      }
-      const float mn_a = fmaxf(m_a, mx_a * factor), mn_b = fmaxf(m_b, mx_b * factor);
-      const float corr_a = hopper::exp2_approx(m_a - mn_a);
-      const float corr_b = hopper::exp2_approx(m_b - mn_b);
-      m_a = mn_a;
-      m_b = mn_b;
-      float sum_a = 0.f, sum_b = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        sacc[4 * j + 0] = hopper::exp2_approx(fmaf(sacc[4 * j + 0], factor, -mn_a));
-        sacc[4 * j + 1] = hopper::exp2_approx(fmaf(sacc[4 * j + 1], factor, -mn_a));
-        sacc[4 * j + 2] = hopper::exp2_approx(fmaf(sacc[4 * j + 2], factor, -mn_b));
-        sacc[4 * j + 3] = hopper::exp2_approx(fmaf(sacc[4 * j + 3], factor, -mn_b));
-        sum_a += sacc[4 * j + 0] + sacc[4 * j + 1];
-        sum_b += sacc[4 * j + 2] + sacc[4 * j + 3];
+      for (int j = 0; j < D / 8; ++j) {
         oacc[4 * j + 0] *= corr_a;
         oacc[4 * j + 1] *= corr_a;
         oacc[4 * j + 2] *= corr_b;
         oacc[4 * j + 3] *= corr_b;
       }
-      l_a = l_a * corr_a + sum_a;
-      l_b = l_b * corr_b + sum_b;
-
-      // O += P·V: P's accumulator fragment is the A operand's register layout
-      uint32_t pa[4][4];
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          pa[kk][e] = hopper::pack_bf16(sacc[8 * kk + 2 * e], sacc[8 * kk + 2 * e + 1]);
-      hopper::mbar_wait(&vfull[s], (i / STAGES) & 1);
-      hopper::fence_operand(oacc);
-      hopper::wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < BKV / 16; ++kk)
-        hopper::wgmma_rs<1>(oacc, pa[kk], hopper::desc_add(dv, kk * 16 * 128));
-      hopper::wgmma_commit();
-      hopper::wgmma_wait<0>();
-      hopper::fence_operand(oacc);
-      if (tid == 0) hopper::mbar_arrive(&empty[s]);  // K/V slot s is free
+      pack_p(pa, sacc);
     }
+    // the last tile's P·V
+    hopper::mbar_wait_opaque(&vfull[s], (i / STAGES) & 1);
+    issue_pv<D>(oacc, pa, vs + s * KVB);
+    hopper::wgmma_wait<0>();
+    hopper::fence_operand(oacc);
+    hold(pa);
+    if (leader) hopper::mbar_arrive(&vempty[s]);
+    ++i;
+    if (leader) hopper::mbar_arrive(&qempty[slot]);  // and so is its part of the Q tile
 
 #pragma unroll
     for (int off = 1; off < 4; off *= 2) {
@@ -280,7 +432,7 @@ kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtenso
     const float inv_a = 1.f / fmaxf(l_a, 1e-30f), inv_b = 1.f / fmaxf(l_b, 1e-30f);
     bf16* ob = o + bi * ost.b + h * ost.h;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < D / 8; ++j) {
       const int col = 8 * j + 2 * q;
       if (ra < Sq)
         *reinterpret_cast<bf162*>(ob + ra * ost.s + col) =
@@ -292,12 +444,15 @@ kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtenso
   }
 }
 
-// q (B,H,Sq,64), k/v (B,Kv,Skv,64) as 4-D tensor maps {d, seq, head, batch}
+// q (B,H,Sq,D), k/v (B,Kv,Skv,D) as 4-D tensor maps {d, seq, head, batch}
+// read in boxes of 64 columns: BQ query rows, 64 key rows
+template <int D>
 cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int H, int Kv,
                    int Sq, int Skv, const Strides* st, int causal, int window, float softcap,
                    float scale, cudaStream_t stream) {
+  using Lay = Layout<D>;
   static bool smem_set = false;
-  cudaError_t e = hopper::allow_smem(kernel, SMEM, smem_set);
+  cudaError_t e = hopper::allow_smem(kernel<D>, Lay::SMEM, smem_set);
   if (e != cudaSuccess) return e;
   CUtensorMap maps[3];
   const bf16* ptrs[3] = {q, k, v};
@@ -306,14 +461,14 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, 
                                (uint64_t)B};
     const uint64_t strides[3] = {(uint64_t)st[i].s * 2, (uint64_t)st[i].h * 2,
                                  (uint64_t)st[i].b * 2};
-    const uint32_t box[4] = {D, 64, 1, 1};
+    const uint32_t box[4] = {64, (uint32_t)(i ? BKV : Lay::BQ), 1, 1};
     if ((e = hopper::make_tensor_map(&maps[i], ptrs[i], 4, sizes, strides, box, 128)) !=
         cudaSuccess)
       return e;
   }
-  dim3 grid(((Sq + BQ - 1) / BQ + 1) / 2, H, B);
-  kernel<<<grid, THREADS, SMEM, stream>>>(maps[0], maps[1], maps[2], o, H, Kv, Sq, Skv, st[3],
-                                          causal, window, softcap, scale);
+  dim3 grid(((Sq + Lay::BQ - 1) / Lay::BQ + 1) / 2, H, B);
+  kernel<D><<<grid, Lay::THREADS, Lay::SMEM, stream>>>(maps[0], maps[1], maps[2], o, H, Kv, Sq,
+                                                       Skv, st[3], causal, window, softcap, scale);
   return cudaGetLastError();
 }
 
@@ -737,18 +892,26 @@ bool valid(int B, int H, int Kv, int Sq, int Skv) {
 // q, k, v, o in that order. Each entry launches one variant on `stream` and
 // returns cudaGetLastError() (cudaErrorInvalidValue for what it does not take).
 
-// wgmma: D = 64; every stride of q, k, v a multiple of 8 and their pointers
-// 16-byte aligned (TMA)
+// wgmma: D in {64, 128, 256}; every stride of q, k, v a multiple of 8 and
+// their pointers 16-byte aligned (TMA)
 extern "C" int flash_attention_wgmma_bf16(const void* q, const void* k, const void* v, void* o,
                                           int B, int H, int Kv, int Sq, int Skv, int D,
                                           const long long* strides, int causal, int window,
                                           float softcap, float scale, void* stream) {
-  if (!valid(B, H, Kv, Sq, Skv) || D != tc::D) return (int)cudaErrorInvalidValue;
+  using namespace tc;
+  if (!valid(B, H, Kv, Sq, Skv)) return (int)cudaErrorInvalidValue;
   Strides st[4];
   for (int i = 0; i < 4; ++i) st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
-  return (int)tc::launch(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                         static_cast<const bf16*>(v), static_cast<bf16*>(o), B, H, Kv, Sq, Skv,
-                         st, causal, window, softcap, scale, static_cast<cudaStream_t>(stream));
+  const bf16 *qp = static_cast<const bf16*>(q), *kp = static_cast<const bf16*>(k);
+  const bf16* vp = static_cast<const bf16*>(v);
+  bf16* op = static_cast<bf16*>(o);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 64: return (int)launch<64>(qp, kp, vp, op, B, H, Kv, Sq, Skv, st, causal, window, softcap, scale, s);
+    case 128: return (int)launch<128>(qp, kp, vp, op, B, H, Kv, Sq, Skv, st, causal, window, softcap, scale, s);
+    case 256: return (int)launch<256>(qp, kp, vp, op, B, H, Kv, Sq, Skv, st, causal, window, softcap, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // wmma: D in {16, 32, 64, 128, 256}, any strides

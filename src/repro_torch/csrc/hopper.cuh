@@ -63,6 +63,18 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
+// the same wait with its loop inside one asm block: between asynchronous
+// wgmmas, a loop the compiler sees makes ptxas serialize them (C7518)
+__device__ __forceinline__ void mbar_wait_opaque(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
 // TMA: the box of `map` at the given coordinates (innermost first) into
 // shared memory; completion counts its bytes on `bar`. Out-of-bounds
 // elements arrive as zeros and still count.
@@ -196,6 +208,18 @@ __device__ __forceinline__ void stmatrix_x4_trans(void* row, uint32_t r0, uint32
                : "memory");
 }
 
+// moves the calling warpgroup's register budget to REGS a thread (a
+// multiple of 8, 24-256): a producer warpgroup gives registers up, the
+// consumer warpgroups take them
+template <int REGS>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(REGS));
+}
+template <int REGS>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(REGS));
+}
+
 // named barrier among `count` threads (a multiple of 32); id 0 is __syncthreads
 __device__ __forceinline__ void named_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
@@ -219,16 +243,28 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t desc_a, uint64
       : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_A), "n"(TRANS_B));
 }
 
+// D (64 x 8, fp32) = A (64 x 16, smem) · B (16 x 8, smem) + (scale_d ? D : 0)
+template <int TRANS_B, int TRANS_A = 0>
+__device__ __forceinline__ void wgmma_ss(float (&d)[4], uint64_t desc_a, uint64_t desc_b,
+                                         int scale_d = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, %7, %8;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_A), "n"(TRANS_B));
+}
+
 // D (64 x 16, fp32) = A (64 x 16, smem) · B (16 x 16, smem) + (scale_d ? D : 0)
-template <int TRANS_B>
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[8], uint64_t desc_a, uint64_t desc_b,
                                          int scale_d = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, %11;\n}\n"
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, %11, %12;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_A), "n"(TRANS_B));
 }
 
 // D (64 x 64, fp32) = A (64 x 16, smem) · B (16 x 64, smem) + (scale_d ? D : 0)

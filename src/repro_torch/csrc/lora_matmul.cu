@@ -26,23 +26,31 @@
 //   memory and TMA stores. The wrapper picks the tile width (64-256) so that
 //   the grid fills the 132 SMs in few waves. TMA zero-fills the ragged edges
 //   on load and clips them on store.
-// * decode (M <= 16): what bounds it is reading W once from device memory.
-//   A cluster of 8 blocks splits K; the clusters split N into 64-column
-//   slices (128 above N = 2048, to halve the clusters), so even N = 256
-//   keeps 32 SMs streaming. Each block streams its W sub-tile through a
-//   cp.async ring of up to 8 stages (16-byte copies, up to 32 KB in flight;
-//   no more slots than the block has rows, so a short K leaves room for
-//   more blocks on an SM) while it multiplies the rows that have arrived
-//   with fp32 FMAs, x's slice staying in shared memory; the same loop adds
-//   the rows' share of u = x·A from the A slice staged beside it. The blocks
-//   of a cluster add their partials of x·W and u through distributed shared
-//   memory in a fixed order (no atomics: the result is the same on every
-//   run), and each adds scale·u·B to its share of the output.
+// * decode (M <= 16): what bounds it is reading W once from device memory
+//   (2·K·N bytes against 2·M·K·N operations). The clusters split N into
+//   64-column slices (128 above N = 2048, to halve the clusters), and a
+//   cluster of up to 8 blocks splits K: about one block an SM over all the
+//   clusters (the wrapper's choice, from a sweep on the card), so even N =
+//   256 keeps 32 SMs streaming and a wide N few blocks an SM. A producer
+//   warp keeps TMA loads of the next K steps in flight through a ring of up
+//   to 3-6 stages (mbarriers for full and empty slots; no more than the
+//   block has K steps, so a short K leaves room for more blocks on an SM):
+//   each stage holds 64 K-rows of the slice's W, of A (64 ranks wide, zero
+//   past r) and of x (8 or 16 rows, zero past M), so shared memory does not
+//   grow with K and two blocks fit on an SM at every K (48-128 KB of W in
+//   flight an SM). One consumer warpgroup runs the products on the tensor
+//   cores with the operands swapped: yᵀ = Wᵀ·xᵀ and uᵀ = Aᵀ·xᵀ, W's columns
+//   and A's ranks as the 64-row MN-major A operand, x as the K-major B
+//   operand of n = 8 or 16, fp32 accumulators in registers. The blocks of a cluster add their
+//   partials of x·W and u through distributed shared memory in a fixed
+//   order (no atomics: the result is the same on every run), and each adds
+//   scale·u·B (fp32 FMAs, B read from device memory) to its share of the
+//   output.
 // * generic (any other bf16 shape: misaligned rows, ranks that are not a
 //   multiple of 8, ranks above 64): the first port's kernel, one 64x64x32
 //   wmma tile with plain loads, ranks in chunks of up to 64 (a pass over K
-//   for each further chunk of u, x re-read, W not); no main-path bf16 shape
-//   reaches it.
+//   for each further chunk of u, x re-read, W not); no bf16 shape of a
+//   served config reaches it.
 // * fp32 (fp32 inputs, any shape and rank; the smoke configs serve in
 //   fp32): a tiled SIMT kernel, fp32 FMAs on the CUDA cores (TF32 would miss
 //   the reference's fp32 tolerance). What bounds it is the fp32 CUDA-core
@@ -275,187 +283,178 @@ cudaError_t launch(const bf16* x, const bf16* w, const bf16* a, const bf16* b, b
 }  // namespace prefill
 
 // ===========================================================================
-// decode: a cluster of 8 blocks splits K, cp.async ring, fp32 FMAs
+// decode: a cluster of up to 8 blocks splits K; TMA ring, swapped wgmma
 // ===========================================================================
 namespace decode {
 
-constexpr int CK = 8;         // blocks of a cluster; block `rank` takes K rows rank·kc + [0, kc)
-constexpr int KT = 32;        // W rows per ring slot
-constexpr int STAGES = 8;
-constexpr int THREADS = 256;  // 8 warps; warp g takes rows g, g + 8, ... of each slot
+constexpr int MAX_SPLIT = 8;   // blocks of a cluster (portable); block `rank` takes K rows rank·kc + [0, kc)
+constexpr int BK = 64;         // K rows of a ring slot
+constexpr int RANKS = 64;      // the A tile's columns: ranks past r arrive as zeros
+constexpr int THREADS = 160;   // warpgroup 0 consumes, warp 4 produces
+constexpr int MAX_STAGES = 6;
+constexpr size_t SM_SMEM = 233472;  // an SM's shared memory; each block also reserves 1 KB
 
-// W ring slots of a block whose K slice is kc rows
-__host__ __device__ constexpr int ring_slots(int kc) { return kc / KT < STAGES ? kc / KT : STAGES; }
-
-// shared memory of a block whose cluster owns BN columns, in bytes (also
-// kernels/lora_matmul.py ``decode_smem_bytes``)
-__host__ __device__ constexpr size_t smem_bytes(int MT, int BN, int kc, int r) {
-  return (size_t)kc * MT * 4                     // x slice, fp32, [k][m]
-         + (size_t)ring_slots(kc) * KT * BN * 2  // W ring
-         + (size_t)kc * r * 2                    // A slice
-         + (size_t)r * BN * 2                    // B slice
-         + (size_t)8 * MT * (BN + r) * 4         // per-warp partials of x·W and u
-         + (size_t)MT * BN * 4                   // the block's partial of x·W
-         + (size_t)2 * MT * r * 4;               // the block's partial of u, and the whole u
-}
-
-// MT: rows of x padded to 8 or 16; BN: columns of a cluster's slice (64 or
-// 128: the wider slice halves the clusters of a wide N)
+// MT: rows of x padded to 8 or 16 (the n of the wgmmas); BN: columns of a
+// cluster's slice (64 or 128: the wider slice halves the clusters of a wide N)
 template <int MT, int BN>
-__global__ void __cluster_dims__(CK, 1, 1) __launch_bounds__(THREADS)
-kernel(const bf16* __restrict__ x, const bf16* __restrict__ w, const bf16* __restrict__ a,
-       const bf16* __restrict__ b, bf16* __restrict__ y, int M, int K, int N, int r, int kc,
-       float scale) {
-  constexpr int CPT = BN / 32;  // columns per thread: lane p owns [CPT·p, CPT·p + CPT)
+struct Layout {
+  static constexpr int X_BYTES = MT * BK * 2;     // x: MT rows of 64 K-columns, 128-byte rows
+  static constexpr int A_BYTES = BK * RANKS * 2;  // A: 64 K-rows of 64 ranks
+  static constexpr int W_BYTES = BK * BN * 2;     // W: BN/64 boxes of 64 K-rows x 64 columns
+  static constexpr int STAGE = X_BYTES + A_BYTES + W_BYTES;  // every part 1024-aligned
+  // the slice's partial of x·W, the block's partial of u and the whole u
+  // (fp32), the barriers and the alignment slack
+  static constexpr int FIXED = 1024 + MT * BN * 4 + 2 * MT * RANKS * 4 + 256;
+  // at most as many stages as leave room for two blocks an SM, at most
+  // MAX_STAGES; a block whose K slice is shorter takes one per K step
+  static constexpr int FIT = (int)((SM_SMEM / 2 - 1024 - FIXED) / STAGE);
+  static constexpr int STAGES = FIT < MAX_STAGES ? FIT : MAX_STAGES;
+  // a block's shared memory (mirrored by kernels/lora_matmul.py ``decode_smem_bytes``)
+  static constexpr size_t smem(int stages) { return FIXED + (size_t)stages * STAGE; }
+  static_assert(STAGES >= 2 && X_BYTES % 1024 == 0, "unsupported tile");
+};
+
+// yᵀ = Wᵀ·xᵀ and uᵀ = Aᵀ·xᵀ on the tensor cores, swapped so that the 64-row
+// side of the wgmma is W's columns (and A's ranks), not x's few rows: per
+// K step, W's and A's tiles are MN-major A operands (their columns
+// contiguous) and x's tile is the K-major B operand of n = MT.
+template <int MT, int BN>
+__global__ void __launch_bounds__(THREADS, 2)
+kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w,
+       const __grid_constant__ CUtensorMap tm_a, const bf16* __restrict__ b,
+       bf16* __restrict__ y, int M, int K, int N, int r, int kc, int stages, float scale) {
+  using L = Layout<MT, BN>;
+  constexpr int NB = BN / 64;
   cg::cluster_group cluster = cg::this_cluster();
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* xs = reinterpret_cast<float*>(smem_raw);                 // kc x MT
-  bf16* ws = reinterpret_cast<bf16*>(xs + kc * MT);               // ring x KT x BN
-  bf16* as = ws + ring_slots(kc) * KT * BN;                       // kc x r
-  bf16* bs = as + kc * r;                                         // r x BN
-  float* red = reinterpret_cast<float*>(bs + r * BN);             // 8 x MT x (BN + r)
-  float* part = red + 8 * MT * (BN + r);                          // MT x BN
-  float* upart = part + MT * BN;                                  // MT x r
-  float* ufull = upart + MT * r;                                  // MT x r
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base =
+      reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~1023ull);
+  float* part = reinterpret_cast<float*>(base + stages * L::STAGE);  // MT x BN
+  float* upart = part + MT * BN;                                      // MT x RANKS
+  float* ufull = upart + MT * RANKS;                                  // MT x RANKS
+  uint64_t* full = reinterpret_cast<uint64_t*>(ufull + MT * RANKS);
+  uint64_t* empty = full + stages;
 
-  const int tid = threadIdx.x;
-  const int rank = (int)cluster.block_rank();
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int rank = (int)cluster.block_rank(), nc = (int)cluster.num_blocks();
   const int n0 = blockIdx.y * BN;
-  const int kbeg = rank * kc, kend = min(K, kbeg + kc);
-  const int nrows = max(0, kend - kbeg);
-  const int nkt = (nrows + KT - 1) / KT;
+  const int kbeg = rank * kc, kend = min(K, kbeg + kc);  // kc: a multiple of BK
+  const int nkt = kend > kbeg ? (kend - kbeg + BK - 1) / BK : 0;
 
-  // slot t % STAGES <- W rows [kbeg + t·KT, +KT) x columns [n0, n0 + BN), zero outside
-  auto load_w = [&](int t) {
-    for (int c = tid; c < KT * BN / 8; c += THREADS) {
-      const int row = c / (BN / 8), c8 = (c % (BN / 8)) * 8;
-      const int k = kbeg + t * KT + row, n = n0 + c8;
-      const bool ok = k < kend && n < N;
-      hopper::cp_async16(ws + (t % STAGES) * KT * BN + row * BN + c8,
-                         ok ? w + (size_t)k * N + n : w, ok ? 16 : 0);
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      hopper::mbar_init(&full[s], 1);   // the producer's arrive + the bytes
+      hopper::mbar_init(&empty[s], 1);  // the consumer warpgroup's arrive
     }
-  };
-  // the A and B slices ride in the first group
-  for (int c = tid; c < kc * r / 8; c += THREADS) {
-    const int k = c / (r / 8), j = (c % (r / 8)) * 8;
-    const bool ok = kbeg + k < kend;
-    hopper::cp_async16(as + k * r + j, ok ? a + (size_t)(kbeg + k) * r + j : a, ok ? 16 : 0);
+    hopper::fence_barrier_init();
   }
-  for (int c = tid; c < r * BN / 8; c += THREADS) {
-    const int j = c / (BN / 8), n = n0 + (c % (BN / 8)) * 8;
-    const bool ok = n < N;
-    hopper::cp_async16(bs + c * 8, ok ? b + (size_t)j * N + n : b, ok ? 16 : 0);
-  }
-#pragma unroll
-  for (int t = 0; t < STAGES - 1; ++t) {
-    if (t < nkt) load_w(t);
-    hopper::cp_async_commit();
-  }
-  // x's slice as fp32, zero past M and kend (coalesced reads along K)
-  for (int i = tid; i < MT * kc; i += THREADS) {
-    const int m = i / kc, k = i % kc;
-    xs[k * MT + m] = (m < M && k < nrows) ? __bfloat162float(x[(size_t)m * K + kbeg + k]) : 0.f;
-  }
+  __syncthreads();
 
-  // x·W over the block's rows: thread (g = warp, p = lane) owns CPT columns
-  // of the slice and, for 2p < r, ranks 2p, 2p+1 of u
-  const int g = tid / 32, p = tid % 32;
-  const bool has_u = 2 * p < r;
-  float acc[MT][CPT], uacc[MT][2];
+  if (warp == 4) {  // producer: x, A and W tiles of K step t into slot s = t % stages
+    if (lane == 0) {
+      hopper::prefetch_tensormap(&tm_x);
+      hopper::prefetch_tensormap(&tm_w);
+      hopper::prefetch_tensormap(&tm_a);
+      for (int t = 0, s = 0, phase = 0; t < nkt; ++t) {
+        const int k = kbeg + t * BK;
+        hopper::mbar_wait(&empty[s], phase ^ 1);
+        unsigned char* st = base + s * L::STAGE;
+        hopper::mbar_arrive_expect_tx(&full[s], L::STAGE);
+        hopper::tma_load_2d(st, &tm_x, &full[s], k, 0);
+        hopper::tma_load_2d(st + L::X_BYTES, &tm_a, &full[s], 0, k);
 #pragma unroll
-  for (int m = 0; m < MT; ++m) {
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) acc[m][c] = 0.f;
-    uacc[m][0] = uacc[m][1] = 0.f;
-  }
-  for (int t = 0; t < nkt; ++t) {
-    if (t + STAGES - 1 < nkt) load_w(t + STAGES - 1);
-    hopper::cp_async_commit();
-    hopper::cp_async_wait<STAGES - 1>();  // slot t has landed (this thread's copies)
-    __syncthreads();                      // (everyone's, and x's slice)
-    const bf16* wt = ws + (t % STAGES) * KT * BN;
-#pragma unroll
-    for (int i = 0; i < KT / 8; ++i) {
-      const int kk = g + 8 * i;
-      float wv[CPT];
-#pragma unroll
-      for (int c = 0; c < CPT; c += 2) {
-        const float2 v =
-            __bfloat1622float2(*reinterpret_cast<const bf162*>(wt + kk * BN + CPT * p + c));
-        wv[c] = v.x;
-        wv[c + 1] = v.y;
-      }
-      const float4* xk = reinterpret_cast<const float4*>(xs + (t * KT + kk) * MT);
-      float2 av = make_float2(0.f, 0.f);
-      if (has_u)
-        av = __bfloat1622float2(*reinterpret_cast<const bf162*>(as + (t * KT + kk) * r + 2 * p));
-#pragma unroll
-      for (int m4 = 0; m4 < MT / 4; ++m4) {
-        const float4 xv = xk[m4];
-        const float xm[4] = {xv.x, xv.y, xv.z, xv.w};
-#pragma unroll
-        for (int i2 = 0; i2 < 4; ++i2) {
-#pragma unroll
-          for (int c = 0; c < CPT; ++c) acc[4 * m4 + i2][c] += xm[i2] * wv[c];
-          uacc[4 * m4 + i2][0] += xm[i2] * av.x;
-          uacc[4 * m4 + i2][1] += xm[i2] * av.y;
-        }
+        for (int j = 0; j < NB; ++j)
+          hopper::tma_load_2d(st + L::X_BYTES + L::A_BYTES + j * BK * 128, &tm_w, &full[s],
+                              n0 + 64 * j, k);
+        if (++s == stages) s = 0, phase ^= 1;
       }
     }
-    __syncthreads();  // slot t % STAGES is refilled next
-  }
-  hopper::cp_async_wait<0>();
-  const int RW = BN + r;  // a row of red: the slice's columns, then u's ranks
+  } else {
+    // consumer warpgroup: thread (warp w, lane l) holds rows 16w + l/4 + {0, 8}
+    // of each 64-row product (W's columns, A's ranks) at x's rows 8j + 2(l%4) + {0, 1}
+    float acc[NB][MT / 2], uacc[MT / 2];
 #pragma unroll
-  for (int m = 0; m < MT; ++m) {
+    for (int e = 0; e < MT / 2; ++e) {
+      uacc[e] = 0.f;
 #pragma unroll
-    for (int c = 0; c < CPT; c += 2)
-      *reinterpret_cast<float2*>(red + (g * MT + m) * RW + CPT * p + c) =
-          make_float2(acc[m][c], acc[m][c + 1]);
-    if (has_u)
-      *reinterpret_cast<float2*>(red + (g * MT + m) * RW + BN + 2 * p) =
-          make_float2(uacc[m][0], uacc[m][1]);
-  }
-  __syncthreads();  // (also: the B slice has landed)
+      for (int j = 0; j < NB; ++j) acc[j][e] = 0.f;
+    }
+    for (int t = 0, s = 0, phase = 0, prev = 0; t < nkt; ++t) {
+      hopper::mbar_wait(&full[s], phase);
+      unsigned char* st = base + s * L::STAGE;
+      // x: K-major, 128-byte rows; A and W: MN-major, 128-byte rows, groups
+      // of 8 K-rows 1024 bytes apart (one 64-column block each)
+      const uint64_t dx = hopper::make_desc(st, 16, 1024, 1);
+      const uint64_t da = hopper::make_desc(st + L::X_BYTES, BK * 128, 1024, 1);
+      const uint64_t dw = hopper::make_desc(st + L::X_BYTES + L::A_BYTES, BK * 128, 1024, 1);
+#pragma unroll
+      for (int j = 0; j < NB; ++j) hopper::fence_operand(acc[j]);
+      hopper::fence_operand(uacc);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const uint64_t dxk = hopper::desc_add(dx, kk * 32);
+#pragma unroll
+        for (int j = 0; j < NB; ++j)
+          hopper::wgmma_ss<0, 1>(acc[j], hopper::desc_add(dw, j * BK * 128 + kk * 2048), dxk);
+        hopper::wgmma_ss<0, 1>(uacc, hopper::desc_add(da, kk * 2048), dxk);
+      }
+      hopper::wgmma_commit();
+#pragma unroll
+      for (int j = 0; j < NB; ++j) hopper::fence_operand(acc[j]);
+      hopper::fence_operand(uacc);
+      hopper::wgmma_wait<1>();  // the previous step's products are done: free its slot
+      if (t > 0 && tid == 0) hopper::mbar_arrive(&empty[prev]);
+      prev = s;
+      if (++s == stages) s = 0, phase ^= 1;
+    }
+    hopper::wgmma_wait<0>();
+#pragma unroll
+    for (int j = 0; j < NB; ++j) hopper::fence_operand(acc[j]);
+    hopper::fence_operand(uacc);
 
-  for (int i = tid; i < MT * RW; i += THREADS) {
-    float s = 0.f;
+    const int w = warp, q = lane % 4;
 #pragma unroll
-    for (int gg = 0; gg < 8; ++gg) s += red[gg * MT * RW + i];
-    const int m = i / RW, c = i % RW;
-    if (c < BN)
-      part[m * BN + c] = s;
-    else
-      upart[m * r + c - BN] = s;
+    for (int jm = 0; jm < MT / 8; ++jm)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = 8 * jm + 2 * q + (e & 1), row = 16 * w + lane / 4 + 8 * (e / 2);
+#pragma unroll
+        for (int j = 0; j < NB; ++j) part[m * BN + 64 * j + row] = acc[j][4 * jm + e];
+        upart[m * RANKS + row] = uacc[4 * jm + e];
+      }
   }
-  const int P = MT * r;
 
   cluster.sync();  // every block's partials are written
-  for (int i = tid; i < P; i += THREADS) {
-    float v[CK];
+  // (the partials are added in rank order; the zeros past the cluster's
+  // blocks leave each sum as it is)
+  for (int i = tid; i < MT * r; i += THREADS) {
+    const int m = i / r, j = i % r;
+    float v[MAX_SPLIT];
 #pragma unroll
-    for (int q = 0; q < CK; ++q) v[q] = cluster.map_shared_rank(upart, q)[i];
-    float s = 0.f;
+    for (int c = 0; c < MAX_SPLIT; ++c)
+      v[c] = c < nc ? cluster.map_shared_rank(upart, c)[m * RANKS + j] : 0.f;
+    float sum = 0.f;
 #pragma unroll
-    for (int q = 0; q < CK; ++q) s += v[q];
-    ufull[i] = s;
+    for (int c = 0; c < MAX_SPLIT; ++c) sum += v[c];
+    ufull[m * RANKS + j] = sum;
   }
   __syncthreads();
   // this block's share of the output slice: y = Σ partials + scale · u·B
-  constexpr int PER = MT * BN / CK;
-  for (int i = tid; i < PER; i += THREADS) {
-    const int e = rank * PER + i, m = e / BN, n = n0 + e % BN;
-    if (m < M && n < N) {
-      float v[CK];
+  const int per = (MT * BN + nc - 1) / nc;
+  for (int i = tid; i < per; i += THREADS) {
+    const int e = rank * per + i, m = e / BN, n = n0 + e % BN;
+    if (e < MT * BN && m < M && n < N) {
+      float v[MAX_SPLIT];
 #pragma unroll
-      for (int q = 0; q < CK; ++q) v[q] = cluster.map_shared_rank(part, q)[e];
-      float s = 0.f;
+      for (int c = 0; c < MAX_SPLIT; ++c) v[c] = c < nc ? cluster.map_shared_rank(part, c)[e] : 0.f;
+      float sum = 0.f;
 #pragma unroll
-      for (int q = 0; q < CK; ++q) s += v[q];
+      for (int c = 0; c < MAX_SPLIT; ++c) sum += v[c];
       float d = 0.f;
 #pragma unroll 8
-      for (int j = 0; j < r; ++j) d += ufull[m * r + j] * __bfloat162float(bs[j * BN + e % BN]);
-      y[(size_t)m * N + n] = __float2bfloat16(s + scale * d);
+      for (int j = 0; j < r; ++j) d += ufull[m * RANKS + j] * __bfloat162float(b[(size_t)j * N + n]);
+      y[(size_t)m * N + n] = __float2bfloat16(sum + scale * d);
     }
   }
   cluster.sync();  // the other blocks read this block's shared memory until here
@@ -463,15 +462,37 @@ kernel(const bf16* __restrict__ x, const bf16* __restrict__ w, const bf16* __res
 
 template <int MT, int BN>
 cudaError_t launch(const bf16* x, const bf16* w, const bf16* a, const bf16* b, bf16* y, int M,
-                   int K, int N, int r, float scale, cudaStream_t stream) {
-  const int kc = ((K + CK - 1) / CK + KT - 1) / KT * KT;
-  const size_t smem = smem_bytes(MT, BN, kc, r);
-  if (smem > SMEM_MAX) return cudaErrorInvalidValue;
-  static bool smem_set = false;  // set once, to the most any shape may need
-  cudaError_t e = hopper::allow_smem(kernel<MT, BN>, SMEM_MAX, smem_set);
+                   int K, int N, int r, float scale, int split, cudaStream_t stream) {
+  using L = Layout<MT, BN>;
+  static bool smem_set = false;
+  cudaError_t e = hopper::allow_smem(kernel<MT, BN>, L::smem(L::STAGES), smem_set);
   if (e != cudaSuccess) return e;
-  dim3 grid(CK, (N + BN - 1) / BN);
-  kernel<MT, BN><<<grid, THREADS, smem, stream>>>(x, w, a, b, y, M, K, N, r, kc, scale);
+  CUtensorMap tx, tw, ta;
+  const uint64_t xs[2] = {(uint64_t)K, (uint64_t)M}, xst[1] = {(uint64_t)K * 2};
+  const uint64_t ws[2] = {(uint64_t)N, (uint64_t)K}, wst[1] = {(uint64_t)N * 2};
+  const uint64_t as[2] = {(uint64_t)r, (uint64_t)K}, ast[1] = {(uint64_t)r * 2};
+  const uint32_t xb[2] = {BK, MT}, wb[2] = {64, BK}, ab[2] = {RANKS, BK};
+  if ((e = hopper::make_tensor_map(&tx, x, 2, xs, xst, xb, 128)) != cudaSuccess) return e;
+  if ((e = hopper::make_tensor_map(&tw, w, 2, ws, wst, wb, 128)) != cudaSuccess) return e;
+  if ((e = hopper::make_tensor_map(&ta, a, 2, as, ast, ab, 128)) != cudaSuccess) return e;
+  int kc = ((K + split - 1) / split + BK - 1) / BK * BK;
+  int stages = kc / BK < L::STAGES ? kc / BK : L::STAGES;
+  // a cluster of `split` blocks along K for each slice of N
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(split, (N + BN - 1) / BN);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = L::smem(stages);
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  void* args[] = {&tx, &tw, &ta, &b, &y, &M, &K, &N, &r, &kc, &stages, &scale};
+  e = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(kernel<MT, BN>), args);
+  if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
@@ -887,24 +908,26 @@ extern "C" int lora_matmul_prefill_bf16(const void* x, const void* w, const void
   return (int)cudaErrorInvalidValue;
 }
 
-// decode: M <= 16, N and r multiples of 8, r <= 64, w, a and b 16-byte
-// aligned; bn = the columns of a cluster's slice (64 or 128)
+// decode: M <= 16, K, N and r multiples of 8, r <= 64, every pointer
+// 16-byte aligned; bn = the columns of a cluster's slice (64 or 128), split =
+// the blocks of a cluster, each a slice of K (1-8)
 extern "C" int lora_matmul_decode_bf16(const void* x, const void* w, const void* a,
                                        const void* b, void* y, int M, int K, int N, int r,
-                                       float scale, int bn, void* stream) {
-  if (M <= 0 || M > 16 || K <= 0 || N <= 0 || r <= 0 || r > 64 || N % 8 || r % 8 ||
-      (bn != 64 && bn != 128) || (N + bn - 1) / bn > 65535)
+                                       float scale, int bn, int split, void* stream) {
+  if (M <= 0 || M > 16 || K <= 0 || N <= 0 || r <= 0 || r > 64 || K % 8 || N % 8 || r % 8 ||
+      (bn != 64 && bn != 128) || (N + bn - 1) / bn > 65535 || split < 1 ||
+      split > decode::MAX_SPLIT)
     return (int)cudaErrorInvalidValue;
   const bf16 *xp = static_cast<const bf16*>(x), *wp = static_cast<const bf16*>(w);
   const bf16 *ap = static_cast<const bf16*>(a), *bp = static_cast<const bf16*>(b);
   bf16* yp = static_cast<bf16*>(y);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bn == 64) {
-    if (M <= 8) return (int)decode::launch<8, 64>(xp, wp, ap, bp, yp, M, K, N, r, scale, st);
-    return (int)decode::launch<16, 64>(xp, wp, ap, bp, yp, M, K, N, r, scale, st);
+    if (M <= 8) return (int)decode::launch<8, 64>(xp, wp, ap, bp, yp, M, K, N, r, scale, split, st);
+    return (int)decode::launch<16, 64>(xp, wp, ap, bp, yp, M, K, N, r, scale, split, st);
   }
-  if (M <= 8) return (int)decode::launch<8, 128>(xp, wp, ap, bp, yp, M, K, N, r, scale, st);
-  return (int)decode::launch<16, 128>(xp, wp, ap, bp, yp, M, K, N, r, scale, st);
+  if (M <= 8) return (int)decode::launch<8, 128>(xp, wp, ap, bp, yp, M, K, N, r, scale, split, st);
+  return (int)decode::launch<16, 128>(xp, wp, ap, bp, yp, M, K, N, r, scale, split, st);
 }
 
 // generic: any shape and rank (ranks above 64 in chunks of 64)

@@ -3,9 +3,10 @@ the port of ``repro/kernels/flash_attention.py``'s Pallas kernel, and the
 rule that picks one of its three variants:
 
 * ``wgmma``: TMA + warpgroup MMA with the softmax in registers, bf16, head
-  dim 64 (the main path) with 16-byte aligned rows;
-* ``wmma``: the first port's kernel, bf16, head dims 16, 32, 128 and 256
-  (gemma2-9b) and any strides;
+  dims 64 (fedsllm-100m), 128 (phi4-mini, starcoder2, command-r) and 256
+  (gemma2-9b) with 16-byte aligned rows: every bf16 serve;
+* ``wmma``: the first port's kernel, bf16, head dims 16 and 32, and every
+  head dim with strides or pointers that TMA cannot read;
 * ``fp32``: SIMT online softmax for fp32 inputs (fp32 FMAs, P in fp32),
   every head dim and any strides.
 """
@@ -21,7 +22,7 @@ import torch
 from repro_torch.kernels import _build
 
 HEAD_DIMS = (16, 32, 64, 128, 256)  # the kernels' compiled head widths
-WGMMA_HEAD_DIMS = (64,)
+WGMMA_HEAD_DIMS = (64, 128, 256)
 
 
 def variant(d: int, strides, pointers, fp32: bool = False) -> str:

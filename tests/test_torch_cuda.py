@@ -74,6 +74,8 @@ def test_lora_kernel_matches_plain(cuda, M, K, N, r):
     (8, 768, 768, 8, "decode"), (512, 768, 768, 8, "prefill"),
     (8, 768, 768, 64, "decode"), (512, 768, 768, 64, "prefill"),
     (4096, 768, 2048, 64, "prefill"), (200, 768, 2048, 32, "prefill"),
+    # the down projections of starcoder2-7b and command-r-35b at decode
+    *[(M, K, N, 16, "decode") for K, N in ((18432, 4608), (22528, 8192)) for M in (1, 2, 8, 16)],
 ])
 def test_lora_variants_at_their_edges(cuda, M, K, N, r, expected):
     """Each variant against the plain version around its edges; the wrapper's
@@ -92,13 +94,14 @@ def test_lora_variants_at_their_edges(cuda, M, K, N, r, expected):
     assert err <= _bf16_ulps(ref), (err, _bf16_ulps(ref))
 
 
-def test_lora_decode_is_deterministic(cuda):
+@pytest.mark.parametrize("K,N", [(2048, 768), (18432, 4608)])  # clusters of 8 and 7 blocks
+def test_lora_decode_is_deterministic(cuda, K, N):
     """The decode variant adds the cluster's partials in a fixed order: the
     same inputs give the same bits."""
     gen = torch.Generator(device=cuda).manual_seed(11)
-    x = torch.randn((8, 2048), generator=gen, device=cuda).bfloat16()
+    x = torch.randn((8, K), generator=gen, device=cuda).bfloat16()
     w, a, b = (torch.randn(s, generator=gen, device=cuda).mul(0.05).bfloat16()
-               for s in ((2048, 768), (2048, 16), (16, 768)))
+               for s in ((K, N), (K, 16), (16, N)))
     first = lora_matmul(x, w, a, b, scale=2.0)
     for _ in range(3):
         assert torch.equal(lora_matmul(x, w, a, b, scale=2.0), first)
@@ -269,12 +272,23 @@ def test_flash_kernel_matches_plain(cuda, B, H, Kv, Sq, Skv, d, causal, window, 
     (1, 12, 1, 200, 200, 64, True, 0, 0.0, "wgmma"),
     (2, 4, 2, 100, 100, 16, True, 0, 0.0, "wmma"),
     (2, 4, 2, 100, 100, 32, True, 0, 0.0, "wmma"),
-    (2, 4, 2, 100, 100, 128, True, 0, 0.0, "wmma"),
-    # gemma2's head dim: global and windowed layers with its softcap, ragged
-    (1, 16, 8, 1024, 1024, 256, True, 0, 50.0, "wmma"),
-    (1, 16, 8, 1024, 1024, 256, True, 256, 50.0, "wmma"),
-    (2, 4, 2, 300, 300, 256, True, 64, 0.0, "wmma"),
-    (2, 4, 1, 70, 130, 256, False, 0, 0.0, "wmma"),
+    # head dim 128 (phi4-mini, starcoder2, command-r): their heads, GQA, MQA,
+    # window and softcap, ragged
+    (2, 4, 2, 100, 100, 128, True, 0, 0.0, "wgmma"),
+    (1, 24, 8, 512, 512, 128, True, 0, 0.0, "wgmma"),
+    (2, 12, 4, 129, 129, 128, True, 64, 50.0, "wgmma"),
+    (2, 8, 1, 1, 1, 128, True, 0, 0.0, "wgmma"),
+    (2, 8, 1, 300, 100, 128, False, 0, 20.0, "wgmma"),
+    # gemma2's head dim: global and windowed layers with its softcap (window
+    # 256 at a short S), ragged Sq != Skv, MQA and GQA
+    (1, 16, 8, 1024, 1024, 256, True, 0, 50.0, "wgmma"),
+    (1, 16, 8, 1024, 1024, 256, True, 256, 50.0, "wgmma"),
+    (2, 4, 2, 300, 300, 256, True, 64, 0.0, "wgmma"),
+    (2, 4, 1, 70, 130, 256, False, 0, 0.0, "wgmma"),
+    (2, 16, 8, 300, 700, 256, True, 256, 50.0, "wgmma"),
+    (2, 8, 1, 200, 333, 256, False, 0, 50.0, "wgmma"),
+    (2, 16, 8, 1, 1, 256, True, 0, 50.0, "wgmma"),
+    (2, 4, 4, 65, 65, 256, True, 16, 0.0, "wgmma"),
 ])
 def test_flash_variants_at_their_edges(cuda, B, H, Kv, Sq, Skv, d, causal, window, softcap,
                                        expected):
@@ -301,12 +315,14 @@ def test_flash_wrapper_raises_on_other_head_dims(cuda):
             flash_attention(q, q[:, :1], q[:, :1])
 
 
-def test_flash_misaligned_rows_take_the_wmma_variant(cuda):
-    """d = 64 views whose rows are not 16-byte aligned cannot be read by TMA."""
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_flash_misaligned_rows_take_the_wmma_variant(cuda, d):
+    """Views whose rows are not 16-byte aligned cannot be read by TMA: the
+    first port's kernel takes them at every head dim that wgmma takes."""
     gen = torch.Generator(device=cuda).manual_seed(4)
-    buf = torch.randn((2 * 100 * 4 * 64 + 1,), generator=gen, device=cuda).bfloat16()
-    q = buf[1:].view(2, 100, 4, 64).transpose(1, 2)  # one element off
-    k = torch.randn((2, 100, 2, 64), generator=gen, device=cuda).bfloat16().transpose(1, 2)
+    buf = torch.randn((2 * 100 * 4 * d + 1,), generator=gen, device=cuda).bfloat16()
+    q = buf[1:].view(2, 100, 4, d).transpose(1, 2)  # one element off
+    k = torch.randn((2, 100, 2, d), generator=gen, device=cuda).bfloat16().transpose(1, 2)
     before = flash_attention.variant_launches["wmma"]
     o = flash_attention(q, k, k, causal=True)
     torch.cuda.synchronize()

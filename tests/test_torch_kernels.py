@@ -23,7 +23,9 @@ from repro_torch.kernels import flash_attention as flash_binding
 from repro_torch.kernels import lora_matmul as lora_binding
 from repro_torch.kernels.lora_ops import lora_matmul
 from repro_torch.kernels.lora_ref import lora_matmul_ref
+from repro_torch.config import LoRAConfig, get_arch
 from repro_torch.models import layers as torch_layers
+from repro_torch.models import mamba2
 
 # fp32: both sides accumulate in fp32 in another order; bf16: one bf16 ulp of
 # outputs of magnitude ~1-4 (the reference's own kernel tolerances)
@@ -115,7 +117,7 @@ def test_lora_wrapper_rejects_bad_inputs():
     (8, 768, 768, 1, True, "generic"), (4096, 768, 768, 5, True, "generic"),  # r % 8
     (4096, 768, 768, 80, True, "generic"),  # r above 64
     (8, 768, 768, 16, False, "generic"), (4096, 768, 768, 16, False, "generic"),  # misaligned
-    (8, 200_000, 768, 64, True, "generic"),  # the decode block's K slice overflows shared memory
+    (8, 200_000, 768, 64, True, "decode"),  # the decode ring's size does not grow with K
 ])
 def test_lora_variant_rule(M, K, N, r, aligned, expected):
     """The wrapper's choice of CUDA variant is a pure function of the shapes
@@ -124,7 +126,7 @@ def test_lora_variant_rule(M, K, N, r, aligned, expected):
     kind, extra = lora_binding.plan(M, K, N, r, aligned)
     assert kind == expected
     want = {"prefill": (lora_binding.prefill_tile_n(M, N, r),),
-            "decode": (lora_binding.decode_tile_n(N),)}
+            "decode": (lora_binding.decode_tile_n(N), lora_binding.decode_split(K, N))}
     assert extra == want.get(kind, ())
 
 
@@ -145,13 +147,59 @@ def test_lora_decode_slice_width():
     assert [lora_binding.decode_tile_n(N) for N in (256, 768, 2048, 3352)] == [64, 64, 64, 128]
 
 
+@pytest.mark.parametrize("K,N,split", [
+    (768, 768, 8), (768, 2048, 4), (256, 768, 4),  # fedsllm-100m; a K of 4 steps
+    (18432, 4608, 4), (22528, 8192, 2),  # starcoder2's and command-r's w_down: 144, 128 blocks
+    (3584, 14336, 1), (8192, 22528, 1),  # gemma2's and command-r's w_up: 112, 176 blocks
+])
+def test_lora_decode_split_gives_about_one_block_an_sm(K, N, split):
+    """The decode cluster splits K into as many blocks as give the clusters
+    of N's slices about one block on each of the 132 SMs."""
+    assert lora_binding.decode_split(K, N) == split
+
+
 def test_lora_decode_smem_matches_the_kernel_layout():
-    """decode_smem_bytes mirrors csrc/lora_matmul.cu decode::smem_bytes:
-    M=8, K=768, r=16 -> kc = 96 rows per block of the cluster, 3 ring slots."""
-    kc, mt, r = 96, 8, 16
-    want = kc * mt * 4 + 3 * 32 * 64 * 2 + kc * r * 2 + r * 64 * 2 + 8 * mt * (64 + r) * 4 \
-        + mt * 64 * 4 + 2 * mt * r * 4
-    assert lora_binding.decode_smem_bytes(8, 768, 16) == want
+    """decode_smem_bytes mirrors csrc/lora_matmul.cu decode::Layout::smem:
+    stages of x (8 or 16 rows), A (64 ranks) and W (64 or 128 columns), each
+    64 K-rows of bf16, beside the fp32 partials, barriers and alignment
+    slack. M=8, K=N=768 -> 64-column slices, a cluster of 8, a 128-row slice
+    of K a block, 2 stages; K=18432 -> the 6 stages of 64 columns that leave
+    room for two blocks on an SM (each also reserves 1 KB), as every long K
+    does, whatever its length."""
+    stage = 64 * 8 * 2 + 64 * 64 * 2 + 64 * 64 * 2
+    fixed = 1024 + 8 * 64 * 4 + 2 * 8 * 64 * 4 + 256
+    assert lora_binding.decode_smem_bytes(8, 768, 768) == fixed + 2 * stage
+    assert lora_binding.decode_smem_bytes(8, 18432, 768) == fixed + 6 * stage == 111_872
+    for M in (1, 8, 9, 16):
+        for N in (768, 4608, 22528):  # 64- and 128-column slices
+            smem = lora_binding.decode_smem_bytes(M, 200_000, N)
+            assert 2 * (smem + 1024) <= 233_472
+            assert smem == lora_binding.decode_smem_bytes(M, 100_000, N)
+
+
+def _lora_shapes(arch):
+    """(K, N) of each adapted projection of one layer of ``arch``."""
+    cfg = get_arch(arch)
+    D, F = cfg.d_model, cfg.d_ff
+    if cfg.layer_pattern == "M":  # in_proj, out_proj
+        d_inner, H, P, N, _ = mamba2.dims(cfg)
+        return [(D, 2 * d_inner + 2 * N + H), (d_inner, D)]
+    q, kv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    mlp = [(D, F)] * (1 if cfg.mlp_activation == "gelu" else 2) + [(F, D)]
+    return [(D, q), (D, kv), (q, D)] + mlp
+
+
+@pytest.mark.parametrize("arch", ["fedsllm-100m", "mamba2-130m", "phi4-mini-3.8b",
+                                  "starcoder2-7b", "command-r-35b", "gemma2-9b"])
+def test_lora_rule_sends_no_served_decode_shape_to_generic(arch):
+    """Every LoRA product of a decode step of the six served configs (M =
+    batch 1-16, the configs' rank) takes the decode variant, the large-K down
+    projections of starcoder2-7b (K=18432) and command-r-35b (K=22528)
+    included."""
+    r = (get_arch(arch).lora or LoRAConfig()).rank
+    for K, N in _lora_shapes(arch):
+        for M in (1, 2, 8, 16):
+            assert lora_binding.variant(M, K, N, r, True) == "decode", (M, K, N, r)
 
 
 S_ = 512  # the sequence length in the strides below
@@ -165,13 +213,14 @@ S_ = 512  # the sequence length in the strides below
     (64, [0, 64, 12 * 64] * 3, [0] * 3, "wmma"),  # a broadcast batch
     (16, [S_ * 4 * 16, 16, 4 * 16] * 3, [0] * 3, "wmma"),
     (32, [S_ * 4 * 32, 32, 4 * 32] * 3, [0] * 3, "wmma"),
-    (128, [S_ * 4 * 128, 128, 4 * 128] * 3, [0] * 3, "wmma"),
-    (256, [S_ * 16 * 256, 256, 16 * 256] * 3, [0] * 3, "wmma"),  # gemma2's prefill
-    (256, [S_ * 16 * 256, 256, 16 * 256] * 3, [2, 0, 0], "wmma"),  # misaligned too
+    (128, [S_ * 4 * 128, 128, 4 * 128] * 3, [0] * 3, "wgmma"),  # phi4, starcoder2, command-r
+    (128, [S_ * 4 * 128, 128, 4 * 128] * 3, [0, 0, 8], "wmma"),  # v 8 bytes off
+    (256, [S_ * 16 * 256, 256, 16 * 256] * 3, [0] * 3, "wgmma"),  # gemma2's prefill
+    (256, [S_ * 16 * 256, 256, 16 * 256] * 3, [2, 0, 0], "wmma"),  # misaligned
 ])
 def test_flash_variant_rule(d, strides, pointers, expected):
-    """Head dim 64 with TMA-aligned strides and pointers takes the wgmma
-    variant; everything else the first port's wmma kernel."""
+    """Head dims 64, 128 and 256 with TMA-aligned strides and pointers take
+    the wgmma variant; everything else the first port's wmma kernel."""
     assert flash_binding.variant(d, strides, pointers) == expected
 
 
