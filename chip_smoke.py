@@ -27,8 +27,10 @@ then, for each serving path:
                against fp32;
   4. timings — CUDA-event times (``ms``), CUDA-graph replay times
                (``graph_ms``) and ``torch.profiler`` device times
-               (``device_ms``; the graph's time where the profiler keeps
-               losing kernel records, as ``device_ms_by`` says) of each
+               (``device_ms``: a trace is kept only when every kernel name
+               has its one-call count times the calls, and a time below
+               the bound is refused; else the graph's time, as
+               ``device_ms_by`` says) of each
                kernel, its plain version and one library call (where one
                exists) at the path's shapes, beside
                the least time the card could take and the first port's time
@@ -140,13 +142,31 @@ then
                (remat) against monolithic, no kernel launch; (e) the four
                smoke configs on the card against the CPU and through
                ``launch.serve --smoke``. Written to
-               ``build/chip_smoke/dense.json``.
+               ``build/chip_smoke/dense.json``;
+ 10. families — the MoE and hybrid families: (a)-(c) olmoe-1b-7b (16
+               layers) and qwen3-moe-235b-a22b (3 of 94 layers) served at
+               B=8, prompt 512, 32 new tokens, recurrentgemma-9b (38
+               layers) at B=2, prompt 4096 (twice its window) through
+               ``decode_tokens``, launches by variant, each with the
+               logits rule against its fp32 copy at the served depth, the
+               MoE layers' routing flips (kernel vs plain vs fp32, per
+               layer) and dispatch pairs dropped, greedy tokens equal but
+               for ties and rows whose routing flipped upstream, and the
+               ring decode against the fp32 forward; (d) flash at each
+               serve's shape (group sizes 1 and 16, MQA at d=256 with
+               window 2048) and every LoRA shape the serves launch against
+               their plain versions with their times, and the decode split
+               sweep at their decode shapes; (e) a split pass of each
+               family's smoke config on the card against the CPU and a
+               full-width olmoe split pass. Written to
+               ``build/chip_smoke/families.json``.
 
 Prints the compiled kernels' registers and spills, the card's name and power
 limit, a ``{"kernels": [...]}`` line (the three kernels on the bf16 serving
 paths, then each variant of the fp32 serve path of phase 8, then phase 9's
 flash variants at head dims 256 and 128 and the LoRA kernel on each of its
-serves), and last
+serves, then phase 10's LoRA kernel and flash on each of its serves), and
+last
 ``{"ok": true, "device": {...}}``. Details go to ``build/chip_smoke/``.
 Without a CUDA card it exits non-zero before printing any result.
 """
@@ -199,6 +219,8 @@ from repro_torch.kernels.ssd_ops import ssd_scan  # noqa: E402
 from repro_torch.kernels.ssd_ref import ssd_scan_ref  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import mamba2 as M2  # noqa: E402
+from repro_torch.models import moe as MOE  # noqa: E402
+from repro_torch.models.registry import active_param_count, count_params  # noqa: E402
 from repro_torch.launch import serve, steps, train  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.net.topology import get_topology  # noqa: E402
@@ -256,24 +278,33 @@ def bf16_ulps(ref, n: float = 2.0) -> float:
 TRACES = 2  # torch.profiler traces taken before a lossy one is given up
 TRACE_LOG = collections.Counter()  # traces kept / lost, for the summary
 TRACE_PAD_S = 0.1  # idle host time at each end of a trace's window
+MARK_CYCLES = 20_000  # a marker kernel's spin, ~10 µs
+
+
+def is_marker(key: str) -> bool:
+    return "spin_kernel" in key
 
 
 def trace(fn):
     """The CUDA kernel and host op records of one torch.profiler trace of fn().
-    The profiler may drop a kernel whose device timestamps fall outside the
-    trace's window on the host's clock; the idle pad at each end keeps a
-    small offset between the two clocks from dropping the first or last
-    kernels."""
+    The profiler drops kernels at the ends of a trace's window (a trace of
+    one call often holds none of its kernels): the idle pad at each end
+    keeps a small offset between the host's and the device's clocks from
+    dropping them, and a marker kernel (``torch.cuda._sleep``'s
+    ``spin_kernel``) before and after fn() takes the ends' place; the
+    markers' records are left out."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         time.sleep(TRACE_PAD_S)
+        torch.cuda._sleep(MARK_CYCLES)
         fn()
+        torch.cuda._sleep(MARK_CYCLES)
         torch.cuda.synchronize()
         time.sleep(TRACE_PAD_S)
-    events = prof.key_averages()
+    events = [e for e in prof.key_averages() if not is_marker(e.key)]
     return ([e for e in events if e.device_type == DeviceType.CUDA],
             [e for e in events if e.device_type == DeviceType.CPU])
 
@@ -282,18 +313,28 @@ def port_launches() -> int:
     return sum(fn.launches for fn in KERNELS.values())
 
 
+def name_counts(kernels) -> dict:
+    """Records per kernel name of a trace."""
+    return {e.key: e.count for e in kernels}
+
+
 def device_ms(fn) -> tuple[float | None, list, list]:
     """Device time of the CUDA kernels one call of fn runs (torch.profiler),
     the kernels that take most of it, and the host ops that take most host
-    time. A trace with fewer kernel records than the port's kernels launched
-    in it (their counters say how many) lost records: it is taken again, and
-    after TRACES lossy traces the device time is None (not measured)."""
-    for _ in range(TRACES):
+    time. Traces of one call each are taken until one records, name by
+    name, as many kernels as an earlier one did (and no fewer than the
+    port's kernels launched in it, by their counters): a trace that lost
+    records of any kernel, the port's, a plain path's or a library's, differs
+    from a whole one. After TRACES + 1 traces without two that agree the
+    device time is None (not measured)."""
+    seen = []
+    for _ in range(TRACES + 1):
         before = port_launches()
         kernels, host = trace(fn)
         launched = port_launches() - before
-        recorded = sum(e.count for e in kernels)
-        if kernels and recorded >= launched:
+        counts = name_counts(kernels)
+        recorded = sum(counts.values())
+        if kernels and recorded >= launched and counts in seen:
             TRACE_LOG["kept"] += 1
             kernels.sort(key=lambda e: -e.self_device_time_total)
             host.sort(key=lambda e: -e.self_cpu_time_total)
@@ -301,9 +342,12 @@ def device_ms(fn) -> tuple[float | None, list, list]:
             return (total,
                     [(e.key[:90], e.self_device_time_total / 1e3, e.count) for e in kernels[:10]],
                     [(e.key[:90], e.self_cpu_time_total / 1e3, e.count) for e in host[:10]])
-        TRACE_LOG["lost"] += 1
-        log(f"[timing] torch.profiler recorded {recorded} kernels where the port alone "
-            f"launched {launched}: a lossy trace")
+        if seen:
+            TRACE_LOG["lost"] += 1
+            log(f"[timing] torch.profiler recorded {recorded} kernels over {len(counts)} names "
+                f"(the port launched {launched}), unlike the earlier traces "
+                f"{[sum(c.values()) for c in seen]}: a lossy trace")
+        seen.append(counts)
     return None, [], []
 
 
@@ -329,23 +373,42 @@ def graph_ms(fn, arg_sets, iters: int = 30) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_time_ms(fn, arg_sets, iters: int = 30) -> dict:
+def device_time_ms(fn, arg_sets, iters: int = 30, bound: float | None = None) -> dict:
     """Mean device time per call of fn(*args), two ways: ``graph_ms`` (CUDA
     graph replay, always taken) and the CUDA kernels' time in a torch.profiler
-    trace of `iters` calls cycling through `arg_sets`. Every call launches its
-    main kernel once, so a trace whose most recorded kernel has fewer than
-    `iters` records is lossy: it is taken again, and after TRACES lossy
-    traces ``device_ms`` is the graph's time. ``device_ms_by`` says which."""
+    trace of `iters` calls cycling through `arg_sets`. A trace of one call
+    gives each kernel name's records per call; a trace of the `iters` calls
+    is kept only when every name has `iters` times that many records, and
+    no other name has any (a library call may launch several kernels under
+    one name, so the most recorded name alone cannot tell a lossy trace). A
+    lossy trace is taken again, and after TRACES lossy traces
+    ``device_ms`` is the graph's time. A kept time below ``bound`` (the
+    least time the card could take: faster than its peak rate or its memory
+    allow) is refused as well, and the graph's time is taken: the log says
+    so. ``device_ms_by`` says which time ``device_ms`` is."""
     out = {"graph_ms": graph_ms(fn, arg_sets, iters)}
+    per_call = name_counts(trace(lambda: fn(*arg_sets[0]))[0])
+    want = {name: n * iters for name, n in per_call.items()}
     for _ in range(TRACES):
         kernels, _ = trace(lambda: [fn(*arg_sets[i % len(arg_sets)]) for i in range(iters)])
-        recorded = max((e.count for e in kernels), default=0)
-        if recorded >= iters:
+        got = name_counts(kernels)
+        if kernels and got == want:
             TRACE_LOG["kept"] += 1
             total = sum(e.self_device_time_total for e in kernels) / 1e3 / iters
+            if bound is not None and total < bound:
+                TRACE_LOG["above_peak"] += 1
+                log(f"[timing] torch.profiler's {total:.5f} ms a call is below the bound "
+                    f"{bound:.5f} ms (above the card's peak): the CUDA graph's "
+                    f"{out['graph_ms']:.5f} ms is taken")
+                return {"device_ms": out["graph_ms"], "device_ms_by": "cuda_graph_above_peak",
+                        **out}
             return {"device_ms": total, "device_ms_by": "profiler", **out}
         TRACE_LOG["lost"] += 1
-        log(f"[timing] torch.profiler recorded {recorded} of {iters} launches: a lossy trace")
+        short = {name: f"{got.get(name, 0)}/{n}" for name, n in want.items()
+                 if got.get(name, 0) != n}
+        log(f"[timing] torch.profiler recorded {sum(got.values())} of {sum(want.values())} "
+            f"kernels for {iters} calls ({len(short)} of {len(want)} names short, "
+            f"{len(set(got) - set(want))} unexpected): a lossy trace")
     return {"device_ms": out["graph_ms"], "device_ms_by": "cuda_graph", **out}
 
 
@@ -432,15 +495,30 @@ def n_sets(bytes_per_set: int) -> int:
 # ---------------------------------------------------------------------------
 
 
-def lora_shapes(cfg) -> collections.Counter:
-    """(K, N) of each adapted projection of one layer, with its count."""
+def lora_shapes(cfg, ch: str | None = None) -> collections.Counter:
+    """(K, N) of each adapted 2-D projection of one layer of char ``ch`` (the
+    pattern's first by default), with its count: an MoE layer's stacked
+    expert products are einsums, not LoRA launches."""
     D, F = cfg.d_model, cfg.d_ff
-    if cfg.layer_pattern == "M":  # in_proj, out_proj
+    ch = ch or cfg.layer_pattern[0]
+    if ch == "M":  # in_proj, out_proj
         d_inner, H, P, N, conv_ch = M2.dims(cfg)
         return collections.Counter([(D, 2 * d_inner + 2 * N + H), (d_inner, D)])
-    q, kv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
     mlp = [(D, F)] * (1 if cfg.mlp_activation == "gelu" else 2) + [(F, D)]  # gelu: no gate
-    return collections.Counter([(D, q), (D, kv), (D, kv), (q, D)] + mlp)
+    if ch == "R":  # w_rec_in, w_gate_in, w_out
+        W = cfg.lru_width
+        return collections.Counter([(D, W), (D, W), (W, D)] + mlp)
+    q, kv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    return collections.Counter([(D, q), (D, kv), (D, kv), (q, D)]
+                               + ([] if cfg.num_experts else mlp))
+
+
+def model_lora_shapes(cfg) -> collections.Counter:
+    """(K, N) of each adapted projection of one forward, over every layer."""
+    out = collections.Counter()
+    for ch in cfg.pattern:
+        out.update(lora_shapes(cfg, ch))
+    return out
 
 
 def path_variants(cfg) -> dict[str, dict[str, int]]:
@@ -720,6 +798,14 @@ def make_model(cfg, dev, batch: int = BATCH, prompt_len: int = PROMPT):
         m["D_skip"] = 1 + 0.5 * torch.randn(m["D_skip"].shape, generator=gen, device=dev)
         m["conv_b"] = (0.1 * torch.randn(m["conv_b"].shape, generator=gen, device=dev)
                        ).to(m["conv_b"].dtype)
+    for key, ch in enumerate(cfg.pattern[:len(cfg.layer_pattern)]):
+        if ch == "R":
+            # the reference's init makes every RG-LRU gate alike (w_a = b_a =
+            # b_x = 0, w_x = lambda_p = 1), which would hide a channel-indexing
+            # fault: draw them per channel, around that init
+            rg = params["groups"][f"sub_{key}"]["rglru"]
+            for name in ("w_a", "b_a", "w_x", "b_x", "lambda_p"):
+                rg[name] += 0.5 * torch.randn(rg[name].shape, generator=gen, device=dev)
     prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=gen, device=dev)
     return params, lora, prompt
 
@@ -824,11 +910,11 @@ def phase_timings(cfg, dev, params, lora, prompt) -> dict:
                 kernel="lora_matmul", M=M, K=K, N=N, r=r,
                 variant=ran_variant("lora_matmul", lambda: lora_call(*sets[0])),
                 launches=n * calls_per_layer * cfg.num_layers,
-                ms=time_ms(lora_call, sets, 200), **device_time_ms(lora_call, sets),
+                ms=time_ms(lora_call, sets, 200), **device_time_ms(lora_call, sets, bound=b_ms),
                 host_ms=host_ms(lora_call, sets),
                 plain_ms=time_ms(lora_plain, sets, 50),
                 library_ms=time_ms(lora_library, sets, 200),
-                **library(device_time_ms(lora_library, sets)),
+                **library(device_time_ms(lora_library, sets, bound=b_ms)),
                 bound_ms=b_ms, bound_by=b_by)))
             del sets
     shapes.append(ssd_timing(cfg, dev, gen) if cfg.layer_pattern == "M"
@@ -902,9 +988,9 @@ def flash_timing(cfg, dev, gen) -> dict:
         kernel="flash_attention", B=BATCH, S=PROMPT, H=H, Kv=Kv, d=d, causal=True,
         variant=ran_variant("flash_attention", lambda: call(*sets[0])),
         launches=cfg.num_layers,
-        ms=time_ms(call, sets, 100), **device_time_ms(call, sets),
+        ms=time_ms(call, sets, 100), **device_time_ms(call, sets, bound=b_ms),
         plain_ms=time_ms(lambda q, k, v: flash_attention_ref(q, k, v, causal=True), sets, 20),
-        library_ms=time_ms(sdpa, sets, 100), **library(device_time_ms(sdpa, sets)),
+        library_ms=time_ms(sdpa, sets, 100), **library(device_time_ms(sdpa, sets, bound=b_ms)),
         bound_ms=b_ms, bound_by=b_by))
 
 
@@ -943,7 +1029,7 @@ def ssd_timing(cfg, dev, gen) -> dict:
         kernel="ssd_scan", B=BATCH, S=PROMPT, H=H, P=P, N=N, chunk=cfg.ssm_chunk,
         variant=ran_variant("ssd_scan", lambda: call(*sets[0])),
         launches=cfg.num_layers,
-        ms=time_ms(call, sets, 50), **device_time_ms(call, sets, 10),
+        ms=time_ms(call, sets, 50), **device_time_ms(call, sets, 10, bound=b_ms),
         plain_ms=time_ms(ssd_scan_ref, sets, 3),
         chunked_ms=time_ms(chunked, sets, 10),
         library_ms=None, **library(None), bound_ms=b_ms, bound_by=b_by))
@@ -1775,9 +1861,9 @@ def lora_row(gen, dev, M, K, N, r, dtype, scale, launches=None, iters=100, devic
     row = dict(kernel="lora_matmul", M=M, K=K, N=N, r=r, dtype=str(dtype).split(".")[-1],
                **meta, variant=ran_variant("lora_matmul", lambda: call(*sets[0])),
                err=err, tol=tol, launches=launches, ms=time_ms(call, sets, iters),
-               **device_time_ms(call, sets, device_iters),
+               **device_time_ms(call, sets, device_iters, bound=b_ms),
                plain_ms=time_ms(plain, sets, max(5, iters // 4)), library_ms=time_ms(lib, sets, iters),
-               **library(device_time_ms(lib, sets, device_iters)),
+               **library(device_time_ms(lib, sets, device_iters, bound=b_ms)),
                bound_ms=b_ms, bound_by=b_by)
     row["bound_share"] = b_ms / row["device_ms"]
     return row
@@ -1822,10 +1908,11 @@ def attn_row(gen, dev, B, S, H, Kv, d, dtype, window=0, softcap=0.0, launches=No
                d=d, window=window, softcap=softcap, misaligned=misaligned, **meta,
                variant=ran_variant("flash_attention", lambda: call(*sets[0])),
                err=err, excess=excess, tol=tol, ok=ok, launches=launches,
-               ms=time_ms(call, sets, iters), **device_time_ms(call, sets, iters),
+               ms=time_ms(call, sets, iters), **device_time_ms(call, sets, iters, bound=b_ms),
                plain_ms=time_ms(plain, sets, max(2, iters // 5)),
                library_ms=None if lib is None else time_ms(lib, sets, iters),
-               **library(None if lib is None else device_time_ms(lib, sets, iters)),
+               **library(None if lib is None else device_time_ms(lib, sets, iters,
+                                                                  bound=b_ms)),
                bound_ms=b_ms, bound_by=b_by)
     row["bound_share"] = b_ms / row["device_ms"]
     del sets
@@ -1961,7 +2048,7 @@ def smoke_serve_rows(dev, launched: dict) -> tuple[list, list]:
                        err=max((y - yr).abs().max().item(), (h - hr).abs().max().item()),
                        tol=1e-4 * max(yr.abs().max().item(), hr.abs().max().item()),
                        launches=cfg.num_layers, ms=time_ms(call, sets, 50),
-                       **device_time_ms(call, sets),
+                       **device_time_ms(call, sets, bound=b_ms),
                        plain_ms=time_ms(lambda x, dt, A, Bm, Cm, h: ssd_scan_ref(x, dt, A, Bm, Cm),
                                         sets, 5),
                        library_ms=None, **library(None), bound_ms=b_ms, bound_by=b_by)
@@ -2320,15 +2407,15 @@ def dense_paths() -> list[tuple]:
     return paths
 
 
-def dense_lora_rows(dev) -> tuple[list, list]:
-    """Part (a): every LoRA shape that phase 9's serves launch (the prefill's
+def serve_lora_rows(dev, paths, seed: int, tag: str) -> tuple[list, list]:
+    """Every LoRA shape that the serves ``paths`` launch (the prefill's
     M = B·S, the decode steps' M = B), held against its plain version (bf16:
     2 ulps of the largest output; fp32: 1e-5 of it) on the variant that the
     wrappers' rule gives it (``expected``, as ``dense_expected`` counts it),
     with its launches in that serve and its times."""
-    gen = torch.Generator(device=dev).manual_seed(12)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     rows = []
-    for path, cfg, B, S, new, fp32 in dense_paths():
+    for path, cfg, B, S, new, fp32 in paths:
         dtype = torch.float32 if fp32 else torch.bfloat16
         scale = (cfg.lora or LoRAConfig()).scale
         for (M, K, N, r), n in sorted(lora_plan(cfg, B, S, new).items()):
@@ -2338,19 +2425,19 @@ def dense_lora_rows(dev) -> tuple[list, list]:
             rows.append(lora_row(gen, dev, M, K, N, r, dtype, scale, launches=n, iters=iters,
                                  device_iters=min(iters, 30), path=path, stage=stage,
                                  expected=lora_binding.variant(M, K, N, r, True, fp32)))
-            log(f"[dense] (a) {json.dumps(rows[-1])}")
+            log(f"{tag} {json.dumps(rows[-1])}")
         torch.cuda.empty_cache()
     return rows, row_fails(rows)
 
 
-def decode_split_sweep(dev) -> tuple[list, list]:
-    """Part (a): the decode variant at every bf16 decode shape of phase 9's
-    serves with each cluster split of K from 1 to 8 blocks, against its
-    plain version (2 bf16 ulps of the largest output at every split), its
+def decode_split_sweep(dev, paths, seed: int, tag: str) -> tuple[list, list]:
+    """The decode variant at every bf16 decode shape of the serves ``paths``
+    with each cluster split of K from 1 to 8 blocks, against its plain
+    version (2 bf16 ulps of the largest output at every split), its
     CUDA-graph device time at each; ``rule`` is the split the wrapper takes
     (``lora_matmul.decode_split``), ``best`` the fastest here."""
-    gen = torch.Generator(device=dev).manual_seed(13)
-    shapes = sorted({(M, K, N, r) for _, cfg, B, S, new, fp32 in dense_paths() if not fp32
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    shapes = sorted({(M, K, N, r) for _, cfg, B, S, new, fp32 in paths if not fp32
                      for (M, K, N, r) in lora_plan(cfg, B, S, new) if M == B})
     rows, fails = [], []
     for M, K, N, r in shapes:
@@ -2371,7 +2458,7 @@ def decode_split_sweep(dev) -> tuple[list, list]:
         row["library_graph_ms"] = graph_ms(
             lambda x, w, a, b: torch.addmm(x @ w, x @ a, b, alpha=2.0), sets)
         rows.append(row)
-        log(f"[dense] (a) decode split {json.dumps(row)}")
+        log(f"{tag} decode split {json.dumps(row)}")
         if not max(row["err"].values()) <= row["tol"]:
             fails.append(row)
         del sets, ref
@@ -2418,24 +2505,29 @@ def lora_plan(cfg, B, S, new) -> collections.Counter:
     launches: the prefill's at M = B·S, the new-1 decode steps' at M = B."""
     r = (cfg.lora or LoRAConfig()).rank
     plan = collections.Counter()
-    for (K, N), n in lora_shapes(cfg).items():
-        plan[(B * S, K, N, r)] += n * cfg.num_layers
-        plan[(B, K, N, r)] += n * cfg.num_layers * (new - 1)
+    for (K, N), n in model_lora_shapes(cfg).items():
+        plan[(B * S, K, N, r)] += n
+        plan[(B, K, N, r)] += n * (new - 1)
     return plan
 
 
 def dense_expected(cfg, B, S, new, fp32=False) -> dict:
     """Each variant's launches in one decode_tokens call, by the wrappers'
     own rule: bf16 LoRA products on ``prefill`` and ``decode`` (none on
-    ``generic``), flash on ``wgmma`` (none on ``wmma``)."""
+    ``generic``), flash on ``wgmma`` (none on ``wmma``), one a prefill's
+    attention layer."""
     lora = dict.fromkeys(lora_matmul.variant_launches, 0)
     for (M, K, N, r), n in lora_plan(cfg, B, S, new).items():
         lora[lora_binding.variant(M, K, N, r, True, fp32)] += n
     flash = dict.fromkeys(flash_attention.variant_launches, 0)
     flash["fp32" if fp32 else "wgmma" if cfg.head_dim in flash_binding.WGMMA_HEAD_DIMS
-          else "wmma"] = cfg.num_layers
+          else "wmma"] = attention_layers(cfg)
     return {"lora_matmul": lora, "flash_attention": flash,
             "ssd_scan": dict.fromkeys(ssd_scan.variant_launches, 0)}
+
+
+def attention_layers(cfg) -> int:
+    return sum(ch in "GL" for ch in cfg.pattern)
 
 
 def served_fails(cfg, rec, B, S, new, fp32=False) -> list:
@@ -2445,7 +2537,7 @@ def served_fails(cfg, rec, B, S, new, fp32=False) -> list:
         fails.append(f"{cfg.name}: launches by variant {rec['variants']}, expected {want}")
     calls = rec["flash_calls"]
     windowed = sum(n for k, n in calls.items() if "window=0 " not in k)
-    if (windowed != cfg.pattern.count("L") or sum(calls.values()) != cfg.num_layers
+    if (windowed != cfg.pattern.count("L") or sum(calls.values()) != attention_layers(cfg)
             or not all(k.startswith(f"d={cfg.head_dim} ") for k in calls)):
         fails.append(f"{cfg.name}: flash calls {calls}")
     return fails
@@ -2461,8 +2553,8 @@ def merge_in_place(params, lora, cfg) -> None:
         for key in path:
             node = node[key]
         w = node[last]
-        for i in range(w.shape[0]) if w.ndim == 3 else (slice(None),):
-            delta = torch.einsum("ir,ro->io", ab["A"][i].float(), ab["B"][i].float())
+        for i in range(w.shape[0]) if w.ndim >= 3 else (slice(None),):
+            delta = torch.einsum("...ir,...ro->...io", ab["A"][i].float(), ab["B"][i].float())
             w[i].copy_((w[i].float() + delta * scale).to(w.dtype))
 
 
@@ -2470,8 +2562,8 @@ def prefill_last(params, prompt, cfg, cache, *, lora=None, kernels=True, last=LA
     """T.prefill's logits at the last ``last`` positions only (a long
     prompt's (B, S, V) fp32 logits are GBs); ``cache=None`` is a forward."""
     x, positions = T._embed_inputs(params, {"tokens": prompt}, cfg)
-    x = T._scan_groups(params, x, cfg, cache=cache, cache_pos=0, positions=positions,
-                       lora=lora, kernels=kernels, q_chunk=T._q_chunk(x.shape[1]))
+    x, _ = T._scan_groups(params, x, cfg, cache=cache, cache_pos=0, positions=positions,
+                          lora=lora, kernels=kernels, q_chunk=T._q_chunk(x.shape[1]))
     x = L.apply_norm(params["final_norm"], x[:, -last:], cfg)
     return L.lm_logits(params["embed"], x, cfg)
 
@@ -2506,7 +2598,7 @@ def depth_checks(params, lora, prompt, cfg) -> tuple[dict, list]:
 
     def run(gp, h, c, ad=None):
         return T._scan_groups(gp, h, c, positions=positions, lora=ad, kernels=ad is not None,
-                              include_tail=False)
+                              include_tail=False)[0]
 
     per_group, fails = [], []
     for g in range(T.n_full_groups(cfg)):
@@ -2819,14 +2911,12 @@ def dense_entries(rows, res) -> list[dict]:
     return entries
 
 
-def lora_entries(rows, res) -> list[dict]:
-    """The kernels line's entries of the LoRA kernel on phase 9's serves, one
-    per serve: its launches there, times summed over its launches at each
-    shape (``dense_lora_rows``)."""
-    counted = {GEMMA: res["gemma2"], f"{GEMMA} fp32": res["gemma2_rule"]["fp32_served"],
-               **res["serves"]}
+def lora_entries(rows, counted, paths) -> list[dict]:
+    """The kernels line's entries of the LoRA kernel on the serves ``paths``,
+    one per serve: its launches there (``counted[path]``), times summed over
+    its launches at each shape (``serve_lora_rows``)."""
     out = []
-    for path, cfg, B, S, new, fp32 in dense_paths():
+    for path, cfg, B, S, new, fp32 in paths:
         mine = [r for r in rows if r["path"] == path]
         total = {k: sum(r[k] * r["launches"] for r in mine)
                  for k in ("ms", "device_ms", "graph_ms", "plain_ms", "bound_ms", "library_ms",
@@ -2868,9 +2958,9 @@ def phase_dense(dev) -> tuple[dict, list]:
     res, fails = {"limits": DENSE_LIMITS}, []
     rows, more = dense_kernels(dev)
     res["kernel_rows"], fails = rows, fails + more
-    res["lora_rows"], more = dense_lora_rows(dev)
+    res["lora_rows"], more = serve_lora_rows(dev, dense_paths(), 12, "[dense] (a)")
     fails += more
-    res["decode_splits"], more = decode_split_sweep(dev)
+    res["decode_splits"], more = decode_split_sweep(dev, dense_paths(), 13, "[dense] (a)")
     fails += more
     gcfg = get_arch(GEMMA)
     B, S, new = GEMMA_SERVE
@@ -2904,7 +2994,308 @@ def phase_dense(dev) -> tuple[dict, list]:
     log(f"[dense] phase 9 in {res['seconds']:.1f} s")
     if fails:
         raise SystemExit(f"[dense] {len(fails)} check(s) failed: {fails}")
-    return res, dense_entries(rows, res) + lora_entries(res["lora_rows"], res)
+    counted = {GEMMA: res["gemma2"], f"{GEMMA} fp32": res["gemma2_rule"]["fp32_served"],
+               **res["serves"]}
+    return res, dense_entries(rows, res) + lora_entries(res["lora_rows"], counted, dense_paths())
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the MoE family and the hybrid RG-LRU family
+# ---------------------------------------------------------------------------
+
+OLMOE, QWEN, RGEMMA = "olmoe-1b-7b", "qwen3-moe-235b-a22b", "recurrentgemma-9b"
+# the serves: batch, prompt, new tokens, depth (None: full). qwen3 at 94
+# layers of ~5 GB does not fit: 3 layers (~17 GB of bf16 weights with its
+# untied 151,936-row embed and head) fit beside their fp32 copy; its rule
+# runs at the same depth. recurrentgemma's prompt is twice its 2048 window,
+# so its ring caches wrap and its windowed flash runs
+FAMILY_SERVES = {OLMOE: (BATCH, PROMPT, NEW, None), QWEN: (BATCH, PROMPT, NEW, 3),
+                 RGEMMA: (2, 4096, NEW, None)}
+FAMILY_SPLIT = {"arch": OLMOE, "B": 4, "S": 256, "cut": 1}  # the full-width split pass
+SMOKE_DEPTH = {RGEMMA: 5}  # an RRL group and an RR tail: layers on both sides of the cut
+# limits, written in PERF.md §6 before the first run on the card (and phase
+# 9's: the logits rule, ring decode vs forward 1e-4, greedy tokens)
+FAMILY_LIMITS = {
+    # a smoke split pass (fp32) on the card against the CPU's: loss and
+    # every gradient leaf, of the largest value (phase 5's smoke round limit)
+    "smoke_split_card_vs_cpu": 1e-4,
+}
+
+
+def family_paths() -> list[tuple]:
+    """Phase 10's serves through decode_tokens: (path, cfg, B, S, new, fp32)."""
+    paths = []
+    for arch, (B, S, new, layers) in FAMILY_SERVES.items():
+        cfg = get_arch(arch)
+        paths.append((arch, cfg.replace(num_layers=layers) if layers else cfg, B, S, new, False))
+    return paths
+
+
+@contextlib.contextmanager
+def recording_moe():
+    """Every MoE layer call's routing (its top-k experts, (B, S, k)) and its
+    (token, choice) pairs kept and dropped by capacity (the layers still
+    run; the counts stay on the card until read)."""
+    rec = {"routes": [], "kept": [], "pairs": []}
+    route, rank = MOE.route, MOE._rank_and_dest
+
+    def record_route(p, x, cfg):
+        out = route(p, x, cfg)
+        rec["routes"].append(out[1])
+        return out
+
+    def record_rank(top_e, E, C, k):
+        dest, keep = rank(top_e, E, C, k)
+        rec["kept"].append(keep.sum())
+        rec["pairs"].append(keep.numel())
+        return dest, keep
+
+    MOE.route, MOE._rank_and_dest = record_route, record_rank
+    try:
+        yield rec
+    finally:
+        MOE.route, MOE._rank_and_dest = route, rank
+
+
+def routing_flips(routes, other) -> tuple[list, torch.Tensor | None]:
+    """Tokens whose top-k expert set differs between two runs, per MoE layer
+    call, and the batch rows (B,) with a flip in any of them (None: no MoE)."""
+    per_call, rows = [], None
+    for a, b in zip(routes, other, strict=True):
+        diff = (a.sort(-1).values != b.sort(-1).values).any(-1)  # (B, S)
+        per_call.append(int(diff.sum()))
+        rows = diff.any(-1) if rows is None else rows | diff.any(-1)
+    return per_call, rows
+
+
+def routed_ties(kernel, plain, flipped) -> dict:
+    """``ties``, where a row's greedy token may also differ when routing
+    flipped upstream in that row (``flipped``, (B,) or None)."""
+    tok, ptok = kernel.argmax(-1), plain.argmax(-1)
+    top2 = plain.topk(2, dim=-1).values
+    diff = tok != ptok
+    tie = diff & (top2[:, 0] - top2[:, 1] <= 2 * (kernel - plain).abs().max())
+    flip = diff & ~tie & (flipped if flipped is not None else torch.zeros_like(diff))
+    return {"equal": int((~diff).sum()), "ties": int(tie.sum()),
+            "flipped_upstream": int(flip.sum()), "ok": bool((~diff | tie | flip).all())}
+
+
+def family_serve(cfg, dev, B, S, new) -> tuple[dict, list]:
+    """One config served through decode_tokens (the counted main path, MoE
+    dispatch drops counted), its prefill and decode timed; then, from the
+    same weights, the kernel path's, the plain bf16 path's and fp32's (W +
+    scale·A·B unrounded) last-positions prefill logits and one decode step
+    (teacher-forced to fp32's token), phase 3's logits rule on both, each MoE
+    layer's routing flips between the kernel and plain paths (and against
+    fp32), greedy tokens equal but for ties and rows whose routing flipped
+    upstream, and for a windowed config the fp32 ring decode against the
+    fp32 forward over S+1 tokens."""
+    t0 = time.perf_counter()
+    params, lora, prompt = make_model(cfg, dev, B, S)
+    with recording_moe() as moe:
+        tokens, rec = counted_serve(params, cfg, prompt, new, lora, dev)
+    fails = served_fails(cfg, rec, B, S, new)
+    if cfg.num_experts:
+        kept, pairs = [int(k) for k in moe["kept"]], moe["pairs"]
+        rec["dispatch"] = {"pairs": sum(pairs), "dropped": sum(pairs) - sum(kept),
+                           "dropped_share": 1 - sum(kept) / sum(pairs),
+                           # the prefill's layers (a decode step's never drop: C >= k)
+                           "prefill_dropped_share_by_layer": [
+                               round(1 - k / n, 4) for k, n in zip(kept[:cfg.num_layers],
+                                                                   pairs[:cfg.num_layers])]}
+    log(f"[families] {cfg.name} ({cfg.num_layers} layers): decode_tokens {tuple(tokens.shape)} "
+        f"in {rec['seconds']:.2f} s, peak {rec['peak_memory_bytes'] / 2**30:.2f} GiB, launches "
+        f"{rec['launches']}, by variant {rec['variants']}, flash calls {rec['flash_calls']}, "
+        f"dispatch {rec.get('dispatch')}")
+    errs, flips = {}, {}
+    with torch.no_grad():
+        cache = T.init_cache(cfg, B, S + new, device=dev)
+        slots = {key: c["attn"][0].shape[2] for key, c in cache["groups"].items() if "attn" in c}
+        out, prefill_ms = timed(lambda: T.prefill(params, {"tokens": prompt}, cfg, cache,
+                                                  lora=lora))
+        del out  # recurrentgemma's (B, S, V) fp32 logits are 8.4 GB
+        torch.cuda.empty_cache()
+        tok, step_ms = tokens[:, :1], []
+        for pos in range(S, S + new - 1):
+            (step, _), ms = timed(lambda: T.decode_step(params, tok, cache, pos, cfg, lora=lora))
+            step_ms.append(ms)
+            tok = step[:, -1:].argmax(-1)
+        del cache
+        rec.update(cache_slots=slots, prefill_ms=prefill_ms,
+                   decode_step_ms=sum(step_ms) / len(step_ms),
+                   decode_tokens_per_s=B / (sum(step_ms) / len(step_ms) / 1e3))
+        cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
+        exact = tree_map(lambda t: t.to(torch.float32, copy=True), params)
+        merge_in_place(exact, lora, cfg32)
+        with recording_moe() as r32:
+            cache = T.init_cache(cfg32, B, S + 1, device=dev)
+            ref = prefill_last(exact, prompt, cfg32, cache, kernels=False)
+            feed = ref[:, -1:].argmax(-1)
+            ref_step, _ = T.decode_step(exact, feed, cache, S, cfg32)
+        del cache
+        if cfg.sliding_window:
+            fwd = prefill_last(exact, torch.cat([prompt, feed], 1), cfg32, None, kernels=False,
+                               last=1)
+            errs["ring_vs_forward"] = ((ref_step - fwd).abs().max() / fwd.abs().max()).item()
+            if not errs["ring_vs_forward"] <= DENSE_LIMITS["ring_vs_forward"]:
+                fails.append(f"{cfg.name}: ring decode vs forward {errs['ring_vs_forward']}")
+            del fwd
+        del exact
+        torch.cuda.empty_cache()
+        with recording_moe() as rk:
+            cache = T.init_cache(cfg, B, S + 1, device=dev)
+            logits = prefill_last(params, prompt, cfg, cache, lora=lora)
+            step, _ = T.decode_step(params, feed, cache, S, cfg, lora=lora)
+        del cache
+        merge_in_place(params, lora, cfg)
+        with recording_moe() as rp:
+            cache = T.init_cache(cfg, B, S + 1, device=dev)
+            plain = prefill_last(params, prompt, cfg, cache, kernels=False)
+            plain_step, _ = T.decode_step(params, feed, cache, S, cfg)
+        del cache, params, lora
+    n_moe = len(rk["routes"]) // 2  # the prefill's MoE layers, then the decode step's
+    flips["kernel_vs_plain"], rows = routing_flips(rk["routes"], rp["routes"])
+    flips["kernel_vs_fp32"], _ = routing_flips(rk["routes"], r32["routes"])
+    flips["plain_vs_fp32"], _ = routing_flips(rp["routes"], r32["routes"])
+    _, pre_rows = routing_flips(rk["routes"][:n_moe], rp["routes"][:n_moe])
+    if not torch.equal(logits[:, -1].argmax(-1), tokens[:, 0]):
+        fails.append(f"{cfg.name}: decode_tokens' first token is not the prefill's argmax")
+    if not (torch.isfinite(logits).all() and torch.isfinite(step).all()):
+        fails.append(f"{cfg.name}: non-finite logits")
+    errs.update(prefill_kernel_vs_plain=rel_err(logits, plain),
+                decode_kernel_vs_plain=rel_err(step, plain_step),
+                prefill_kernel_vs_fp32=rel_err(logits, ref),
+                prefill_plain_vs_fp32=rel_err(plain, ref),
+                decode_kernel_vs_fp32=rel_err(step, ref_step),
+                decode_plain_vs_fp32=rel_err(plain_step, ref_step))
+    for stage in ("prefill", "decode"):
+        if not errs[f"{stage}_kernel_vs_fp32"] <= max(2 * errs[f"{stage}_plain_vs_fp32"], 1e-3):
+            fails.append(f"{cfg.name}: {stage} logits rule {errs}")
+    greedy = {"prefill": routed_ties(logits[:, -1], plain[:, -1], pre_rows),
+              "decode": routed_ties(step[:, -1], plain_step[:, -1], rows)}
+    if not all(g["ok"] for g in greedy.values()):
+        fails.append(f"{cfg.name}: greedy tokens {greedy}")
+    if cfg.num_experts:
+        flips["flipped_rows"] = None if rows is None else int(rows.sum())
+        flips["tokens_per_call"] = {"prefill": B * S, "decode": B}
+    rec.update(errors=errs, greedy=greedy, routing_flips=flips,
+               seconds_total=time.perf_counter() - t0, layers=cfg.num_layers, B=B, S=S, new=new)
+    log(f"[families] {cfg.name}: prefill {prefill_ms:.1f} ms, decode step "
+        f"{rec['decode_step_ms']:.2f} ms = {rec['decode_tokens_per_s']:.1f} tokens/s; cache slots "
+        f"{slots}; errors {json.dumps(errs)}; greedy {greedy}")
+    if cfg.num_experts:
+        log(f"[families] {cfg.name}: routing flips per MoE layer call (prefill's {n_moe} of "
+            f"{B * S} tokens, then the decode step's of {B}): kernel vs plain "
+            f"{flips['kernel_vs_plain']}, kernel vs fp32 {flips['kernel_vs_fp32']}, plain vs "
+            f"fp32 {flips['plain_vs_fp32']}; rows with a flip {flips['flipped_rows']} of {B}")
+    torch.cuda.empty_cache()
+    return rec, fails
+
+
+def family_smoke(dev) -> tuple[dict, list]:
+    """Part (e): one split pass of each family's smoke variant (fp32) on the
+    card against the CPU's, from the same weights and batch (no kernel)."""
+    out, fails = {}, []
+    for arch in FAMILY_SERVES:
+        cfg = smoke_variant(get_arch(arch))
+        cfg = cfg.replace(num_layers=SMOKE_DEPTH.get(arch, cfg.num_layers))
+        params, lora, _ = make_model(cfg, torch.device("cpu"), 2, 32)
+        lc, ls = split_client_server(lora, 1)
+        batch = TokenStream(2, 32, cfg.vocab_size, seed=0, device="cpu").batch_at(0)
+        cpu = split.split_value_and_grad(params, lc, ls, batch, cfg, 1)
+        zero_counters()
+        card = split.split_value_and_grad(to_dev(params, dev), to_dev(lc, dev), to_dev(ls, dev),
+                                          to_dev(batch, dev), cfg, 1)
+        gaps = {"loss": abs(card[0].item() - cpu[0].item()) / abs(cpu[0].item()),
+                "grads": tree_rel_gap(*([t for t in tree_leaves(g) if t.numel()]  # no empty side
+                                        for g in (card[1:3], cpu[1:3]))),
+                "launches": {n: fn.launches for n, fn in KERNELS.items()}}
+        out[arch] = gaps
+        log(f"[families] (e) {cfg.name} ({cfg.num_layers} layers) split pass, card vs CPU: "
+            f"{json.dumps(gaps)}")
+        if not (max(gaps["loss"], gaps["grads"]) <= FAMILY_LIMITS["smoke_split_card_vs_cpu"]
+                and not any(gaps["launches"].values())):
+            fails.append(f"{cfg.name}: smoke split pass {gaps}")
+    return out, fails
+
+
+def family_split(dev) -> tuple[dict, list]:
+    """Part (e): one split pass of full-width olmoe-1b-7b (cut 1, B=4 × 256,
+    non-zero B), its time and peak memory; no kernel may launch."""
+    t = FAMILY_SPLIT
+    cfg = get_arch(t["arch"])
+    params = T.init_params(cfg, seed=0, device=dev)
+    lora = init_lora(params, cfg, seed=1, device=dev)
+    nonzero_b(lora, dev, 4)
+    lc, ls = split_client_server(lora, t["cut"])
+    del lora
+    batch = TokenStream(t["B"], t["S"], cfg.vocab_size, seed=1, device=dev).batch_at(0)
+
+    def one_pass():
+        return split.split_value_and_grad(params, lc, ls, batch, cfg, t["cut"])
+
+    zero_counters()
+    one_pass()  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    (loss, dc, ds, info), ms = timed(one_pass)
+    res = dict(t, loss=loss.item(), pass_ms=ms, peak_memory_bytes=torch.cuda.max_memory_allocated(),
+               smashed_bytes=info["smashed_bytes"],
+               launches={n: fn.launches for n, fn in KERNELS.items()},
+               grads_finite=all(bool(torch.isfinite(v).all()) for v in tree_leaves((dc, ds))))
+    log(f"[families] (e) {cfg.name} split pass: {json.dumps(res)}")
+    fails = []
+    if not (math.isfinite(res["loss"]) and res["grads_finite"]) or any(res["launches"].values()):
+        fails.append(f"{cfg.name} split pass {res}")
+    del params, lc, ls, dc, ds
+    torch.cuda.empty_cache()
+    return res, fails
+
+
+def phase_families(dev) -> tuple[dict, list]:
+    """Parts (a)-(e) of phase 10; written to build/chip_smoke/families.json."""
+    t0 = time.perf_counter()
+    res, fails = {"limits": FAMILY_LIMITS}, []
+    res["qwen3_full_count_params"] = count_params(get_arch(QWEN))
+    res["active_params"] = {a: active_param_count(get_arch(a)) for a in FAMILY_SERVES}
+    log(f"[families] count_params (meta device): {QWEN} {res['qwen3_full_count_params']:,} at "
+        f"94 layers; active a token {res['active_params']}")
+    gen = torch.Generator(device=dev).manual_seed(16)
+    res["serves"], res["flash_rows"] = {}, []
+    for path, cfg, B, S, new, _ in family_paths():
+        # the wgmma flash at the served shape first: group sizes never held before
+        window = cfg.sliding_window if "L" in cfg.layer_pattern else 0
+        row = attn_row(gen, dev, B, S, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                       torch.bfloat16, window=window, iters=20, path=path, expected="wgmma")
+        log(f"[families] (d) {json.dumps(row)}")
+        res["flash_rows"].append(row)
+        if not row["ok"] or row["variant"] != row["expected"]:
+            fails.append(row)
+        res["serves"][path], more = family_serve(cfg, dev, B, S, new)
+        fails += more
+    slots = res["serves"][RGEMMA]["cache_slots"]
+    if slots != {"sub_2": get_arch(RGEMMA).sliding_window}:
+        fails.append(f"recurrentgemma cache slots {slots}")
+    res["lora_rows"], more = serve_lora_rows(dev, family_paths(), 14, "[families] (d)")
+    fails += more
+    res["decode_splits"], more = decode_split_sweep(dev, family_paths(), 15, "[families] (d)")
+    fails += more
+    res["smoke"], more = family_smoke(dev)
+    fails += more
+    res["split"], more = family_split(dev)
+    fails += more
+    res["fails"], res["seconds"] = fails, time.perf_counter() - t0
+    (OUT / "families.json").write_text(json.dumps(res, indent=1, default=str))
+    log(f"[families] phase 10 in {res['seconds']:.1f} s")
+    if fails:
+        raise SystemExit(f"[families] {len(fails)} check(s) failed: {fails}")
+    entries = lora_entries(res["lora_rows"], res["serves"], family_paths())
+    for row in res["flash_rows"]:
+        path = row["path"]
+        entries.append(flash_entry(
+            f"flash_attention/wgmma-d{row['d']} {path}", "wgmma",
+            [dict(row, launches=res["serves"][path]["variants"]["flash_attention"]["wgmma"])],
+            row["err"], f"one decode_tokens call of {path}: B={row['B']}, prompt {row['S']}"))
+    return res, entries
 
 
 def main() -> int:
@@ -2931,13 +3322,16 @@ def main() -> int:
     kernels += variant_entries(rows)
     dense, more = phase_dense(dev)
     kernels += more
+    families, more = phase_families(dev)
+    kernels += more
     (OUT / "chip_smoke.json").write_text(json.dumps(
         {"nvidia_smi": smi, "build": build, "kernels": kernels, "traces": TRACE_LOG,
          "paths": {arch: {"checks": r["checks"], "slice": r["slice"],
                           "end_to_end": r["timings"]["end_to_end"]}
                    for arch, r in results.items()}, "train": train, "priced": priced,
          "campaign": campaign, "cli": cli,
-         "dense": {k: dense[k] for k in ("gemma2", "gemma2_rule", "serves", "train")}},
+         "dense": {k: dense[k] for k in ("gemma2", "gemma2_rule", "serves", "train")},
+         "families": {k: families[k] for k in ("serves", "smoke", "split")}},
         indent=1, default=str))
     log(f"[timing] torch.profiler traces kept {TRACE_LOG['kept']}, lost {TRACE_LOG['lost']}")
     log(f"[done] chip_smoke in {time.perf_counter() - t0:.1f} s")

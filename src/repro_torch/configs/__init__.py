@@ -5,6 +5,9 @@ from repro_torch.configs import (  # noqa: F401
     fedsllm_paper,
     gemma2_9b,
     mamba2_130m,
+    olmoe_1b_7b,
     phi4_mini_3_8b,
+    qwen3_moe_235b_a22b,
+    recurrentgemma_9b,
     starcoder2_7b,
 )

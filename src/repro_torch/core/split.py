@@ -54,22 +54,26 @@ def slice_base(params, cut: int) -> SplitParts:
 
 
 def client_forward(client_base, lora_c, batch, cfg: ModelConfig, *, remat=False):
-    """Embed + the first ``cut`` groups -> smashed activations (B, S, D)."""
+    """Embed + the first ``cut`` groups -> smashed activations (B, S, D).
+    The client's MoE aux loss is dropped, as the reference's
+    ``client_forward`` drops it: the split loss holds the server's only."""
     merged = lora_lib.merge(client_base, lora_c, cfg)
     x, positions = T._embed_inputs(merged, batch, cfg)
-    return T._scan_groups(merged, x, cfg, positions=positions, kernels=False, remat=remat,
+    x, _ = T._scan_groups(merged, x, cfg, positions=positions, kernels=False, remat=remat,
                           include_tail=False)
+    return x
 
 
 def server_forward_loss(server_base, lora_s, acts, batch, cfg: ModelConfig, *, remat=False):
-    """Remaining groups + final norm + head + CE loss on the main server (the
-    reference adds 0.01·aux, a MoE term that no ported family has)."""
+    """Remaining groups + tail + final norm + head + CE loss on the main
+    server, plus 0.01·aux of the server's MoE layers (the reference's
+    ``server_forward_loss``)."""
     merged = lora_lib.merge(server_base, lora_s, cfg)
     positions = torch.arange(acts.shape[1], device=acts.device)[None, :]
-    x = T._scan_groups(merged, acts, cfg, positions=positions, kernels=False, remat=remat)
+    x, aux = T._scan_groups(merged, acts, cfg, positions=positions, kernels=False, remat=remat)
     x = L.apply_norm(merged["final_norm"], x, cfg)
     return L.fused_cross_entropy(merged["embed"], x, batch["labels"], cfg,
-                                 mask=batch.get("mask"))
+                                 mask=batch.get("mask")) + 0.01 * aux
 
 
 def _trainable(lora):

@@ -7,11 +7,18 @@ Usage (on the GPU; ``--device cpu`` runs the plain versions on the CPU):
       --batch 8 --prompt-len 512 --max-new 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b \
       --batch 2 --prompt-len 8192 --max-new 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
+      --batch 8 --prompt-len 512 --max-new 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b \
+      --batch 2 --prompt-len 4096 --max-new 32
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke   # fp32, on the card
 
-``--arch`` takes every config the port runs: fedsllm-100m, mamba2-130m and
-the dense family (phi4-mini-3.8b, starcoder2-7b, command-r-35b, gemma2-9b,
-whose sliding-window layers keep a ring-buffer cache of 4096 slots).
+``--arch`` takes every config the port runs: fedsllm-100m, mamba2-130m, the
+dense family (phi4-mini-3.8b, starcoder2-7b, command-r-35b, gemma2-9b, whose
+sliding-window layers keep a ring-buffer cache of 4096 slots), the MoE
+family (olmoe-1b-7b, qwen3-moe-235b-a22b: 235 B parameters, which one card
+does not hold at full depth) and the hybrid recurrentgemma-9b (RG-LRU
+blocks and windowed attention, its ring of 2048 slots).
 
 The adapters are freshly initialised (A ~ N(0,1)/r, B = 0, as a FedsLLM run
 starts), so the output equals the base model's; every adapted projection
@@ -41,7 +48,10 @@ from repro_torch.serving.decode import decode_tokens
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="fedsllm-100m")
+    ap.add_argument("--arch", default="fedsllm-100m",
+                    help="a registered config: fedsllm-100m, mamba2-130m, phi4-mini-3.8b, "
+                         "starcoder2-7b, command-r-35b, gemma2-9b, olmoe-1b-7b, "
+                         "qwen3-moe-235b-a22b, recurrentgemma-9b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)

@@ -93,6 +93,14 @@ def apply_norm(p, x, cfg: ModelConfig, eps: float = 1e-6):
     return y.to(x.dtype)
 
 
+def rms_norm_only(w, x, eps: float = 1e-6):
+    """RMSNorm over the last dim with scale ``w`` in fp32, cast back to x.dtype
+    (the q/k norm of ``qk_norm`` configs)."""
+    xf = x.float()
+    return (xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+            * w.float()).to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # RoPE (split-half, not interleaved)
 # ---------------------------------------------------------------------------
@@ -133,6 +141,9 @@ def init_attn(gen, cfg: ModelConfig, device=None):
     if cfg.use_bias:
         for name, n in (("bq", H * hd), ("bk", Kv * hd), ("bv", Kv * hd), ("bo", D)):
             p[name] = make_param(gen, (n,), dt, init="zeros", device=device)
+    if cfg.qk_norm:
+        p["q_norm"] = make_param(gen, (hd,), dt, init="ones", device=device)
+        p["k_norm"] = make_param(gen, (hd,), dt, init="ones", device=device)
     return p
 
 
@@ -302,6 +313,8 @@ def attention(p, x, cfg: ModelConfig, *, positions, window: int = 0, adapters=No
     if "bq" in p:
         q, k, v = (t + p[b].to(t.dtype) for t, b in ((q, "bq"), (k, "bk"), (v, "bv")))
     q, k, v = q.reshape(B, S, H, hd), k.reshape(B, S, Kv, hd), v.reshape(B, S, Kv, hd)
+    if cfg.qk_norm:  # before RoPE and the cache write, on prefill and decode alike
+        q, k = rms_norm_only(p["q_norm"], q), rms_norm_only(p["k_norm"], k)
     if cfg.use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)

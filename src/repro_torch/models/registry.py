@@ -1,5 +1,6 @@
 """Model registry (port of ``repro/models/registry.py``): the bound model API
-and the parameter count that sizes the delay model's |w|."""
+the parameter count that sizes the delay model's |w|, and the MoE configs'
+active count."""
 
 from __future__ import annotations
 
@@ -53,3 +54,13 @@ def count_params(cfg: ModelConfig, trainable_only: bool = False) -> int:
 
         return lora_param_count(cfg)
     return sum(t.numel() for t in tree_leaves(T.init_params(cfg, device="meta")))
+
+
+def active_param_count(cfg: ModelConfig) -> int:
+    """MoE: the parameters one token touches (MODEL_FLOPS = 6·N_active·D),
+    the count of the config with its experts cut to the top k, as the
+    reference counts it (router included, at k columns); every other
+    family: ``count_params``."""
+    if not cfg.num_experts:
+        return count_params(cfg)
+    return count_params(cfg.replace(num_experts=cfg.num_experts_per_tok))

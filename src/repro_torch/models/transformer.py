@@ -1,7 +1,9 @@
-"""Decoder stack (port of ``repro/models/transformer.py``) for three of the
-reference's layer chars: ``G`` (global attention + MLP) and ``L``
-(sliding-window attention + MLP), the ``dense`` family with layer patterns
-``G`` and ``LG``, and ``M`` (a Mamba-2 SSD block, the ``ssm`` family).
+"""Decoder stack (port of ``repro/models/transformer.py``) for four of the
+reference's layer chars: ``G`` (global attention + MLP or MoE) and ``L``
+(sliding-window attention + MLP), ``M`` (a Mamba-2 SSD block) and ``R`` (an
+RG-LRU recurrent block + MLP). The families it runs: ``dense`` (layer
+patterns ``G`` and ``LG``), ``moe`` (``G`` with a routed expert FFN and,
+for olmoe/qwen3, ``qk_norm``), ``ssm`` (``M``) and ``hybrid`` (``RRL``).
 
 Parameters keep the reference's tree: ``{"embed", "groups", "final_norm"}``
 (plus ``tail_<i>`` layers where the depth is not a multiple of the pattern),
@@ -10,16 +12,19 @@ where a group is one copy of the layer pattern, ``{"sub_0": ..., "sub_1":
 ``lax.scan`` over groups is a Python loop here, over whatever stack it is
 given (the whole stack, or the split engine's client or server view), and
 the caches (KV ``(num_groups, B, S_c, Kv, hd)``, with S_c the window for
-``L`` layers; SSM conv and SSD states) are updated in place (the reference
-carries a new cache through the scan; in place saves a cache copy per step).
+``L`` layers; SSM conv and SSD states; RG-LRU conv and h states) are
+updated in place (the reference carries a new cache through the scan; in
+place saves a cache copy per step).
 
 Two paths, as in the reference:
   * training (``hidden_states``, ``loss_fn`` and ``core/split.py``) runs
     merged weights (``lora.merge``), the plain attentions and
     ``ssd_chunked`` under autograd, and no kernel: the kernels are
-    forward-only;
+    forward-only; the MoE layers' load-balancing aux loss is summed over
+    the layers and added to the loss with ``aux_weight``;
   * serving (``prefill``, ``decode_step``) takes the adapters unmerged:
-    adapted projections run the fused LoRA kernel, and ``kernels`` (prefill
+    adapted 2-D projections run the fused LoRA kernel (the experts' stacked
+    products run as einsums, ``models/moe.py``), and ``kernels`` (prefill
     only) picks the CUDA kernels of flash attention and the SSD scan or
     their plain baselines.
 """
@@ -34,21 +39,21 @@ from repro_torch.core.lora import layer_adapters
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
+from repro_torch.models import moe as MOE
+from repro_torch.models import rglru as RG
 from repro_torch.tree import tree_map
 
 # (family, layer_pattern) pairs the port runs
-PORTED = {("dense", "G"), ("dense", "LG"), ("ssm", "M")}
+PORTED = {("dense", "G"), ("dense", "LG"), ("moe", "G"), ("ssm", "M"), ("hybrid", "RRL")}
 LONG_PREFILL, Q_CHUNK = 16384, 2048  # the reference's query chunking of long sequences
 
 
 def _require_ported(cfg: ModelConfig) -> None:
-    unported = {"family/layer_pattern": (cfg.family, cfg.layer_pattern) not in PORTED,
-                "qk_norm": cfg.qk_norm, "num_experts": bool(cfg.num_experts)}
-    bad = [k for k, v in unported.items() if v]
-    if bad:
-        raise NotImplementedError(f"{cfg.name}: not ported yet ({', '.join(bad)}); the port runs "
-                                  "the dense family with layer_pattern 'G' or 'LG' and the ssm "
-                                  "family with layer_pattern 'M'")
+    if (cfg.family, cfg.layer_pattern) not in PORTED:
+        raise NotImplementedError(
+            f"{cfg.name}: not ported yet (family {cfg.family!r}, layer_pattern "
+            f"{cfg.layer_pattern!r}); the port runs " + ", ".join(
+                f"{f} with {lp!r}" for f, lp in sorted(PORTED)))
 
 
 def _slices(tree) -> list:
@@ -98,6 +103,11 @@ def init_sublayer(gen, cfg: ModelConfig, ch: str, device=None):
     if ch == "M":
         p["mamba"] = M2.init_mamba(gen, cfg, device)
         return p
+    if ch == "R":
+        p["rglru"] = RG.init_rglru_block(gen, cfg, device)
+        p["norm2"] = L.init_norm(gen, cfg, cfg.d_model, device)
+        p["mlp"] = L.init_mlp(gen, cfg, device)
+        return p
     if ch not in ("G", "L"):
         raise ValueError(ch)
     p["attn"] = L.init_attn(gen, cfg, device)
@@ -106,43 +116,67 @@ def init_sublayer(gen, cfg: ModelConfig, ch: str, device=None):
     if cfg.use_post_norm:
         p["post_norm1"] = L.init_norm(gen, cfg, cfg.d_model, device)
         p["post_norm2"] = L.init_norm(gen, cfg, cfg.d_model, device)
-    p["mlp"] = L.init_mlp(gen, cfg, device)
+    if cfg.num_experts:
+        p["moe"] = MOE.init_moe(gen, cfg, device)
+    else:
+        p["mlp"] = L.init_mlp(gen, cfg, device)
     return p
+
+
+def _ffn(p, h, cfg: ModelConfig, ad):
+    """The MLP, or the MoE layer: (out, aux loss or None)."""
+    if "moe" in p:
+        return MOE.apply_moe(p["moe"], h, cfg, adapters=ad.get("moe"))
+    return L.apply_mlp(p["mlp"], h, cfg, adapters=ad.get("mlp")), None
 
 
 def apply_sublayer(p, x, cfg: ModelConfig, ch: str, *, cache=None, cache_pos=None,
                    positions=None, adapters=None, kernels=True, q_chunk=0):
     """One pre-norm layer: the reference's ``G``/``L`` branch (with its post
-    norms and parallel block) or its ``M`` branch."""
+    norms, parallel block and MoE), its ``M`` branch or its ``R`` branch.
+    Returns (x, aux): the MoE layer's aux loss, None for any other layer."""
     ad = adapters or {}
     h = L.apply_norm(p["norm1"], x, cfg)
     if ch == "M":
         return x + M2.apply_mamba(p["mamba"], h, cfg, cache["ssm"] if cache else None,
-                                  adapters=ad.get("mamba"), kernels=kernels)
+                                  adapters=ad.get("mamba"), kernels=kernels), None
+    if ch == "R":
+        x = x + RG.apply_rglru_block(p["rglru"], h, cfg, cache["rec"] if cache else None,
+                                     adapters=ad.get("rglru"))
+        return x + L.apply_mlp(p["mlp"], L.apply_norm(p["norm2"], x, cfg), cfg,
+                               adapters=ad.get("mlp")), None
     a = L.attention(p["attn"], h, cfg, window=_char_window(cfg, ch), adapters=ad.get("attn"),
                     positions=positions, cache=cache["attn"] if cache else None,
                     cache_pos=cache_pos, kernels=kernels, q_chunk=q_chunk)
     if cfg.use_post_norm:
         a = L.apply_norm(p["post_norm1"], a, cfg)
     if cfg.parallel_block:  # attention and MLP both read norm1's output
-        return x + a + L.apply_mlp(p["mlp"], h, cfg, adapters=ad.get("mlp"))
+        m, aux = _ffn(p, h, cfg, ad)
+        return x + a + m, aux
     x = x + a
-    m = L.apply_mlp(p["mlp"], L.apply_norm(p["norm2"], x, cfg), cfg, adapters=ad.get("mlp"))
+    m, aux = _ffn(p, L.apply_norm(p["norm2"], x, cfg), cfg, ad)
     if cfg.use_post_norm:
         m = L.apply_norm(p["post_norm2"], m, cfg)
-    return x + m
+    return x + m, aux
+
+
+def _add_aux(total, aux):
+    return total if aux is None else aux if total is None else total + aux
 
 
 def apply_group(gp, x, cfg: ModelConfig, *, cache=None, cache_pos=None, positions=None,
                 adapters=None, kernels=True, q_chunk=0):
-    """One copy of the layer pattern: sub-layer ``sub_<i>`` for char i."""
+    """One copy of the layer pattern: sub-layer ``sub_<i>`` for char i.
+    Returns (x, the group's summed aux loss or None)."""
     ad = adapters or {}
+    aux = None
     for i, ch in enumerate(group_chars(cfg)):
         key = f"sub_{i}"
-        x = apply_sublayer(gp[key], x, cfg, ch, cache=cache[key] if cache else None,
-                           cache_pos=cache_pos, positions=positions, adapters=ad.get(key),
-                           kernels=kernels, q_chunk=q_chunk)
-    return x
+        x, a = apply_sublayer(gp[key], x, cfg, ch, cache=cache[key] if cache else None,
+                              cache_pos=cache_pos, positions=positions, adapters=ad.get(key),
+                              kernels=kernels, q_chunk=q_chunk)
+        aux = _add_aux(aux, a)
+    return x, aux
 
 
 # ---------------------------------------------------------------------------
@@ -193,51 +227,56 @@ def _scan_groups(params, x, cfg: ModelConfig, *, cache=None, cache_pos=None, pos
     client's side runs no tail. ``remat``: each group's activations are
     recomputed in the backward pass instead of kept
     (``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` per
-    group); the values and gradients are the same."""
+    group); the values and gradients are the same. Returns (x, aux): the
+    MoE layers' aux losses summed, a 0-d fp32 tensor (0 without MoE)."""
     _require_ported(cfg)
     groups = _slices(params["groups"])
     caches = _slices(cache["groups"]) if cache else [None] * len(groups)
+    aux = None
     for i, (gp, gc) in enumerate(zip(groups, caches)):
         def group(h, i=i, gp=gp, gc=gc):
             return apply_group(gp, h, cfg, cache=gc, cache_pos=cache_pos, positions=positions,
                                adapters=layer_adapters(lora, cfg, i), kernels=kernels,
                                q_chunk=q_chunk)
 
-        x = checkpoint(group, x, use_reentrant=False) if remat else group(x)
+        x, a = checkpoint(group, x, use_reentrant=False) if remat else group(x)
+        aux = _add_aux(aux, a)
     for i, ch in enumerate(tail_chars(cfg) if include_tail else ""):
         key = f"tail_{i}"
-        x = apply_sublayer(params[key], x, cfg, ch, cache=cache[key] if cache else None,
-                           cache_pos=cache_pos, positions=positions,
-                           adapters=layer_adapters(lora, cfg, None, top=key), kernels=kernels,
-                           q_chunk=q_chunk)
-    return x
+        x, a = apply_sublayer(params[key], x, cfg, ch, cache=cache[key] if cache else None,
+                              cache_pos=cache_pos, positions=positions,
+                              adapters=layer_adapters(lora, cfg, None, top=key),
+                              kernels=kernels, q_chunk=q_chunk)
+        aux = _add_aux(aux, a)
+    return x, (x.new_zeros((), dtype=torch.float32) if aux is None else aux)
 
 
 def forward(params, batch, cfg: ModelConfig, *, lora=None, kernels=True):
     """Full forward -> logits (B, S, V), fp32."""
     x, positions = _embed_inputs(params, batch, cfg)
-    x = _scan_groups(params, x, cfg, positions=positions, lora=lora, kernels=kernels,
-                     q_chunk=_q_chunk(x.shape[1]))
+    x, _ = _scan_groups(params, x, cfg, positions=positions, lora=lora, kernels=kernels,
+                        q_chunk=_q_chunk(x.shape[1]))
     return L.lm_logits(params["embed"], L.apply_norm(params["final_norm"], x, cfg), cfg)
 
 
 def hidden_states(params, batch, cfg: ModelConfig, *, remat: bool = False,
                   unroll: bool = False):
-    """The training path's forward up to the final norm. Returns (x, aux);
-    aux = 0, since no ported family has the reference's MoE aux loss.
-    ``remat`` recomputes each group's activations in the backward pass
-    (``_scan_groups``); ``unroll`` is the reference's ``lax.scan`` unrolling,
-    which a Python loop has no use for: it is taken and ignored."""
+    """The training path's forward up to the final norm. Returns (x, aux),
+    aux the MoE layers' load-balancing losses summed over the layers (0
+    without MoE). ``remat`` recomputes each group's activations in the
+    backward pass (``_scan_groups``); ``unroll`` is the reference's
+    ``lax.scan`` unrolling, which a Python loop has no use for: it is taken
+    and ignored."""
     x, positions = _embed_inputs(params, batch, cfg)
-    x = _scan_groups(params, x, cfg, positions=positions, kernels=False, remat=remat,
-                     q_chunk=_q_chunk(x.shape[1]))
-    return L.apply_norm(params["final_norm"], x, cfg), x.new_zeros((), dtype=torch.float32)
+    x, aux = _scan_groups(params, x, cfg, positions=positions, kernels=False, remat=remat,
+                          q_chunk=_q_chunk(x.shape[1]))
+    return L.apply_norm(params["final_norm"], x, cfg), aux
 
 
 def loss_fn(params, batch, cfg: ModelConfig, *, remat: bool = False, aux_weight=0.01,
             unroll: bool = False):
     """Training loss: sequence-chunked CE (``layers.fused_cross_entropy``) +
-    aux_weight·aux. Returns (loss, {"ce_loss", "moe_aux"}). ``remat`` and
+    aux_weight·aux (``hidden_states``' MoE aux loss). Returns (loss, {"ce_loss", "moe_aux"}). ``remat`` and
     ``unroll`` as in ``hidden_states``."""
     x, aux = hidden_states(params, batch, cfg, remat=remat)
     loss = L.fused_cross_entropy(params["embed"], x, batch["labels"], cfg,
@@ -253,9 +292,12 @@ def loss_fn(params, batch, cfg: ModelConfig, *, remat: bool = False, aux_weight=
 def _sublayer_cache(cfg: ModelConfig, ch: str, batch: int, max_seq: int, dtype, device):
     """``{"attn": (k, v)}``, each (B, S_c, Kv, hd) with S_c = min(window,
     max_seq) for ``L`` (a ring buffer once S_c == window) and max_seq for
-    ``G``; ``{"ssm": (conv_state, ssd_state)}`` for ``M``."""
+    ``G``; ``{"ssm": (conv_state, ssd_state)}`` for ``M``; ``{"rec":
+    (conv_state, h)}`` for ``R``."""
     if ch == "M":
         return {"ssm": M2.init_mamba_cache(cfg, batch, dtype, device)}
+    if ch == "R":
+        return {"rec": RG.init_rglru_cache(cfg, batch, dtype, device)}
     window = _char_window(cfg, ch)
     S_c = min(window, max_seq) if window else max_seq
     shape = (batch, S_c, cfg.num_kv_heads, cfg.head_dim)
@@ -288,8 +330,8 @@ def decode_step(params, tokens, cache, cache_pos: int, cfg: ModelConfig, *, lora
     x = L.embed_tokens(params["embed"], tokens, cfg)
     positions = torch.full((tokens.shape[0], 1), cache_pos, dtype=torch.int64,
                            device=tokens.device)
-    x = _scan_groups(params, x, cfg, cache=cache, cache_pos=cache_pos, positions=positions,
-                     lora=lora)
+    x, _ = _scan_groups(params, x, cfg, cache=cache, cache_pos=cache_pos, positions=positions,
+                        lora=lora)
     x = L.apply_norm(params["final_norm"], x, cfg)
     return L.lm_logits(params["embed"], x, cfg), cache
 
@@ -297,7 +339,7 @@ def decode_step(params, tokens, cache, cache_pos: int, cfg: ModelConfig, *, lora
 def prefill(params, batch, cfg: ModelConfig, cache, *, lora=None, kernels=True):
     """Prefill: run the full prompt, writing the cache. Returns (logits, cache)."""
     x, positions = _embed_inputs(params, batch, cfg)
-    x = _scan_groups(params, x, cfg, cache=cache, cache_pos=0, positions=positions,
-                     lora=lora, kernels=kernels, q_chunk=_q_chunk(x.shape[1]))
+    x, _ = _scan_groups(params, x, cfg, cache=cache, cache_pos=0, positions=positions,
+                        lora=lora, kernels=kernels, q_chunk=_q_chunk(x.shape[1]))
     x = L.apply_norm(params["final_norm"], x, cfg)
     return L.lm_logits(params["embed"], x, cfg), cache

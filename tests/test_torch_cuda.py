@@ -306,6 +306,51 @@ def test_flash_variants_at_their_edges(cuda, B, H, Kv, Sq, Skv, d, causal, windo
     assert err <= _bf16_ulps(ref), (err, _bf16_ulps(ref))
 
 
+@pytest.mark.parametrize("B,H,Kv,S,d,window", [
+    (1, 16, 16, 1024, 128, 0),  # olmoe-1b-7b: MHA, group size 1
+    (1, 64, 4, 1024, 128, 0),  # qwen3-moe-235b-a22b: a 16:1 GQA
+    (1, 16, 1, 4096, 256, 2048),  # recurrentgemma-9b: MQA 16/1, window 2048
+])
+def test_flash_wgmma_at_the_moe_and_hybrid_heads(cuda, B, H, Kv, S, d, window):
+    """The wgmma variant at the group sizes the MoE and hybrid configs serve
+    (1, 16, and 16 over one kv head at d=256 with a window of 2048 on a
+    prompt twice as long), against flash_attention_ref."""
+    gen = torch.Generator(device=cuda).manual_seed(H * 7 + Kv + d)
+    q = torch.randn((B, S, H, d), generator=gen, device=cuda).bfloat16().transpose(1, 2)
+    k, v = (torch.randn((B, S, Kv, d), generator=gen, device=cuda).bfloat16().transpose(1, 2)
+            for _ in range(2))
+    before = dict(flash_attention.variant_launches)
+    o = flash_attention(q, k, v, causal=True, window=window, softcap=0.0)
+    torch.cuda.synchronize()
+    moved = {k_: v_ - before[k_] for k_, v_ in flash_attention.variant_launches.items()}
+    assert moved == {k_: int(k_ == "wgmma") for k_ in moved}, moved
+    ref = flash_attention_ref(q, k, v, causal=True, window=window, softcap=0.0)
+    err = (o.float() - ref.float()).abs().max().item()
+    assert err <= _bf16_ulps(ref), (err, _bf16_ulps(ref))
+
+
+@pytest.mark.parametrize("M,K,N,expected", [
+    (8192, 12288, 4096, "prefill"), (8192, 4096, 12288, "prefill"),  # recurrentgemma's MLP
+    (2, 12288, 4096, "decode"), (2, 4096, 12288, "decode"),
+    (8, 8192, 4096, "decode"),  # qwen3's wo at decode
+])
+def test_lora_at_the_hybrid_and_moe_widths(cuda, M, K, N, expected):
+    """LoRA at recurrentgemma-9b's K=12288 down projection (and its up
+    projection) and qwen3's wo, prefill and decode, against lora_matmul_ref."""
+    gen = torch.Generator(device=cuda).manual_seed(M + K + N)
+    x = torch.randn((M, K), generator=gen, device=cuda).bfloat16()
+    w, a, b = (torch.randn(s, generator=gen, device=cuda).mul(0.05).bfloat16()
+               for s in ((K, N), (K, 16), (16, N)))
+    before = dict(lora_matmul.variant_launches)
+    y = lora_matmul(x, w, a, b, scale=2.0)
+    torch.cuda.synchronize()
+    moved = {k_: v_ - before[k_] for k_, v_ in lora_matmul.variant_launches.items()}
+    assert moved == {k_: int(k_ == expected) for k_ in moved}, moved
+    ref = lora_matmul_ref(x, w, a, b, scale=2.0)
+    err = (y.float() - ref.float()).abs().max().item()
+    assert err <= _bf16_ulps(ref), (err, _bf16_ulps(ref))
+
+
 def test_flash_wrapper_raises_on_other_head_dims(cuda):
     """Head dims outside HEAD_DIMS (16-256) raise on the card; none falls
     back to the plain version."""

@@ -173,8 +173,8 @@ def test_unported_config_raises_before_the_device_check():
 
 def test_unported_configs_raise():
     cfg = smoke_variant(get_arch("fedsllm-100m"))
-    for bad in (cfg.replace(layer_pattern="GL"), cfg.replace(family="moe"),
-                cfg.replace(qk_norm=True)):
+    for bad in (cfg.replace(layer_pattern="GL"), cfg.replace(family="encdec"),
+                cfg.replace(family="vlm")):
         with pytest.raises(NotImplementedError):
             T.init_params(bad)
 

@@ -218,11 +218,13 @@ def test_scan_groups_on_views_equals_the_whole_stack(split_setup):
     cfg, params = s["cfg"], s["params"]
     full = torch_lora.join_client_server(s["lc"], s["ls"])
     x, positions = T._embed_inputs(params, s["batch"], cfg)
-    whole = T._scan_groups(params, x, cfg, positions=positions, lora=full, kernels=False)
+    whole, _ = T._scan_groups(params, x, cfg, positions=positions, lora=full, kernels=False)
     parts = split.slice_base(params, 1)
     lc, ls = torch_lora.split_client_server(full, 1)
-    h = T._scan_groups(parts.client_base, x, cfg, positions=positions, lora=lc, kernels=False)
-    h = T._scan_groups(parts.server_base, h, cfg, positions=positions, lora=ls, kernels=False)
+    h, _ = T._scan_groups(parts.client_base, x, cfg, positions=positions, lora=lc,
+                          kernels=False)
+    h, _ = T._scan_groups(parts.server_base, h, cfg, positions=positions, lora=ls,
+                          kernels=False)
     torch.testing.assert_close(h, whole, rtol=0, atol=0)
 
 
