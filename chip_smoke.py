@@ -159,14 +159,32 @@ then
                sweep at their decode shapes; (e) a split pass of each
                family's smoke config on the card against the CPU and a
                full-width olmoe split pass. Written to
-               ``build/chip_smoke/families.json``.
+               ``build/chip_smoke/families.json``;
+ 11. encdec_vlm — the encoder-decoder and vision-language families:
+               (a) whisper-base (6 + 6 layers) served at B=8 clips of 1,500
+               seeded frame embeddings with a 32-token prompt and, F4's
+               case, a one-token prompt; (b) llava-next-mistral-7b (32
+               layers) at B=2, 2,880 seeded patch embeddings and a
+               1,216-token prompt (4,096 positions); each through
+               ``decode_tokens`` with 32 new tokens, launches by variant
+               (the encoder's and the cross-attention's flash calls
+               non-causal), the logits rule against fp32, greedy tokens
+               equal but for ties, and the fp32 decode step (cross keys
+               from the cache, at position Tv + S) against the fp32
+               forward over the appended sequence; (c) the smoke configs'
+               split pass and kernel forward on the card against the CPU,
+               and a full-width whisper split pass against monolithic and
+               the merged loss; (d) flash at the serves' four attention
+               shapes (whisper's encoder, self and cross, llava's) and
+               every LoRA shape they launch, against their plain versions,
+               with their times. Written to ``build/chip_smoke/encdec_vlm.json``.
 
 Prints the compiled kernels' registers and spills, the card's name and power
 limit, a ``{"kernels": [...]}`` line (the three kernels on the bf16 serving
 paths, then each variant of the fp32 serve path of phase 8, then phase 9's
 flash variants at head dims 256 and 128 and the LoRA kernel on each of its
-serves, then phase 10's LoRA kernel and flash on each of its serves), and
-last
+serves, then phase 10's and phase 11's LoRA kernel and flash on each of
+their serves), and last
 ``{"ok": true, "device": {...}}``. Details go to ``build/chip_smoke/``.
 Without a CUDA card it exits non-zero before printing any result.
 """
@@ -557,29 +575,30 @@ def lora_work(M, K, N, r, esize=2):
     return nbytes, ops
 
 
-def attn_inputs(gen, B, S, H, Kv, d, dev, dtype=torch.bfloat16, misaligned=False):
+def attn_inputs(gen, B, S, H, Kv, d, dev, dtype=torch.bfloat16, misaligned=False, Skv=None):
     """q, k, v in the model's (B, S, heads, d) layout, as (B, heads, S, d)
-    views; ``misaligned``: q one element off a 16-byte boundary (TMA cannot
-    read it)."""
+    views (k and v of ``Skv`` positions, S by default); ``misaligned``: q
+    one element off a 16-byte boundary (TMA cannot read it)."""
     q = torch.randn((B, S, H, d), generator=gen, device=dev).to(dtype)
     if misaligned:
         q = torch.empty(q.numel() + 1, dtype=dtype, device=dev)[1:].view_as(q).copy_(q)
     q = q.transpose(1, 2)
-    k, v = (torch.randn((B, S, Kv, d), generator=gen, device=dev).to(dtype).transpose(1, 2)
+    k, v = (torch.randn((B, Skv or S, Kv, d), generator=gen, device=dev).to(dtype).transpose(1, 2)
             for _ in range(2))
     return q, k, v
 
 
-def attn_work(B, S, H, Kv, d, causal, window, esize=2):
+def attn_work(B, S, H, Kv, d, causal, window, esize=2, Skv=None):
+    Skv = Skv or S
     qpos = torch.arange(S)[:, None]
-    kpos = torch.arange(S)[None, :]
-    mask = torch.ones((S, S), dtype=torch.bool)
+    kpos = torch.arange(Skv)[None, :]
+    mask = torch.ones((S, Skv), dtype=torch.bool)
     if causal:
         mask &= kpos <= qpos
     if window:
         mask &= kpos > qpos - window
     pairs = int(mask.sum())  # score entries this input needs
-    nbytes = esize * (2 * B * H * S * d + 2 * B * Kv * S * d)
+    nbytes = esize * (2 * B * H * S * d + 2 * B * Kv * Skv * d)
     ops = 4 * B * H * pairs * d  # Q·Kᵀ and P·V
     return nbytes, ops
 
@@ -1870,19 +1889,20 @@ def lora_row(gen, dev, M, K, N, r, dtype, scale, launches=None, iters=100, devic
 
 
 def attn_row(gen, dev, B, S, H, Kv, d, dtype, window=0, softcap=0.0, launches=None, iters=5,
-             misaligned=False, **meta):
+             misaligned=False, causal=True, Skv=None, **meta):
     """One flash shape: the kernel against its plain version (bf16: 2 ulps of
     the largest output; fp32: 2e-5 + 2e-5·|o|), with event, device, plain,
     library and bound times. The library call is SDPA, where it computes the
-    same function: no softcap; a window as its boolean mask."""
+    same function: no softcap; a window as its boolean mask. ``causal=False``
+    with ``Skv`` keys: an encoder's or a cross-attention's shape."""
     fp32 = dtype == torch.float32
-    nbytes, ops = attn_work(B, S, H, Kv, d, True, window, esize=4 if fp32 else 2)
-    sets = [attn_inputs(gen, B, S, H, Kv, d, dev, dtype, misaligned)
+    nbytes, ops = attn_work(B, S, H, Kv, d, causal, window, esize=4 if fp32 else 2, Skv=Skv)
+    sets = [attn_inputs(gen, B, S, H, Kv, d, dev, dtype, misaligned, Skv)
             for _ in range(n_sets(nbytes))]
-    call = lambda q, k, v: flash_attention(q, k, v, causal=True, window=window,  # noqa: E731
+    call = lambda q, k, v: flash_attention(q, k, v, causal=causal, window=window,  # noqa: E731
                                            softcap=softcap)
-    plain = lambda q, k, v: flash_attention_ref(q, k, v, causal=True, window=window,  # noqa: E731
-                                                softcap=softcap)
+    plain = lambda q, k, v: flash_attention_ref(q, k, v, causal=causal,  # noqa: E731
+                                                window=window, softcap=softcap)
     o = call(*sets[0])
     torch.cuda.synchronize()
     ref = plain(*sets[0])
@@ -1902,10 +1922,11 @@ def attn_row(gen, dev, B, S, H, Kv, d, dtype, window=0, softcap=0.0, launches=No
             i = torch.arange(S, device=dev)
             mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
         lib = lambda q, k, v: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
-            q, k, v, attn_mask=mask, is_causal=mask is None, enable_gqa=True)
+            q, k, v, attn_mask=mask, is_causal=causal and mask is None, enable_gqa=True)
     b_ms, b_by = bound_ms(nbytes, ops, PEAK_FP32 if fp32 else PEAK_BF16)
     row = dict(kernel="flash_attention", dtype=str(dtype).split(".")[-1], B=B, S=S, H=H, Kv=Kv,
-               d=d, window=window, softcap=softcap, misaligned=misaligned, **meta,
+               d=d, window=window, softcap=softcap, misaligned=misaligned, causal=causal,
+               Skv=Skv or S, **meta,
                variant=ran_variant("flash_attention", lambda: call(*sets[0])),
                err=err, excess=excess, tol=tol, ok=ok, launches=launches,
                ms=time_ms(call, sets, iters), **device_time_ms(call, sets, iters, bound=b_ms),
@@ -2409,7 +2430,8 @@ def dense_paths() -> list[tuple]:
 
 def serve_lora_rows(dev, paths, seed: int, tag: str) -> tuple[list, list]:
     """Every LoRA shape that the serves ``paths`` launch (the prefill's
-    M = B·S, the decode steps' M = B), held against its plain version (bf16:
+    M = B·S, an encoder's B·encoder_seq; the decode steps' M = B), held
+    against its plain version (bf16:
     2 ulps of the largest output; fp32: 1e-5 of it) on the variant that the
     wrappers' rule gives it (``expected``, as ``dense_expected`` counts it),
     with its launches in that serve and its times."""
@@ -2419,7 +2441,7 @@ def serve_lora_rows(dev, paths, seed: int, tag: str) -> tuple[list, list]:
         dtype = torch.float32 if fp32 else torch.bfloat16
         scale = (cfg.lora or LoRAConfig()).scale
         for (M, K, N, r), n in sorted(lora_plan(cfg, B, S, new).items()):
-            stage = "prefill" if M == B * S else "decode"
+            stage = "decode" if M == B else "prefill"
             # an fp32 prefill product of gemma2 takes ~50 ms: few timed calls
             iters = {"prefill": 3 if fp32 else 10, "decode": 100}[stage]
             rows.append(lora_row(gen, dev, M, K, N, r, dtype, scale, launches=n, iters=iters,
@@ -2473,7 +2495,7 @@ def recording_flash():
     calls, real = [], L.flash_attention
 
     def record(q, k, v, **kw):
-        calls.append((q.shape[-1], kw["window"], kw["softcap"]))
+        calls.append((q.shape[-1], kw["window"], kw["softcap"], kw["causal"]))
         return real(q, k, v, **kw)
 
     L.flash_attention = record
@@ -2483,29 +2505,43 @@ def recording_flash():
         L.flash_attention = real
 
 
-def counted_serve(params, cfg, prompt, new, lora, dev) -> tuple[torch.Tensor, dict]:
-    """The main path once, through decode_tokens, every count set to 0 just
-    before and read just after."""
+def counted_serve(params, cfg, prompt, new, lora, dev, inputs=None) -> tuple[torch.Tensor, dict]:
+    """The main path once, through decode_tokens (``inputs``: its stub
+    frame or patch embeddings), every count set to 0 just before and read
+    just after."""
     torch.cuda.synchronize()
     zero_counters()
     torch.cuda.reset_peak_memory_stats()
     with recording_flash() as calls:
         t0 = time.perf_counter()
-        tokens = decode_tokens(params, cfg, prompt, new, lora=lora, device=dev)
+        tokens = decode_tokens(params, cfg, prompt, new, lora=lora, device=dev, inputs=inputs)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
     return tokens, {"seconds": seconds, "launches": {n: fn.launches for n, fn in KERNELS.items()},
                     "variants": counters(), "peak_memory_bytes": torch.cuda.max_memory_allocated(),
-                    "flash_calls": {f"d={d} window={w} softcap={c}": n for (d, w, c), n in
+                    "flash_calls": {f"d={d} window={w} softcap={c} causal={causal}": n
+                                    for (d, w, c, causal), n in
                                     collections.Counter(calls).items()}}
 
 
 def lora_plan(cfg, B, S, new) -> collections.Counter:
     """(M, K, N, r) of each LoRA product in one decode_tokens call, with its
-    launches: the prefill's at M = B·S, the new-1 decode steps' at M = B."""
+    launches: the prefill's at M = B·S (S: the positions it writes, a vlm
+    prompt's patches included), the new-1 decode steps' at M = B; for
+    encdec also the encoder's layers and the cross-attention's k/v
+    products, once, at M = B·encoder_seq, and its q/o products as the
+    decoder's."""
     r = (cfg.lora or LoRAConfig()).rank
     plan = collections.Counter()
-    for (K, N), n in model_lora_shapes(cfg).items():
+    shapes = model_lora_shapes(cfg)
+    if cfg.family == "encdec":
+        D, q, kv = cfg.d_model, cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+        shapes.update([(D, q), (q, D)] * cfg.num_layers)  # xattn wq, wo
+        M_enc = B * cfg.encoder_seq
+        for (K, N), n in lora_shapes(cfg).items():
+            plan[(M_enc, K, N, r)] += n * cfg.num_encoder_layers
+        plan[(M_enc, D, kv, r)] += 2 * cfg.num_layers  # xattn wk, wv
+    for (K, N), n in shapes.items():
         plan[(B * S, K, N, r)] += n
         plan[(B, K, N, r)] += n * (new - 1)
     return plan
@@ -2521,13 +2557,22 @@ def dense_expected(cfg, B, S, new, fp32=False) -> dict:
         lora[lora_binding.variant(M, K, N, r, True, fp32)] += n
     flash = dict.fromkeys(flash_attention.variant_launches, 0)
     flash["fp32" if fp32 else "wgmma" if cfg.head_dim in flash_binding.WGMMA_HEAD_DIMS
-          else "wmma"] = attention_layers(cfg)
+          else "wmma"] = flash_calls(cfg, S)
     return {"lora_matmul": lora, "flash_attention": flash,
             "ssd_scan": dict.fromkeys(ssd_scan.variant_launches, 0)}
 
 
 def attention_layers(cfg) -> int:
     return sum(ch in "GL" for ch in cfg.pattern)
+
+
+def flash_calls(cfg, S) -> int:
+    """Flash calls of a prefill of S positions: one an attention layer, an
+    encdec decoder layer's cross-attention too and one an encoder layer (a
+    one-token prompt's self- and cross-attention are plain, as a decode
+    step's)."""
+    per_layer = 2 if cfg.family == "encdec" else 1
+    return cfg.num_encoder_layers + (attention_layers(cfg) * per_layer if S > 1 else 0)
 
 
 def served_fails(cfg, rec, B, S, new, fp32=False) -> list:
@@ -2537,8 +2582,11 @@ def served_fails(cfg, rec, B, S, new, fp32=False) -> list:
         fails.append(f"{cfg.name}: launches by variant {rec['variants']}, expected {want}")
     calls = rec["flash_calls"]
     windowed = sum(n for k, n in calls.items() if "window=0 " not in k)
-    if (windowed != cfg.pattern.count("L") or sum(calls.values()) != attention_layers(cfg)
-            or not all(k.startswith(f"d={cfg.head_dim} ") for k in calls)):
+    free = sum(n for k, n in calls.items() if k.endswith("causal=False"))  # non-causal
+    want_free = cfg.num_encoder_layers + (cfg.num_layers if cfg.family == "encdec" and S > 1
+                                          else 0)
+    if (windowed != cfg.pattern.count("L") or sum(calls.values()) != flash_calls(cfg, S)
+            or free != want_free or not all(k.startswith(f"d={cfg.head_dim} ") for k in calls)):
         fails.append(f"{cfg.name}: flash calls {calls}")
     return fails
 
@@ -2558,12 +2606,17 @@ def merge_in_place(params, lora, cfg) -> None:
             w[i].copy_((w[i].float() + delta * scale).to(w.dtype))
 
 
-def prefill_last(params, prompt, cfg, cache, *, lora=None, kernels=True, last=LAST):
+def prefill_last(params, prompt, cfg, cache, *, lora=None, kernels=True, last=LAST,
+                 inputs=None):
     """T.prefill's logits at the last ``last`` positions only (a long
-    prompt's (B, S, V) fp32 logits are GBs); ``cache=None`` is a forward."""
-    x, positions = T._embed_inputs(params, {"tokens": prompt}, cfg)
+    prompt's (B, S, V) fp32 logits are GBs); ``cache=None`` is a forward;
+    ``inputs``: stub frame or patch embeddings."""
+    batch = {"tokens": prompt, **(inputs or {})}
+    enc_out = T._encode(params, batch, cfg, lora=lora, kernels=kernels)
+    x, positions = T._embed_inputs(params, batch, cfg)
     x, _ = T._scan_groups(params, x, cfg, cache=cache, cache_pos=0, positions=positions,
-                          lora=lora, kernels=kernels, q_chunk=T._q_chunk(x.shape[1]))
+                          lora=lora, kernels=kernels, q_chunk=T._q_chunk(x.shape[1]),
+                          enc_out=enc_out)
     x = L.apply_norm(params["final_norm"], x[:, -last:], cfg)
     return L.lm_logits(params["embed"], x, cfg)
 
@@ -3298,6 +3351,295 @@ def phase_families(dev) -> tuple[dict, list]:
     return res, entries
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the encoder-decoder family (whisper-base) and the vision-language
+# family (llava-next-mistral-7b)
+# ---------------------------------------------------------------------------
+
+WHISPER, LLAVA = "whisper-base", "llava-next-mistral-7b"
+WHISPER_ONE = f"{WHISPER} one-token prompt"
+# the serves: arch, batch, prompt tokens, new tokens, patches. whisper: 8
+# clips of 30 s (1,500 frames each; batched transcription) and a 32-token
+# prompt, and a one-token prompt (the start-of-transcript token alone);
+# llava: one anyres image (2,880 patches) and a 1,216-token prompt, 4,096
+# positions
+ENCDEC_VLM_SERVES = {WHISPER: (WHISPER, 8, 32, NEW, 0), WHISPER_ONE: (WHISPER, 8, 1, NEW, 0),
+                     LLAVA: (LLAVA, 2, 1216, NEW, 2880)}
+ENCDEC_SPLIT = {"arch": WHISPER, "B": 4, "S": 64, "cut": 1}  # the full-width split pass
+# limits, written in PERF.md §6 before the first run on the card (and phase
+# 9's: the logits rule, greedy tokens equal but for ties)
+ENCDEC_VLM_LIMITS = {
+    # the fp32 decode step after the prefill (its cross keys from the cache,
+    # at position Tv + S) against the fp32 forward over the appended
+    # sequence, of the largest logit: the same function, summed in another order
+    "decode_vs_forward": 1e-4,
+    "smoke_card_vs_cpu": 1e-4,  # smoke split pass and forward, of the largest value
+    "split_vs_monolithic": 2.0 ** -8,  # the full-width split pass, per leaf and loss
+}
+
+
+def stub_inputs(cfg, dev, B, Tv, seed: int) -> dict:
+    """The stub frontends' inputs, N(0, 1) from a seeded generator: whisper's
+    frame embeddings (B, encoder_seq, D), llava's patch embeddings (B, Tv,
+    1024)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if cfg.family == "encdec":
+        return {"frame_embeds": torch.randn((B, cfg.encoder_seq, cfg.d_model), generator=gen,
+                                            device=dev)}
+    return {"vision_embeds": torch.randn((B, Tv, T.VISION_WIDTH), generator=gen, device=dev)}
+
+
+def stub_batch(cfg, dev, B, S, seed: int) -> dict:
+    """A training batch of S positions as the reference's ``launch/specs.py``
+    lays one out: Tv = min(vision_tokens, S // 2) patches and S - Tv tokens
+    (vlm), the frames (encdec); labels of S positions."""
+    Tv = min(cfg.vision_tokens, S // 2) if cfg.family == "vlm" else 0
+    batch = TokenStream(B, S, cfg.vocab_size, seed=seed, device=dev).batch_at(0)
+    batch["tokens"] = batch["tokens"][:, Tv:]  # labels and mask keep all S positions
+    return {**batch, **stub_inputs(cfg, dev, B, Tv, seed)}
+
+
+def encdec_vlm_paths() -> list[tuple]:
+    """Phase 11's serves for serve_lora_rows: (path, cfg, B, positions, new,
+    fp32); the one-token prompt's shapes are the main whisper serve's."""
+    return [(path, get_arch(arch), B, Tv + S, new, False)
+            for path, (arch, B, S, new, Tv) in ENCDEC_VLM_SERVES.items() if path != WHISPER_ONE]
+
+
+def encdec_vlm_serve(cfg, dev, B, S, new, Tv) -> tuple[dict, list]:
+    """One config served through decode_tokens with its stub inputs (the
+    counted main path), its prefill and decode timed; then, from the same
+    weights, the kernel path's, the plain bf16 path's and fp32's (W +
+    scale·A·B unrounded) last-positions prefill logits and one decode step
+    (teacher-forced to fp32's token), phase 3's logits rule on both, greedy
+    tokens equal but for ties, and the fp32 decode step (at position Tv + S,
+    its cross keys from the cache) against the fp32 forward over the
+    appended sequence."""
+    t0 = time.perf_counter()
+    params, lora, prompt = make_model(cfg, dev, B, S)
+    inputs = stub_inputs(cfg, dev, B, Tv, seed=3)
+    P = Tv + S  # the positions the prefill writes
+    tokens, rec = counted_serve(params, cfg, prompt, new, lora, dev, inputs)
+    fails = served_fails(cfg, rec, B, P, new)
+    log(f"[encdec_vlm] {cfg.name} ({cfg.num_layers} layers, prompt {S}, patches {Tv}): "
+        f"decode_tokens {tuple(tokens.shape)} in {rec['seconds']:.2f} s, peak "
+        f"{rec['peak_memory_bytes'] / 2**30:.2f} GiB, launches {rec['launches']}, by variant "
+        f"{rec['variants']}, flash calls {rec['flash_calls']}")
+    errs = {}
+    with torch.no_grad():
+        cache = T.init_cache(cfg, B, P + new, device=dev)
+        out, prefill_ms = timed(lambda: T.prefill(params, {"tokens": prompt, **inputs}, cfg,
+                                                  cache, lora=lora))
+        del out  # llava's (B, 4096, V) fp32 logits are 1 GB
+        tok, step_ms = tokens[:, :1], []
+        for pos in range(P, P + new - 1):
+            (step, _), ms = timed(lambda: T.decode_step(params, tok, cache, pos, cfg, lora=lora))
+            step_ms.append(ms)
+            tok = step[:, -1:].argmax(-1)
+        del cache
+        torch.cuda.empty_cache()
+        rec.update(prefill_ms=prefill_ms, decode_step_ms=sum(step_ms) / len(step_ms),
+                   decode_tokens_per_s=B / (sum(step_ms) / len(step_ms) / 1e3))
+        cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
+        exact = tree_map(lambda t: t.to(torch.float32, copy=True), params)
+        merge_in_place(exact, lora, cfg32)
+        cache = T.init_cache(cfg32, B, P + 1, device=dev)
+        ref = prefill_last(exact, prompt, cfg32, cache, kernels=False, inputs=inputs)
+        feed = ref[:, -1:].argmax(-1)
+        ref_step, _ = T.decode_step(exact, feed, cache, P, cfg32)
+        del cache
+        fwd = prefill_last(exact, torch.cat([prompt, feed], 1), cfg32, None, kernels=False,
+                           last=1, inputs=inputs)
+        errs["decode_vs_forward"] = ((ref_step - fwd).abs().max() / fwd.abs().max()).item()
+        if not errs["decode_vs_forward"] <= ENCDEC_VLM_LIMITS["decode_vs_forward"]:
+            fails.append(f"{cfg.name}: decode vs forward {errs['decode_vs_forward']}")
+        del exact, fwd
+        torch.cuda.empty_cache()
+        cache = T.init_cache(cfg, B, P + 1, device=dev)
+        logits = prefill_last(params, prompt, cfg, cache, lora=lora, inputs=inputs)
+        step, _ = T.decode_step(params, feed, cache, P, cfg, lora=lora)
+        del cache
+        merge_in_place(params, lora, cfg)
+        cache = T.init_cache(cfg, B, P + 1, device=dev)
+        plain = prefill_last(params, prompt, cfg, cache, kernels=False, inputs=inputs)
+        plain_step, _ = T.decode_step(params, feed, cache, P, cfg)
+        del cache, params, lora
+    if not torch.equal(logits[:, -1].argmax(-1), tokens[:, 0]):
+        fails.append(f"{cfg.name}: decode_tokens' first token is not the prefill's argmax")
+    if not (torch.isfinite(logits).all() and torch.isfinite(step).all()):
+        fails.append(f"{cfg.name}: non-finite logits")
+    errs.update(prefill_kernel_vs_plain=rel_err(logits, plain),
+                decode_kernel_vs_plain=rel_err(step, plain_step),
+                prefill_kernel_vs_fp32=rel_err(logits, ref),
+                prefill_plain_vs_fp32=rel_err(plain, ref),
+                decode_kernel_vs_fp32=rel_err(step, ref_step),
+                decode_plain_vs_fp32=rel_err(plain_step, ref_step))
+    for stage in ("prefill", "decode"):
+        if not errs[f"{stage}_kernel_vs_fp32"] <= max(2 * errs[f"{stage}_plain_vs_fp32"], 1e-3):
+            fails.append(f"{cfg.name}: {stage} logits rule {errs}")
+    greedy = {"prefill": ties(logits[:, -1], plain[:, -1]),
+              "decode": ties(step[:, -1], plain_step[:, -1])}
+    if not all(g["ok"] for g in greedy.values()):
+        fails.append(f"{cfg.name}: greedy tokens {greedy}")
+    rec.update(errors=errs, greedy=greedy, seconds_total=time.perf_counter() - t0,
+               layers=cfg.num_layers, B=B, S=S, Tv=Tv, new=new)
+    log(f"[encdec_vlm] {cfg.name} (prompt {S}): prefill {prefill_ms:.1f} ms, decode step "
+        f"{rec['decode_step_ms']:.2f} ms = {rec['decode_tokens_per_s']:.1f} tokens/s; errors "
+        f"{json.dumps(errs)}; greedy {greedy}")
+    torch.cuda.empty_cache()
+    return rec, fails
+
+
+def encdec_vlm_smoke(dev) -> tuple[dict, list]:
+    """Part (c): each smoke config (fp32) on the card against the CPU, from
+    the same weights and batch: a split pass at cut 1 (no kernel) and the
+    forward through the kernels' fp32 variants (the CPU's: their plain
+    versions)."""
+    out, fails = {}, []
+    for arch in (WHISPER, LLAVA):
+        cfg = smoke_variant(get_arch(arch))
+        params, lora, _ = make_model(cfg, torch.device("cpu"), 2, 16)
+        lc, ls = split_client_server(lora, 1)
+        batch = stub_batch(cfg, torch.device("cpu"), 2, 16 + cfg.vision_tokens, seed=5)
+        cpu = split.split_value_and_grad(params, lc, ls, batch, cfg, 1)
+        with torch.no_grad():
+            cpu_fwd = T.forward(params, batch, cfg, lora=lora)
+        zero_counters()
+        dp, dlc, dls, db = (to_dev(t, dev) for t in (params, lc, ls, batch))
+        card = split.split_value_and_grad(dp, dlc, dls, db, cfg, 1)
+        split_launches = {n: fn.launches for n, fn in KERNELS.items()}
+        with torch.no_grad():
+            card_fwd = T.forward(dp, db, cfg, lora=to_dev(lora, dev))
+        gaps = {"loss": abs(card[0].item() - cpu[0].item()) / abs(cpu[0].item()),
+                "grads": tree_rel_gap(*([t for t in tree_leaves(g) if t.numel()]
+                                        for g in (card[1:3], cpu[1:3]))),
+                "forward": ((card_fwd.cpu() - cpu_fwd).abs().max() / cpu_fwd.abs().max()).item(),
+                "split_launches": split_launches, "forward_variants": counters()}
+        out[arch] = gaps
+        log(f"[encdec_vlm] (c) {cfg.name} split pass and forward, card vs CPU: "
+            f"{json.dumps(gaps)}")
+        want_flash = flash_calls(cfg, 16 + cfg.vision_tokens)
+        if not (max(gaps["loss"], gaps["grads"], gaps["forward"])
+                <= ENCDEC_VLM_LIMITS["smoke_card_vs_cpu"]
+                and not any(split_launches.values())
+                and gaps["forward_variants"]["flash_attention"]["fp32"] == want_flash
+                and gaps["forward_variants"]["lora_matmul"]["fp32"] > 0):
+            fails.append(f"{cfg.name}: smoke card vs CPU {gaps}")
+    return out, fails
+
+
+def encdec_split(dev) -> tuple[dict, list]:
+    """Part (c): one split pass of full-width whisper-base (cut 1, B=4, 1,500
+    frames, 64 tokens, non-zero B; the client runs the encoder and sends its
+    output with the activations) against the monolithic pass and the merged
+    model's loss_fn within 2^-8, its time and peak memory; no kernel may
+    launch."""
+    t = ENCDEC_SPLIT
+    cfg = get_arch(t["arch"])
+    params = T.init_params(cfg, seed=0, device=dev)
+    lora = init_lora(params, cfg, seed=1, device=dev)
+    nonzero_b(lora, dev, 4)
+    lc, ls = split_client_server(lora, t["cut"])
+    batch = stub_batch(cfg, dev, t["B"], t["S"], seed=6)
+
+    def one_pass():
+        return split.split_value_and_grad(params, lc, ls, batch, cfg, t["cut"])
+
+    zero_counters()
+    one_pass()  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    (loss, dc, ds, info), ms = timed(one_pass)
+    peak = torch.cuda.max_memory_allocated()
+    mloss, mdc, mds = split.monolithic_value_and_grad(params, lc, ls, batch, cfg, t["cut"])
+    with torch.no_grad():
+        merged_loss, _ = T.loss_fn(merge(params, lora, cfg), batch, cfg)
+    res = dict(t, loss=loss.item(), monolithic_loss=mloss.item(), merged_loss=merged_loss.item(),
+               pass_ms=ms, peak_memory_bytes=peak, smashed_bytes=info["smashed_bytes"],
+               grad_gap=leaf_gap((dc, ds), (mdc, mds)),
+               launches={n: fn.launches for n, fn in KERNELS.items()},
+               grads_finite=all(bool(torch.isfinite(v).all()) for v in tree_leaves((dc, ds))))
+    res["loss_gap"] = max(abs(res["loss"] - res[k]) / abs(res[k])
+                          for k in ("monolithic_loss", "merged_loss"))
+    log(f"[encdec_vlm] (c) {cfg.name} split pass: {json.dumps(res)}")
+    fails = []
+    lim = ENCDEC_VLM_LIMITS["split_vs_monolithic"]
+    if not (res["loss_gap"] <= lim and res["grad_gap"] <= lim and res["grads_finite"]) \
+            or any(res["launches"].values()):
+        fails.append(f"{cfg.name} split pass {res}")
+    del params, lora, lc, ls, dc, ds, mdc, mds
+    torch.cuda.empty_cache()
+    return res, fails
+
+
+def encdec_vlm_flash_rows(dev) -> list[dict]:
+    """Part (d): flash (bf16, wgmma) at each attention shape the serves
+    launch: whisper's encoder (non-causal, 1,500 x 1,500), its decoder's
+    self-attention (causal, 32) and cross-attention (non-causal, 32 x
+    1,500); llava's causal GQA 32/8 at d=128 over 4,096 positions."""
+    gen = torch.Generator(device=dev).manual_seed(17)
+    w, lv = get_arch(WHISPER), get_arch(LLAVA)
+    _, Bw, Sw, _, _ = ENCDEC_VLM_SERVES[WHISPER]
+    _, Bl, Sl, _, Tv = ENCDEC_VLM_SERVES[LLAVA]
+    H, Kv, d = w.num_heads, w.num_kv_heads, w.head_dim
+    shapes = [(WHISPER, "encoder", Bw, w.encoder_seq, H, Kv, d, False, None),
+              (WHISPER, "self", Bw, Sw, H, Kv, d, True, None),
+              (WHISPER, "cross", Bw, Sw, H, Kv, d, False, w.encoder_seq),
+              (LLAVA, "self", Bl, Tv + Sl, lv.num_heads, lv.num_kv_heads, lv.head_dim, True,
+               None)]
+    rows = []
+    for path, case, B, S, H, Kv, d, causal, Skv in shapes:
+        rows.append(attn_row(gen, dev, B, S, H, Kv, d, torch.bfloat16, iters=20, causal=causal,
+                             Skv=Skv, path=path, case=case, expected="wgmma"))
+        log(f"[encdec_vlm] (d) {json.dumps(rows[-1])}")
+    return rows
+
+
+def phase_encdec_vlm(dev, smi: str) -> tuple[dict, list]:
+    """Parts (a)-(d) of phase 11; written to build/chip_smoke/encdec_vlm.json."""
+    t0 = time.perf_counter()
+    res, fails = {"nvidia_smi": smi, "limits": ENCDEC_VLM_LIMITS}, []
+    res["count_params"] = {a: count_params(get_arch(a)) for a in (WHISPER, LLAVA)}
+    log(f"[encdec_vlm] count_params (meta device): {res['count_params']}")
+    res["flash_rows"] = encdec_vlm_flash_rows(dev)
+    fails += [r for r in res["flash_rows"] if not r["ok"] or r["variant"] != r["expected"]]
+    res["serves"] = {}
+    for path, (arch, B, S, new, Tv) in ENCDEC_VLM_SERVES.items():
+        res["serves"][path], more = encdec_vlm_serve(get_arch(arch), dev, B, S, new, Tv)
+        fails += more
+    res["lora_rows"], more = serve_lora_rows(dev, encdec_vlm_paths(), 18, "[encdec_vlm] (d)")
+    fails += more
+    res["smoke"], more = encdec_vlm_smoke(dev)
+    fails += more
+    res["split"], more = encdec_split(dev)
+    fails += more
+    res["fails"], res["seconds"] = fails, time.perf_counter() - t0
+    (OUT / "encdec_vlm.json").write_text(json.dumps(res, indent=1, default=str))
+    log(f"[encdec_vlm] phase 11 in {res['seconds']:.1f} s")
+    if fails:
+        raise SystemExit(f"[encdec_vlm] {len(fails)} check(s) failed: {fails}")
+    return res, encdec_vlm_entries(res)
+
+
+def encdec_vlm_entries(res) -> list[dict]:
+    """The kernels line's entries of phase 11: the LoRA kernel on each serve
+    and flash on each (whisper's three attention shapes summed over their
+    launches)."""
+    entries = lora_entries(res["lora_rows"], res["serves"], encdec_vlm_paths())
+    for path, (arch, B, S, new, Tv) in ENCDEC_VLM_SERVES.items():
+        if path == WHISPER_ONE:
+            continue
+        cfg = get_arch(arch)
+        rows = [r for r in res["flash_rows"] if r["path"] == path]
+        per = {"encoder": cfg.num_encoder_layers, "self": cfg.num_layers,
+               "cross": cfg.num_layers}
+        entries.append(flash_entry(
+            f"flash_attention/wgmma-d{cfg.head_dim} {path}", "wgmma",
+            [dict(r, launches=per[r["case"]]) for r in rows], max(r["err"] for r in rows),
+            f"one decode_tokens call of {path}: B={B}, prompt {S}"
+            + (f" after {Tv} patches" if Tv else f", {cfg.encoder_seq} frames")))
+    return entries
+
+
 def main() -> int:
     t0 = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3324,6 +3666,8 @@ def main() -> int:
     kernels += more
     families, more = phase_families(dev)
     kernels += more
+    encdec_vlm, more = phase_encdec_vlm(dev, smi)
+    kernels += more
     (OUT / "chip_smoke.json").write_text(json.dumps(
         {"nvidia_smi": smi, "build": build, "kernels": kernels, "traces": TRACE_LOG,
          "paths": {arch: {"checks": r["checks"], "slice": r["slice"],
@@ -3331,7 +3675,8 @@ def main() -> int:
                    for arch, r in results.items()}, "train": train, "priced": priced,
          "campaign": campaign, "cli": cli,
          "dense": {k: dense[k] for k in ("gemma2", "gemma2_rule", "serves", "train")},
-         "families": {k: families[k] for k in ("serves", "smoke", "split")}},
+         "families": {k: families[k] for k in ("serves", "smoke", "split")},
+         "encdec_vlm": {k: encdec_vlm[k] for k in ("serves", "smoke", "split")}},
         indent=1, default=str))
     log(f"[timing] torch.profiler traces kept {TRACE_LOG['kept']}, lost {TRACE_LOG['lost']}")
     log(f"[done] chip_smoke in {time.perf_counter() - t0:.1f} s")

@@ -2,9 +2,8 @@
 
 The port's own copy of the configuration dataclasses of ``repro.config``: the
 fields are the same, so a registered architecture reads identically in both
-packages, but only the dense decoder (``family="dense"``, layer char ``G``)
-and the SSM (``family="ssm"``, layer char ``M``) are runnable here.
-``ModelConfig`` keeps every field of the reference so that configuration
+packages (``models/transformer.py``'s ``PORTED`` names the family and layer
+pattern pairs that run). ``ModelConfig`` keeps every field of the reference so that configuration
 modules copy over verbatim; ``FedsLLMConfig`` (the paper's §III/IV
 settings) is copied field for field.
 """

@@ -106,11 +106,17 @@ def lora_param_count(cfg: ModelConfig) -> int:
 def split_client_server(lora, cut_group: int):
     """Cut the adapters at a group boundary: leaves under ``groups`` are
     sliced along the group stack (the first ``cut_group`` groups, every
-    sub-layer of each, to the client), embed-side adapters go to the client,
-    the rest (tail layers) to the server."""
+    sub-layer of each, to the client), the encoder's (``enc_groups``, which
+    the client runs whole) and embed-side adapters go to the client, the
+    rest (tail layers) to the server. (The reference slices ``enc_groups``
+    at ``cut_group`` too, as if it were the decoder's stack: the client's
+    encoder then broadcasts its first ``cut_group`` layers' adapters over
+    every encoder layer, and the server's are never used.)"""
     client, server = {}, {}
     for pstr, ab in lora.items():
-        if "groups" in pstr:
+        if pstr.startswith("['enc_groups']"):
+            client[pstr] = ab
+        elif "groups" in pstr:
             client[pstr] = {k: v[:cut_group] for k, v in ab.items()}
             server[pstr] = {k: v[cut_group:] for k, v in ab.items()}
         elif "embed" in pstr:
@@ -133,15 +139,16 @@ def join_client_server(client, server):
 
 
 def layer_adapters(lora, cfg: ModelConfig, index, top: str = "groups"):
-    """The adapters of group ``index`` of the stack ``params["groups"]`` (or,
-    with ``index=None``, of the unstacked layer ``params[top]``, a tail
-    layer ``tail_<i>``), as a nested dict mirroring that group's or layer's
-    parameters, each leaf ``(A, B, scale)``."""
+    """The adapters of group ``index`` of the stack ``params[top]``
+    (``groups``, or the encoder's ``enc_groups``), or, with ``index=None``,
+    of the unstacked layer ``params[top]``, a tail layer ``tail_<i>``, as a
+    nested dict mirroring that group's or layer's parameters, each leaf
+    ``(A, B, scale)``."""
     scale = (cfg.lora or LoRAConfig()).scale
     out: dict = {}
     for pstr, ab in (lora or {}).items():
         first, *path = _KEY.findall(pstr)
-        if first != "groups" and not first.startswith("tail_"):
+        if first not in ("groups", "enc_groups") and not first.startswith("tail_"):
             raise NotImplementedError(f"adapter outside the layer stack: {pstr}")
         if first != top:
             continue

@@ -54,23 +54,29 @@ def slice_base(params, cut: int) -> SplitParts:
 
 
 def client_forward(client_base, lora_c, batch, cfg: ModelConfig, *, remat=False):
-    """Embed + the first ``cut`` groups -> smashed activations (B, S, D).
-    The client's MoE aux loss is dropped, as the reference's
-    ``client_forward`` drops it: the split loss holds the server's only."""
+    """The encoder (``encdec``) + embed + the first ``cut`` groups ->
+    (smashed activations (B, S, D), the encoder's output or None); for
+    ``vlm`` the projected patches are in S. The client's MoE aux loss is
+    dropped, as the reference's ``client_forward`` drops it: the split loss
+    holds the server's only."""
     merged = lora_lib.merge(client_base, lora_c, cfg)
+    enc_out = T._encode(merged, batch, cfg, kernels=False)
     x, positions = T._embed_inputs(merged, batch, cfg)
     x, _ = T._scan_groups(merged, x, cfg, positions=positions, kernels=False, remat=remat,
-                          include_tail=False)
-    return x
+                          include_tail=False, enc_out=enc_out)
+    return x, enc_out
 
 
-def server_forward_loss(server_base, lora_s, acts, batch, cfg: ModelConfig, *, remat=False):
+def server_forward_loss(server_base, lora_s, acts, batch, cfg: ModelConfig, *, enc_out=None,
+                        remat=False):
     """Remaining groups + tail + final norm + head + CE loss on the main
-    server, plus 0.01·aux of the server's MoE layers (the reference's
+    server (its ``encdec`` layers cross-attend to ``enc_out``), plus
+    0.01·aux of the server's MoE layers (the reference's
     ``server_forward_loss``)."""
     merged = lora_lib.merge(server_base, lora_s, cfg)
     positions = torch.arange(acts.shape[1], device=acts.device)[None, :]
-    x, aux = T._scan_groups(merged, acts, cfg, positions=positions, kernels=False, remat=remat)
+    x, aux = T._scan_groups(merged, acts, cfg, positions=positions, kernels=False, remat=remat,
+                            enc_out=enc_out)
     x = L.apply_norm(merged["final_norm"], x, cfg)
     return L.fused_cross_entropy(merged["embed"], x, batch["labels"], cfg,
                                  mask=batch.get("mask")) + 0.01 * aux
@@ -88,23 +94,31 @@ def split_value_and_grad(params, lora_c, lora_s, batch, cfg: ModelConfig, cut: i
     smashed activations on the client→server uplink, *outside* the client's
     graph: the server differentiates w.r.t. the compressed activations and
     the resulting dA_k flows straight through the codec back into the client
-    backward pass (straight-through split learning). ``info`` holds the
+    backward pass (straight-through split learning). For ``encdec`` the
+    encoder's output crosses the uplink beside the activations, compressed
+    alike, and its gradient returns with dA_k. ``info`` holds the
     uplink and downlink volumes (the delay model's s); the allocator's
     ``s_bits`` are rescaled by the codec's nominal ratio up front, in
     ``repro_torch.api.Experiment``."""
     parts = slice_base(params, cut)
     lc, ls = _trainable(lora_c), _trainable(lora_s)
     with torch.enable_grad():
-        acts = client_forward(parts.client_base, lc, batch, cfg, remat=remat)
-        sent = acts.detach()  # what crosses the uplink
-        if compressor is not None:
-            sent = compressor.apply(sent)
-        sent.requires_grad_()
-        loss = server_forward_loss(parts.server_base, ls, sent, batch, cfg, remat=remat)
-        *dls, dacts = _grad(loss, tree_leaves(ls) + [sent])
+        acts, enc_out = client_forward(parts.client_base, lc, batch, cfg, remat=remat)
+        smashed = [t for t in (acts, enc_out) if t is not None]
+        # what crosses the uplink
+        sent = [t.detach() if compressor is None else compressor.apply(t.detach())
+                for t in smashed]
+        for t in sent:
+            t.requires_grad_()
+        loss = server_forward_loss(parts.server_base, ls, sent[0], batch, cfg,
+                                   enc_out=sent[1] if enc_out is not None else None, remat=remat)
+        n = len(tree_leaves(ls))
+        grads = _grad(loss, tree_leaves(ls) + sent)
+        dls, dsent = grads[:n], grads[n:]
         # the gradient of the smashed data returns to the client (dA_k)
-        dlc = _grad(acts, tree_leaves(lc), grad_outputs=dacts)
-    elems, bits = acts.numel(), acts.element_size() * 8
+        dlc = _grad(smashed, tree_leaves(lc), grad_outputs=dsent)
+    dacts = dsent[0]
+    elems, bits = sum(t.numel() for t in smashed), acts.element_size() * 8
     info = {"smashed_bytes": elems * acts.element_size(),
             "smashed_bits_uplink": elems * bits if compressor is None
             else compressor.bits(elems, bits),
@@ -118,8 +132,8 @@ def monolithic_value_and_grad(params, lora_c, lora_s, batch, cfg: ModelConfig, c
     parts = slice_base(params, cut)
     lc, ls = _trainable(lora_c), _trainable(lora_s)
     with torch.enable_grad():
-        acts = client_forward(parts.client_base, lc, batch, cfg)
-        loss = server_forward_loss(parts.server_base, ls, acts, batch, cfg)
+        acts, enc_out = client_forward(parts.client_base, lc, batch, cfg)
+        loss = server_forward_loss(parts.server_base, ls, acts, batch, cfg, enc_out=enc_out)
         n = len(tree_leaves(lc))
         grads = _grad(loss, tree_leaves(lc) + tree_leaves(ls))
     return loss.detach(), tree_like(lc, grads[:n]), tree_like(ls, grads[n:])

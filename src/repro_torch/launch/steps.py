@@ -87,12 +87,10 @@ def make_prefill_step(cfg: ModelConfig, *, unroll: bool = False):
 def make_serve_step(cfg: ModelConfig, *, unroll: bool = False):
     """``serve_step(params, tokens, cache, pos) -> (next tokens (B, 1), cache)``,
     greedy. The next tokens are int64 (the port's token type; the reference
-    casts to int32). ``enc_out`` belongs to the encoder-decoder family, which
-    the port does not run yet."""
+    casts to int32). An encoder-decoder step cross-attends to ``enc_out``
+    when given, else to the ``cross`` cache that the prefill filled."""
     def serve_step(params, tokens, cache, pos, enc_out=None):
-        if enc_out is not None:
-            raise NotImplementedError("enc_out: the encoder-decoder family is not ported yet")
-        logits, new_cache = T.decode_step(params, tokens, cache, pos, cfg)
+        logits, new_cache = T.decode_step(params, tokens, cache, pos, cfg, enc_out=enc_out)
         nxt = torch.argmax(logits[:, -1, :], dim=-1)[:, None]
         return nxt, new_cache
 

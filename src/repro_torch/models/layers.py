@@ -293,9 +293,10 @@ def _write_prefill(cache, k, v):
 
 def attention(p, x, cfg: ModelConfig, *, positions, window: int = 0, adapters=None,
               cache: Optional[tuple] = None, cache_pos: Optional[int] = None,
-              kernels: bool = True, q_chunk: int = 0):
-    """Causal GQA attention, global (``window=0``) or over the last ``window``
-    positions; positions (B, S).
+              kernels: bool = True, q_chunk: int = 0, causal: bool = True):
+    """GQA attention, global (``window=0``) or over the last ``window``
+    positions; positions (B, S). ``causal=False`` (an encoder's, which has
+    no cache) lets every query see every key.
 
     cache: (k, v), each (B, S_cache, Kv, hd), updated in place: a
     single-token x decodes at absolute position ``cache_pos`` (into slot
@@ -332,9 +333,9 @@ def attention(p, x, cfg: ModelConfig, *, positions, window: int = 0, adapters=No
         if cache is not None:
             _write_prefill(cache, k, v)
         if kernels:
-            out = _attend_flash(q, k, v, causal=True, window=window, softcap=softcap)
+            out = _attend_flash(q, k, v, causal=causal, window=window, softcap=softcap)
         else:
-            out = _attend_plain(q, k, v, causal=True, window=window, softcap=softcap,
+            out = _attend_plain(q, k, v, causal=causal, window=window, softcap=softcap,
                                 q_chunk=q_chunk)
     y = project(out, p["wo"], ad.get("wo"))
     if "bo" in p:

@@ -265,6 +265,10 @@ def test_flash_kernel_matches_plain(cuda, B, H, Kv, Sq, Skv, d, causal, window, 
     (2, 12, 4, 100, 300, 64, False, 0, 0.0, "wgmma"),  # non-causal, Skv > Sq
     (2, 12, 4, 300, 100, 64, False, 0, 20.0, "wgmma"),  # non-causal, Skv < Sq
     (2, 12, 4, 1, 512, 64, False, 0, 0.0, "wgmma"),
+    # whisper-base: the encoder (1,500 frames, 23 blocks of 64 and 28) and
+    # the decoder's cross-attention (32 queries against the 1,500 frames)
+    (8, 8, 8, 1500, 1500, 64, False, 0, 0.0, "wgmma"),
+    (8, 8, 8, 32, 1500, 64, False, 0, 0.0, "wgmma"),
     # query heads per kv head: 1, 2, 4 and 12 (blocks of 1, 2, 4 and 4 heads)
     (2, 4, 4, 130, 130, 64, True, 0, 0.0, "wgmma"),
     (2, 8, 4, 130, 130, 64, True, 0, 0.0, "wgmma"),

@@ -401,7 +401,7 @@ def test_embedding_multiplier_rounds_like_the_reference_in_bf16():
 
 def test_unported_dense_features_still_raise():
     cfg = smoke_variant(get_arch("gemma2-9b"))
-    for bad in (cfg.replace(layer_pattern="GL"), cfg.replace(family="encdec"),
-                cfg.replace(family="vlm"), cfg.replace(family="hybrid")):
+    for bad in (cfg.replace(layer_pattern="GL"), cfg.replace(family="encdec", layer_pattern="LG"),
+                cfg.replace(family="vlm", layer_pattern="LG"), cfg.replace(family="hybrid")):
         with pytest.raises(NotImplementedError):
             T.init_params(bad, device="cpu")

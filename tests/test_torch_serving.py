@@ -173,8 +173,8 @@ def test_unported_config_raises_before_the_device_check():
 
 def test_unported_configs_raise():
     cfg = smoke_variant(get_arch("fedsllm-100m"))
-    for bad in (cfg.replace(layer_pattern="GL"), cfg.replace(family="encdec"),
-                cfg.replace(family="vlm")):
+    for bad in (cfg.replace(layer_pattern="GL"), cfg.replace(family="encdec", layer_pattern="LG"),
+                cfg.replace(family="vlm", layer_pattern="RRL")):
         with pytest.raises(NotImplementedError):
             T.init_params(bad)
 

@@ -390,6 +390,6 @@ def test_serve_cli_on_cpu_mamba2():
 def test_other_families_still_raise():
     cfg = smoke_variant(get_arch("mamba2-130m"))
     for bad in (cfg.replace(layer_pattern="MG"), cfg.replace(family="hybrid"),
-                cfg.replace(family="encdec")):
+                cfg.replace(family="encdec", layer_pattern="M")):
         with pytest.raises(NotImplementedError):
             T.init_params(bad)
