@@ -177,14 +177,33 @@ then
                the merged loss; (d) flash at the serves' four attention
                shapes (whisper's encoder, self and cross, llava's) and
                every LoRA shape they launch, against their plain versions,
-               with their times. Written to ``build/chip_smoke/encdec_vlm.json``.
+               with their times. Written to ``build/chip_smoke/encdec_vlm.json``;
+ 12. dryrun — ``launch/dryrun.py`` on four cells: gemma2-9b x
+               prefill_32k (flash ``wgmma`` d=256 with softcap, global and
+               windowed, at 32,768; the ring cache; LoRA ``prefill`` at M =
+               b x 32,768), llava-next-mistral-7b x decode_32k (LoRA; plain
+               decode attention over a 32k cache), whisper-base x train_4k
+               (the plain training path: no launch) and recurrentgemma-9b x
+               long_500k (a decode step at position 524,287): each planned
+               on the meta device and measured by ``measure_cell`` (M1, M2,
+               M1t; composed and scaled to the global batch), every run's
+               launches by variant held (LoRA ``prefill``/``decode``, flash
+               ``wgmma``, nothing else) and its resident bytes equal to the
+               meta plan's; the check cells whisper-base x prefill_32k and
+               mamba2-130m x train_4k at b=4, composed from M1/M2 and
+               measured at full depth, within ``DRYRUN_LIMITS``; flash and
+               LoRA at gemma2-9b's 32k shapes against their plain versions
+               (flash in fp32 query chunks, each query row within 2 bf16
+               ulps of its own largest output; a window moved by one 64-key
+               tile must fail that check).
+               Written to ``build/chip_smoke/dryrun.json``.
 
 Prints the compiled kernels' registers and spills, the card's name and power
 limit, a ``{"kernels": [...]}`` line (the three kernels on the bf16 serving
 paths, then each variant of the fp32 serve path of phase 8, then phase 9's
 flash variants at head dims 256 and 128 and the LoRA kernel on each of its
 serves, then phase 10's and phase 11's LoRA kernel and flash on each of
-their serves), and last
+their serves, then phase 12's 32k rows), and last
 ``{"ok": true, "device": {...}}``. Details go to ``build/chip_smoke/``.
 Without a CUDA card it exits non-zero before printing any result.
 """
@@ -230,7 +249,7 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import flash_attention as flash_binding  # noqa: E402
 from repro_torch.kernels import lora_matmul as lora_binding  # noqa: E402
 from repro_torch.kernels.attn_ops import flash_attention  # noqa: E402
-from repro_torch.kernels.attn_ref import flash_attention_ref  # noqa: E402
+from repro_torch.kernels.attn_ref import flash_attention_fp32, flash_attention_ref  # noqa: E402
 from repro_torch.kernels.lora_ops import lora_matmul  # noqa: E402
 from repro_torch.kernels.lora_ref import lora_matmul_ref  # noqa: E402
 from repro_torch.kernels.ssd_ops import ssd_scan  # noqa: E402
@@ -239,7 +258,7 @@ from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import mamba2 as M2  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models.registry import active_param_count, count_params  # noqa: E402
-from repro_torch.launch import serve, steps, train  # noqa: E402
+from repro_torch.launch import dryrun, serve, steps, train  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.net.topology import get_topology  # noqa: E402
 from repro_torch.parallel.pipeline import pipelined_split_grads  # noqa: E402
@@ -250,12 +269,11 @@ from repro_torch.tree import (tree_index, tree_leaves, tree_map, tree_rel_gap,  
                               tree_stack)
 
 OUT = ROOT / "build" / "chip_smoke"
-# NVIDIA H100 SXM data sheet: dense bf16 tensor-core peak, HBM3 bandwidth;
-# fp32 on the CUDA cores (the fp32 variants' bound: they use no tensor core,
-# since TF32 would miss the reference's fp32 tolerance)
-PEAK_BF16 = 989e12
+# NVIDIA H100 SXM data sheet: dense bf16 tensor-core peak and HBM3 bandwidth
+# (the dry-run's), fp32 on the CUDA cores (the fp32 variants' bound: they use
+# no tensor core, since TF32 would miss the reference's fp32 tolerance)
+PEAK_BF16, HBM_BYTES_PER_S = dryrun.PEAK_BF16, dryrun.HBM_BYTES_PER_S
 PEAK_FP32 = 67e12
-HBM_BYTES_PER_S = 3.35e12
 BATCH, PROMPT, NEW = 8, 512, 32
 ADAPTER_B_STD = 0.05  # std of the non-zero B drawn for the adapters
 ARCHS = ("fedsllm-100m", "mamba2-130m")
@@ -3640,6 +3658,264 @@ def encdec_vlm_entries(res) -> list[dict]:
     return entries
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the dry-run's cells measured on the card
+# ---------------------------------------------------------------------------
+
+# the measured cells, and what each step must launch (kernel: the variants
+# its launches may take; a decode step's LoRA takes ``decode`` at M = b <= 16,
+# else ``prefill``); a kernel not named must not launch at all (training runs
+# no kernel; decode attention is plain)
+SERVE_LORA = {"prefill", "decode"}
+DRYRUN_CELLS = {(GEMMA, "prefill_32k"): {"lora_matmul": {"prefill"},
+                                         "flash_attention": {"wgmma"}},
+                (LLAVA, "decode_32k"): {"lora_matmul": SERVE_LORA},
+                (WHISPER, "train_4k"): {},
+                (RGEMMA, "long_500k"): {"lora_matmul": {"decode"}}}
+# the check cells, composed from M1/M2 and measured whole at a batch that fits
+# whole: (arch, shape) -> (b, what each run must launch). At whisper-base x
+# prefill_32k the logits are the whole transient at every depth (M2 - M1 = 0),
+# so its transient limit holds nothing there; mamba2-130m x train_4k's
+# transient grows with depth (the activations saved for the backward pass, 17%
+# of it at full depth on an H100), so it holds the transient's composition
+DRYRUN_CHECKS = {(WHISPER, "prefill_32k"): (4, {"lora_matmul": {"prefill"},
+                                                "flash_attention": {"wgmma"}}),
+                 ("mamba2-130m", "train_4k"): (4, {})}
+# limits, written in PERF.md §6 before the first run on the card: the
+# composed estimate against the full-depth step at the same batch
+DRYRUN_LIMITS = {"compose_ms": 0.15, "compose_transient": 0.10}
+ALLOWED = {"lora_matmul": {"prefill", "decode"}, "flash_attention": {"wgmma"},
+           "ssd_scan": {"wgmma"}}
+GEMMA_LORA = {"w_gate/w_up": (3584, 14336, 2), "w_down": (14336, 3584, 1)}  # K, N, a layer
+
+
+def dryrun_run_fails(name: str, run: dict, expect: dict, cfg, shape) -> list:
+    """One measured run's misses: a launch on a variant the serve path must
+    not take or the cell does not expect, a kernel the step must launch that
+    did not, one it must not that did; the run's resident bytes unlike the
+    meta plan's at its depth and batch, or its storages unlike those bytes."""
+    out = []
+    for kernel, counts in run["launches_total"].items():
+        want = expect.get(kernel, set())
+        bad = {k: v for k, v in counts.items() if v and not (k in ALLOWED[kernel] and k in want)}
+        if bad:
+            out.append(f"{name}: {kernel} launched on {bad}, expected {want or 'none'}")
+        if want and not sum(run["launches"][kernel].values()):
+            out.append(f"{name}: no {kernel} launch in a step")
+    plan = dryrun.resident_bytes(cfg.replace(num_layers=run["layers"]),
+                                 dryrun.with_batch(shape, run["batch"]))
+    if plan != run["resident_bytes"] or sum(plan.values()) != run["storage_bytes"] \
+            or run["allocated_bytes"] < run["storage_bytes"]:
+        out.append(f"{name}: resident bytes {run['resident_bytes']} (storages "
+                   f"{run['storage_bytes']}, allocator {run['allocated_bytes']}) vs plan {plan}")
+    return out
+
+
+def measured_runs(m: dict) -> list[tuple[str, dict]]:
+    return [(k, m[k]) for k in ("m1", "m2", "m1t", "full") if k in m]
+
+
+def dryrun_cell(arch: str, shape_name: str, dev, expect: dict, batch=None,
+                full_depth=False) -> tuple[dict, list]:
+    """One cell: its plan on the meta device at full depth, then
+    ``measure_cell`` on the card, each run held to ``expect``."""
+    cfg, shape = get_arch(arch), SHAPES[shape_name]
+    t0 = time.perf_counter()
+    rec = {"plan": dryrun.plan_cell(cfg, shape)}
+    rec["measured"] = m = dryrun.measure_cell(cfg, shape, dev, batch=batch,
+                                              full_depth=full_depth)
+    fails = [] if m["fits"] else [f"{arch} x {shape_name}: {m.get('error') or m['reason']}"]
+    for name, run in measured_runs(m):
+        fails += dryrun_run_fails(f"{arch} x {shape_name} {name}", run, expect, cfg, shape)
+    rec["seconds"] = time.perf_counter() - t0
+    brief = {k: {"layers": r["layers"], "b": r["batch"], "ms": r["ms"],
+                 "transient_GB": r["transient_bytes"] / 1e9,
+                 "resident_GB": r["resident_total"] / 1e9,
+                 "launches": {n: {v: c for v, c in by.items() if c}
+                              for n, by in r["launches"].items()}}
+             for k, r in measured_runs(m)}
+    log(f"[dryrun] {arch} x {shape_name}: plan flops {rec['plan']['flops']:.4g} (model "
+        f"{rec['plan']['model_flops']:.4g}), resident {rec['plan']['resident_total'] / 1e9:.2f} "
+        f"GB at B={shape.global_batch}; b={m.get('b')}; runs {json.dumps(brief)}; composed "
+        f"{json.dumps(m.get('composed'))}; at the global batch "
+        f"{json.dumps(m.get('at_global_batch'))}; {rec['seconds']:.1f} s")
+    return rec, fails
+
+
+def row_ulps(o, ref, n: float = 2.0) -> tuple[float, int]:
+    """Each query row's largest |o - ref| over n bf16 ulps (2^-7 relative)
+    of that row's largest |ref|: the worst row's ratio and the rows over 1.
+    A row that attends over N keys has outputs of about sqrt(e/N), so a
+    tolerance from the largest output of all rows (the first row's) would
+    pass a kernel that drops keys from the long rows."""
+    ref = ref.float()
+    ratio = (o.float() - ref).abs().amax(-1) / (n * 2.0 ** -7 * ref.abs().amax(-1))
+    return ratio.max().item(), int((ratio > 1).sum().item())
+
+
+def planted_windows(S: int, window: int) -> dict:
+    """Faults the per-row check must catch, planted as the kernel's window
+    moved by one 64-key tile: global, the first tile dropped from the last
+    64 rows (window S - 64); windowed, the window 64 keys too wide or too
+    narrow."""
+    if not window:
+        return {"first tile dropped from the last rows": S - 64}
+    return {"window + 64": window + 64, "window - 64": window - 64}
+
+
+def causal_pairs(S: int, window: int) -> int:
+    """Score entries a causal (windowed) attention over S positions needs."""
+    if not window or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def long_flash_row(gen, dev, B, S, H, Kv, d, window, softcap, **meta) -> dict:
+    """Flash (bf16, causal) at a 32k prefill's shape against the plain fp32
+    version in query chunks, each query row within 2 bf16 ulps of its own
+    largest output (``row_ulps``), and each planted fault (``planted_windows``)
+    caught; with event, device, plain (chunked) and library times (SDPA
+    without the softcap; a window as its boolean mask) and the bound."""
+    nbytes = 2 * (2 * B * H * S * d + 2 * B * Kv * S * d)
+    ops = 4 * B * H * causal_pairs(S, window) * d
+    sets = [attn_inputs(gen, B, S, H, Kv, d, dev) for _ in range(2)]
+    call = lambda q, k, v: flash_attention(q, k, v, causal=True, window=window,  # noqa: E731
+                                           softcap=softcap)
+    plain = lambda q, k, v: flash_attention_fp32(q, k, v, causal=True,  # noqa: E731
+                                                 window=window, softcap=softcap, q_chunk=1024)
+    o = call(*sets[0])
+    torch.cuda.synchronize()
+    ref = plain(*sets[0])
+    err = (o.float() - ref).abs().max().item()
+    worst, over = row_ulps(o, ref)
+    planted = {}
+    for name, w in planted_windows(S, window).items():
+        bad = flash_attention(*sets[0], causal=True, window=w, softcap=softcap)
+        f_worst, f_over = row_ulps(bad, ref)
+        planted[name] = {"window": w, "worst_row_ulps_ratio": f_worst, "rows_over": f_over}
+        del bad
+    del o, ref
+    mask = None
+    if window:
+        i = torch.arange(S, device=dev)
+        mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+    lib = lambda q, k, v: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, attn_mask=mask, is_causal=mask is None, enable_gqa=True)
+    b_ms, b_by = bound_ms(nbytes, ops)
+    row = dict(kernel="flash_attention", dtype="bfloat16", B=B, S=S, H=H, Kv=Kv, d=d,
+               window=window, softcap=softcap, **meta,
+               variant=ran_variant("flash_attention", lambda: call(*sets[0])),
+               err=err, worst_row_ulps_ratio=worst, rows_over=over, planted=planted,
+               ok=worst <= 1 and all(f["rows_over"] for f in planted.values()),
+               ms=time_ms(call, sets, 4),
+               **device_time_ms(call, sets, 4, bound=b_ms), plain_ms=time_ms(plain, sets, 1),
+               library_ms=time_ms(lib, sets, 4),
+               **library(device_time_ms(lib, sets, 4, bound=b_ms)), bound_ms=b_ms,
+               bound_by=b_by)
+    row["bound_share"] = b_ms / row["device_ms"]
+    del sets, mask
+    torch.cuda.empty_cache()
+    return row
+
+
+def dryrun_kernel_rows(dev, b: int) -> tuple[list, list]:
+    """Flash at gemma2-9b's 32k prefill (global and windowed 4096, softcap
+    50) and the LoRA kernel at its widest products at M = b x 32,768, each
+    against its plain version."""
+    cfg = get_arch(GEMMA)
+    gen = torch.Generator(device=dev).manual_seed(19)
+    S, r = SHAPES["prefill_32k"].seq_len, (cfg.lora or LoRAConfig()).rank
+    flash = [long_flash_row(gen, dev, b, S, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                            window, cfg.attn_logit_softcap, case=case)
+             for case, window in (("global", 0), ("windowed", cfg.sliding_window))]
+    scale = (cfg.lora or LoRAConfig()).scale
+    lora = [lora_row(gen, dev, b * S, K, N, r, torch.bfloat16, scale, iters=10,
+                     device_iters=5, case=case, per_layer=n)
+            for case, (K, N, n) in GEMMA_LORA.items()]
+    torch.cuda.empty_cache()
+    rows = flash + lora
+    for row in rows:
+        log(f"[dryrun] 32k row {json.dumps(row)}")
+    fails = [r for r in flash if not r["ok"] or r["variant"] != "wgmma"]
+    fails += [r for r in lora if not r["err"] <= r["tol"] or r["variant"] != "prefill"]
+    return rows, fails
+
+
+def phase_dryrun(dev, smi: str) -> tuple[dict, list]:
+    """Phase 12: ``launch/dryrun.py``'s cells planned on the meta device and
+    measured on the card (M1, M2, M1t; composed and scaled), each run's
+    launches by variant and resident bytes held; the check cells composed
+    and measured whole at one batch; flash and LoRA at gemma2-9b's 32k shapes
+    against their plain versions. Written to build/chip_smoke/dryrun.json."""
+    t0 = time.perf_counter()
+    res, fails = {"nvidia_smi": smi, "limits": DRYRUN_LIMITS, "cells": {}}, []
+    for (arch, shape_name), expect in DRYRUN_CELLS.items():
+        res["cells"][f"{arch} {shape_name}"], more = dryrun_cell(arch, shape_name, dev, expect)
+        fails += more
+    res["checks"] = {}
+    for (arch, shape_name), (b, expect) in DRYRUN_CHECKS.items():
+        check, more = dryrun_cell(arch, shape_name, dev, expect, batch=b, full_depth=True)
+        fails += more
+        m, c = check["measured"], check["measured"]["composed"]
+        gaps = {"ms": c["ms"] / m["full"]["ms"] - 1,
+                "transient": c["transient_bytes"] / m["full"]["transient_bytes"] - 1}
+        # the share of the composed transient that the depth composes: 0 where
+        # the check cannot test the transient's composition
+        depth_share = get_arch(arch).num_groups * c["transient_bytes_per_group"] \
+            / c["transient_bytes"]
+        check.update(compose_vs_full=gaps, transient_depth_share=depth_share)
+        res["checks"][f"{arch} {shape_name}"] = check
+        log(f"[dryrun] check {arch} x {shape_name} at b={b}, depth {m['full']['layers']}: "
+            f"composed {c['ms']:.2f} ms, {c['transient_bytes'] / 1e9:.3f} GB (depth's share "
+            f"{depth_share:.3f}) vs measured {m['full']['ms']:.2f} ms, "
+            f"{m['full']['transient_bytes'] / 1e9:.3f} GB: {json.dumps(gaps)}")
+        if not (abs(gaps["ms"]) <= DRYRUN_LIMITS["compose_ms"]
+                and abs(gaps["transient"]) <= DRYRUN_LIMITS["compose_transient"]):
+            fails.append(f"check cell {arch} x {shape_name}: composed vs measured {gaps}")
+    gemma = res["cells"][f"{GEMMA} prefill_32k"]["measured"]
+    res["kernel_rows"], more = dryrun_kernel_rows(dev, gemma["b"])
+    fails += more
+    res["fails"], res["seconds"] = fails, time.perf_counter() - t0
+    (OUT / "dryrun.json").write_text(json.dumps(res, indent=1, default=str))
+    log(f"[dryrun] phase 12 in {res['seconds']:.1f} s")
+    if fails:
+        raise SystemExit(f"[dryrun] {len(fails)} check(s) failed: {fails}")
+    return res, dryrun_entries(res)
+
+
+def dryrun_entries(res) -> list[dict]:
+    """The kernels line's 32k rows: flash (global, windowed) and LoRA (its
+    two widest products) at gemma2-9b x prefill_32k, their launches those of
+    the cell's measured runs (every call counted; an LG layer launches one
+    global and one windowed flash, and seven LoRA products, of which the
+    two shapes are 2 and 1)."""
+    m = res["cells"][f"{GEMMA} prefill_32k"]["measured"]
+    runs = [r for _, r in measured_runs(m)]
+    layer_steps = sum(r["calls"] * r["layers"] for r in runs)
+    flash_n = sum(r["launches_total"]["flash_attention"]["wgmma"] for r in runs)
+    lora_n = sum(r["launches_total"]["lora_matmul"]["prefill"] for r in runs)
+    assert flash_n == layer_steps and lora_n == 7 * layer_steps, (flash_n, lora_n, layer_steps)
+    per = f"{GEMMA} x prefill_32k measured: b={m['b']}, S=32,768, depths {m['depths']}"
+    out = []
+    for row in res["kernel_rows"]:
+        if row["kernel"] == "flash_attention":
+            out.append(flash_entry(f"flash_attention/wgmma-d256 {GEMMA} prefill_32k "
+                                   f"{row['case']}", "wgmma",
+                                   [dict(row, launches=layer_steps // 2)], row["err"], per))
+            continue
+        n = layer_steps * row["per_layer"]
+        total = {k: row[k] * n for k in ("ms", "device_ms", "graph_ms", "plain_ms", "bound_ms",
+                                         "library_ms", "library_device_ms")}
+        out.append({"name": f"lora_matmul/prefill {GEMMA} prefill_32k {row['case']}",
+                    "route": "cuda", "source": "src/repro_torch/csrc/lora_matmul.cu",
+                    "replaces": "src/repro/kernels/lora_matmul.py:51",
+                    "variants": {"prefill": n}, "launches": n, "max_abs_err": row["err"],
+                    **total, "bound_by": row["bound_by"],
+                    "library": "addmm(x·W, x·A, B, alpha=scale)",
+                    "per": f"{per}; M={row['M']} K={row['K']} N={row['N']}"})
+    return out
+
+
 def main() -> int:
     t0 = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3668,6 +3944,8 @@ def main() -> int:
     kernels += more
     encdec_vlm, more = phase_encdec_vlm(dev, smi)
     kernels += more
+    dry, more = phase_dryrun(dev, smi)
+    kernels += more
     (OUT / "chip_smoke.json").write_text(json.dumps(
         {"nvidia_smi": smi, "build": build, "kernels": kernels, "traces": TRACE_LOG,
          "paths": {arch: {"checks": r["checks"], "slice": r["slice"],
@@ -3676,7 +3954,8 @@ def main() -> int:
          "campaign": campaign, "cli": cli,
          "dense": {k: dense[k] for k in ("gemma2", "gemma2_rule", "serves", "train")},
          "families": {k: families[k] for k in ("serves", "smoke", "split")},
-         "encdec_vlm": {k: encdec_vlm[k] for k in ("serves", "smoke", "split")}},
+         "encdec_vlm": {k: encdec_vlm[k] for k in ("serves", "smoke", "split")},
+         "dryrun": {k: dry[k] for k in ("cells", "checks", "seconds")}},
         indent=1, default=str))
     log(f"[timing] torch.profiler traces kept {TRACE_LOG['kept']}, lost {TRACE_LOG['lost']}")
     log(f"[done] chip_smoke in {time.perf_counter() - t0:.1f} s")

@@ -187,6 +187,15 @@ SHAPES: dict[str, ShapeConfig] = {
     "long_500k": ShapeConfig("long_500k", "decode", 524_288, 1),
 }
 
+# Archs allowed to run long_500k (sub-quadratic sequence mixing only).
+LONG_CONTEXT_OK = ("mamba2-130m", "recurrentgemma-9b")
+
+
+def shape_applicable(arch: str, shape: str) -> bool:
+    if shape == "long_500k":
+        return arch in LONG_CONTEXT_OK
+    return True
+
 
 @dataclass(frozen=True)
 class TrainConfig:
@@ -234,6 +243,12 @@ def get_arch(name: str) -> ModelConfig:
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[name]()
+
+
+def list_archs() -> list[str]:
+    import repro_torch.configs  # noqa: F401  (configs register on import)
+
+    return sorted(_REGISTRY)
 
 
 def smoke_variant(cfg: ModelConfig) -> ModelConfig:

@@ -45,11 +45,12 @@ def _leaves(tree, path=()):
 
 def init_lora(params, cfg: ModelConfig, seed: int = 1, device="cuda"):
     """Adapters for every targeted weight of ``params``: A ~ N(0,1)/r, B = 0
-    (Δw = 0 at init), drawn from a generator on ``device`` seeded with ``seed``."""
+    (Δw = 0 at init), drawn from a generator on ``device`` seeded with ``seed``
+    (on the meta device: shapes only)."""
     device = resolve_device(device)
     lcfg = cfg.lora or LoRAConfig()
     r = lcfg.rank
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = None if device.type == "meta" else torch.Generator(device=device).manual_seed(seed)
     dtype = torch_dtype(cfg.param_dtype)
     out = {}
     for path, leaf in _leaves(params):

@@ -1,6 +1,7 @@
 """Public wrapper of flash attention (after ``repro/kernels/attn_ops.py``).
 
-A tensor on the CPU goes to the plain version; a CUDA tensor launches one of
+A tensor on the CPU goes to the plain version (on the meta device too: shapes
+only, no launch, nothing counted); a CUDA tensor launches one of
 the CUDA kernel's variants (bf16 or fp32, head dim 16/32/64/128/256; picked
 by ``variant`` of ``flash_attention.py``) or raises. Unlike the reference
 wrapper, nothing is padded and ragged lengths never fall back: the kernel
@@ -38,7 +39,7 @@ def _check(q, k, v):
                             f"got {q.dtype}")
         if d not in HEAD_DIMS:
             raise ValueError(f"flash_attention: the CUDA kernel takes head dim in {HEAD_DIMS}, got {d}")
-    elif q.device.type != "cpu":
+    elif q.device.type not in ("cpu", "meta"):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
 
 
@@ -48,7 +49,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, softcap: f
     and j > i - window (window > 0), both counted from 0."""
     _check(q, k, v)
     require_no_grad("flash_attention", q, k, v)
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         return flash_attention_ref(q, k, v, causal=causal, window=window, softcap=softcap)
     kind = variant(q.shape[-1], [s for t in (q, k, v) for s in t.stride()[:3]],
                    [t.data_ptr() for t in (q, k, v)], q.dtype == torch.float32)

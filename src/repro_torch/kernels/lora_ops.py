@@ -1,7 +1,8 @@
 """Public wrapper of the fused LoRA matmul (after ``repro/kernels/lora_ops.py``).
 
 Flattens leading dims and checks its inputs. A tensor on the CPU goes to the
-plain version; a CUDA tensor launches one of the CUDA kernel's variants
+plain version (on the meta device too: shapes only, no launch, nothing
+counted); a CUDA tensor launches one of the CUDA kernel's variants
 (bf16 or fp32, any rank; picked from the dtype and shapes by ``plan`` of
 ``lora_matmul.py``) or raises.
 ``lora_matmul.launches`` counts kernel launches, and
@@ -36,7 +37,7 @@ def _check(x, w, a, b):
         if x.dtype not in (torch.bfloat16, torch.float32):
             raise TypeError(f"lora_matmul: the CUDA kernel takes bfloat16 or float32, "
                             f"got {x.dtype}")
-    elif x.device.type != "cpu":
+    elif x.device.type not in ("cpu", "meta"):
         raise ValueError(f"lora_matmul: unsupported device {x.device}")
 
 
@@ -46,7 +47,7 @@ def lora_matmul(x, w, a, b, *, scale: float = 1.0):
     require_no_grad("lora_matmul", x, w, a, b)
     lead, K, N = x.shape[:-1], x.shape[-1], w.shape[1]
     x2 = x.reshape(-1, K)
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):
         y = lora_matmul_ref(x2, w, a, b, scale=scale)
     else:
         aligned = not (x2.data_ptr() | w.data_ptr() | a.data_ptr() | b.data_ptr()) % 16

@@ -1,7 +1,7 @@
 """Public wrapper of the SSD chunked scan (after ``repro/kernels/ssd_ops.py``).
 
 A tensor on the CPU goes to the plain version (the exact sequential
-recurrence); a CUDA tensor launches one of the CUDA kernel's variants
+recurrence; on the meta device too: shapes only, no launch, nothing counted); a CUDA tensor launches one of the CUDA kernel's variants
 (``wgmma`` or ``fma``, picked by ``variant`` of ``ssd_scan.py`` from shapes,
 dtypes, strides and pointers before the launch) or raises. Unlike the
 reference wrapper, a ragged S is masked inside the kernel (no padded copies),
@@ -50,7 +50,7 @@ def _check(x, dt, A, Bm, Cm, initial_state):
             raise ValueError("ssd_scan: dt's last dim and A must be contiguous")
         if initial_state is not None and not initial_state.is_contiguous():
             raise ValueError("ssd_scan: initial_state must be contiguous")
-    elif x.device.type != "cpu":
+    elif x.device.type not in ("cpu", "meta"):
         raise ValueError(f"ssd_scan: unsupported device {x.device}")
 
 
@@ -61,7 +61,7 @@ def ssd_scan(x, dt, A, Bm, Cm, *, initial_state=None):
     length, so none is taken: the kernel picks its own."""
     _check(x, dt, A, Bm, Cm, initial_state)
     require_no_grad("ssd_scan", x, dt, A, Bm, Cm, initial_state)
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):
         return ssd_scan_ref(x, dt, A, Bm, Cm, initial_state)
     P, N = x.shape[-1], Bm.shape[-1]
     kind = variant(x.dtype, P, N, [*x.stride()[:3], *Bm.stride()[:2], *Cm.stride()[:2]],

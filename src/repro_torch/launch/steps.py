@@ -1,11 +1,14 @@
 """Step builders: train / prefill / serve steps for a given config (port of
-``repro/launch/steps.py``).
+``repro/launch/steps.py``), the optimizer state on the meta device, and the
+spec trees of a batch and a cache over a mesh.
 
-The reference's sharding-tree builders (``param_shardings``,
-``opt_state_shardings``, ``batch_shardings``, ``cache_shardings``,
-``abstract_opt_state``) place arrays on a TPU mesh; on one card every one of
-them is the identity, so the port has none (they come with the mesh tooling,
-if ever). The train step runs the plain training path (``T.loss_fn``, no
+``abstract_opt_state`` is ``opt.init`` on meta parameters (the reference's
+``jax.eval_shape``). ``batch_shardings`` and ``cache_shardings`` give the
+reference's specs (``parallel/sharding.py``'s ``spec_for``) as trees of
+plain tuples over a given mesh; on the one-card mesh each places the whole
+tensor on the card. ``param_shardings`` and ``opt_state_shardings`` are not
+ported: the port's parameters carry no logical axes, and one card shards
+nothing. The train step runs the plain training path (``T.loss_fn``, no
 kernel: the kernels are forward-only), with autograd in place of
 ``jax.value_and_grad``.
 """
@@ -21,7 +24,30 @@ from repro_torch.models import transformer as T
 from repro_torch.optim.grad_utils import clip_by_global_norm
 from repro_torch.optim.optimizers import get_optimizer
 from repro_torch.optim.schedules import cosine_with_warmup
+from repro_torch.parallel.sharding import Rules, spec_for
 from repro_torch.tree import tree_leaves, tree_like, tree_map
+
+# logical axes of the batch's named leaves (any other leaf: unsharded)
+BATCH_AXES = {"tokens": ("batch", "seq"), "labels": ("batch", "seq"), "mask": ("batch", "seq"),
+              "vision_embeds": ("batch", "seq", None), "frame_embeds": ("batch", None, "embed")}
+
+
+def batch_shardings(batch_specs, mesh, rules: Rules, kind: str) -> dict:
+    """The spec of each named batch leaf over ``mesh`` (``kind`` is taken
+    and unused, as in the reference)."""
+    return {k: spec_for(v.shape, BATCH_AXES.get(k, (None,) * v.ndim), rules, mesh)
+            for k, v in batch_specs.items()}
+
+
+def cache_shardings(cache_tree, mesh, rules: Rules):
+    """The spec of each cache leaf over ``mesh``, from ``T.cache_axes``."""
+    return tree_map(lambda v: spec_for(v.shape, T.cache_leaf_axes(v), rules, mesh), cache_tree)
+
+
+def abstract_opt_state(opt, params_meta):
+    """The optimizer state of ``params_meta`` (meta tensors): ``opt.init``
+    on the meta device, shapes and dtypes only."""
+    return opt.init(tree_map(lambda p: p.to("meta"), params_meta))
 
 
 def _value_and_grad(loss_fn, params, batch):
@@ -30,7 +56,9 @@ def _value_and_grad(loss_fn, params, batch):
     leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
     with torch.enable_grad():
         loss, metrics = loss_fn(tree_like(params, leaves), batch)
-        grads = torch.autograd.grad(loss, leaves)
+        # a leaf the loss never reads gets a zero gradient, as jax.grad gives
+        # (whisper's cross-attention biases: ROADMAP §3)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
     metrics = tree_map(lambda t: t.detach(), metrics)
     return (loss.detach(), metrics), tree_like(params, list(grads))
 

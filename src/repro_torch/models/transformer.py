@@ -434,6 +434,26 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None, device="c
     return cache
 
 
+def cache_leaf_axes(a) -> tuple:
+    """Logical sharding axes of one cache leaf, matched by rank as the
+    reference's ``cache_axes``."""
+    if a.ndim == 5:  # (layers, B, S, Kv, hd)
+        return ("layers", "batch", "kv_seq", "kv_heads", None)
+    if a.ndim == 4:  # stacked conv/ssd states
+        return ("layers", "batch", None, None)
+    if a.ndim == 3:
+        return ("layers", "batch", None)
+    if a.ndim == 2:
+        return ("batch", None)
+    return tuple([None] * a.ndim)
+
+
+def cache_axes(cache):
+    """Logical sharding axes for a cache tree (matched by rank): the tree of
+    ``cache_leaf_axes`` tuples, one per leaf."""
+    return tree_map(cache_leaf_axes, cache)
+
+
 # ---------------------------------------------------------------------------
 # Serving
 # ---------------------------------------------------------------------------

@@ -16,7 +16,7 @@ from repro_torch.core import fedsllm, split
 from repro_torch.core.lora import init_lora, merge
 from repro_torch.data.tokens import TokenStream, client_batches
 from repro_torch.kernels.attn_ops import flash_attention
-from repro_torch.kernels.attn_ref import flash_attention_ref
+from repro_torch.kernels.attn_ref import flash_attention_fp32, flash_attention_ref
 from repro_torch.kernels.lora_ops import lora_matmul
 from repro_torch.kernels.lora_ref import lora_matmul_ref
 from repro_torch.kernels.ssd_ops import ssd_scan
@@ -672,3 +672,75 @@ def test_kernel_wrappers_raise_on_cuda_inputs_requiring_grad(cuda):
         with pytest.raises(RuntimeError, match="forward-only"):
             call()
     assert (lora_matmul.launches, flash_attention.launches, ssd_scan.launches) == before
+
+
+def test_concrete_like_on_the_card(cuda):
+    from repro_torch.config import ShapeConfig
+    from repro_torch.launch import specs as SP
+
+    cfg = smoke_variant(get_arch("whisper-base"))
+    specs = SP.cell_specs(cfg, ShapeConfig("d", "decode", 64, 3))
+    a, b = (SP.concrete_like(specs, seed=4, device=cuda) for _ in range(2))
+    for x, y, s in zip(tree_leaves(a), tree_leaves(b), tree_leaves(specs)):
+        assert x.device.type == "cuda" and x.shape == s.shape and x.dtype == s.dtype
+        assert torch.equal(x, y)
+        if not x.dtype.is_floating_point:
+            assert 0 <= int(x.min()) and int(x.max()) < 100
+
+
+def test_measure_cell_at_a_smoke_config(cuda):
+    """M1, M2 and the composition present; launches counted by variant (the
+    smoke config is fp32: LoRA and flash on their fp32 variants)."""
+    from repro_torch.config import ShapeConfig
+    from repro_torch.launch import dryrun
+
+    cfg = smoke_variant(get_arch("fedsllm-100m")).replace(num_layers=4)
+    rec = dryrun.measure_cell(cfg, ShapeConfig("p", "prefill", 64, 4), cuda)
+    assert rec["fits"] and rec["b"] == 4 and set(rec["depths"]) == {"m1", "m2"}
+    for key in ("m1", "m2"):
+        run = rec[key]
+        assert run["ms"] > 0 and run["transient_bytes"] >= 0
+        assert run["launches"]["lora_matmul"]["fp32"] == 7 * run["layers"]
+        assert run["launches"]["flash_attention"]["fp32"] == run["layers"]
+        assert run["resident_bytes"] == dryrun.resident_bytes(
+            cfg.replace(num_layers=run["layers"]), ShapeConfig("p", "prefill", 64, 4))
+    assert rec["composed"]["ms"] > 0 and rec["at_global_batch"]["extrapolated"] is False
+
+
+def _row_ulps(o, ref, n=2.0):
+    """Each query row's largest error over n bf16 ulps of that row's largest
+    output, the worst row's: a row that attends over N keys has outputs of
+    about sqrt(e/N), far below the first row's."""
+    ref = ref.float()
+    return ((o.float() - ref).abs().amax(-1) / (n * 2.0 ** -7 * ref.abs().amax(-1))).max().item()
+
+
+def test_flash_and_lora_at_a_32k_prefill(cuda):
+    """gemma2-9b's prefill at 32,768 positions (d=256, softcap 50, GQA 16/8),
+    each query row within 2 bf16 ulps of its own largest output, and its
+    widest LoRA product at M = 32,768, against their plain versions. The
+    kernel with the last rows' first 64 keys dropped (window S - 64) fails
+    the row check."""
+    gen = torch.Generator(device=cuda).manual_seed(32)
+    S = 32768
+    q = torch.randn((1, 16, S, 256), generator=gen, device=cuda).bfloat16()
+    k, v = (torch.randn((1, 8, S, 256), generator=gen, device=cuda).bfloat16()
+            for _ in range(2))
+    before = dict(flash_attention.variant_launches)
+    o = flash_attention(q, k, v, causal=True, softcap=50.0)
+    torch.cuda.synchronize()
+    assert flash_attention.variant_launches["wgmma"] == before["wgmma"] + 1
+    ref = flash_attention_fp32(q, k, v, causal=True, softcap=50.0, q_chunk=2048)
+    assert _row_ulps(o, ref) <= 1
+    dropped = flash_attention(q, k, v, causal=True, window=S - 64, softcap=50.0)
+    assert _row_ulps(dropped, ref) > 1
+    del q, k, v, o, dropped, ref
+    x = torch.randn((S, 14336), generator=gen, device=cuda).bfloat16()
+    w, a, b = (torch.randn(s, generator=gen, device=cuda).mul(0.05).bfloat16()
+               for s in ((14336, 3584), (14336, 16), (16, 3584)))
+    before = dict(lora_matmul.variant_launches)
+    y = lora_matmul(x, w, a, b, scale=2.0)
+    torch.cuda.synchronize()
+    assert lora_matmul.variant_launches["prefill"] == before["prefill"] + 1
+    ref = lora_matmul_ref(x, w, a, b, scale=2.0)
+    assert (y.float() - ref.float()).abs().max().item() <= _bf16_ulps(ref)
