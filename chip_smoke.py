@@ -15,7 +15,8 @@ each of which fails the run (non-zero exit) on any miss:
 then, for each serving path:
   2. kernels — each of its kernels against its plain PyTorch version on the
                card at the path's shapes, with stated tolerances, in bf16
-               and through the fp32 variants (and a LoRA rank of 80);
+               and through the fp32 variants (and a LoRA rank of 80 in
+               bf16, on prefill and decode);
   3. slice   — the model (bf16, batch 8, prompt 512, 32 new tokens, random
                weights and non-zero adapters from seeded generators) served
                once through ``decode_tokens``, every kernel's launch count
@@ -87,13 +88,17 @@ then
                host seconds outside the round function and peak memory;
   8. cli     — the entry points a user runs, and the variants they need:
                (a) the fp32 LoRA and flash variants and ranks above 64
-               (bf16 ``generic``, fp32) against their plain versions at
-               full width, TF32 off (limits ``CLI_LIMITS``), with event,
-               device, plain, library and bound times (fp32 bound by the
-               CUDA cores' 67 TFLOP/s); (b) ``launch.serve.main(["--smoke"])``
+               (bf16 ``prefill`` and ``decode`` at ranks 80, 128 and 256 up
+               to mistral-7b's w_gate, ``generic`` at rank 100; fp32)
+               against their plain versions at full width, TF32 off
+               (limits ``CLI_LIMITS``), with event, device, plain, library
+               and bound times (fp32 bound by the CUDA cores' 67 TFLOP/s)
+               and each row's floor, target and bound share (``judge``);
+               (b) ``launch.serve.main(["--smoke"])``
                for both archs, every launch on the fp32 variants (SSD on
                ``fma``) by the per-variant counters, plus ``--lora-rank 80``
-               in fp32 and in bf16 (``generic``), and the fp32 model's
+               in fp32 and in bf16 (``prefill`` and ``decode`` only) and
+               ``--lora-rank 100`` in bf16 (``generic``), and the fp32 model's
                logits through the kernels within 1e-4 of the plain path's;
                the kernels timed at those shapes; (c) ``launch.train.main``
                on full-width fedsllm-100m (bf16, AdamW, 20 steps of 8 x 256,
@@ -200,7 +205,8 @@ then
 
 Prints the compiled kernels' registers and spills, the card's name and power
 limit, a ``{"kernels": [...]}`` line (the three kernels on the bf16 serving
-paths, then each variant of the fp32 serve path of phase 8, then phase 9's
+paths, then each variant of the fp32 serve path of phase 8 and the bf16
+LoRA variants above rank 64 (prefill, decode, generic), then phase 9's
 flash variants at head dims 256 and 128 and the LoRA kernel on each of its
 serves, then phase 10's and phase 11's LoRA kernel and flash on each of
 their serves, then phase 12's 32k rows), and last
@@ -284,14 +290,20 @@ VARIANTS = {"lora_matmul": lora_matmul.variant_launches,
             "ssd_scan": ssd_scan.variant_launches}
 # µs per launch of the first port's kernels, before their Hopper redesign
 # (this script on an NVIDIA H100 80GB HBM3 at 700 W; PERF.md §6), keyed by
-# kernel and (M, K, N)
+# kernel and (M, K, N, r). The rank 16 rows: event times before the
+# prefill and decode redesign; ranks above 64: the generic variant's
+# CUDA-graph device times before ranks 72-256 took prefill and decode
+# (``compare_kernels.py`` against the checkout before that change)
 EARLIER_US = {
-    ("lora_matmul", 4096, 768, 768): 93.3, ("lora_matmul", 4096, 768, 256): 74.5,
-    ("lora_matmul", 4096, 768, 2048): 221.2, ("lora_matmul", 4096, 2048, 768): 218.4,
-    ("lora_matmul", 8, 768, 768): 63.8, ("lora_matmul", 8, 768, 256): 62.9,
-    ("lora_matmul", 8, 768, 2048): 63.5, ("lora_matmul", 8, 2048, 768): 160.3,
-    ("lora_matmul", 4096, 768, 3352): 325.3, ("lora_matmul", 4096, 1536, 768): 169.3,
-    ("lora_matmul", 8, 768, 3352): 63.6, ("lora_matmul", 8, 1536, 768): 122.1,
+    ("lora_matmul", 4096, 768, 768, 16): 93.3, ("lora_matmul", 4096, 768, 256, 16): 74.5,
+    ("lora_matmul", 4096, 768, 2048, 16): 221.2, ("lora_matmul", 4096, 2048, 768, 16): 218.4,
+    ("lora_matmul", 8, 768, 768, 16): 63.8, ("lora_matmul", 8, 768, 256, 16): 62.9,
+    ("lora_matmul", 8, 768, 2048, 16): 63.5, ("lora_matmul", 8, 2048, 768, 16): 160.3,
+    ("lora_matmul", 4096, 768, 3352, 16): 325.3, ("lora_matmul", 4096, 1536, 768, 16): 169.3,
+    ("lora_matmul", 8, 768, 3352, 16): 63.6, ("lora_matmul", 8, 1536, 768, 16): 122.1,
+    ("lora_matmul", 4096, 768, 2048, 128): 923.3, ("lora_matmul", 4096, 768, 2048, 256): 1648.0,
+    ("lora_matmul", 4096, 4096, 14336, 128): 31146.7, ("lora_matmul", 8, 768, 768, 128): 147.8,
+    ("lora_matmul", 8, 768, 768, 256): 262.5, ("lora_matmul", 8, 4096, 14336, 128): 671.9,
     ("flash_attention",): 140.2, ("ssd_scan",): 485.1,
 }
 DECODE_TARGET_MS = 0.010  # the decode LoRA's device-time target per launch
@@ -460,19 +472,19 @@ def library(times: dict | None) -> dict:
 
 
 def judge(row: dict) -> dict:
-    """The row's verdicts: floor (event time at most half its earlier time,
-    which was event-timed too; and the same for the device time, which the
-    host's launch cost does not hide), target (device time no slower than
-    the library call's, or at most 10 µs at decode), and its device time's
-    share of the bound."""
-    key = (row["kernel"], row["M"], row["K"], row["N"]) if row["kernel"] == "lora_matmul" \
-        else (row["kernel"],)
+    """The row's verdicts: floor (event time at most half its earlier time;
+    and the same for the device time, which the host's launch cost does not
+    hide), target (device time no slower than
+    the library call's, or at most 10 µs at a decode shape whose bound is
+    below 5 µs), and its device time's share of the bound."""
+    key = (row["kernel"], row["M"], row["K"], row["N"], row["r"]) \
+        if row["kernel"] == "lora_matmul" else (row["kernel"],)
     earlier = EARLIER_US.get(key)
     row["earlier_ms"] = earlier / 1e3 if earlier else None
     row["floor_met"] = None if earlier is None else row["ms"] <= earlier / 2e3
     row["floor_met_device"] = None if earlier is None else row["device_ms"] <= earlier / 2e3
     row["bound_share"] = row["bound_ms"] / row["device_ms"]
-    if row.get("variant") == "decode":
+    if row.get("variant") == "decode" and row["bound_ms"] < DECODE_TARGET_MS / 2:
         row["target"], row["target_met"] = "device_ms <= 0.010", row["device_ms"] <= DECODE_TARGET_MS
     elif row.get("library_device_ms") is not None:
         row["target"] = "device_ms <= library_device_ms"
@@ -705,12 +717,14 @@ def phase_kernels(cfg, dev) -> dict:
             errs["lora_matmul"] = max(errs["lora_matmul"], err)
             if not err <= tol:
                 fails.append(rows[-1])
-    # the fp32 variant at the path's widths, and a rank above 64 (bf16 generic)
+    # the fp32 variant at the path's widths, and a rank above 64 (bf16: decode
+    # and prefill, in two launches)
     errs["lora_matmul/fp32"] = 0.0
     cases = [(M, K, N, r, torch.float32, "fp32") for M in (8, BATCH * PROMPT)
              for K, N in lora_shapes(cfg)]
     K, N = next(iter(lora_shapes(cfg)))
-    cases += [(M, K, N, 80, torch.bfloat16, "generic") for M in (8, BATCH * PROMPT)]
+    cases += [(M, K, N, 80, torch.bfloat16, "decode" if M <= 16 else "prefill")
+              for M in (8, BATCH * PROMPT)]
     for M, K, N, rank, dtype, expected in cases:
         x, w, a, b = lora_inputs(gen, M, K, N, rank, dev, dtype)
         kind = ran_variant("lora_matmul", lambda: lora_matmul(x, w, a, b, scale=lcfg.scale))
@@ -1959,10 +1973,20 @@ def attn_row(gen, dev, B, S, H, Kv, d, dtype, window=0, softcap=0.0, launches=No
     return row
 
 
+# bf16 LoRA above rank 64 (M, K, N, r): fedsllm-100m's w_gate/w_up at
+# prefill and its wq at decode, at ranks 80, 128 and 256, and mistral-7b's
+# w_gate (K=4096, N=14336) at rank 128, all on prefill or decode (two
+# launches); then one shape of rank 100 (not a multiple of 8) on generic
+WIDE_RANKS = [(BATCH * PROMPT, 768, 2048, r) for r in (80, 128, 256)] + \
+    [(BATCH, 768, 768, r) for r in (80, 128, 256)] + \
+    [(BATCH * PROMPT, 4096, 14336, 128), (BATCH, 4096, 14336, 128)]
+GENERIC_RANK = (BATCH * PROMPT, 768, 2048, 100)
+
+
 def new_variants(dev) -> tuple[list, list]:
-    """Part (a): the fp32 and rank > 64 variants against their plain versions
-    (TF32 off), with their times, at full width (the smoke shapes are
-    ``smoke_serve_rows``')."""
+    """Part (a): the fp32 variant and ranks above 64 against their plain
+    versions (TF32 off), with their times and verdicts (``judge``), at full
+    width (the smoke shapes are ``smoke_serve_rows'``)."""
     gen = torch.Generator(device=dev).manual_seed(8)
     rows, fails = [], []
     scale = LoRAConfig().scale
@@ -1972,10 +1996,16 @@ def new_variants(dev) -> tuple[list, list]:
             rows.append(lora_row(gen, dev, M, K, N, 16, torch.float32, scale, expected="fp32",
                                  at="full width"))
     for r in (80, 128):
-        for dtype, expected in ((torch.bfloat16, "generic"), (torch.float32, "fp32")):
-            for M, K, N in ((BATCH * PROMPT, 768, 2048), (BATCH, 768, 768)):
-                rows.append(lora_row(gen, dev, M, K, N, r, dtype, scale, expected=expected,
-                                     at="rank > 64"))
+        for M, K, N in ((BATCH * PROMPT, 768, 2048), (BATCH, 768, 768)):
+            rows.append(lora_row(gen, dev, M, K, N, r, torch.float32, scale, expected="fp32",
+                                 at="rank > 64"))
+    for M, K, N, r in WIDE_RANKS + [GENERIC_RANK]:
+        expected = lora_binding.variant(M, K, N, r, True)
+        assert expected == ("generic" if r % 8 else "decode" if M <= 16 else "prefill")
+        rows.append(lora_row(gen, dev, M, K, N, r, torch.bfloat16, scale, expected=expected,
+                             iters=30 if K * N > 10 ** 7 else 100, at="rank > 64"))
+    for row in rows:
+        judge(row)
     H, Kv, d = full.num_heads, full.num_kv_heads, full.head_dim
     for kw in (dict(B=BATCH, S=PROMPT, H=H, Kv=Kv, d=d), dict(B=2, S=PROMPT, H=8, Kv=2, d=128),
                dict(B=BATCH, S=PROMPT, H=H, Kv=Kv, d=d, window=128),
@@ -2004,18 +2034,23 @@ def smoke_serve(dev) -> tuple[dict, list]:
     archs (every launch on the fp32 variants, SSD on ``fma``), the fp32
     model's logits through the kernels against the plain path, and two
     calls that reach ranks above 64: ``--smoke --lora-rank 80`` (fp32) and
-    full-width bf16 ``--lora-rank 80`` (``generic``)."""
+    full-width bf16 ``--lora-rank 80`` (``prefill`` and ``decode`` only), and
+    a full-width bf16 ``--lora-rank 100`` (not a multiple of 8: ``generic``)."""
     out, fails = {}, []
     B, P, NEW_S = SMOKE_SERVE
     calls = {arch: ["--arch", arch, "--smoke"] for arch in ARCHS}
     calls["fedsllm-100m rank 80 (fp32)"] = ["--smoke", "--lora-rank", "80"]
-    calls["fedsllm-100m rank 80 (bf16)"] = ["--lora-rank", "80", "--batch", "2",
-                                            "--prompt-len", "64", "--max-new", "4"]
-    allowed = {"fedsllm-100m": {"lora_matmul": "fp32", "flash_attention": "fp32"},
-               "mamba2-130m": {"lora_matmul": "fp32", "ssd_scan": "fma"},
-               "fedsllm-100m rank 80 (fp32)": {"lora_matmul": "fp32", "flash_attention": "fp32"},
-               "fedsllm-100m rank 80 (bf16)": {"lora_matmul": "generic",
-                                               "flash_attention": "wgmma"}}
+    small = ["--batch", "2", "--prompt-len", "64", "--max-new", "4"]
+    calls["fedsllm-100m rank 80 (bf16)"] = ["--lora-rank", "80", *small]
+    calls["fedsllm-100m rank 100 (bf16)"] = ["--lora-rank", "100", *small]
+    allowed = {"fedsllm-100m": {"lora_matmul": {"fp32"}, "flash_attention": {"fp32"}},
+               "mamba2-130m": {"lora_matmul": {"fp32"}, "ssd_scan": {"fma"}},
+               "fedsllm-100m rank 80 (fp32)": {"lora_matmul": {"fp32"},
+                                               "flash_attention": {"fp32"}},
+               "fedsllm-100m rank 80 (bf16)": {"lora_matmul": {"prefill", "decode"},
+                                               "flash_attention": {"wgmma"}},
+               "fedsllm-100m rank 100 (bf16)": {"lora_matmul": {"generic"},
+                                                "flash_attention": {"wgmma"}}}
     for name, argv in calls.items():
         zero_counters()
         torch.cuda.synchronize()
@@ -2026,8 +2061,7 @@ def smoke_serve(dev) -> tuple[dict, list]:
         seconds = time.perf_counter() - t0
         variants = counters()
         moved = {k: {v: n for v, n in c.items() if n} for k, c in variants.items()}
-        want = {k: {v} for k, v in allowed[name].items()}
-        ok = {k: set(v) for k, v in moved.items() if v} == want
+        ok = {k: set(v) for k, v in moved.items() if v} == allowed[name]
         out[name] = {"argv": argv, "seconds": seconds, "variants": variants,
                      "tokens_shape": list(tokens.shape), "printed": printed.getvalue()}
         log(f"[cli] (b) serve {' '.join(argv)}: {seconds:.2f} s, launches by variant {moved}")
@@ -2349,6 +2383,39 @@ def phase_cli(dev) -> tuple[dict, list]:
     return result, rows
 
 
+def rank_entries(cli) -> list[dict]:
+    """The kernels line's entries of the bf16 LoRA variants above rank 64:
+    ``prefill`` and ``decode`` (ranks 72-256, two launches a call) and
+    ``generic`` (rank 100), each with its times summed over phase 8 (a)'s
+    rows that ran it (one launch at each shape) and its launches in the
+    full-width bf16 serve that reaches it (``--lora-rank 80``,
+    ``--lora-rank 100``)."""
+    out = []
+    for variant, serve_call in (("prefill", "fedsllm-100m rank 80 (bf16)"),
+                                ("decode", "fedsllm-100m rank 80 (bf16)"),
+                                ("generic", "fedsllm-100m rank 100 (bf16)")):
+        mine = [r for r in cli["variants"] if r["kernel"] == "lora_matmul"
+                and r["dtype"] == "bfloat16" and r["variant"] == variant]
+        total = {k: sum(r[k] for r in mine)
+                 for k in ("ms", "device_ms", "graph_ms", "plain_ms", "bound_ms", "library_ms",
+                           "library_device_ms")}
+        by_bytes = sum(r["bound_ms"] for r in mine if r["bound_by"] == "bytes")
+        out.append({"name": f"lora_matmul/{variant}" + (" r>64" if variant != "generic" else ""),
+                    "route": "cuda", "source": "src/repro_torch/csrc/lora_matmul.cu",
+                    "replaces": "src/repro/kernels/lora_matmul.py:51", "variant": variant,
+                    "launches": cli["serve"][serve_call]["variants"]["lora_matmul"][variant],
+                    "launches_in": serve_call, "max_abs_err": max(r["err"] for r in mine),
+                    **total,
+                    "bound_by": "bytes" if by_bytes >= total["bound_ms"] / 2 else "operations",
+                    "library": "addmm(x·W, x·A, B, alpha=scale)",
+                    "rows": {v: f"{sum(bool(r[v]) for r in mine)}/"
+                                f"{sum(r[v] is not None for r in mine)}"
+                             for v in ("floor_met_device", "target_met")},
+                    "per": "one launch at each of phase 8 (a)'s bf16 shapes on this variant: "
+                           + ", ".join(f"{r['M']}x{r['K']}x{r['N']} r={r['r']}" for r in mine)})
+    return out
+
+
 def variant_entries(rows) -> list[dict]:
     """One entry per variant that the fp32 serve path (phase 8 (b)) runs:
     times summed over the launches one ``launch.serve --smoke`` call of each
@@ -2484,11 +2551,12 @@ def decode_split_sweep(dev, paths, seed: int, tag: str) -> tuple[list, list]:
         nbytes, _ = lora_work(M, K, N, r)
         sets = [lora_inputs(gen, M, K, N, r, dev) for _ in range(n_sets(nbytes))]
         bn = lora_binding.decode_tile_n(N)
+        usplit = lora_binding.plan(M, K, N, r, True)[1][2]  # the u launch's, above rank 64
         ref = lora_matmul_ref(*sets[0], scale=2.0)
         row = dict(M=M, K=K, N=N, r=r, bn=bn, rule=lora_binding.decode_split(K, N), ms={}, err={})
         for split in range(1, lora_binding.DECODE_MAX_SPLIT + 1):
             fn = lambda x, w, a, b: lora_binding.lora_matmul_cuda(  # noqa: E731
-                x, w, a, b, 2.0, "decode", (bn, split))
+                x, w, a, b, 2.0, "decode", (bn, split, usplit))
             y = fn(*sets[0])
             torch.cuda.synchronize()
             row["err"][split] = (y.float() - ref.float()).abs().max().item()
@@ -3937,7 +4005,7 @@ def main() -> int:
     del ctx
     campaign = phase_campaign(dev)
     cli, rows = phase_cli(dev)
-    kernels += variant_entries(rows)
+    kernels += variant_entries(rows) + rank_entries(cli)
     dense, more = phase_dense(dev)
     kernels += more
     families, more = phase_families(dev)

@@ -14,9 +14,11 @@ call) of flash attention at fedsllm-100m's prefill (B=8, S=512, 12 heads over
 d=128) and gemma2-9b's (B=2, S=8192, 16 heads over 8, d=256, softcap 50;
 global and windowed to 4096) and of the LoRA kernel at
 fedsllm-100m's prefill (M=4096) and decode (M=8) shapes and at the dense
-family's large decode shapes, and the host's time a call at fedsllm-100m's
-decode shapes; the last line holds each metric's least time on each side
-and their ratio (this / other).
+family's large decode shapes (rank 16), at fedsllm-100m's shapes at rank 128
+and at a few shapes at ranks 128 and 256 up to mistral-7b's w_gate (K=4096,
+N=14336), and the host's time a call at fedsllm-100m's decode shapes; the
+last line holds each metric's least time on each side and their ratio
+(this / other).
 """
 
 from __future__ import annotations
@@ -33,6 +35,12 @@ FLASH = [(8, 512, 12, 4, 64, 0, 0.0), (8, 512, 12, 4, 64, 0, 50.0), (8, 512, 24,
 LORA = [(4096, 768, 2048), (4096, 2048, 768), (4096, 768, 768), (8, 768, 768), (8, 2048, 768),
         (8, 768, 2048), (8, 768, 256), (8, 18432, 4608), (8, 22528, 8192), (2, 14336, 3584),
         (2, 3584, 14336)]  # M, K, N at rank 16
+# M, K, N, r above rank 64: fedsllm-100m's four shapes at rank 128, prefill
+# and decode; then rank 256 and mistral-7b's w_gate (K=4096, N=14336)
+HIGH = [(M, K, N, 128) for M in (4096, 8)
+        for K, N in ((768, 2048), (2048, 768), (768, 768), (768, 256))]
+HIGH += [(4096, 768, 2048, 256), (8, 768, 768, 256), (4096, 4096, 14336, 128),
+         (8, 4096, 14336, 128)]
 HOST = [(8, 768, 768), (8, 2048, 768), (8, 768, 2048)]
 
 
@@ -90,13 +98,14 @@ def measure(root: Path) -> dict:
         out[f"flash d={d} S={S} window={window} softcap={cap:g}"] = graph_ms(
             torch, fn, sets, 4 if S > 512 else 50)
         del sets
-    for M, K, N in LORA:
+    for M, K, N, r in [(*s, 16) for s in LORA] + HIGH:
         n = max(2, -(-120_000_000 // (2 * K * N)))  # > 120 MB of W: a cold L2 every call
-        sets = [(randn(M, K), randn(K, N, scale=0.05), randn(K, 16, scale=0.05),
-                 randn(16, N, scale=0.05)) for _ in range(n)]
+        sets = [(randn(M, K), randn(K, N, scale=0.05), randn(K, r, scale=0.05),
+                 randn(r, N, scale=0.05)) for _ in range(n)]
         fn = lambda x, w, a, b: lora_matmul(x, w, a, b, scale=2.0)  # noqa: E731
-        out[f"lora {M}x{K}x{N}"] = graph_ms(torch, fn, sets)
-        if (M, K, N) in HOST:
+        name = f"lora {M}x{K}x{N}" + (f" r={r}" if r != 16 else "")
+        out[name] = graph_ms(torch, fn, sets, 10 if M * K * N * r > 1e12 else 50)
+        if (M, K, N) in HOST and r == 16:
             out[f"host {M}x{K}x{N}"] = host_ms(torch, fn, sets)
         del sets
     return out

@@ -2,17 +2,22 @@
 //
 // Replaces the TPU kernel src/repro/kernels/lora_matmul.py (_kernel,
 // lora_matmul_pallas): x (M,K), W (K,N), A (K,r), B (r,N), all bf16 or all
-// fp32; x·W and u = x·A accumulate in fp32 over K, u is folded as u·B in
-// fp32 without being rounded, and y is cast to the inputs' type once. x is
-// read once for both products (once per rank chunk above 64 ranks).
+// fp32; x·W and u = x·A accumulate in fp32 over K, u is folded into the fp32
+// accumulator, and y is cast to the inputs' type once. Up to 64 ranks x is
+// read once for both products and u is folded without being rounded; above
+// 64 ranks (bf16 prefill and decode, up to 256) u is computed once by a
+// launch of its own, so that no output tile or slice computes it again,
+// and folded as two bf16 terms h + l of scale·u on the tensor cores
+// (relative error below 2^-16 of scale·u, far inside the bf16 output's
+// rounding; kernels/lora_ref.py ``lora_matmul_split_ref``).
 //
 // Four variants, picked by the wrapper from the dtype, shapes and alignment
 // (kernels/lora_matmul.py ``variant``), never by failure:
 //
-// * prefill (M > 16, K, N, r multiples of 8, 16-byte aligned rows): what
-//   bounds it is bf16 tensor-core throughput (2·M·K·N operations against
-//   2·(M·K + K·N + M·N) bytes, far above the card's ~295 operations per
-//   byte). A producer warp keeps TMA loads of the x, W and A tiles of the
+// * prefill (M > 16, K, N, r multiples of 8, r <= 256, 16-byte aligned
+//   rows): what bounds it is bf16 tensor-core throughput (2·M·K·N operations
+//   against 2·(M·K + K·N + M·N) bytes, far above the card's ~295 operations
+//   per byte). A producer warp keeps TMA loads of the x, W and A tiles of the
 //   next K steps in flight through a ring of up to 4 shared-memory stages
 //   (mbarriers signal full and empty slots). Two consumer warpgroups, 64
 //   rows of the 128-row tile each, run wgmma for x·W (fp32 accumulators in
@@ -25,7 +30,13 @@
 //   u is never rounded. The bf16 tile goes out through swizzled shared
 //   memory and TMA stores. The wrapper picks the tile width (64-256) so that
 //   the grid fills the 132 SMs in few waves. TMA zero-fills the ragged edges
-//   on load and clips them on store.
+//   on load and clips them on store. Each tile's u costs r/BN of its x·W,
+//   harmless at 16 ranks; from 72 to 256 ranks it would cost up to 4x, so
+//   there a first launch writes u's two bf16 terms h + l of scale·u once
+//   (M x r each) and the second is a plain product over a longer K, [x | h |
+//   l]·[W; B; B], on the same ring and consumers, its tile up to 256 wide,
+//   the blocks rastered in groups of 8 row tiles so that those in flight
+//   share W's tiles in L2.
 // * decode (M <= 16): what bounds it is reading W once from device memory
 //   (2·K·N bytes against 2·M·K·N operations). The clusters split N into
 //   64-column slices (128 above N = 2048, to halve the clusters), and a
@@ -45,9 +56,16 @@
 //   partials of x·W and u through distributed shared memory in a fixed
 //   order (no atomics: the result is the same on every run), and each adds
 //   scale·u·B (fp32 FMAs, B read from device memory) to its share of the
-//   output.
-// * generic (any other bf16 shape: misaligned rows, ranks that are not a
-//   multiple of 8, ranks above 64): the first port's kernel, one 64x64x32
+//   output. From 72 to 256 ranks, A's tile would crowd W's out of the ring,
+//   every slice's cluster would read all of A, and the epilogue's r
+//   dependent loads of B would dominate, so a first launch (the same
+//   kernel, A in W's place and N = r) writes u's two bf16 terms once (its
+//   clusters' sums in the same fixed order), and the second streams x and
+//   W alone (as many W bytes in flight as at 64 ranks), then the fold's
+//   2·ceil(r/64) steps, [h | l]·[B; B], through the same ring and wgmmas,
+//   each step taken by one block of the cluster.
+// * generic (any other bf16 shape: misaligned rows, K, N or r not a
+//   multiple of 8, ranks above 256): the first port's kernel, one 64x64x32
 //   wmma tile with plain loads, ranks in chunks of up to 64 (a pass over K
 //   for each further chunk of u, x re-read, W not); no bf16 shape of a
 //   served config reaches it.
@@ -256,6 +274,247 @@ kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtenso
   }
 }
 
+// ---------------------------------------------------------------------------
+// above 64 ranks: two launches. The first (u_kernel) computes u = x·A once
+// for every 128-row tile, 64 ranks a block, and writes scale·u as two bf16
+// terms h + l (h = bf16(scale·u),
+// l = bf16(scale·u − h): 16 significant bits, a relative error below 2^-16)
+// into u (2, M, r). The second (wide_kernel) is a plain product over a
+// longer K: y = [x | h | l]·[W; B; B], nk K steps of x and W, then
+// 2·ceil(r/64) steps of 64 ranks each of h and l, with B's rows of those
+// ranks in W's slot (TMA zero-fills the ranks past r). Nothing is computed
+// twice, and the accumulators hold the output tile alone, so the tile takes
+// the full 256 columns.
+// ---------------------------------------------------------------------------
+
+constexpr int GROUP_M = 8;  // row tiles of a raster group: a wave reads W's column tiles once
+
+template <int BN>
+struct WideLayout {
+  static constexpr int X_BYTES = BM * BK * 2;  // a box of x, or of 64 ranks of h or l
+  static constexpr int W_BYTES = BK * BN * 2;  // BN/64 boxes of W, A or B: 64 rows x 64 columns
+  static constexpr int STAGE = X_BYTES + W_BYTES;
+  static constexpr int FIXED = 256 + 1024;  // barriers + alignment slack
+  static constexpr int FIT = (int)((SMEM_MAX - FIXED) / STAGE);
+  static constexpr int STAGES = FIT < 8 ? FIT : 8;  // one block an SM: as many as fit
+  static constexpr size_t SMEM = FIXED + (size_t)STAGES * STAGE;
+  static_assert(STAGES >= 2 && BN % 64 == 0 && BN <= 256, "unsupported tile");
+  static_assert(BM * BN * 2 <= STAGES * STAGE, "the output tile reuses the stages");
+};
+
+// The K loop of both launches: a producer warp (8) streams `steps` stages
+// from load(step, slot, bar), two consumer warpgroups accumulate 64 rows
+// each of x-slot·W-slot into acc. The first product overwrites the
+// accumulators (scale_d = 0) instead of a zeroing, which would make ptxas
+// serialize the wgmmas (C7515); acc is left undefined when steps is 0.
+template <int BN, typename Load>
+__device__ __forceinline__ void wide_loop(unsigned char* base, uint64_t* full, uint64_t* empty,
+                                          int steps, Load load, float (&acc)[BN / 2]) {
+  using L = WideLayout<BN>;
+  constexpr int STAGES = L::STAGES;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  if (warp == 8) {  // producer
+    if (lane == 0) {
+      for (int kt = 0; kt < steps; ++kt) {
+        const int s = kt % STAGES;
+        hopper::mbar_wait(&empty[s], ((kt / STAGES) & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(&full[s], L::STAGE);
+        load(kt, base + s * L::STAGE, &full[s]);
+      }
+    }
+    return;
+  }
+  const int wg = warp / 4;  // rows [64 wg, 64 wg + 64) of the tile
+  for (int kt = 0; kt < steps; ++kt) {
+    const int s = kt % STAGES;
+    hopper::mbar_wait(&full[s], (kt / STAGES) & 1);
+    unsigned char* st = base + s * L::STAGE;
+    // the x slot: K-major, 128-byte rows; the W slot: MN-major, groups of 8
+    // K-rows 1024 bytes apart, 64-column blocks BK·128 bytes apart
+    const uint64_t dx = hopper::make_desc(st + wg * 64 * BK * 2, 16, 1024, 1);
+    const uint64_t dw = hopper::make_desc(st + L::X_BYTES, BK * 128, 1024, 1);
+    hopper::fence_operand(acc);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      hopper::wgmma_ss<1>(acc, hopper::desc_add(dx, kk * 32), hopper::desc_add(dw, kk * 16 * 128),
+                          kt > 0 || kk > 0);
+    hopper::wgmma_commit();
+    hopper::fence_operand(acc);
+    hopper::wgmma_wait<1>();  // the previous stage's products are done: free its slot
+    if (kt > 0 && tid % 128 == 0) hopper::mbar_arrive(&empty[(kt - 1) % STAGES]);
+  }
+  hopper::wgmma_wait<0>();
+  hopper::fence_operand(acc);
+}
+
+template <int STAGES>
+__device__ __forceinline__ void init_barriers(uint64_t* full, uint64_t* empty) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);   // the producer's arrive + the bytes
+      hopper::mbar_init(&empty[s], 2);  // one arrive per consumer warpgroup
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+}
+
+// y = [x | h | l]·[W; B; B] into tm_y (tm_u: u (2, M, r), boxes of 64 ranks
+// x 128 rows). The grid is one-dimensional: groups of GROUP_M row tiles,
+// column tiles outermost within a group, so that the blocks in flight share
+// W's tiles.
+template <int BN>
+__global__ void __launch_bounds__(THREADS, 1)
+wide_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w,
+            const __grid_constant__ CUtensorMap tm_u, const __grid_constant__ CUtensorMap tm_b,
+            const __grid_constant__ CUtensorMap tm_y, int K, int r, int num_m, int num_n) {
+  using L = WideLayout<BN>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base =
+      reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~1023ull);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + L::STAGES * L::STAGE);
+  uint64_t* empty = full + L::STAGES;
+  const int per_group = GROUP_M * num_n, first = blockIdx.x / per_group * GROUP_M;
+  const int rows = min(num_m - first, GROUP_M), in_group = blockIdx.x % per_group;
+  const int m0 = (first + in_group % rows) * BM, n0 = in_group / rows * BN;
+  const int nk = (K + BK - 1) / BK, nc = (r + BK - 1) / BK;
+  init_barriers<L::STAGES>(full, empty);
+  if (threadIdx.x == 8 * 32) {
+    hopper::prefetch_tensormap(&tm_x);
+    hopper::prefetch_tensormap(&tm_w);
+    hopper::prefetch_tensormap(&tm_u);
+    hopper::prefetch_tensormap(&tm_b);
+  }
+  float acc[BN / 2];
+  wide_loop<BN>(base, full, empty, nk + 2 * nc, [&](int kt, unsigned char* st, uint64_t* bar) {
+    if (kt < nk) {
+      hopper::tma_load_2d(st, &tm_x, bar, kt * BK, m0);
+#pragma unroll
+      for (int j = 0; j < BN / 64; ++j)
+        hopper::tma_load_2d(st + L::X_BYTES + j * BK * 128, &tm_w, bar, n0 + 64 * j, kt * BK);
+    } else {  // ranks c·64 + [0, 64) of term t (h, then l) and B's rows of them
+      const int t = (kt - nk) / nc, c = (kt - nk) % nc;
+      hopper::tma_load_3d(st, &tm_u, bar, c * BK, m0, t);
+#pragma unroll
+      for (int j = 0; j < BN / 64; ++j)
+        hopper::tma_load_2d(st + L::X_BYTES + j * BK * 128, &tm_b, bar, n0 + 64 * j, c * BK);
+    }
+  }, acc);
+  if (threadIdx.x >= 8 * 32) return;  // the producer
+
+  // store: as the prefill kernel's
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, wg = warp / 4;
+  const int q = lane % 4, row = (warp % 4) * 16 + lane / 4;  // and row + 8
+  hopper::named_sync(1, 256);
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    unsigned char* box = base + (wg * (BN / 64) + j / 8) * 8192;
+    const int chunk = ((j % 8) ^ (row % 8)) * 16 + 4 * q;
+    *reinterpret_cast<uint32_t*>(box + row * 128 + chunk) =
+        hopper::pack_bf16(acc[4 * j + 0], acc[4 * j + 1]);
+    *reinterpret_cast<uint32_t*>(box + (row + 8) * 128 + chunk) =
+        hopper::pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+  hopper::fence_proxy_async();
+  hopper::named_sync(2 + wg, 128);
+  if (tid % 128 == 0) {
+#pragma unroll
+    for (int j = 0; j < BN / 64; ++j)
+      hopper::tma_store_2d(&tm_y, base + (wg * (BN / 64) + j) * 8192, n0 + 64 * j, m0 + 64 * wg);
+    hopper::tma_store_commit_and_wait();
+  }
+}
+
+// u = x·A for the 128-row tile blockIdx.y and the 64 ranks blockIdx.x·64 +
+// [0, 64), written from the accumulators as the terms of scale·u, two
+// adjacent ranks a store.
+__global__ void __launch_bounds__(THREADS, 1)
+u_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_a,
+         bf16* __restrict__ u, int M, int K, int r, float scale) {
+  using L = WideLayout<64>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base =
+      reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~1023ull);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + L::STAGES * L::STAGE);
+  uint64_t* empty = full + L::STAGES;
+  const int m0 = blockIdx.y * BM, c0 = blockIdx.x * 64;
+  init_barriers<L::STAGES>(full, empty);
+  if (threadIdx.x == 8 * 32) {
+    hopper::prefetch_tensormap(&tm_x);
+    hopper::prefetch_tensormap(&tm_a);
+  }
+  float acc[32];
+  wide_loop<64>(base, full, empty, (K + BK - 1) / BK,
+                [&](int kt, unsigned char* st, uint64_t* bar) {
+                  hopper::tma_load_2d(st, &tm_x, bar, kt * BK, m0);
+                  hopper::tma_load_2d(st + L::X_BYTES, &tm_a, bar, c0, kt * BK);
+                }, acc);
+  if (threadIdx.x >= 8 * 32) return;  // the producer
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row = m0 + (warp / 4) * 64 + (warp % 4) * 16 + lane / 4;  // and row + 8
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int col = c0 + 8 * j + 2 * (lane % 4);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int m = row + 8 * i;
+      if (m < M && col < r) {
+        const float vx = scale * acc[4 * j + 2 * i], vy = scale * acc[4 * j + 2 * i + 1];
+        const float hx = __bfloat162float(__float2bfloat16_rn(vx));
+        const float hy = __bfloat162float(__float2bfloat16_rn(vy));
+        bf16* dst = u + (size_t)m * r + col;
+        *reinterpret_cast<uint32_t*>(dst) = hopper::pack_bf16(hx, hy);
+        *reinterpret_cast<uint32_t*>(dst + (size_t)M * r) = hopper::pack_bf16(vx - hx, vy - hy);
+      }
+    }
+  }
+}
+
+// u's terms (2, M, r) of scale·x·A: tiles of 128 rows x 64 ranks
+cudaError_t u_launch(const bf16* x, const bf16* a, bf16* u, int M, int K, int r, float scale,
+                     cudaStream_t stream) {
+  using L = WideLayout<64>;
+  static bool smem_set = false;
+  cudaError_t e = hopper::allow_smem(u_kernel, L::SMEM, smem_set);
+  if (e != cudaSuccess) return e;
+  CUtensorMap tx, ta;
+  const uint64_t xs[2] = {(uint64_t)K, (uint64_t)M}, xst[1] = {(uint64_t)K * 2};
+  const uint64_t as[2] = {(uint64_t)r, (uint64_t)K}, ast[1] = {(uint64_t)r * 2};
+  const uint32_t xb[2] = {BK, BM}, ab[2] = {64, BK};
+  if ((e = hopper::make_tensor_map(&tx, x, 2, xs, xst, xb, 128)) != cudaSuccess) return e;
+  if ((e = hopper::make_tensor_map(&ta, a, 2, as, ast, ab, 128)) != cudaSuccess) return e;
+  dim3 grid((r + 63) / 64, (M + BM - 1) / BM);
+  u_kernel<<<grid, THREADS, L::SMEM, stream>>>(tx, ta, u, M, K, r, scale);
+  return cudaGetLastError();
+}
+
+// y = [x | h | l]·[W; B; B], u: the terms (2, M, r)
+template <int BN>
+cudaError_t wide_launch(const bf16* x, const bf16* w, const bf16* u, const bf16* b, bf16* y,
+                        int M, int K, int N, int r, cudaStream_t stream) {
+  using L = WideLayout<BN>;
+  static bool smem_set = false;
+  cudaError_t e = hopper::allow_smem(wide_kernel<BN>, L::SMEM, smem_set);
+  if (e != cudaSuccess) return e;
+  CUtensorMap tx, tw, tu, tb, ty;
+  const uint64_t xs[2] = {(uint64_t)K, (uint64_t)M}, xst[1] = {(uint64_t)K * 2};
+  const uint64_t ws[2] = {(uint64_t)N, (uint64_t)K}, wst[1] = {(uint64_t)N * 2};
+  const uint64_t us[3] = {(uint64_t)r, (uint64_t)M, 2};
+  const uint64_t ust[2] = {(uint64_t)r * 2, (uint64_t)M * r * 2};
+  const uint64_t bsz[2] = {(uint64_t)N, (uint64_t)r}, ys[2] = {(uint64_t)N, (uint64_t)M};
+  const uint32_t xb[2] = {BK, BM}, wb[2] = {64, BK}, ub[3] = {BK, BM, 1}, yb[2] = {64, 64};
+  if ((e = hopper::make_tensor_map(&tx, x, 2, xs, xst, xb, 128)) != cudaSuccess) return e;
+  if ((e = hopper::make_tensor_map(&tw, w, 2, ws, wst, wb, 128)) != cudaSuccess) return e;
+  if ((e = hopper::make_tensor_map(&tu, u, 3, us, ust, ub, 128)) != cudaSuccess) return e;
+  if ((e = hopper::make_tensor_map(&tb, b, 2, bsz, wst, wb, 128)) != cudaSuccess) return e;
+  if ((e = hopper::make_tensor_map(&ty, y, 2, ys, wst, yb, 128)) != cudaSuccess) return e;
+  const int num_m = (M + BM - 1) / BM, num_n = (N + BN - 1) / BN;
+  wide_kernel<BN><<<num_m * num_n, THREADS, L::SMEM, stream>>>(tx, tw, tu, tb, ty, K, r, num_m,
+                                                                 num_n);
+  return cudaGetLastError();
+}
+
 template <int BN, int RP>
 cudaError_t launch(const bf16* x, const bf16* w, const bf16* a, const bf16* b, bf16* y, int M,
                    int K, int N, int r, float scale, cudaStream_t stream) {
@@ -294,17 +553,30 @@ constexpr int THREADS = 160;   // warpgroup 0 consumes, warp 4 produces
 constexpr int MAX_STAGES = 6;
 constexpr size_t SM_SMEM = 233472;  // an SM's shared memory; each block also reserves 1 KB
 
+// FUSED (r <= 64, one launch): A's tile rides in the ring beside W's, u =
+// x·A beside x·W, the fold (fp32 FMAs) in the epilogue. Above 64 ranks A's
+// tile would crowd W out of the ring, every slice of N would read all of A,
+// and the epilogue's r dependent loads of B a output would dominate, so two
+// launches. UPASS computes u = x·A once (A in W's place, N = r) and writes
+// the two bf16 terms h + l of scale·u (as the prefill's) into u (2, M, r);
+// UFOLD streams x and W, then the fold's 2·ceil(r/64) steps on the tensor
+// cores, [h | l]·[B; B] with the terms in x's slot and B's rows in W's,
+// each step taken by one block of the cluster (the last blocks first: they
+// have the fewest K rows).
+enum Mode { FUSED, UPASS, UFOLD };
+
 // MT: rows of x padded to 8 or 16 (the n of the wgmmas); BN: columns of a
 // cluster's slice (64 or 128: the wider slice halves the clusters of a wide N)
-template <int MT, int BN>
+template <int MT, int BN, int MODE>
 struct Layout {
-  static constexpr int X_BYTES = MT * BK * 2;     // x: MT rows of 64 K-columns, 128-byte rows
-  static constexpr int A_BYTES = BK * RANKS * 2;  // A: 64 K-rows of 64 ranks
-  static constexpr int W_BYTES = BK * BN * 2;     // W: BN/64 boxes of 64 K-rows x 64 columns
+  static constexpr int X_BYTES = MT * BK * 2;     // x (or a term): MT rows of 64 K-columns, 128-byte rows
+  static constexpr int A_BYTES = MODE == FUSED ? BK * RANKS * 2 : 0;  // A: 64 K-rows of 64 ranks
+  static constexpr int W_BYTES = BK * BN * 2;     // W (or B): BN/64 boxes of 64 K-rows x 64 columns
   static constexpr int STAGE = X_BYTES + A_BYTES + W_BYTES;  // every part 1024-aligned
-  // the slice's partial of x·W, the block's partial of u and the whole u
-  // (fp32), the barriers and the alignment slack
-  static constexpr int FIXED = 1024 + MT * BN * 4 + 2 * MT * RANKS * 4 + 256;
+  // the block's partial of u and the whole u (fp32; FUSED only)
+  static constexpr int U_BYTES = MODE == FUSED ? 2 * MT * RANKS * 4 : 0;
+  // the slice's partial of x·W, u's, the barriers and the alignment slack
+  static constexpr int FIXED = 1024 + MT * BN * 4 + U_BYTES + 256;
   // at most as many stages as leave room for two blocks an SM, at most
   // MAX_STAGES; a block whose K slice is shorter takes one per K step
   static constexpr int FIT = (int)((SM_SMEM / 2 - 1024 - FIXED) / STAGE);
@@ -317,22 +589,26 @@ struct Layout {
 // yᵀ = Wᵀ·xᵀ and uᵀ = Aᵀ·xᵀ on the tensor cores, swapped so that the 64-row
 // side of the wgmma is W's columns (and A's ranks), not x's few rows: per
 // K step, W's and A's tiles are MN-major A operands (their columns
-// contiguous) and x's tile is the K-major B operand of n = MT.
-template <int MT, int BN>
+// contiguous) and x's tile is the K-major B operand of n = MT. tm_a: A's
+// map (FUSED), the terms' (UFOLD: u (2, M, r), boxes of 64 ranks x MT
+// rows); y: the output, or u's terms (UPASS: 2 x M x N with N = r).
+template <int MT, int BN, int MODE>
 __global__ void __launch_bounds__(THREADS, 2)
 kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w,
-       const __grid_constant__ CUtensorMap tm_a, const bf16* __restrict__ b,
-       bf16* __restrict__ y, int M, int K, int N, int r, int kc, int stages, float scale) {
-  using L = Layout<MT, BN>;
+       const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_b,
+       const bf16* __restrict__ b, bf16* __restrict__ y, int M, int K, int N, int r, int kc,
+       int stages, float scale) {
+  using L = Layout<MT, BN, MODE>;
   constexpr int NB = BN / 64;
+  constexpr bool RING_A = MODE == FUSED;
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base =
       reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~1023ull);
   float* part = reinterpret_cast<float*>(base + stages * L::STAGE);  // MT x BN
-  float* upart = part + MT * BN;                                      // MT x RANKS
-  float* ufull = upart + MT * RANKS;                                  // MT x RANKS
-  uint64_t* full = reinterpret_cast<uint64_t*>(ufull + MT * RANKS);
+  float* upart = part + MT * BN;                                      // MT x RANKS (FUSED)
+  float* ufull = upart + MT * RANKS;                                  // MT x RANKS (FUSED)
+  uint64_t* full = reinterpret_cast<uint64_t*>(part + MT * BN + L::U_BYTES / 4);
   uint64_t* empty = full + stages;
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -340,6 +616,9 @@ kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtenso
   const int n0 = blockIdx.y * BN;
   const int kbeg = rank * kc, kend = min(K, kbeg + kc);  // kc: a multiple of BK
   const int nkt = kend > kbeg ? (kend - kbeg + BK - 1) / BK : 0;
+  // UFOLD: fold steps f = nc - 1 - rank + i·nc of the 2·ceil(r/64)
+  const int nr = (r + BK - 1) / BK, f0 = nc - 1 - rank;
+  const int nf = MODE == UFOLD && f0 < 2 * nr ? (2 * nr - 1 - f0) / nc + 1 : 0;
 
   if (tid == 0) {
     for (int s = 0; s < stages; ++s) {
@@ -350,22 +629,31 @@ kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtenso
   }
   __syncthreads();
 
-  if (warp == 4) {  // producer: x, A and W tiles of K step t into slot s = t % stages
+  if (warp == 4) {  // producer: the tiles of step t into slot s = t % stages
     if (lane == 0) {
       hopper::prefetch_tensormap(&tm_x);
       hopper::prefetch_tensormap(&tm_w);
-      hopper::prefetch_tensormap(&tm_a);
-      for (int t = 0, s = 0, phase = 0; t < nkt; ++t) {
-        const int k = kbeg + t * BK;
+      if constexpr (MODE != UPASS) hopper::prefetch_tensormap(&tm_a);
+      if constexpr (MODE == UFOLD) hopper::prefetch_tensormap(&tm_b);
+      for (int t = 0, s = 0, phase = 0; t < nkt + nf; ++t) {
         hopper::mbar_wait(&empty[s], phase ^ 1);
         unsigned char* st = base + s * L::STAGE;
+        unsigned char* ws = st + L::X_BYTES + L::A_BYTES;
         hopper::mbar_arrive_expect_tx(&full[s], L::STAGE);
-        hopper::tma_load_2d(st, &tm_x, &full[s], k, 0);
-        hopper::tma_load_2d(st + L::X_BYTES, &tm_a, &full[s], 0, k);
+        if (t < nkt) {  // x, A and W at K rows k + [0, 64)
+          const int k = kbeg + t * BK;
+          hopper::tma_load_2d(st, &tm_x, &full[s], k, 0);
+          if constexpr (RING_A) hopper::tma_load_2d(st + L::X_BYTES, &tm_a, &full[s], 0, k);
 #pragma unroll
-        for (int j = 0; j < NB; ++j)
-          hopper::tma_load_2d(st + L::X_BYTES + L::A_BYTES + j * BK * 128, &tm_w, &full[s],
-                              n0 + 64 * j, k);
+          for (int j = 0; j < NB; ++j)
+            hopper::tma_load_2d(ws + j * BK * 128, &tm_w, &full[s], n0 + 64 * j, k);
+        } else {  // fold step f: ranks c·64 + [0, 64) of term h or l, and B's rows of them
+          const int f = f0 + (t - nkt) * nc, c = f % nr;
+          hopper::tma_load_3d(st, &tm_a, &full[s], c * BK, 0, f / nr);
+#pragma unroll
+          for (int j = 0; j < NB; ++j)
+            hopper::tma_load_2d(ws + j * BK * 128, &tm_b, &full[s], n0 + 64 * j, c * BK);
+        }
         if (++s == stages) s = 0, phase ^= 1;
       }
     }
@@ -379,7 +667,7 @@ kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtenso
 #pragma unroll
       for (int j = 0; j < NB; ++j) acc[j][e] = 0.f;
     }
-    for (int t = 0, s = 0, phase = 0, prev = 0; t < nkt; ++t) {
+    for (int t = 0, s = 0, phase = 0, prev = 0; t < nkt + nf; ++t) {
       hopper::mbar_wait(&full[s], phase);
       unsigned char* st = base + s * L::STAGE;
       // x: K-major, 128-byte rows; A and W: MN-major, 128-byte rows, groups
@@ -389,7 +677,7 @@ kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtenso
       const uint64_t dw = hopper::make_desc(st + L::X_BYTES + L::A_BYTES, BK * 128, 1024, 1);
 #pragma unroll
       for (int j = 0; j < NB; ++j) hopper::fence_operand(acc[j]);
-      hopper::fence_operand(uacc);
+      if constexpr (RING_A) hopper::fence_operand(uacc);
       hopper::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
@@ -397,12 +685,12 @@ kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtenso
 #pragma unroll
         for (int j = 0; j < NB; ++j)
           hopper::wgmma_ss<0, 1>(acc[j], hopper::desc_add(dw, j * BK * 128 + kk * 2048), dxk);
-        hopper::wgmma_ss<0, 1>(uacc, hopper::desc_add(da, kk * 2048), dxk);
+        if constexpr (RING_A) hopper::wgmma_ss<0, 1>(uacc, hopper::desc_add(da, kk * 2048), dxk);
       }
       hopper::wgmma_commit();
 #pragma unroll
       for (int j = 0; j < NB; ++j) hopper::fence_operand(acc[j]);
-      hopper::fence_operand(uacc);
+      if constexpr (RING_A) hopper::fence_operand(uacc);
       hopper::wgmma_wait<1>();  // the previous step's products are done: free its slot
       if (t > 0 && tid == 0) hopper::mbar_arrive(&empty[prev]);
       prev = s;
@@ -411,7 +699,7 @@ kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtenso
     hopper::wgmma_wait<0>();
 #pragma unroll
     for (int j = 0; j < NB; ++j) hopper::fence_operand(acc[j]);
-    hopper::fence_operand(uacc);
+    if constexpr (RING_A) hopper::fence_operand(uacc);
 
     const int w = warp, q = lane % 4;
 #pragma unroll
@@ -421,26 +709,29 @@ kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtenso
         const int m = 8 * jm + 2 * q + (e & 1), row = 16 * w + lane / 4 + 8 * (e / 2);
 #pragma unroll
         for (int j = 0; j < NB; ++j) part[m * BN + 64 * j + row] = acc[j][4 * jm + e];
-        upart[m * RANKS + row] = uacc[4 * jm + e];
+        if constexpr (RING_A) upart[m * RANKS + row] = uacc[4 * jm + e];
       }
   }
 
   cluster.sync();  // every block's partials are written
   // (the partials are added in rank order; the zeros past the cluster's
   // blocks leave each sum as it is)
-  for (int i = tid; i < MT * r; i += THREADS) {
-    const int m = i / r, j = i % r;
-    float v[MAX_SPLIT];
+  if constexpr (RING_A) {
+    for (int i = tid; i < MT * r; i += THREADS) {
+      const int m = i / r, j = i % r;
+      float v[MAX_SPLIT];
 #pragma unroll
-    for (int c = 0; c < MAX_SPLIT; ++c)
-      v[c] = c < nc ? cluster.map_shared_rank(upart, c)[m * RANKS + j] : 0.f;
-    float sum = 0.f;
+      for (int c = 0; c < MAX_SPLIT; ++c)
+        v[c] = c < nc ? cluster.map_shared_rank(upart, c)[m * RANKS + j] : 0.f;
+      float sum = 0.f;
 #pragma unroll
-    for (int c = 0; c < MAX_SPLIT; ++c) sum += v[c];
-    ufull[m * RANKS + j] = sum;
+      for (int c = 0; c < MAX_SPLIT; ++c) sum += v[c];
+      ufull[m * RANKS + j] = sum;
+    }
+    __syncthreads();
   }
-  __syncthreads();
-  // this block's share of the output slice: y = Σ partials + scale · u·B
+  // this block's share of the output slice: y = Σ partials (+ scale · u·B
+  // for FUSED); UPASS: the terms of scale · Σ partials
   const int per = (MT * BN + nc - 1) / nc;
   for (int i = tid; i < per; i += THREADS) {
     const int e = rank * per + i, m = e / BN, n = n0 + e % BN;
@@ -451,32 +742,54 @@ kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtenso
       float sum = 0.f;
 #pragma unroll
       for (int c = 0; c < MAX_SPLIT; ++c) sum += v[c];
-      float d = 0.f;
+      if constexpr (MODE == FUSED) {
+        float d = 0.f;
 #pragma unroll 8
-      for (int j = 0; j < r; ++j) d += ufull[m * RANKS + j] * __bfloat162float(b[(size_t)j * N + n]);
-      y[(size_t)m * N + n] = __float2bfloat16(sum + scale * d);
+        for (int j = 0; j < r; ++j) d += ufull[m * RANKS + j] * __bfloat162float(b[(size_t)j * N + n]);
+        sum += scale * d;
+      }
+      if constexpr (MODE == UPASS) {
+        const float su = scale * sum, h = __bfloat162float(__float2bfloat16_rn(su));
+        y[(size_t)m * N + n] = __float2bfloat16_rn(h);
+        y[(size_t)(M + m) * N + n] = __float2bfloat16_rn(su - h);
+      } else {
+        y[(size_t)m * N + n] = __float2bfloat16(sum);
+      }
     }
   }
   cluster.sync();  // the other blocks read this block's shared memory until here
 }
 
-template <int MT, int BN>
+// FUSED: a is A; UPASS: w is A, N is r, y is u's terms (2, M, r), a and b
+// are not read; UFOLD: a is u's terms (2, M, r)
+template <int MT, int BN, int MODE>
 cudaError_t launch(const bf16* x, const bf16* w, const bf16* a, const bf16* b, bf16* y, int M,
                    int K, int N, int r, float scale, int split, cudaStream_t stream) {
-  using L = Layout<MT, BN>;
+  using L = Layout<MT, BN, MODE>;
   static bool smem_set = false;
-  cudaError_t e = hopper::allow_smem(kernel<MT, BN>, L::smem(L::STAGES), smem_set);
+  cudaError_t e = hopper::allow_smem(kernel<MT, BN, MODE>, L::smem(L::STAGES), smem_set);
   if (e != cudaSuccess) return e;
-  CUtensorMap tx, tw, ta;
+  CUtensorMap tx, tw, ta = {}, tb = {};
   const uint64_t xs[2] = {(uint64_t)K, (uint64_t)M}, xst[1] = {(uint64_t)K * 2};
   const uint64_t ws[2] = {(uint64_t)N, (uint64_t)K}, wst[1] = {(uint64_t)N * 2};
   const uint64_t as[2] = {(uint64_t)r, (uint64_t)K}, ast[1] = {(uint64_t)r * 2};
-  const uint32_t xb[2] = {BK, MT}, wb[2] = {64, BK}, ab[2] = {RANKS, BK};
+  const uint64_t us[3] = {(uint64_t)r, (uint64_t)M, 2};
+  const uint64_t ust[2] = {(uint64_t)r * 2, (uint64_t)M * r * 2};
+  const uint64_t bsz[2] = {(uint64_t)N, (uint64_t)r};
+  const uint32_t xb[2] = {BK, MT}, wb[2] = {64, BK}, ab[2] = {RANKS, BK}, ub[3] = {BK, MT, 1};
   if ((e = hopper::make_tensor_map(&tx, x, 2, xs, xst, xb, 128)) != cudaSuccess) return e;
   if ((e = hopper::make_tensor_map(&tw, w, 2, ws, wst, wb, 128)) != cudaSuccess) return e;
-  if ((e = hopper::make_tensor_map(&ta, a, 2, as, ast, ab, 128)) != cudaSuccess) return e;
+  if (MODE == FUSED && (e = hopper::make_tensor_map(&ta, a, 2, as, ast, ab, 128)) != cudaSuccess)
+    return e;
+  if (MODE == UFOLD) {
+    if ((e = hopper::make_tensor_map(&ta, a, 3, us, ust, ub, 128)) != cudaSuccess) return e;
+    if ((e = hopper::make_tensor_map(&tb, b, 2, bsz, wst, wb, 128)) != cudaSuccess) return e;
+  }
   int kc = ((K + split - 1) / split + BK - 1) / BK * BK;
-  int stages = kc / BK < L::STAGES ? kc / BK : L::STAGES;
+  // one stage a step of the block with the most, at most L::STAGES: its K
+  // steps and (UFOLD) its share of the fold's 2·ceil(r/64)
+  const int most = kc / BK + (MODE == UFOLD ? (2 * ((r + BK - 1) / BK) + split - 1) / split : 0);
+  int stages = most < L::STAGES ? most : L::STAGES;
   // a cluster of `split` blocks along K for each slice of N
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -490,10 +803,22 @@ cudaError_t launch(const bf16* x, const bf16* w, const bf16* a, const bf16* b, b
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  void* args[] = {&tx, &tw, &ta, &b, &y, &M, &K, &N, &r, &kc, &stages, &scale};
-  e = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(kernel<MT, BN>), args);
+  void* args[] = {&tx, &tw, &ta, &tb, &b, &y, &M, &K, &N, &r, &kc, &stages, &scale};
+  e = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(kernel<MT, BN, MODE>), args);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
+}
+
+// the product at 8 or 16 rows of x (MT) and slices of bn columns
+template <int MODE>
+cudaError_t dispatch(const bf16* x, const bf16* w, const bf16* a, const bf16* b, bf16* y, int M,
+                     int K, int N, int r, float scale, int bn, int split, cudaStream_t stream) {
+  if (bn == 64) {
+    if (M <= 8) return launch<8, 64, MODE>(x, w, a, b, y, M, K, N, r, scale, split, stream);
+    return launch<16, 64, MODE>(x, w, a, b, y, M, K, N, r, scale, split, stream);
+  }
+  if (M <= 8) return launch<8, 128, MODE>(x, w, a, b, y, M, K, N, r, scale, split, stream);
+  return launch<16, 128, MODE>(x, w, a, b, y, M, K, N, r, scale, split, stream);
 }
 
 }  // namespace decode
@@ -879,18 +1204,31 @@ cudaError_t launch(const float* x, const float* w, const float* a, const float* 
 // cudaGetLastError() after the launch (cudaErrorInvalidValue for a shape
 // the variant does not take).
 
-// prefill: K, N, r multiples of 8, r <= 64, every pointer 16-byte aligned;
-// bn = the output tile's width (64, 128, 192, 256; 256 only for r <= 16)
+// prefill: K, N, r multiples of 8, r <= 256, every pointer 16-byte aligned;
+// bn = the output tile's width (64, 128, 192, 256; 256 not for 16 < r <= 64);
+// above 64 ranks u is scratch of 2·M·r bf16 (16-byte aligned), else unused.
+// Above 64 ranks two launches: u's terms, then the product.
 extern "C" int lora_matmul_prefill_bf16(const void* x, const void* w, const void* a,
                                         const void* b, void* y, int M, int K, int N, int r,
-                                        float scale, int bn, void* stream) {
-  if (M <= 0 || K <= 0 || N <= 0 || r <= 0 || r > 64 || K % 8 || N % 8 || r % 8 ||
-      M > 65535 * prefill::BM)
+                                        float scale, int bn, void* u, void* stream) {
+  if (M <= 0 || K <= 0 || N <= 0 || r <= 0 || r > 256 || K % 8 || N % 8 || r % 8 ||
+      M > 65535 * prefill::BM || (r > 64 && u == nullptr))
     return (int)cudaErrorInvalidValue;
   const bf16 *xp = static_cast<const bf16*>(x), *wp = static_cast<const bf16*>(w);
   const bf16 *ap = static_cast<const bf16*>(a), *bp = static_cast<const bf16*>(b);
-  bf16* yp = static_cast<bf16*>(y);
+  bf16 *yp = static_cast<bf16*>(y), *up = static_cast<bf16*>(u);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (r > 64) {
+    if (bn != 64 && bn != 128 && bn != 192 && bn != 256) return (int)cudaErrorInvalidValue;
+    cudaError_t e = prefill::u_launch(xp, ap, up, M, K, r, scale, st);
+    if (e != cudaSuccess) return (int)e;
+    switch (bn) {
+      case 64: return (int)prefill::wide_launch<64>(xp, wp, up, bp, yp, M, K, N, r, st);
+      case 128: return (int)prefill::wide_launch<128>(xp, wp, up, bp, yp, M, K, N, r, st);
+      case 192: return (int)prefill::wide_launch<192>(xp, wp, up, bp, yp, M, K, N, r, st);
+      default: return (int)prefill::wide_launch<256>(xp, wp, up, bp, yp, M, K, N, r, st);
+    }
+  }
   if (r <= 16) {
     switch (bn) {
       case 64: return (int)prefill::launch<64, 16>(xp, wp, ap, bp, yp, M, K, N, r, scale, st);
@@ -908,26 +1246,35 @@ extern "C" int lora_matmul_prefill_bf16(const void* x, const void* w, const void
   return (int)cudaErrorInvalidValue;
 }
 
-// decode: M <= 16, K, N and r multiples of 8, r <= 64, every pointer
+// decode: M <= 16, K, N and r multiples of 8, r <= 256, every pointer
 // 16-byte aligned; bn = the columns of a cluster's slice (64 or 128), split =
-// the blocks of a cluster, each a slice of K (1-8)
+// the blocks of a cluster, each a slice of K (1-8); above 64 ranks u is
+// scratch of 2·M·r bf16 (16-byte aligned) and usplit the blocks of the u
+// launch's clusters (1-8), else both are unused. Above 64 ranks two
+// launches: u's terms, then the product with its fold.
 extern "C" int lora_matmul_decode_bf16(const void* x, const void* w, const void* a,
                                        const void* b, void* y, int M, int K, int N, int r,
-                                       float scale, int bn, int split, void* stream) {
-  if (M <= 0 || M > 16 || K <= 0 || N <= 0 || r <= 0 || r > 64 || K % 8 || N % 8 || r % 8 ||
+                                       float scale, int bn, int split, int usplit, void* u,
+                                       void* stream) {
+  if (M <= 0 || M > 16 || K <= 0 || N <= 0 || r <= 0 || r > 256 || K % 8 || N % 8 || r % 8 ||
       (bn != 64 && bn != 128) || (N + bn - 1) / bn > 65535 || split < 1 ||
-      split > decode::MAX_SPLIT)
+      split > decode::MAX_SPLIT ||
+      (r > 64 && (u == nullptr || usplit < 1 || usplit > decode::MAX_SPLIT)))
     return (int)cudaErrorInvalidValue;
   const bf16 *xp = static_cast<const bf16*>(x), *wp = static_cast<const bf16*>(w);
   const bf16 *ap = static_cast<const bf16*>(a), *bp = static_cast<const bf16*>(b);
-  bf16* yp = static_cast<bf16*>(y);
+  bf16 *yp = static_cast<bf16*>(y), *up = static_cast<bf16*>(u);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bn == 64) {
-    if (M <= 8) return (int)decode::launch<8, 64>(xp, wp, ap, bp, yp, M, K, N, r, scale, split, st);
-    return (int)decode::launch<16, 64>(xp, wp, ap, bp, yp, M, K, N, r, scale, split, st);
-  }
-  if (M <= 8) return (int)decode::launch<8, 128>(xp, wp, ap, bp, yp, M, K, N, r, scale, split, st);
-  return (int)decode::launch<16, 128>(xp, wp, ap, bp, yp, M, K, N, r, scale, split, st);
+  if (r <= 64)
+    return (int)decode::dispatch<decode::FUSED>(xp, wp, ap, bp, yp, M, K, N, r, scale, bn, split,
+                                                st);
+  cudaError_t e =
+      M <= 8 ? decode::launch<8, 64, decode::UPASS>(xp, ap, nullptr, nullptr, up, M, K, r, r,
+                                                    scale, usplit, st)
+             : decode::launch<16, 64, decode::UPASS>(xp, ap, nullptr, nullptr, up, M, K, r, r,
+                                                     scale, usplit, st);
+  if (e != cudaSuccess) return (int)e;
+  return (int)decode::dispatch<decode::UFOLD>(xp, wp, up, bp, yp, M, K, N, r, 1.f, bn, split, st);
 }
 
 // generic: any shape and rank (ranks above 64 in chunks of 64)

@@ -136,9 +136,10 @@ F32, BF16 = torch.float32, torch.bfloat16
     (4096, 768, 2048, 16, F32, "fp32"), (4096, 2048, 768, 16, F32, "fp32"),
     (8, 768, 256, 16, F32, "fp32"), (8, 2048, 768, 16, F32, "fp32"),
     (100, 200, 300, 8, F32, "fp32"), (3, 40, 24, 5, F32, "fp32"), (130, 96, 130, 33, F32, "fp32"),
-    # ranks above 64: bf16 through generic's rank chunks, fp32 through fp32's
-    (64, 768, 768, 80, BF16, "generic"), (4096, 768, 2048, 128, BF16, "generic"),
-    (8, 768, 768, 128, BF16, "generic"), (37, 96, 130, 100, BF16, "generic"),
+    # ranks above 64: bf16 multiples of 8 through prefill and decode (two
+    # launches), others through generic's rank chunks; fp32 through fp32's
+    (64, 768, 768, 80, BF16, "prefill"), (4096, 768, 2048, 128, BF16, "prefill"),
+    (8, 768, 768, 128, BF16, "decode"), (37, 96, 130, 100, BF16, "generic"),
     (64, 768, 768, 80, F32, "fp32"), (4096, 768, 768, 128, F32, "fp32"),
     (8, 768, 768, 200, F32, "fp32"), (37, 96, 130, 100, F32, "fp32"),
 ])
@@ -160,6 +161,61 @@ def test_lora_fp32_and_high_ranks_match_plain(cuda, no_tf32, M, K, N, r, dtype, 
     err = (y.float() - ref.float()).abs().max().item()
     tol = 1e-5 * ref.abs().max().item() if dtype == F32 else _bf16_ulps(ref)
     assert err <= tol, (err, tol)
+
+
+def _lora_bf16(cuda, M, K, N, r, seed, offset=0):
+    """Seeded bf16 operands; ``offset`` elements shift x off a 16-byte boundary."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn((M, K), generator=gen, device=cuda).bfloat16()
+    if offset:
+        x = torch.empty(M * K + offset, dtype=x.dtype, device=cuda)[offset:].view(M, K).copy_(x)
+    w, a, b = (torch.randn(s, generator=gen, device=cuda).mul(0.05).bfloat16()
+               for s in ((K, N), (K, r), (r, N)))
+    return x, w, a, b
+
+
+def _held(x, w, a, b, expected):
+    """One wrapper call: the variant that ran, and the error against the plain
+    version within 2 bf16 ulps of its largest output."""
+    before = dict(lora_matmul.variant_launches)
+    y = lora_matmul(x, w, a, b, scale=2.0)
+    torch.cuda.synchronize()
+    moved = {k: v - before[k] for k, v in lora_matmul.variant_launches.items()}
+    assert moved == {k: int(k == expected) for k in moved}, moved
+    ref = lora_matmul_ref(x, w, a, b, scale=2.0)
+    err = (y.float() - ref.float()).abs().max().item()
+    assert err <= _bf16_ulps(ref), (err, _bf16_ulps(ref))
+    return y
+
+
+@pytest.mark.parametrize("r", [72, 128, 256])
+@pytest.mark.parametrize("M", [4096, 300, 16, 8])
+@pytest.mark.parametrize("K,N", [(768, 256), (768, 2048), (4096, 14336)])
+def test_lora_ranks_72_to_256_take_prefill_and_decode(cuda, M, K, N, r):
+    """Ranks 72-256 (multiples of 8, aligned) run the Hopper variants in two
+    launches, prefill above 16 rows (ragged M = 300 too) and decode at 16 and
+    below, each within 2 bf16 ulps of the largest output of the plain
+    version."""
+    _held(*_lora_bf16(cuda, M, K, N, r, seed=M + N + r), "prefill" if M > 16 else "decode")
+
+
+@pytest.mark.parametrize("K,N", [(768, 768), (4096, 14336)])
+def test_lora_decode_is_deterministic_at_rank_256(cuda, K, N):
+    """Both decode launches at 256 ranks add their clusters' partials in a
+    fixed order: the same inputs give the same bits."""
+    x, w, a, b = _lora_bf16(cuda, 8, K, N, 256, seed=13)
+    first = _held(x, w, a, b, "decode")
+    for _ in range(3):
+        assert torch.equal(lora_matmul(x, w, a, b, scale=2.0), first)
+
+
+@pytest.mark.parametrize("M,K,N,r,offset", [
+    (4096, 768, 2048, 128, 1), (8, 768, 768, 128, 1),  # x one element off 16 bytes
+    (4096, 768, 2048, 100, 0), (8, 768, 768, 100, 0),  # r not a multiple of 8
+    (300, 768, 256, 264, 0), (8, 768, 256, 264, 0),  # r above 256
+])
+def test_lora_generic_keeps_misaligned_and_odd_ranks(cuda, M, K, N, r, offset):
+    _held(*_lora_bf16(cuda, M, K, N, r, seed=M + r, offset=offset), "generic")
 
 
 @pytest.mark.parametrize("B,H,Kv,Sq,Skv,d,causal,window,softcap", [

@@ -22,7 +22,7 @@ from repro_torch.kernels.attn_ref import flash_attention_ref
 from repro_torch.kernels import flash_attention as flash_binding
 from repro_torch.kernels import lora_matmul as lora_binding
 from repro_torch.kernels.lora_ops import lora_matmul
-from repro_torch.kernels.lora_ref import lora_matmul_ref
+from repro_torch.kernels.lora_ref import lora_matmul_ref, lora_matmul_split_ref
 from repro_torch.config import LoRAConfig, get_arch
 from repro_torch.models import layers as torch_layers
 from repro_torch.models import mamba2
@@ -58,6 +58,9 @@ LORA_CASES = [
     (100, 200, 300, 8, "float32"),  # non-aligned: the reference pads
     (32, 1024, 64, 32, "float32"),
     (8, 64, 8, 2, "float32"),  # tiny
+    # ranks 72-256 (the Hopper variants' two-launch range), small M/K/N
+    (128, 256, 128, 128, "float32"), (64, 128, 256, 256, "float32"),
+    (128, 256, 128, 128, "bfloat16"), (64, 128, 256, 256, "bfloat16"),
 ]
 
 
@@ -80,6 +83,31 @@ def test_lora_plain_matches_pallas_and_ref(M, K, N, r, dtype):
         np.testing.assert_allclose(_np(y), _np(ref), rtol=tol, atol=tol)
     np.testing.assert_allclose(_np(lora_matmul_ref(tx, tw, ta, tb, scale=2.0)), _np(y),
                                rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("M,K,N,r", [(128, 256, 128, 128), (64, 128, 256, 256)])
+def test_lora_split_terms_match_pallas_and_ref(M, K, N, r):
+    """The prefill kernel's arithmetic above 64 ranks (scale·u folded as two
+    bf16 terms, ``lora_matmul_split_ref``) against the Pallas kernel in
+    interpret mode and both plain versions. In bf16 within 2 bf16 ulps of
+    the largest output of ``lora_matmul_ref`` (the card's tolerance); in
+    fp32 within the terms' own bound, 2^-16 of Σ_j |scale·u_j|·|B_jn|."""
+    (jx, tx), (jw, tw), (ja, ta), (jb, tb) = (_pair(t, "bfloat16")
+                                              for t in _lora_inputs(M, K, N, r, seed=r))
+    y = lora_matmul_split_ref(tx, tw, ta, tb, scale=2.0)
+    assert y.dtype == torch.bfloat16 and y.shape == (M, N)
+    ref = lora_matmul_ref(tx, tw, ta, tb, scale=2.0)
+    ulps = 2 * 2.0 ** -7 * _np(ref).__abs__().max()
+    assert np.abs(_np(y) - _np(ref)).max() <= ulps
+    for want in (jax_lora_matmul(jx, jw, ja, jb, scale=2.0),
+                 jax_lora_matmul_ref(jx, jw, ja, jb, scale=2.0)):
+        np.testing.assert_allclose(_np(y), _np(want), rtol=TOL["bfloat16"], atol=TOL["bfloat16"])
+    x, w, a, b = (torch.from_numpy(t) for t in _lora_inputs(M, K, N, r, seed=r))
+    v = 2.0 * (x.double() @ a.double())
+    bound = 2.0 ** -16 * (v.abs() @ b.double().abs()).max().item()
+    err = (lora_matmul_split_ref(x, w, a, b, scale=2.0).double()
+           - (x.double() @ w.double() + v @ b.double())).abs().max().item()
+    assert 0 < err <= bound + 1e-5 * (x.double() @ w.double()).abs().max().item(), (err, bound)
 
 
 def test_lora_plain_leading_dims_and_zero_B():
@@ -115,7 +143,13 @@ def test_lora_wrapper_rejects_bad_inputs():
     (8, 768, 300, 16, True, "generic"),  # N % 8
     (4096, 772, 768, 16, True, "generic"),  # K % 8
     (8, 768, 768, 1, True, "generic"), (4096, 768, 768, 5, True, "generic"),  # r % 8
-    (4096, 768, 768, 80, True, "generic"),  # r above 64
+    (4096, 768, 768, 80, True, "prefill"),  # r above 64, a multiple of 8 (once generic)
+    # ranks 72-256: prefill and decode, in two launches
+    *[(M, K, N, r, True, "prefill" if M > 16 else "decode")
+      for r in (72, 128, 256) for M in (4096, 16, 8) for K, N in ((768, 2048), (4096, 14336))],
+    (4096, 768, 768, 264, True, "generic"), (8, 768, 768, 264, True, "generic"),  # r above 256
+    (4096, 768, 768, 100, True, "generic"), (8, 768, 768, 100, True, "generic"),  # r % 8
+    (8, 768, 768, 128, False, "generic"),  # misaligned
     (8, 768, 768, 16, False, "generic"), (4096, 768, 768, 16, False, "generic"),  # misaligned
     (8, 200_000, 768, 64, True, "decode"),  # the decode ring's size does not grow with K
 ])
@@ -125,14 +159,17 @@ def test_lora_variant_rule(M, K, N, r, aligned, expected):
     assert lora_binding.variant(M, K, N, r, aligned) == expected
     kind, extra = lora_binding.plan(M, K, N, r, aligned)
     assert kind == expected
+    usplit = lora_binding.decode_split(K, r) if r > 64 else 0
     want = {"prefill": (lora_binding.prefill_tile_n(M, N, r),),
-            "decode": (lora_binding.decode_tile_n(N), lora_binding.decode_split(K, N))}
+            "decode": (lora_binding.decode_tile_n(N), lora_binding.decode_split(K, N), usplit)}
     assert extra == want.get(kind, ())
 
 
 @pytest.mark.parametrize("N,r,expected", [
     (256, 16, 64), (768, 16, 192), (2048, 16, 256), (3352, 16, 192),
-    (2048, 64, 128),  # no 256-wide tile above rank 16
+    (2048, 64, 128),  # no 256-wide tile from rank 17 to 64
+    # above 64 ranks the product's tile holds the output alone: 256 again
+    (2048, 128, 256), (2048, 256, 256), (256, 128, 64), (768, 256, 192), (14336, 128, 256),
 ])
 def test_lora_prefill_tile_fills_the_card(N, r, expected):
     """At M = 4096 (32 row tiles) the tile width puts the grid in the fewest
@@ -141,6 +178,19 @@ def test_lora_prefill_tile_fills_the_card(N, r, expected):
     assert bn == expected
     if N in (256, 768):
         assert 32 * -(-N // bn) == 128  # one wave
+
+
+@pytest.mark.parametrize("K,r,usplit", [
+    (768, 72, 8), (768, 128, 8), (768, 256, 8), (4096, 128, 8), (4096, 256, 8),
+    (256, 128, 4),  # no more blocks than K has 64-row steps
+])
+def test_lora_decode_u_launch_split(K, r, usplit):
+    """Above 64 ranks the decode's first launch (u = x·A, N = r) splits K
+    by the same rule as any decode shape: its 2-4 slices of 64 ranks take
+    clusters of 8 blocks at every K of 8 steps or more."""
+    _, extra = lora_binding.plan(8, K, 2048, r, True)
+    assert extra[2] == lora_binding.decode_split(K, r) == usplit
+    assert lora_binding.plan(8, K, 2048, 64, True)[1][2] == 0  # one launch up to 64
 
 
 def test_lora_decode_slice_width():
@@ -177,6 +227,31 @@ def test_lora_decode_smem_matches_the_kernel_layout():
             assert smem == lora_binding.decode_smem_bytes(M, 100_000, N)
 
 
+@pytest.mark.parametrize("r", [128, 256])
+def test_lora_decode_smem_above_64_ranks(r):
+    """Above 64 ranks both decode launches stream x (or u's terms) and their
+    W (A for u = x·A, with N = r; W, then B's rows in the fold's steps)
+    alone: stages of 64 K-rows of x and of 64 or 128 columns, no A tile
+    and no u partials. M=8, K=N=768: a cluster of 8, a 128-row slice of K a
+    block, plus at most one of the fold's 4 (r=128) or 8 (r=256) steps: 3
+    stages; the u launch 2. A long K: the 6-stage cap (W's bytes in flight
+    as at 64 ranks); 16 rows and 128-column slices: the 5 stages that leave
+    room for two blocks an SM (3 with A's tile)."""
+    stage = 64 * 8 * 2 + 64 * 64 * 2
+    fixed = 1024 + 8 * 64 * 4 + 256
+    assert lora_binding.decode_smem_bytes(8, 768, 768, r) == fixed + 3 * stage
+    assert lora_binding.decode_u_smem_bytes(8, 768, r) == fixed + 2 * stage == 21_760
+    assert lora_binding.decode_smem_bytes(8, 18432, 768, r) == fixed + 6 * stage == 58_624
+    stage16 = 64 * 16 * 2 + 64 * 128 * 2
+    fixed16 = 1024 + 16 * 128 * 4 + 256
+    assert lora_binding.decode_smem_bytes(16, 4096, 14336, r) == fixed16 + 5 * stage16
+    assert 2 * (fixed16 + 6 * stage16 + 1024) > 233_472
+    for M in (1, 8, 9, 16):
+        for N in (768, 4608, 22528):
+            assert 2 * (lora_binding.decode_smem_bytes(M, 200_000, N, r) + 1024) <= 233_472
+        assert 2 * (lora_binding.decode_u_smem_bytes(M, 200_000, r) + 1024) <= 233_472
+
+
 def _lora_shapes(arch):
     """(K, N) of each adapted projection of one layer of ``arch``."""
     cfg = get_arch(arch)
@@ -193,13 +268,13 @@ def _lora_shapes(arch):
                                   "starcoder2-7b", "command-r-35b", "gemma2-9b"])
 def test_lora_rule_sends_no_served_decode_shape_to_generic(arch):
     """Every LoRA product of a decode step of the six served configs (M =
-    batch 1-16, the configs' rank) takes the decode variant, the large-K down
-    projections of starcoder2-7b (K=18432) and command-r-35b (K=22528)
-    included."""
-    r = (get_arch(arch).lora or LoRAConfig()).rank
-    for K, N in _lora_shapes(arch):
-        for M in (1, 2, 8, 16):
-            assert lora_binding.variant(M, K, N, r, True) == "decode", (M, K, N, r)
+    batch 1-16, the configs' rank and a rank of 128) takes the decode
+    variant, the large-K down projections of starcoder2-7b (K=18432) and
+    command-r-35b (K=22528) included."""
+    for r in ((get_arch(arch).lora or LoRAConfig()).rank, 128):
+        for K, N in _lora_shapes(arch):
+            for M in (1, 2, 8, 16):
+                assert lora_binding.variant(M, K, N, r, True) == "decode", (M, K, N, r)
 
 
 S_ = 512  # the sequence length in the strides below
