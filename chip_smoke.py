@@ -87,18 +87,21 @@ then
                simulated T, η and the mask per round, device round seconds,
                host seconds outside the round function and peak memory;
   8. cli     — the entry points a user runs, and the variants they need:
-               (a) the fp32 LoRA and flash variants and ranks above 64
-               (bf16 ``prefill`` and ``decode`` at ranks 80, 128 and 256 up
-               to mistral-7b's w_gate, ``generic`` at rank 100; fp32)
-               against their plain versions at full width, TF32 off
-               (limits ``CLI_LIMITS``), with event, device, plain, library
-               and bound times (fp32 bound by the CUDA cores' 67 TFLOP/s)
-               and each row's floor, target and bound share (``judge``);
+               (a) the fp32 LoRA and flash variants, bf16 LoRA at ranks other
+               than 16 (``prefill`` and ``decode`` at ranks 4, 80, 100, 128,
+               256 and 512 up to mistral-7b's w_gate) and ``generic`` at a
+               misaligned x; fp32 LoRA at fedsllm-100m's shapes, ranks 80 and
+               128, and gemma2-9b's M=2 decode shapes) against their plain
+               versions at full width, TF32 off (limits ``CLI_LIMITS``),
+               with event, device, plain, library and bound times (fp32
+               operations at ``PEAK_FP32``, three TF32 products' rate) and
+               each row's floor,
+               target and bound share (``judge``);
                (b) ``launch.serve.main(["--smoke"])``
                for both archs, every launch on the fp32 variants (SSD on
                ``fma``) by the per-variant counters, plus ``--lora-rank 80``
-               in fp32 and in bf16 (``prefill`` and ``decode`` only) and
-               ``--lora-rank 100`` in bf16 (``generic``), and the fp32 model's
+               in fp32 and ``--lora-rank 80``, ``100`` and ``4`` in bf16
+               (``prefill`` and ``decode`` only), and the fp32 model's
                logits through the kernels within 1e-4 of the plain path's;
                the kernels timed at those shapes; (c) ``launch.train.main``
                on full-width fedsllm-100m (bf16, AdamW, 20 steps of 8 x 256,
@@ -206,7 +209,7 @@ then
 Prints the compiled kernels' registers and spills, the card's name and power
 limit, a ``{"kernels": [...]}`` line (the three kernels on the bf16 serving
 paths, then each variant of the fp32 serve path of phase 8 and the bf16
-LoRA variants above rank 64 (prefill, decode, generic), then phase 9's
+LoRA variants at ranks other than 16 (prefill, decode) and generic, then phase 9's
 flash variants at head dims 256 and 128 and the LoRA kernel on each of its
 serves, then phase 10's and phase 11's LoRA kernel and flash on each of
 their serves, then phase 12's 32k rows), and last
@@ -276,10 +279,14 @@ from repro_torch.tree import (tree_index, tree_leaves, tree_map, tree_rel_gap,  
 
 OUT = ROOT / "build" / "chip_smoke"
 # NVIDIA H100 SXM data sheet: dense bf16 tensor-core peak and HBM3 bandwidth
-# (the dry-run's), fp32 on the CUDA cores (the fp32 variants' bound: they use
-# no tensor core, since TF32 would miss the reference's fp32 tolerance)
+# (the dry-run's), dense TF32 on the tensor cores. fp32 work is bound at the
+# card's fastest rate that holds an fp32 result: three TF32 products (each
+# operand's big and small TF32 terms: big·big + big·small + small·big) at the
+# TF32 rate, 165 TFLOP/s, above the CUDA cores' 67. Every fp32 row counts its
+# function's operations at that rate, whatever units its kernel runs them on.
 PEAK_BF16, HBM_BYTES_PER_S = dryrun.PEAK_BF16, dryrun.HBM_BYTES_PER_S
-PEAK_FP32 = 67e12
+PEAK_TF32 = 495e12
+PEAK_FP32 = PEAK_TF32 / 3
 BATCH, PROMPT, NEW = 8, 512, 32
 ADAPTER_B_STD = 0.05  # std of the non-zero B drawn for the adapters
 ARCHS = ("fedsllm-100m", "mamba2-130m")
@@ -290,20 +297,33 @@ VARIANTS = {"lora_matmul": lora_matmul.variant_launches,
             "ssd_scan": ssd_scan.variant_launches}
 # µs per launch of the first port's kernels, before their Hopper redesign
 # (this script on an NVIDIA H100 80GB HBM3 at 700 W; PERF.md §6), keyed by
-# kernel and (M, K, N, r). The rank 16 rows: event times before the
-# prefill and decode redesign; ranks above 64: the generic variant's
-# CUDA-graph device times before ranks 72-256 took prefill and decode
-# (``compare_kernels.py`` against the checkout before that change)
+# kernel and, for LoRA, (dtype, M, K, N, r). bf16 rank 16: event times
+# before the prefill and decode redesign; bf16 ranks above 64 and not a
+# multiple of 8: the generic variant's CUDA-graph device times before they
+# took prefill and decode (``compare_kernels.py`` against the checkout
+# before each change; r=100 at prefill: this script's phase 8 (a) on that
+# checkout); fp32: the first fp32 SIMT tile's CUDA-graph device times
+# before its Hopper redesign (this script's phase 8 (a) on the checkout
+# before it; gemma2-9b's M=2 shapes: ``compare_kernels.py`` against it)
 EARLIER_US = {
-    ("lora_matmul", 4096, 768, 768, 16): 93.3, ("lora_matmul", 4096, 768, 256, 16): 74.5,
-    ("lora_matmul", 4096, 768, 2048, 16): 221.2, ("lora_matmul", 4096, 2048, 768, 16): 218.4,
-    ("lora_matmul", 8, 768, 768, 16): 63.8, ("lora_matmul", 8, 768, 256, 16): 62.9,
-    ("lora_matmul", 8, 768, 2048, 16): 63.5, ("lora_matmul", 8, 2048, 768, 16): 160.3,
-    ("lora_matmul", 4096, 768, 3352, 16): 325.3, ("lora_matmul", 4096, 1536, 768, 16): 169.3,
-    ("lora_matmul", 8, 768, 3352, 16): 63.6, ("lora_matmul", 8, 1536, 768, 16): 122.1,
-    ("lora_matmul", 4096, 768, 2048, 128): 923.3, ("lora_matmul", 4096, 768, 2048, 256): 1648.0,
-    ("lora_matmul", 4096, 4096, 14336, 128): 31146.7, ("lora_matmul", 8, 768, 768, 128): 147.8,
-    ("lora_matmul", 8, 768, 768, 256): 262.5, ("lora_matmul", 8, 4096, 14336, 128): 671.9,
+    **{("lora_matmul", "bfloat16", *k): v for k, v in {
+        (4096, 768, 768, 16): 93.3, (4096, 768, 256, 16): 74.5, (4096, 768, 2048, 16): 221.2,
+        (4096, 2048, 768, 16): 218.4, (8, 768, 768, 16): 63.8, (8, 768, 256, 16): 62.9,
+        (8, 768, 2048, 16): 63.5, (8, 2048, 768, 16): 160.3, (4096, 768, 3352, 16): 325.3,
+        (4096, 1536, 768, 16): 169.3, (8, 768, 3352, 16): 63.6, (8, 1536, 768, 16): 122.1,
+        (4096, 768, 2048, 128): 923.3, (4096, 768, 2048, 256): 1648.0,
+        (4096, 4096, 14336, 128): 31146.7, (8, 768, 768, 128): 147.8, (8, 768, 768, 256): 262.5,
+        (8, 4096, 14336, 128): 671.9, (4096, 768, 2048, 100): 982.7, (8, 768, 768, 100): 146.6,
+        (4096, 768, 2048, 4): 479.1, (8, 768, 768, 4): 65.6, (4096, 768, 2048, 512): 3100.4,
+        (8, 768, 768, 512): 484.9,
+        }.items()},
+    **{("lora_matmul", "float32", *k): v for k, v in {
+        (8, 768, 768, 16): 90.1, (8, 768, 2048, 16): 89.8, (8, 2048, 768, 16): 231.3,
+        (4096, 768, 2048, 16): 371.1, (4096, 2048, 768, 16): 478.6, (4096, 768, 256, 16): 93.7,
+        (4096, 768, 2048, 80): 705.8, (4096, 768, 2048, 128): 721.0, (8, 768, 768, 80): 173.2,
+        (8, 768, 768, 128): 178.4, (4096, 768, 768, 16): 187.5, (8, 768, 256, 16): 88.7,
+        (2, 3584, 14336, 16): 404.2, (2, 14336, 3584, 16): 1595.7,
+        }.items()},
     ("flash_attention",): 140.2, ("ssd_scan",): 485.1,
 }
 DECODE_TARGET_MS = 0.010  # the decode LoRA's device-time target per launch
@@ -475,17 +495,23 @@ def judge(row: dict) -> dict:
     """The row's verdicts: floor (event time at most half its earlier time;
     and the same for the device time, which the host's launch cost does not
     hide), target (device time no slower than
-    the library call's, or at most 10 µs at a decode shape whose bound is
-    below 5 µs), and its device time's share of the bound."""
-    key = (row["kernel"], row["M"], row["K"], row["N"], row["r"]) \
+    the library call's, or at most 10 µs at a bf16 decode shape whose bound
+    is below 5 µs, and both at such an fp32 one), and its device time's share
+    of the bound."""
+    key = (row["kernel"], row["dtype"], row["M"], row["K"], row["N"], row["r"]) \
         if row["kernel"] == "lora_matmul" else (row["kernel"],)
-    earlier = EARLIER_US.get(key)
+    # (the earlier times are of aligned inputs: a misaligned row has none)
+    earlier = None if row.get("misaligned") else EARLIER_US.get(key)
     row["earlier_ms"] = earlier / 1e3 if earlier else None
     row["floor_met"] = None if earlier is None else row["ms"] <= earlier / 2e3
     row["floor_met_device"] = None if earlier is None else row["device_ms"] <= earlier / 2e3
     row["bound_share"] = row["bound_ms"] / row["device_ms"]
+    fp32_decode = row.get("variant") == "fp32" and row["M"] <= lora_binding.DECODE_MAX_M
     if row.get("variant") == "decode" and row["bound_ms"] < DECODE_TARGET_MS / 2:
         row["target"], row["target_met"] = "device_ms <= 0.010", row["device_ms"] <= DECODE_TARGET_MS
+    elif fp32_decode and row["bound_ms"] < DECODE_TARGET_MS / 2:
+        row["target"] = "device_ms <= library_device_ms and device_ms <= 0.010"
+        row["target_met"] = row["device_ms"] <= min(row["library_device_ms"], DECODE_TARGET_MS)
     elif row.get("library_device_ms") is not None:
         row["target"] = "device_ms <= library_device_ms"
         row["target_met"] = row["device_ms"] <= row["library_device_ms"]
@@ -603,6 +629,14 @@ def lora_work(M, K, N, r, esize=2):
     nbytes = esize * (M * K + K * N + K * r + r * N + M * N)
     ops = 2 * M * K * N + 2 * M * K * r + 2 * M * r * N
     return nbytes, ops
+
+
+def lora_bound(M, K, N, r, dtype) -> tuple[float, str]:
+    """The least time of one LoRA call: its bytes at HBM's rate, or its
+    operations at the card's peak for their type (bf16: the tensor cores';
+    fp32: ``PEAK_FP32``)."""
+    fp32 = dtype == torch.float32
+    return bound_ms(*lora_work(M, K, N, r, 4 if fp32 else 2), PEAK_FP32 if fp32 else PEAK_BF16)
 
 
 def attn_inputs(gen, B, S, H, Kv, d, dev, dtype=torch.bfloat16, misaligned=False, Skv=None):
@@ -958,7 +992,7 @@ def phase_timings(cfg, dev, params, lora, prompt) -> dict:
             sets = [lora_inputs(gen, M, K, N, r, dev) for _ in range(n_sets(nbytes))]
             b_ms, b_by = bound_ms(nbytes, ops)
             shapes.append(judge(dict(
-                kernel="lora_matmul", M=M, K=K, N=N, r=r,
+                kernel="lora_matmul", M=M, K=K, N=N, r=r, dtype="bfloat16",
                 variant=ran_variant("lora_matmul", lambda: lora_call(*sets[0])),
                 launches=n * calls_per_layer * cfg.num_layers,
                 ms=time_ms(lora_call, sets, 200), **device_time_ms(lora_call, sets, bound=b_ms),
@@ -1893,12 +1927,16 @@ CLI_LIMITS = {
 
 
 def lora_row(gen, dev, M, K, N, r, dtype, scale, launches=None, iters=100, device_iters=30,
-             **meta):
+             misaligned=False, **meta):
     """Event, device, plain, library (addmm) and bound times of one LoRA
-    shape, beside its check against the plain version."""
+    shape, beside its check against the plain version. ``misaligned``: x
+    one element off a 16-byte boundary (TMA cannot read it)."""
     esize = 4 if dtype == torch.float32 else 2
     nbytes, ops = lora_work(M, K, N, r, esize)
     sets = [lora_inputs(gen, M, K, N, r, dev, dtype) for _ in range(n_sets(nbytes))]
+    if misaligned:
+        sets = [(torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)[1:].view_as(x).copy_(x),
+                 *rest) for x, *rest in sets]
     call = lambda x, w, a, b: lora_matmul(x, w, a, b, scale=scale)  # noqa: E731
     plain = lambda x, w, a, b: lora_matmul_ref(x, w, a, b, scale=scale)  # noqa: E731
     lib = lambda x, w, a, b: torch.addmm(x @ w, x @ a, b, alpha=scale)  # noqa: E731
@@ -1908,9 +1946,10 @@ def lora_row(gen, dev, M, K, N, r, dtype, scale, launches=None, iters=100, devic
     err = (y.float() - ref.float()).abs().max().item()
     tol = (CLI_LIMITS["lora_fp32"] * ref.abs().max().item() if dtype == torch.float32
            else bf16_ulps(ref))
-    b_ms, b_by = bound_ms(nbytes, ops, PEAK_FP32 if dtype == torch.float32 else PEAK_BF16)
+    b_ms, b_by = lora_bound(M, K, N, r, dtype)
     row = dict(kernel="lora_matmul", M=M, K=K, N=N, r=r, dtype=str(dtype).split(".")[-1],
-               **meta, variant=ran_variant("lora_matmul", lambda: call(*sets[0])),
+               misaligned=misaligned, **meta,
+               variant=ran_variant("lora_matmul", lambda: call(*sets[0])),
                err=err, tol=tol, launches=launches, ms=time_ms(call, sets, iters),
                **device_time_ms(call, sets, device_iters, bound=b_ms),
                plain_ms=time_ms(plain, sets, max(5, iters // 4)), library_ms=time_ms(lib, sets, iters),
@@ -1973,20 +2012,26 @@ def attn_row(gen, dev, B, S, H, Kv, d, dtype, window=0, softcap=0.0, launches=No
     return row
 
 
-# bf16 LoRA above rank 64 (M, K, N, r): fedsllm-100m's w_gate/w_up at
-# prefill and its wq at decode, at ranks 80, 128 and 256, and mistral-7b's
-# w_gate (K=4096, N=14336) at rank 128, all on prefill or decode (two
-# launches); then one shape of rank 100 (not a multiple of 8) on generic
-WIDE_RANKS = [(BATCH * PROMPT, 768, 2048, r) for r in (80, 128, 256)] + \
-    [(BATCH, 768, 768, r) for r in (80, 128, 256)] + \
+# bf16 LoRA at ranks other than 16 (M, K, N, r): fedsllm-100m's w_gate/w_up
+# at prefill and its wq at decode, at ranks 80, 128 and 256 (two launches),
+# 4 (A's tiles copied by the producer warps), 100 (copied, two launches) and
+# 512, and mistral-7b's w_gate (K=4096, N=14336) at rank 128, all on prefill
+# or decode; then the generic variant at a shape TMA cannot read (x one
+# element off 16 bytes)
+WIDE_RANKS = [(BATCH * PROMPT, 768, 2048, r) for r in (80, 128, 256, 4, 100, 512)] + \
+    [(BATCH, 768, 768, r) for r in (80, 128, 256, 4, 100, 512)] + \
     [(BATCH * PROMPT, 4096, 14336, 128), (BATCH, 4096, 14336, 128)]
-GENERIC_RANK = (BATCH * PROMPT, 768, 2048, 100)
+GENERIC_MISALIGNED = (BATCH * PROMPT, 768, 2048, 16)
+# fp32 decode at gemma2-9b's MLP (M = 2, its served batch): w_gate/w_up and
+# w_down, 205 MB of W each, rank 16
+GEMMA_FP32_DECODE = [(2, 3584, 14336), (2, 14336, 3584)]
 
 
 def new_variants(dev) -> tuple[list, list]:
-    """Part (a): the fp32 variant and ranks above 64 against their plain
-    versions (TF32 off), with their times and verdicts (``judge``), at full
-    width (the smoke shapes are ``smoke_serve_rows'``)."""
+    """Part (a): the fp32 variant, bf16 ranks other than 16 and the generic
+    variant against their plain versions (TF32 off), with their times and
+    verdicts (``judge``), at full width (the smoke shapes are
+    ``smoke_serve_rows'``)."""
     gen = torch.Generator(device=dev).manual_seed(8)
     rows, fails = [], []
     scale = LoRAConfig().scale
@@ -1999,11 +2044,16 @@ def new_variants(dev) -> tuple[list, list]:
         for M, K, N in ((BATCH * PROMPT, 768, 2048), (BATCH, 768, 768)):
             rows.append(lora_row(gen, dev, M, K, N, r, torch.float32, scale, expected="fp32",
                                  at="rank > 64"))
-    for M, K, N, r in WIDE_RANKS + [GENERIC_RANK]:
+    for M, K, N in GEMMA_FP32_DECODE:
+        rows.append(lora_row(gen, dev, M, K, N, 16, torch.float32, scale, expected="fp32",
+                             iters=30, at="gemma2-9b decode"))
+    for M, K, N, r in WIDE_RANKS:
         expected = lora_binding.variant(M, K, N, r, True)
-        assert expected == ("generic" if r % 8 else "decode" if M <= 16 else "prefill")
+        assert expected == ("decode" if M <= 16 else "prefill")
         rows.append(lora_row(gen, dev, M, K, N, r, torch.bfloat16, scale, expected=expected,
-                             iters=30 if K * N > 10 ** 7 else 100, at="rank > 64"))
+                             iters=30 if K * N > 10 ** 7 else 100, at="rank != 16"))
+    rows.append(lora_row(gen, dev, *GENERIC_MISALIGNED, torch.bfloat16, scale, expected="generic",
+                         misaligned=True, at="misaligned"))
     for row in rows:
         judge(row)
     H, Kv, d = full.num_heads, full.num_kv_heads, full.head_dim
@@ -2032,10 +2082,11 @@ def counters() -> dict:
 def smoke_serve(dev) -> tuple[dict, list]:
     """Part (b): ``launch.serve.main(["--smoke"])`` on the card for both
     archs (every launch on the fp32 variants, SSD on ``fma``), the fp32
-    model's logits through the kernels against the plain path, and two
-    calls that reach ranks above 64: ``--smoke --lora-rank 80`` (fp32) and
-    full-width bf16 ``--lora-rank 80`` (``prefill`` and ``decode`` only), and
-    a full-width bf16 ``--lora-rank 100`` (not a multiple of 8: ``generic``)."""
+    model's logits through the kernels against the plain path, and calls at
+    other ranks: ``--smoke --lora-rank 80`` (fp32) and full-width bf16
+    ``--lora-rank 80``, ``--lora-rank 100`` and ``--lora-rank 4`` (not
+    multiples of 8: A's tiles copied), every one on ``prefill`` and
+    ``decode`` only."""
     out, fails = {}, []
     B, P, NEW_S = SMOKE_SERVE
     calls = {arch: ["--arch", arch, "--smoke"] for arch in ARCHS}
@@ -2043,14 +2094,17 @@ def smoke_serve(dev) -> tuple[dict, list]:
     small = ["--batch", "2", "--prompt-len", "64", "--max-new", "4"]
     calls["fedsllm-100m rank 80 (bf16)"] = ["--lora-rank", "80", *small]
     calls["fedsllm-100m rank 100 (bf16)"] = ["--lora-rank", "100", *small]
+    calls["fedsllm-100m rank 4 (bf16)"] = ["--lora-rank", "4", *small]
     allowed = {"fedsllm-100m": {"lora_matmul": {"fp32"}, "flash_attention": {"fp32"}},
                "mamba2-130m": {"lora_matmul": {"fp32"}, "ssd_scan": {"fma"}},
                "fedsllm-100m rank 80 (fp32)": {"lora_matmul": {"fp32"},
                                                "flash_attention": {"fp32"}},
                "fedsllm-100m rank 80 (bf16)": {"lora_matmul": {"prefill", "decode"},
                                                "flash_attention": {"wgmma"}},
-               "fedsllm-100m rank 100 (bf16)": {"lora_matmul": {"generic"},
-                                                "flash_attention": {"wgmma"}}}
+               "fedsllm-100m rank 100 (bf16)": {"lora_matmul": {"prefill", "decode"},
+                                                "flash_attention": {"wgmma"}},
+               "fedsllm-100m rank 4 (bf16)": {"lora_matmul": {"prefill", "decode"},
+                                              "flash_attention": {"wgmma"}}}
     for name, argv in calls.items():
         zero_counters()
         torch.cuda.synchronize()
@@ -2384,35 +2438,39 @@ def phase_cli(dev) -> tuple[dict, list]:
 
 
 def rank_entries(cli) -> list[dict]:
-    """The kernels line's entries of the bf16 LoRA variants above rank 64:
-    ``prefill`` and ``decode`` (ranks 72-256, two launches a call) and
-    ``generic`` (rank 100), each with its times summed over phase 8 (a)'s
-    rows that ran it (one launch at each shape) and its launches in the
-    full-width bf16 serve that reaches it (``--lora-rank 80``,
-    ``--lora-rank 100``)."""
+    """The kernels line's entries of the bf16 LoRA variants at ranks other
+    than 16: ``prefill`` and ``decode`` (ranks 80-512 and 4 and 100, A's
+    tiles copied where r % 8 != 0; two launches a call above 64) and
+    ``generic`` (x misaligned), each with its times summed over phase 8
+    (a)'s rows that ran it (one launch at each shape) and its launches in
+    the full-width bf16 serve that reaches it (``--lora-rank 100``; no
+    served path reaches ``generic``: its launches are 0)."""
     out = []
-    for variant, serve_call in (("prefill", "fedsllm-100m rank 80 (bf16)"),
-                                ("decode", "fedsllm-100m rank 80 (bf16)"),
-                                ("generic", "fedsllm-100m rank 100 (bf16)")):
+    for variant, serve_call in (("prefill", "fedsllm-100m rank 100 (bf16)"),
+                                ("decode", "fedsllm-100m rank 100 (bf16)"),
+                                ("generic", None)):
         mine = [r for r in cli["variants"] if r["kernel"] == "lora_matmul"
                 and r["dtype"] == "bfloat16" and r["variant"] == variant]
         total = {k: sum(r[k] for r in mine)
                  for k in ("ms", "device_ms", "graph_ms", "plain_ms", "bound_ms", "library_ms",
                            "library_device_ms")}
         by_bytes = sum(r["bound_ms"] for r in mine if r["bound_by"] == "bytes")
-        out.append({"name": f"lora_matmul/{variant}" + (" r>64" if variant != "generic" else ""),
+        launches = 0 if serve_call is None else \
+            cli["serve"][serve_call]["variants"]["lora_matmul"][variant]
+        out.append({"name": f"lora_matmul/{variant}" + (" r!=16" if variant != "generic" else ""),
                     "route": "cuda", "source": "src/repro_torch/csrc/lora_matmul.cu",
                     "replaces": "src/repro/kernels/lora_matmul.py:51", "variant": variant,
-                    "launches": cli["serve"][serve_call]["variants"]["lora_matmul"][variant],
-                    "launches_in": serve_call, "max_abs_err": max(r["err"] for r in mine),
-                    **total,
+                    "launches": launches, "launches_in": serve_call,
+                    "max_abs_err": max(r["err"] for r in mine), **total,
                     "bound_by": "bytes" if by_bytes >= total["bound_ms"] / 2 else "operations",
                     "library": "addmm(x·W, x·A, B, alpha=scale)",
                     "rows": {v: f"{sum(bool(r[v]) for r in mine)}/"
                                 f"{sum(r[v] is not None for r in mine)}"
                              for v in ("floor_met_device", "target_met")},
                     "per": "one launch at each of phase 8 (a)'s bf16 shapes on this variant: "
-                           + ", ".join(f"{r['M']}x{r['K']}x{r['N']} r={r['r']}" for r in mine)})
+                           + ", ".join(f"{r['M']}x{r['K']}x{r['N']} r={r['r']}"
+                                       + (" x misaligned" if r["misaligned"] else "")
+                                       for r in mine)})
     return out
 
 
@@ -2441,7 +2499,7 @@ def variant_entries(rows) -> list[dict]:
                     "launches": sum(r["launches"] for r in mine),
                     "max_abs_err": max(r.get("err", 0.0) for r in mine), **total,
                     "bound_by": "bytes" if by_bytes >= total["bound_ms"] / 2 else "operations",
-                    "bound_peak": "fp32 CUDA cores, 67 TFLOP/s",
+                    "bound_peak": "fp32 at three TF32 products' rate, 165 TFLOP/s",
                     "per": "one launch.serve --smoke call of each arch: B=4, prompt 32, "
                            "16 new tokens, fp32"})
     return out
@@ -2550,13 +2608,13 @@ def decode_split_sweep(dev, paths, seed: int, tag: str) -> tuple[list, list]:
     for M, K, N, r in shapes:
         nbytes, _ = lora_work(M, K, N, r)
         sets = [lora_inputs(gen, M, K, N, r, dev) for _ in range(n_sets(nbytes))]
-        bn = lora_binding.decode_tile_n(N)
-        usplit = lora_binding.plan(M, K, N, r, True)[1][2]  # the u launch's, above rank 64
+        # the slice width, the u launch's split above rank 64, A copied or not
+        bn, _, usplit, copy_a = lora_binding.plan(M, K, N, r, True)[1]
         ref = lora_matmul_ref(*sets[0], scale=2.0)
         row = dict(M=M, K=K, N=N, r=r, bn=bn, rule=lora_binding.decode_split(K, N), ms={}, err={})
         for split in range(1, lora_binding.DECODE_MAX_SPLIT + 1):
             fn = lambda x, w, a, b: lora_binding.lora_matmul_cuda(  # noqa: E731
-                x, w, a, b, 2.0, "decode", (bn, split, usplit))
+                x, w, a, b, 2.0, "decode", (bn, split, usplit, copy_a))
             y = fn(*sets[0])
             torch.cuda.synchronize()
             row["err"][split] = (y.float() - ref.float()).abs().max().item()
@@ -3925,8 +3983,7 @@ def phase_dryrun(dev, smi: str) -> tuple[dict, list]:
         check, more = dryrun_cell(arch, shape_name, dev, expect, batch=b, full_depth=True)
         fails += more
         m, c = check["measured"], check["measured"]["composed"]
-        gaps = {"ms": c["ms"] / m["full"]["ms"] - 1,
-                "transient": c["transient_bytes"] / m["full"]["transient_bytes"] - 1}
+        gaps = m["compose_vs_full"]
         # the share of the composed transient that the depth composes: 0 where
         # the check cannot test the transient's composition
         depth_share = get_arch(arch).num_groups * c["transient_bytes_per_group"] \

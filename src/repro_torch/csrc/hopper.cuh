@@ -403,13 +403,14 @@ static inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A bf16 tensor map of `rank` dims (innermost first): sizes in elements,
-// strides of dims 1.. in bytes (multiples of 16), box in elements, swizzle
-// in bytes (0, 32, 64, 128). Returns cudaErrorInvalidValue if the encoding
-// is refused.
-static inline cudaError_t make_tensor_map(CUtensorMap* map, const void* base, int rank,
-                                          const uint64_t* sizes, const uint64_t* strides,
-                                          const uint32_t* box, int swizzle_bytes) {
+// A bf16 (or `type`) tensor map of `rank` dims (innermost first): sizes in
+// elements, strides of dims 1.. in bytes (multiples of 16), box in elements,
+// swizzle in bytes (0, 32, 64, 128). Returns cudaErrorInvalidValue if the
+// encoding is refused.
+static inline cudaError_t make_tensor_map(
+    CUtensorMap* map, const void* base, int rank, const uint64_t* sizes, const uint64_t* strides,
+    const uint32_t* box, int swizzle_bytes,
+    CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return cudaErrorSymbolNotFound;
   cuuint32_t elem_strides[5] = {1, 1, 1, 1, 1};
@@ -417,7 +418,7 @@ static inline cudaError_t make_tensor_map(CUtensorMap* map, const void* base, in
                                  : swizzle_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                                  : swizzle_bytes == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
                                                        : CU_TENSOR_MAP_SWIZZLE_NONE;
-  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank, const_cast<void*>(base),
+  CUresult r = fn(map, type, (cuuint32_t)rank, const_cast<void*>(base),
                   reinterpret_cast<const cuuint64_t*>(sizes),
                   reinterpret_cast<const cuuint64_t*>(strides),
                   reinterpret_cast<const cuuint32_t*>(box), elem_strides,

@@ -5,79 +5,93 @@
 // fp32; x·W and u = x·A accumulate in fp32 over K, u is folded into the fp32
 // accumulator, and y is cast to the inputs' type once. Up to 64 ranks x is
 // read once for both products and u is folded without being rounded; above
-// 64 ranks (bf16 prefill and decode, up to 256) u is computed once by a
-// launch of its own, so that no output tile or slice computes it again,
-// and folded as two bf16 terms h + l of scale·u on the tensor cores
-// (relative error below 2^-16 of scale·u, far inside the bf16 output's
-// rounding; kernels/lora_ref.py ``lora_matmul_split_ref``).
+// 64 ranks (any rank, bf16 and fp32) u is computed once by a launch of its
+// own, so that no output tile or slice computes it again: bf16 folds it as
+// two bf16 terms h + l of scale·u on the tensor cores (relative error below
+// 2^-16 of scale·u, far inside the bf16 output's rounding; kernels/lora_ref.py
+// ``lora_matmul_split_ref``), fp32 as fp32 scale·u.
 //
 // Four variants, picked by the wrapper from the dtype, shapes and alignment
 // (kernels/lora_matmul.py ``variant``), never by failure:
 //
-// * prefill (M > 16, K, N, r multiples of 8, r <= 256, 16-byte aligned
-//   rows): what bounds it is bf16 tensor-core throughput (2·M·K·N operations
-//   against 2·(M·K + K·N + M·N) bytes, far above the card's ~295 operations
-//   per byte). A producer warp keeps TMA loads of the x, W and A tiles of the
-//   next K steps in flight through a ring of up to 4 shared-memory stages
-//   (mbarriers signal full and empty slots). Two consumer warpgroups, 64
-//   rows of the 128-row tile each, run wgmma for x·W (fp32 accumulators in
-//   registers) and, from the same staged x tile, a second wgmma with n = 16
-//   or 64 for u = x·A (A's tile is 32 or 128 bytes wide, so it has its own
-//   swizzle and descriptor). The epilogue folds scale·u·B on the tensor
-//   cores too: scale·u (fp32, in registers) is split exactly into three bf16
-//   terms whose sum is its value, and three register-operand wgmmas add
-//   their products with the TMA-loaded B tile into the fp32 accumulators, so
-//   u is never rounded. The bf16 tile goes out through swizzled shared
-//   memory and TMA stores. The wrapper picks the tile width (64-256) so that
-//   the grid fills the 132 SMs in few waves. TMA zero-fills the ragged edges
-//   on load and clips them on store. Each tile's u costs r/BN of its x·W,
-//   harmless at 16 ranks; from 72 to 256 ranks it would cost up to 4x, so
-//   there a first launch writes u's two bf16 terms h + l of scale·u once
-//   (M x r each) and the second is a plain product over a longer K, [x | h |
-//   l]·[W; B; B], on the same ring and consumers, its tile up to 256 wide,
+// * prefill (bf16, M > 16, K and N multiples of 8, any rank, 16-byte aligned
+//   pointers): what bounds it is bf16 tensor-core throughput (2·M·K·N
+//   operations against 2·(M·K + K·N + M·N) bytes, far above the card's ~295
+//   operations per byte). A producer warp keeps TMA loads of the x, W and A
+//   tiles of the next K steps in flight through a ring of up to 4
+//   shared-memory stages (mbarriers signal full and empty slots). Two
+//   consumer warpgroups, 64 rows of the 128-row tile each, run wgmma for x·W
+//   (fp32 accumulators in registers) and, from the same staged x tile, a
+//   second wgmma with n = 16 or 64 for u = x·A (A's tile is 32 or 128 bytes
+//   wide, so it has its own swizzle and descriptor). The epilogue folds
+//   scale·u·B on the tensor cores too: scale·u (fp32, in registers) is split
+//   exactly into three bf16 terms whose sum is its value, and three
+//   register-operand wgmmas add their products with the TMA-loaded B tile
+//   into the fp32 accumulators, so u is never rounded. The bf16 tile goes
+//   out through swizzled shared memory and TMA stores. The wrapper picks the
+//   tile width (64-256) so that the grid fills the 132 SMs in few waves. TMA
+//   zero-fills the ragged edges on load and clips them on store. At r % 8 !=
+//   0 A's K-rows are not 16 bytes apart and no tensor map reads them: two
+//   producer warps copy A's tiles instead (cp.async into staging, then each
+//   8-rank chunk shifted and placed in the swizzled tile; ``atile``). Each
+//   tile's u costs r/BN of its x·W, harmless at 16 ranks; above 64 ranks it
+//   would cost up to 4x, so there a first launch writes u's two bf16 terms h
+//   + l of scale·u once (M x r8 each, r8 = r rounded up to a multiple of 8,
+//   zeros past r) and the second is a plain product over a longer K, [x | h
+//   | l]·[W; B; B], on the same ring and consumers, its tile up to 256 wide,
 //   the blocks rastered in groups of 8 row tiles so that those in flight
 //   share W's tiles in L2.
-// * decode (M <= 16): what bounds it is reading W once from device memory
-//   (2·K·N bytes against 2·M·K·N operations). The clusters split N into
-//   64-column slices (128 above N = 2048, to halve the clusters), and a
-//   cluster of up to 8 blocks splits K: about one block an SM over all the
-//   clusters (the wrapper's choice, from a sweep on the card), so even N =
-//   256 keeps 32 SMs streaming and a wide N few blocks an SM. A producer
-//   warp keeps TMA loads of the next K steps in flight through a ring of up
-//   to 3-6 stages (mbarriers for full and empty slots; no more than the
-//   block has K steps, so a short K leaves room for more blocks on an SM):
-//   each stage holds 64 K-rows of the slice's W, of A (64 ranks wide, zero
-//   past r) and of x (8 or 16 rows, zero past M), so shared memory does not
-//   grow with K and two blocks fit on an SM at every K (48-128 KB of W in
-//   flight an SM). One consumer warpgroup runs the products on the tensor
-//   cores with the operands swapped: yᵀ = Wᵀ·xᵀ and uᵀ = Aᵀ·xᵀ, W's columns
-//   and A's ranks as the 64-row MN-major A operand, x as the K-major B
-//   operand of n = 8 or 16, fp32 accumulators in registers. The blocks of a cluster add their
+// * decode (bf16, M <= 16, the same shapes): what bounds it is reading W
+//   once from device memory (2·K·N bytes against 2·M·K·N operations). The
+//   clusters split N into 64-column slices (128 above N = 2048, to halve the
+//   clusters), and a cluster of up to 8 blocks splits K: about one block an
+//   SM over all the clusters (the wrapper's choice, from a sweep on the
+//   card), so even N = 256 keeps 32 SMs streaming and a wide N few blocks an
+//   SM. A producer warp keeps TMA loads of the next K steps in flight
+//   through a ring of up to 3-6 stages (mbarriers for full and empty slots;
+//   no more than the block has K steps, so a short K leaves room for more
+//   blocks on an SM): each stage holds 64 K-rows of the slice's W, of A (64
+//   ranks wide, zero past r; copied as the prefill's at r % 8 != 0) and of x
+//   (8 or 16 rows, zero past M), so shared memory does not grow with K and
+//   two blocks fit on an SM at every K (48-128 KB of W in flight an SM). One
+//   consumer warpgroup runs the products on the tensor cores with the
+//   operands swapped: yᵀ = Wᵀ·xᵀ and uᵀ = Aᵀ·xᵀ, W's columns and A's ranks
+//   as the 64-row MN-major A operand, x as the K-major B operand of n = 8 or
+//   16, fp32 accumulators in registers. The blocks of a cluster add their
 //   partials of x·W and u through distributed shared memory in a fixed
 //   order (no atomics: the result is the same on every run), and each adds
 //   scale·u·B (fp32 FMAs, B read from device memory) to its share of the
-//   output. From 72 to 256 ranks, A's tile would crowd W's out of the ring,
-//   every slice's cluster would read all of A, and the epilogue's r
-//   dependent loads of B would dominate, so a first launch (the same
-//   kernel, A in W's place and N = r) writes u's two bf16 terms once (its
-//   clusters' sums in the same fixed order), and the second streams x and
-//   W alone (as many W bytes in flight as at 64 ranks), then the fold's
-//   2·ceil(r/64) steps, [h | l]·[B; B], through the same ring and wgmmas,
-//   each step taken by one block of the cluster.
-// * generic (any other bf16 shape: misaligned rows, K, N or r not a
-//   multiple of 8, ranks above 256): the first port's kernel, one 64x64x32
-//   wmma tile with plain loads, ranks in chunks of up to 64 (a pass over K
-//   for each further chunk of u, x re-read, W not); no bf16 shape of a
-//   served config reaches it.
-// * fp32 (fp32 inputs, any shape and rank; the smoke configs serve in
-//   fp32): a tiled SIMT kernel, fp32 FMAs on the CUDA cores (TF32 would miss
-//   the reference's fp32 tolerance). What bounds it is the fp32 CUDA-core
-//   rate (67 TFLOP/s against 989 bf16 on the tensor cores): 128 x 128 output
-//   tiles, 256 threads each computing an 8 x 8 share from k-major x and W
-//   tiles in shared memory (float4 reads, two per operand per k), the next
-//   K step's tiles loaded into registers during this one's FMAs; u = x·A
-//   (up to 64 ranks at a time) from the same staged x tile, and each rank
-//   chunk's scale·u·B added into the fp32 accumulators at the end.
+//   output. Above 64 ranks, A's tile would crowd W's out of the ring, every
+//   slice's cluster would read all of A, and the epilogue's r dependent
+//   loads of B would dominate, so a first launch (the same kernel, A in W's
+//   place and N = r8) writes u's two bf16 terms once (its clusters' sums in
+//   the same fixed order), and the second streams x and W alone (as many W
+//   bytes in flight as at 64 ranks), then the fold's 2·ceil(r/64) steps, [h
+//   | l]·[B; B], through the same ring and wgmmas, each step taken by one
+//   block of the cluster.
+// * generic (any other bf16 shape: misaligned pointers, K or N not a
+//   multiple of 8): the first port's kernel, one 64x64x32 wmma tile with
+//   plain loads, ranks in chunks of up to 64 (a pass over K for each further
+//   chunk of u, x re-read, W not); no bf16 shape of a served config reaches
+//   it.
+// * fp32 (fp32 inputs, any shape, rank and alignment; the smoke configs
+//   serve in fp32): TF32 alone would miss the reference's fp32 tolerance.
+//   At M <= 16 (``fp32::decode_kernel``) what bounds it is reading W once
+//   (4·K·N bytes): the bf16 decode's clusters (64-column slices, up to 8
+//   blocks splitting K, about two blocks an SM), W's rows streamed through a
+//   ring of up to 6 stages of 32 rows (by TMA where W is TMA-readable, else
+//   cp.async), x and A's ranks beside it, fp32 FMAs on the CUDA cores,
+//   the warps' and the cluster's partials added in a fixed order, u·B folded
+//   by each block into its share. Above 16 rows, launch-bound shapes at up
+//   to 16 ranks take a tiled SIMT kernel (``fp32::prefill_kernel``: 128 x
+//   128 tiles, a 4-stage cp.async ring, u beside x·W from the same staged x
+//   tile), since a second launch costs them more host time than the tensor
+//   cores save; larger ones, every rank above 16 and every shape above 64
+//   ranks (the decode's too) take two launches, u once and then the
+//   product over K + r rows on the tensor cores in 3xTF32 (``fp32::tc_kernel``:
+//   each operand a TF32 big and small term, three products a pair, each
+//   32-row stage summed apart and added in fp32), within 1e-5 of the largest
+//   output.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -97,37 +111,198 @@ namespace {
 constexpr size_t SMEM_MAX = 227 * 1024;  // a block's shared memory on the H100
 
 // ===========================================================================
+// A's tiles where TMA cannot map A: its K-rows are 2·r bytes apart, and a
+// tensor map's strides are multiples of 16 bytes, so at r % 8 != 0 two
+// producer warps copy the tile. The issuing warp cp.asyncs the 16-byte
+// chunks that hold each K-row's ranks (aligned down: a row may start at any
+// even byte) into a staging row of the ring slot, beside its TMA loads; the
+// placing warp, once they land, puts each 8-rank chunk of the tile (shifted
+// by the row's offset, zeros past r and past K, as TMA would leave them)
+// into the slot's swizzled tile, where the wgmma descriptor expects it, and
+// arrives a second time on the slot's full barrier. The tiles' chunks past
+// r, zeroed once, are never written again.
+// ===========================================================================
+namespace atile {
+
+constexpr int ROWS = 64;  // K-rows of a tile (the prefill's and the decode's ring step)
+
+// RP: the tile's ranks, 16 (32-byte rows, 32-byte swizzle) or 64 (128-byte)
+template <int RP>
+struct Tile {
+  static constexpr int CHUNKS = RP / 8;           // 16-byte chunks of a tile row
+  // a staging row: the 16-byte chunks that hold a K-row's ranks
+  static constexpr int SROW = 16 * (CHUNKS + 1);
+  // 3 or 9 KB, a multiple of 1024; it also holds a run of 64 rows of r < RP
+  // ranks, and the 16 bytes that the last row's reads pass its end by
+  static constexpr int STAGING = ROWS * SROW;
+  static constexpr uint32_t SWZ = RP == 16 ? 1 : 7;  // the row bits the swizzle XORs into a chunk's
+  static_assert(RP == 16 || RP == 64, "unsupported tile");
+};
+
+// cp.async of ranks c0 + [0, n) of A's K-rows k0 + [0, 64) below K into the
+// staging. Where the tile holds every rank (r <= RP, c0 = 0) its rows are
+// one run of 128·r bytes from A's byte 2·r·k0 (a multiple of 16), copied as
+// it is; else lane l takes rows l and l + 32, each into a staging row of
+// its (at most n/8 + 2) 16-byte chunks
+template <int RP>
+__device__ __forceinline__ void issue(unsigned char* staging, const bf16* a, int K, int r, int k0,
+                                      int c0, int n, int lane) {
+  using T = Tile<RP>;
+  const unsigned char* src = reinterpret_cast<const unsigned char*>(a);
+  if (r <= RP) {
+    const int chunks = min(ROWS, K - k0) * r / 8;  // K % 8 == 0: whole chunks
+    src += (size_t)k0 * r * 2;
+    for (int i = lane; i < chunks; i += 32) hopper::cp_async16(staging + 16 * i, src + 16 * i, 16);
+    return;
+  }
+  const unsigned end = (unsigned)K * r * 2;  // A's bytes: a chunk past them is cut short
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = lane + 32 * h;
+    if (k0 + row >= K) break;
+    const unsigned first = ((unsigned)(k0 + row) * r + c0) * 2, last = first + 2 * n;
+#pragma unroll
+    for (int c = 0; c < T::CHUNKS + 1; ++c) {
+      const unsigned at = (first & ~15u) + 16 * c;
+      if (at < last)
+        hopper::cp_async16(staging + row * T::SROW + 16 * c, src + at,
+                           end - at < 16 ? (int)(end - at) : 16);
+    }
+  }
+}
+
+// an arrival on `bar` once this thread's cp.asyncs so far have landed
+// (the barrier counts it among its expected arrivals)
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(hopper::smem_u32(bar))
+               : "memory");
+}
+
+// the staged rows' chunks that hold ranks below r into the swizzled tile
+// (rows past K zero); lane l takes rows l and l + 32, every word of a
+// staging row read before any chunk is written
+template <int RP>
+__device__ __forceinline__ void place(unsigned char* tile, const unsigned char* staging, int K,
+                                      int r, int k0, int c0, int n, int lane) {
+  using T = Tile<RP>;
+  constexpr int WORDS = 4 * T::CHUNKS + 1;
+  const int per = (n + 7) / 8;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = lane + 32 * h;
+    const bool in = k0 + row < K;
+    // the row's first rank: element row·r of the run (r <= RP), or `off`
+    // elements into its staging row
+    const int off = r <= RP ? row * r : (int)(((unsigned)(k0 + row) * r + c0) & 7);
+    const uint32_t* s =
+        reinterpret_cast<const uint32_t*>(staging + (r <= RP ? 0 : row * T::SROW)) + off / 2;
+    uint32_t w[WORDS];
+#pragma unroll
+    for (int j = 0; j < WORDS; ++j) w[j] = in && j <= 4 * per ? s[j] : 0u;
+#pragma unroll
+    for (int c = 0; c < T::CHUNKS; ++c) {
+      if (c >= per) break;
+      const int valid = n - 8 * c;  // ranks of the chunk below r
+      uint32_t v[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const uint32_t pair =
+            (off & 1) ? __funnelshift_r(w[4 * c + q], w[4 * c + q + 1], 16) : w[4 * c + q];
+        v[q] = pair & ((2 * q < valid ? 0xFFFFu : 0u) | (2 * q + 1 < valid ? 0xFFFF0000u : 0u));
+      }
+      const uint32_t at = row * RP * 2 + 16 * c;
+      *reinterpret_cast<uint4*>(tile + (at ^ (((at >> 7) & T::SWZ) << 4))) =
+          make_uint4(v[0], v[1], v[2], v[3]);
+    }
+  }
+}
+
+// The two producer warps when A is copied, over `steps` ring steps, step t
+// in slot t % stages (stage_bytes apart). The issuing warp (`placer` false)
+// waits for the slot; lane 0 expects `tx` bytes on its full barrier and
+// calls tma(t, slot, bar); every lane cp.asyncs A's rows at K-rows k0 +
+// 64·t, ranks c0 + [0, RP), into the slot's staging (`staging_at`), and
+// the slot's `landed` barrier (32 arrivals) hears when they are in (64
+// small bulk copies a step on the TMA engine took twice as long on the
+// card). The placing warp waits for that, places
+// the tile at `a_at`, and arrives on the full barrier (which expects two
+// arrivals). The copies are in flight as long as TMA's, and a tile is
+// placed as soon as it lands.
+template <int RP, typename Tma>
+__device__ __forceinline__ void producer(bool placer, unsigned char* base, int stage_bytes,
+                                         int stages, int a_at, int staging_at, uint64_t* full,
+                                         uint64_t* empty, uint64_t* landed, int steps, uint32_t tx,
+                                         Tma tma, const bf16* a, int K, int r, int k0, int c0) {
+  const int lane = threadIdx.x % 32, n = min(RP, r - c0);
+  if (!placer) {
+    for (int t = 0; t < steps; ++t) {
+      const int s = t % stages;
+      hopper::mbar_wait(&empty[s], ((t / stages) & 1) ^ 1);
+      unsigned char* st = base + s * stage_bytes;
+      if (lane == 0) {
+        hopper::mbar_arrive_expect_tx(&full[s], tx);
+        tma(t, st, &full[s]);
+      }
+      issue<RP>(st + staging_at, a, K, r, k0 + ROWS * t, c0, n, lane);
+      cp_async_arrive(&landed[s]);
+    }
+    return;
+  }
+  for (int s = 0; s < stages; ++s)  // the chunks past r, zero from here on
+    for (int i = lane; i < ROWS * RP / 8; i += 32)
+      *reinterpret_cast<uint4*>(base + s * stage_bytes + a_at + 16 * i) = make_uint4(0, 0, 0, 0);
+  for (int t = 0; t < steps; ++t) {
+    const int s = t % stages;
+    unsigned char* st = base + s * stage_bytes;
+    hopper::mbar_wait(&landed[s], (t / stages) & 1);
+    place<RP>(st + a_at, st + staging_at, K, r, k0 + ROWS * t, c0, n, lane);
+    hopper::fence_proxy_async();  // the tile's writes, visible to the tensor cores
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&full[s]);
+  }
+}
+
+}  // namespace atile
+
+// ===========================================================================
 // prefill: TMA + wgmma
 // ===========================================================================
 namespace prefill {
 
 constexpr int BM = 128, BK = 64;
 constexpr int THREADS = 288;  // warpgroups 0-1 consume (64 rows each), warp 8 produces
+constexpr int COPY_THREADS = THREADS + 32;  // where A is copied: warp 9 places its tiles
 
-template <int BN, int RP>
+// COPY_A: the producer warp copies A's tile (atile) into the slot after its
+// staging rows
+template <int BN, int RP, bool COPY_A = false>
 struct Layout {
   static constexpr int X_BYTES = BM * BK * 2;  // one 128-row box, 128-byte rows
   static constexpr int W_BYTES = BK * BN * 2;  // BN/64 boxes of 64 K-rows x 64 columns
   static constexpr int A_BYTES = BK * RP * 2;  // 64 K-rows x RP ranks
   static constexpr int A_SLOT = (A_BYTES + 1023) / 1024 * 1024;
-  static constexpr int STAGE = X_BYTES + W_BYTES + A_SLOT;
+  static constexpr int STAGING = COPY_A ? atile::Tile<RP>::STAGING : 0;
+  static constexpr int STAGE = X_BYTES + W_BYTES + A_SLOT + STAGING;
   static constexpr int B_BYTES = RP * BN * 2;  // the B tile: BN/64 boxes of RP rows x 64 columns
   static constexpr int FIXED = B_BYTES + 256 + 1024;  // + barriers + alignment slack
   static constexpr int FIT = (int)((SMEM_MAX - FIXED) / STAGE);
   static constexpr int STAGES = FIT < 4 ? FIT : 4;
   static constexpr size_t SMEM = FIXED + (size_t)STAGES * STAGE;
-  static constexpr uint32_t TX = X_BYTES + W_BYTES + A_BYTES;  // bytes landing per stage
+  // bytes landing per stage by TMA
+  static constexpr uint32_t TX = X_BYTES + W_BYTES + (COPY_A ? 0 : A_BYTES);
   static_assert(STAGES >= 2, "tile too large for shared memory");
   static_assert(BM * BN * 2 <= STAGES * STAGE, "the output tile reuses the stages");
   static_assert(BN % 64 == 0 && BN <= 256 && (RP == 16 || RP == 64), "unsupported tile");
 };
 
-template <int BN, int RP>
-__global__ void __launch_bounds__(THREADS, 1)
+// a: A itself, read where COPY_A (tm_a then unused), r its ranks
+template <int BN, int RP, bool COPY_A>
+__global__ void __launch_bounds__(COPY_A ? COPY_THREADS : THREADS, 1)
 kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w,
        const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_b,
-       const __grid_constant__ CUtensorMap tm_y, int K, float scale) {
-  using L = Layout<BN, RP>;
+       const __grid_constant__ CUtensorMap tm_y, int K, float scale, const bf16* __restrict__ a,
+       int r) {
+  using L = Layout<BN, RP, COPY_A>;
   constexpr int STAGES = L::STAGES;
   constexpr uint32_t A_SWIZZLE = RP == 16 ? 3 : 1;  // 32-byte rows : 128-byte rows
   extern __shared__ unsigned char smem_raw[];
@@ -137,6 +312,7 @@ kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtenso
   uint64_t* full = reinterpret_cast<uint64_t*>(bs + L::B_BYTES);
   uint64_t* empty = full + STAGES;
   uint64_t* bfull = empty + STAGES;
+  uint64_t* landed = bfull + 1;  // COPY_A: A's copies of a slot are in
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
@@ -144,14 +320,39 @@ kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtenso
 
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) {
-      hopper::mbar_init(&full[s], 1);   // the producer's arrive + the bytes
+      // the producer's arrive + the bytes (and the placing warp's arrive)
+      hopper::mbar_init(&full[s], COPY_A ? 2 : 1);
       hopper::mbar_init(&empty[s], 2);  // one arrive per consumer warpgroup
+      if (COPY_A) hopper::mbar_init(&landed[s], 32);
     }
     hopper::mbar_init(bfull, 1);
     hopper::fence_barrier_init();
   }
   __syncthreads();
 
+  if (warp >= 8 && COPY_A) {  // producers: x, W (and B) by TMA, A copied and placed
+    if (tid == 8 * 32) {
+      hopper::prefetch_tensormap(&tm_x);
+      hopper::prefetch_tensormap(&tm_w);
+    }
+    atile::producer<RP>(warp == 9, base, L::STAGE, STAGES, L::X_BYTES + L::W_BYTES,
+                        L::STAGE - L::STAGING, full, empty, landed, nk, L::TX,
+                        [&](int kt, unsigned char* st, uint64_t* bar) {
+                          hopper::tma_load_2d(st, &tm_x, bar, kt * BK, m0);
+#pragma unroll
+                          for (int j = 0; j < BN / 64; ++j)
+                            hopper::tma_load_2d(st + L::X_BYTES + j * BK * 128, &tm_w, bar,
+                                                n0 + 64 * j, kt * BK);
+                          if (kt == 0) {
+                            hopper::mbar_arrive_expect_tx(bfull, L::B_BYTES);
+#pragma unroll
+                            for (int j = 0; j < BN / 64; ++j)
+                              hopper::tma_load_2d(bs + j * RP * 128, &tm_b, bfull, n0 + 64 * j, 0);
+                          }
+                        },
+                        a, K, r, 0, 0);
+    return;
+  }
   if (warp == 8) {  // producer
     if (lane == 0) {
       hopper::prefetch_tensormap(&tm_x);
@@ -289,11 +490,13 @@ kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtenso
 
 constexpr int GROUP_M = 8;  // row tiles of a raster group: a wave reads W's column tiles once
 
-template <int BN>
+// STAGING: bytes of a stage after x's and W's slots where the producer
+// warp copies A (u_kernel at r % 8 != 0), else 0
+template <int BN, int STAGING = 0>
 struct WideLayout {
   static constexpr int X_BYTES = BM * BK * 2;  // a box of x, or of 64 ranks of h or l
   static constexpr int W_BYTES = BK * BN * 2;  // BN/64 boxes of W, A or B: 64 rows x 64 columns
-  static constexpr int STAGE = X_BYTES + W_BYTES;
+  static constexpr int STAGE = X_BYTES + W_BYTES + STAGING;
   static constexpr int FIXED = 256 + 1024;  // barriers + alignment slack
   static constexpr int FIT = (int)((SMEM_MAX - FIXED) / STAGE);
   static constexpr int STAGES = FIT < 8 ? FIT : 8;  // one block an SM: as many as fit
@@ -302,17 +505,32 @@ struct WideLayout {
   static_assert(BM * BN * 2 <= STAGES * STAGE, "the output tile reuses the stages");
 };
 
+// A's rows where the producer warp copies them (u_kernel at r % 8 != 0):
+// ranks c0 + [0, 64) of A (K x r)
+struct ARows {
+  const bf16* a;
+  int K, r, c0;
+};
+
 // The K loop of both launches: a producer warp (8) streams `steps` stages
 // from load(step, slot, bar), two consumer warpgroups accumulate 64 rows
 // each of x-slot·W-slot into acc. The first product overwrites the
 // accumulators (scale_d = 0) instead of a zeroing, which would make ptxas
 // serialize the wgmmas (C7515); acc is left undefined when steps is 0.
-template <int BN, typename Load>
+// STAGING > 0: the producer warp copies the W slot's tile from `rows` (atile).
+template <int BN, int STAGING = 0, typename Load>
 __device__ __forceinline__ void wide_loop(unsigned char* base, uint64_t* full, uint64_t* empty,
-                                          int steps, Load load, float (&acc)[BN / 2]) {
-  using L = WideLayout<BN>;
+                                          int steps, Load load, float (&acc)[BN / 2],
+                                          ARows rows = {}) {
+  using L = WideLayout<BN, STAGING>;
   constexpr int STAGES = L::STAGES;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  if (warp >= 8 && STAGING > 0) {  // producers: x by TMA, A copied into W's slot and placed
+    atile::producer<64>(warp == 9, base, L::STAGE, STAGES, L::X_BYTES, L::X_BYTES + L::W_BYTES,
+                        full, empty, empty + STAGES, steps, L::X_BYTES, load, rows.a, rows.K,
+                        rows.r, 0, rows.c0);
+    return;
+  }
   if (warp == 8) {  // producer
     if (lane == 0) {
       for (int kt = 0; kt < steps; ++kt) {
@@ -348,11 +566,15 @@ __device__ __forceinline__ void wide_loop(unsigned char* base, uint64_t* full, u
   hopper::fence_operand(acc);
 }
 
+// copy: A is copied (atile): the full barriers also expect the placing
+// warp's arrive, and `landed` barriers follow the empty ones
 template <int STAGES>
-__device__ __forceinline__ void init_barriers(uint64_t* full, uint64_t* empty) {
+__device__ __forceinline__ void init_barriers(uint64_t* full, uint64_t* empty, bool copy = false) {
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
-      hopper::mbar_init(&full[s], 1);   // the producer's arrive + the bytes
+      // the producer's arrive + the bytes (and the placing warp's arrive)
+      hopper::mbar_init(&full[s], copy ? 2 : 1);
+      if (copy) hopper::mbar_init(&empty[STAGES + s], 32);
       hopper::mbar_init(&empty[s], 2);  // one arrive per consumer warpgroup
     }
     hopper::fence_barrier_init();
@@ -428,28 +650,34 @@ wide_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CU
 
 // u = x·A for the 128-row tile blockIdx.y and the 64 ranks blockIdx.x·64 +
 // [0, 64), written from the accumulators as the terms of scale·u, two
-// adjacent ranks a store.
-__global__ void __launch_bounds__(THREADS, 1)
+// adjacent ranks a store, into u (2, M, r8): r8 = r rounded up to a multiple
+// of 8, so that the product's tensor map can read it (the ranks past r come
+// out as zeros). COPY_A: A's rows are not 16 bytes apart, so the producer
+// warp copies A's tiles (atile) into the stage after W's slot.
+template <bool COPY_A>
+__global__ void __launch_bounds__(COPY_A ? COPY_THREADS : THREADS, 1)
 u_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_a,
-         bf16* __restrict__ u, int M, int K, int r, float scale) {
-  using L = WideLayout<64>;
+         bf16* __restrict__ u, int M, int K, int r, float scale, const bf16* __restrict__ a) {
+  constexpr int STAGING = COPY_A ? atile::Tile<64>::STAGING : 0;
+  using L = WideLayout<64, STAGING>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base =
       reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~1023ull);
   uint64_t* full = reinterpret_cast<uint64_t*>(base + L::STAGES * L::STAGE);
   uint64_t* empty = full + L::STAGES;
-  const int m0 = blockIdx.y * BM, c0 = blockIdx.x * 64;
-  init_barriers<L::STAGES>(full, empty);
+  const int m0 = blockIdx.y * BM, c0 = blockIdx.x * 64, r8 = (r + 7) / 8 * 8;
+  init_barriers<L::STAGES>(full, empty, COPY_A);
   if (threadIdx.x == 8 * 32) {
     hopper::prefetch_tensormap(&tm_x);
-    hopper::prefetch_tensormap(&tm_a);
+    if (!COPY_A) hopper::prefetch_tensormap(&tm_a);
   }
   float acc[32];
-  wide_loop<64>(base, full, empty, (K + BK - 1) / BK,
-                [&](int kt, unsigned char* st, uint64_t* bar) {
-                  hopper::tma_load_2d(st, &tm_x, bar, kt * BK, m0);
-                  hopper::tma_load_2d(st + L::X_BYTES, &tm_a, bar, c0, kt * BK);
-                }, acc);
+  wide_loop<64, STAGING>(base, full, empty, (K + BK - 1) / BK,
+                         [&](int kt, unsigned char* st, uint64_t* bar) {
+                           hopper::tma_load_2d(st, &tm_x, bar, kt * BK, m0);
+                           if (!COPY_A)
+                             hopper::tma_load_2d(st + L::X_BYTES, &tm_a, bar, c0, kt * BK);
+                         }, acc, ARows{a, K, r, c0});
   if (threadIdx.x >= 8 * 32) return;  // the producer
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int row = m0 + (warp / 4) * 64 + (warp % 4) * 16 + lane / 4;  // and row + 8
@@ -459,37 +687,41 @@ u_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUten
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int m = row + 8 * i;
-      if (m < M && col < r) {
+      if (m < M && col < r8) {
         const float vx = scale * acc[4 * j + 2 * i], vy = scale * acc[4 * j + 2 * i + 1];
         const float hx = __bfloat162float(__float2bfloat16_rn(vx));
         const float hy = __bfloat162float(__float2bfloat16_rn(vy));
-        bf16* dst = u + (size_t)m * r + col;
+        bf16* dst = u + (size_t)m * r8 + col;
         *reinterpret_cast<uint32_t*>(dst) = hopper::pack_bf16(hx, hy);
-        *reinterpret_cast<uint32_t*>(dst + (size_t)M * r) = hopper::pack_bf16(vx - hx, vy - hy);
+        *reinterpret_cast<uint32_t*>(dst + (size_t)M * r8) = hopper::pack_bf16(vx - hx, vy - hy);
       }
     }
   }
 }
 
-// u's terms (2, M, r) of scale·x·A: tiles of 128 rows x 64 ranks
+// u's terms (2, M, r8) of scale·x·A: tiles of 128 rows x 64 ranks
+template <bool COPY_A>
 cudaError_t u_launch(const bf16* x, const bf16* a, bf16* u, int M, int K, int r, float scale,
                      cudaStream_t stream) {
-  using L = WideLayout<64>;
+  using L = WideLayout<64, COPY_A ? atile::Tile<64>::STAGING : 0>;
   static bool smem_set = false;
-  cudaError_t e = hopper::allow_smem(u_kernel, L::SMEM, smem_set);
+  cudaError_t e = hopper::allow_smem(u_kernel<COPY_A>, L::SMEM, smem_set);
   if (e != cudaSuccess) return e;
-  CUtensorMap tx, ta;
+  CUtensorMap tx, ta = {};
   const uint64_t xs[2] = {(uint64_t)K, (uint64_t)M}, xst[1] = {(uint64_t)K * 2};
   const uint64_t as[2] = {(uint64_t)r, (uint64_t)K}, ast[1] = {(uint64_t)r * 2};
   const uint32_t xb[2] = {BK, BM}, ab[2] = {64, BK};
   if ((e = hopper::make_tensor_map(&tx, x, 2, xs, xst, xb, 128)) != cudaSuccess) return e;
-  if ((e = hopper::make_tensor_map(&ta, a, 2, as, ast, ab, 128)) != cudaSuccess) return e;
+  if (!COPY_A && (e = hopper::make_tensor_map(&ta, a, 2, as, ast, ab, 128)) != cudaSuccess)
+    return e;
   dim3 grid((r + 63) / 64, (M + BM - 1) / BM);
-  u_kernel<<<grid, THREADS, L::SMEM, stream>>>(tx, ta, u, M, K, r, scale);
+  u_kernel<COPY_A><<<grid, COPY_A ? COPY_THREADS : THREADS, L::SMEM, stream>>>(tx, ta, u, M, K, r,
+                                                                             scale, a);
   return cudaGetLastError();
 }
 
-// y = [x | h | l]·[W; B; B], u: the terms (2, M, r)
+// y = [x | h | l]·[W; B; B], u: the terms (2, M, r8); B's map has r rows
+// (TMA zero-fills the ranks past r)
 template <int BN>
 cudaError_t wide_launch(const bf16* x, const bf16* w, const bf16* u, const bf16* b, bf16* y,
                         int M, int K, int N, int r, cudaStream_t stream) {
@@ -498,10 +730,11 @@ cudaError_t wide_launch(const bf16* x, const bf16* w, const bf16* u, const bf16*
   cudaError_t e = hopper::allow_smem(wide_kernel<BN>, L::SMEM, smem_set);
   if (e != cudaSuccess) return e;
   CUtensorMap tx, tw, tu, tb, ty;
+  const uint64_t r8 = (uint64_t)(r + 7) / 8 * 8;
   const uint64_t xs[2] = {(uint64_t)K, (uint64_t)M}, xst[1] = {(uint64_t)K * 2};
   const uint64_t ws[2] = {(uint64_t)N, (uint64_t)K}, wst[1] = {(uint64_t)N * 2};
-  const uint64_t us[3] = {(uint64_t)r, (uint64_t)M, 2};
-  const uint64_t ust[2] = {(uint64_t)r * 2, (uint64_t)M * r * 2};
+  const uint64_t us[3] = {r8, (uint64_t)M, 2};
+  const uint64_t ust[2] = {r8 * 2, (uint64_t)M * r8 * 2};
   const uint64_t bsz[2] = {(uint64_t)N, (uint64_t)r}, ys[2] = {(uint64_t)N, (uint64_t)M};
   const uint32_t xb[2] = {BK, BM}, wb[2] = {64, BK}, ub[3] = {BK, BM, 1}, yb[2] = {64, 64};
   if ((e = hopper::make_tensor_map(&tx, x, 2, xs, xst, xb, 128)) != cudaSuccess) return e;
@@ -515,14 +748,14 @@ cudaError_t wide_launch(const bf16* x, const bf16* w, const bf16* u, const bf16*
   return cudaGetLastError();
 }
 
-template <int BN, int RP>
+template <int BN, int RP, bool COPY_A>
 cudaError_t launch(const bf16* x, const bf16* w, const bf16* a, const bf16* b, bf16* y, int M,
                    int K, int N, int r, float scale, cudaStream_t stream) {
-  using L = Layout<BN, RP>;
+  using L = Layout<BN, RP, COPY_A>;
   static bool smem_set = false;
-  cudaError_t e = hopper::allow_smem(kernel<BN, RP>, L::SMEM, smem_set);
+  cudaError_t e = hopper::allow_smem(kernel<BN, RP, COPY_A>, L::SMEM, smem_set);
   if (e != cudaSuccess) return e;
-  CUtensorMap tx, tw, ta, tb, ty;
+  CUtensorMap tx, tw, ta = {}, tb, ty;
   const uint64_t xs[2] = {(uint64_t)K, (uint64_t)M}, xst[1] = {(uint64_t)K * 2};
   const uint64_t ws[2] = {(uint64_t)N, (uint64_t)K}, wst[1] = {(uint64_t)N * 2};
   const uint64_t as[2] = {(uint64_t)r, (uint64_t)K}, ast[1] = {(uint64_t)r * 2};
@@ -531,12 +764,35 @@ cudaError_t launch(const bf16* x, const bf16* w, const bf16* a, const bf16* b, b
   const uint32_t yb[2] = {64, 64};
   if ((e = hopper::make_tensor_map(&tx, x, 2, xs, xst, xb, 128)) != cudaSuccess) return e;
   if ((e = hopper::make_tensor_map(&tw, w, 2, ws, wst, wb, 128)) != cudaSuccess) return e;
-  if ((e = hopper::make_tensor_map(&ta, a, 2, as, ast, ab, RP * 2)) != cudaSuccess) return e;
+  if (!COPY_A && (e = hopper::make_tensor_map(&ta, a, 2, as, ast, ab, RP * 2)) != cudaSuccess)
+    return e;
   if ((e = hopper::make_tensor_map(&tb, b, 2, bsz, wst, bb, 128)) != cudaSuccess) return e;
   if ((e = hopper::make_tensor_map(&ty, y, 2, ys, wst, yb, 128)) != cudaSuccess) return e;
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  kernel<BN, RP><<<grid, THREADS, L::SMEM, stream>>>(tx, tw, ta, tb, ty, K, scale);
+  kernel<BN, RP, COPY_A><<<grid, COPY_A ? COPY_THREADS : THREADS, L::SMEM, stream>>>(
+      tx, tw, ta, tb, ty, K, scale, a, r);
   return cudaGetLastError();
+}
+
+// the fused product at r <= 64: RP = 16 or 64 ranks, tile width bn
+template <bool COPY_A>
+cudaError_t fused(const bf16* x, const bf16* w, const bf16* a, const bf16* b, bf16* y, int M,
+                  int K, int N, int r, float scale, int bn, cudaStream_t st) {
+  if (r <= 16) {
+    switch (bn) {
+      case 64: return launch<64, 16, COPY_A>(x, w, a, b, y, M, K, N, r, scale, st);
+      case 128: return launch<128, 16, COPY_A>(x, w, a, b, y, M, K, N, r, scale, st);
+      case 192: return launch<192, 16, COPY_A>(x, w, a, b, y, M, K, N, r, scale, st);
+      case 256: return launch<256, 16, COPY_A>(x, w, a, b, y, M, K, N, r, scale, st);
+    }
+  } else {
+    switch (bn) {
+      case 64: return launch<64, 64, COPY_A>(x, w, a, b, y, M, K, N, r, scale, st);
+      case 128: return launch<128, 64, COPY_A>(x, w, a, b, y, M, K, N, r, scale, st);
+      case 192: return launch<192, 64, COPY_A>(x, w, a, b, y, M, K, N, r, scale, st);
+    }
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace prefill
@@ -550,6 +806,7 @@ constexpr int MAX_SPLIT = 8;   // blocks of a cluster (portable); block `rank` t
 constexpr int BK = 64;         // K rows of a ring slot
 constexpr int RANKS = 64;      // the A tile's columns: ranks past r arrive as zeros
 constexpr int THREADS = 160;   // warpgroup 0 consumes, warp 4 produces
+constexpr int COPY_THREADS = THREADS + 32;  // where A is copied: warp 5 places its tiles
 constexpr int MAX_STAGES = 6;
 constexpr size_t SM_SMEM = 233472;  // an SM's shared memory; each block also reserves 1 KB
 
@@ -563,16 +820,24 @@ constexpr size_t SM_SMEM = 233472;  // an SM's shared memory; each block also re
 // cores, [h | l]·[B; B] with the terms in x's slot and B's rows in W's,
 // each step taken by one block of the cluster (the last blocks first: they
 // have the fewest K rows).
+// At r % 8 != 0 (COPY_A) the producer warp copies A's tiles (atile): FUSED's
+// into the A slot, UPASS's into W's; UPASS then writes u's terms at r8 = r
+// rounded up to a multiple of 8 ranks a row (zeros past r), which UFOLD's
+// map reads.
 enum Mode { FUSED, UPASS, UFOLD };
 
 // MT: rows of x padded to 8 or 16 (the n of the wgmmas); BN: columns of a
 // cluster's slice (64 or 128: the wider slice halves the clusters of a wide N)
-template <int MT, int BN, int MODE>
+template <int MT, int BN, int MODE, bool COPY_A = false>
 struct Layout {
   static constexpr int X_BYTES = MT * BK * 2;     // x (or a term): MT rows of 64 K-columns, 128-byte rows
   static constexpr int A_BYTES = MODE == FUSED ? BK * RANKS * 2 : 0;  // A: 64 K-rows of 64 ranks
   static constexpr int W_BYTES = BK * BN * 2;     // W (or B): BN/64 boxes of 64 K-rows x 64 columns
-  static constexpr int STAGE = X_BYTES + A_BYTES + W_BYTES;  // every part 1024-aligned
+  static constexpr int STAGING = COPY_A ? atile::Tile<RANKS>::STAGING : 0;  // A's copied rows
+  static constexpr int STAGE = X_BYTES + A_BYTES + W_BYTES + STAGING;  // every part 1024-aligned
+  // bytes landing per stage by TMA (a copied tile is A's, or UPASS's W slot)
+  static constexpr uint32_t TX =
+      STAGE - STAGING - (COPY_A ? (MODE == FUSED ? A_BYTES : W_BYTES) : 0);
   // the block's partial of u and the whole u (fp32; FUSED only)
   static constexpr int U_BYTES = MODE == FUSED ? 2 * MT * RANKS * 4 : 0;
   // the slice's partial of x·W, u's, the barriers and the alignment slack
@@ -591,15 +856,16 @@ struct Layout {
 // K step, W's and A's tiles are MN-major A operands (their columns
 // contiguous) and x's tile is the K-major B operand of n = MT. tm_a: A's
 // map (FUSED), the terms' (UFOLD: u (2, M, r), boxes of 64 ranks x MT
-// rows); y: the output, or u's terms (UPASS: 2 x M x N with N = r).
-template <int MT, int BN, int MODE>
-__global__ void __launch_bounds__(THREADS, 2)
+// rows); y: the output, or u's terms (UPASS: 2 x M x N with N = r, or r8
+// where COPY_A). a: A, copied where COPY_A (its map then unused).
+template <int MT, int BN, int MODE, bool COPY_A>
+__global__ void __launch_bounds__(COPY_A ? COPY_THREADS : THREADS, 2)
 kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w,
        const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_b,
        const bf16* __restrict__ b, bf16* __restrict__ y, int M, int K, int N, int r, int kc,
-       int stages, float scale) {
-  using L = Layout<MT, BN, MODE>;
-  constexpr int NB = BN / 64;
+       int stages, float scale, const bf16* __restrict__ a) {
+  using L = Layout<MT, BN, MODE, COPY_A>;
+  constexpr int NB = BN / 64, NT = COPY_A ? COPY_THREADS : THREADS;
   constexpr bool RING_A = MODE == FUSED;
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ unsigned char smem_raw[];
@@ -620,16 +886,37 @@ kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtenso
   const int nr = (r + BK - 1) / BK, f0 = nc - 1 - rank;
   const int nf = MODE == UFOLD && f0 < 2 * nr ? (2 * nr - 1 - f0) / nc + 1 : 0;
 
+  uint64_t* landed = empty + stages;  // COPY_A: A's copies of a slot are in
   if (tid == 0) {
     for (int s = 0; s < stages; ++s) {
-      hopper::mbar_init(&full[s], 1);   // the producer's arrive + the bytes
+      // the producer's arrive + the bytes (and the placing warp's arrive)
+      hopper::mbar_init(&full[s], COPY_A ? 2 : 1);
       hopper::mbar_init(&empty[s], 1);  // the consumer warpgroup's arrive
+      if (COPY_A) hopper::mbar_init(&landed[s], 32);
     }
     hopper::fence_barrier_init();
   }
   __syncthreads();
 
-  if (warp == 4) {  // producer: the tiles of step t into slot s = t % stages
+  if (warp >= 4 && COPY_A) {  // producers: x and W by TMA, A's tiles copied and placed
+    if (tid == 4 * 32) {
+      hopper::prefetch_tensormap(&tm_x);
+      if (MODE == FUSED) hopper::prefetch_tensormap(&tm_w);
+    }
+    atile::producer<RANKS>(warp == 5, base, L::STAGE, stages, L::X_BYTES, L::STAGE - L::STAGING,
+                           full, empty, landed, nkt, L::TX,
+                           [&](int t, unsigned char* st, uint64_t* bar) {
+                             const int k = kbeg + t * BK;
+                             hopper::tma_load_2d(st, &tm_x, bar, k, 0);
+                             if constexpr (MODE == FUSED) {
+#pragma unroll
+                               for (int j = 0; j < NB; ++j)
+                                 hopper::tma_load_2d(st + L::X_BYTES + L::A_BYTES + j * BK * 128,
+                                                     &tm_w, bar, n0 + 64 * j, k);
+                             }
+                           },
+                           a, K, r, kbeg, MODE == UPASS ? n0 : 0);
+  } else if (warp == 4) {  // producer: the tiles of step t into slot s = t % stages
     if (lane == 0) {
       hopper::prefetch_tensormap(&tm_x);
       hopper::prefetch_tensormap(&tm_w);
@@ -717,7 +1004,7 @@ kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtenso
   // (the partials are added in rank order; the zeros past the cluster's
   // blocks leave each sum as it is)
   if constexpr (RING_A) {
-    for (int i = tid; i < MT * r; i += THREADS) {
+    for (int i = tid; i < MT * r; i += NT) {
       const int m = i / r, j = i % r;
       float v[MAX_SPLIT];
 #pragma unroll
@@ -733,7 +1020,7 @@ kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtenso
   // this block's share of the output slice: y = Σ partials (+ scale · u·B
   // for FUSED); UPASS: the terms of scale · Σ partials
   const int per = (MT * BN + nc - 1) / nc;
-  for (int i = tid; i < per; i += THREADS) {
+  for (int i = tid; i < per; i += NT) {
     const int e = rank * per + i, m = e / BN, n = n0 + e % BN;
     if (e < MT * BN && m < M && n < N) {
       float v[MAX_SPLIT];
@@ -760,26 +1047,31 @@ kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtenso
   cluster.sync();  // the other blocks read this block's shared memory until here
 }
 
-// FUSED: a is A; UPASS: w is A, N is r, y is u's terms (2, M, r), a and b
-// are not read; UFOLD: a is u's terms (2, M, r)
-template <int MT, int BN, int MODE>
+// FUSED: a is A; UPASS: w is A, N is r (r8 where COPY_A: r is then A's
+// ranks), y is u's terms (2, M, N), a and b are not read; UFOLD: a is u's
+// terms (2, M, r8), r8 = r rounded up to a multiple of 8
+template <int MT, int BN, int MODE, bool COPY_A>
 cudaError_t launch(const bf16* x, const bf16* w, const bf16* a, const bf16* b, bf16* y, int M,
                    int K, int N, int r, float scale, int split, cudaStream_t stream) {
-  using L = Layout<MT, BN, MODE>;
+  using L = Layout<MT, BN, MODE, COPY_A>;
   static bool smem_set = false;
-  cudaError_t e = hopper::allow_smem(kernel<MT, BN, MODE>, L::smem(L::STAGES), smem_set);
+  cudaError_t e = hopper::allow_smem(kernel<MT, BN, MODE, COPY_A>, L::smem(L::STAGES), smem_set);
   if (e != cudaSuccess) return e;
-  CUtensorMap tx, tw, ta = {}, tb = {};
+  CUtensorMap tx, tw = {}, ta = {}, tb = {};
+  const uint64_t r8 = (uint64_t)(r + 7) / 8 * 8;
   const uint64_t xs[2] = {(uint64_t)K, (uint64_t)M}, xst[1] = {(uint64_t)K * 2};
   const uint64_t ws[2] = {(uint64_t)N, (uint64_t)K}, wst[1] = {(uint64_t)N * 2};
   const uint64_t as[2] = {(uint64_t)r, (uint64_t)K}, ast[1] = {(uint64_t)r * 2};
-  const uint64_t us[3] = {(uint64_t)r, (uint64_t)M, 2};
-  const uint64_t ust[2] = {(uint64_t)r * 2, (uint64_t)M * r * 2};
+  const uint64_t us[3] = {r8, (uint64_t)M, 2};
+  const uint64_t ust[2] = {r8 * 2, (uint64_t)M * r8 * 2};
   const uint64_t bsz[2] = {(uint64_t)N, (uint64_t)r};
   const uint32_t xb[2] = {BK, MT}, wb[2] = {64, BK}, ab[2] = {RANKS, BK}, ub[3] = {BK, MT, 1};
   if ((e = hopper::make_tensor_map(&tx, x, 2, xs, xst, xb, 128)) != cudaSuccess) return e;
-  if ((e = hopper::make_tensor_map(&tw, w, 2, ws, wst, wb, 128)) != cudaSuccess) return e;
-  if (MODE == FUSED && (e = hopper::make_tensor_map(&ta, a, 2, as, ast, ab, 128)) != cudaSuccess)
+  if (!(COPY_A && MODE == UPASS) &&
+      (e = hopper::make_tensor_map(&tw, w, 2, ws, wst, wb, 128)) != cudaSuccess)
+    return e;
+  if (MODE == FUSED && !COPY_A &&
+      (e = hopper::make_tensor_map(&ta, a, 2, as, ast, ab, 128)) != cudaSuccess)
     return e;
   if (MODE == UFOLD) {
     if ((e = hopper::make_tensor_map(&ta, a, 3, us, ust, ub, 128)) != cudaSuccess) return e;
@@ -790,6 +1082,7 @@ cudaError_t launch(const bf16* x, const bf16* w, const bf16* a, const bf16* b, b
   // steps and (UFOLD) its share of the fold's 2·ceil(r/64)
   const int most = kc / BK + (MODE == UFOLD ? (2 * ((r + BK - 1) / BK) + split - 1) / split : 0);
   int stages = most < L::STAGES ? most : L::STAGES;
+  const bf16* copied = MODE == UPASS ? w : a;  // A, where the producer copies it
   // a cluster of `split` blocks along K for each slice of N
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -798,27 +1091,38 @@ cudaError_t launch(const bf16* x, const bf16* w, const bf16* a, const bf16* b, b
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(split, (N + BN - 1) / BN);
-  cfg.blockDim = dim3(THREADS);
+  cfg.blockDim = dim3(COPY_A ? COPY_THREADS : THREADS);
   cfg.dynamicSmemBytes = L::smem(stages);
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  void* args[] = {&tx, &tw, &ta, &tb, &b, &y, &M, &K, &N, &r, &kc, &stages, &scale};
-  e = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(kernel<MT, BN, MODE>), args);
+  void* args[] = {&tx, &tw, &ta, &tb, &b, &y, &M, &K, &N, &r, &kc, &stages, &scale, &copied};
+  e = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(kernel<MT, BN, MODE, COPY_A>), args);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
 // the product at 8 or 16 rows of x (MT) and slices of bn columns
-template <int MODE>
+template <int MODE, bool COPY_A = false>
 cudaError_t dispatch(const bf16* x, const bf16* w, const bf16* a, const bf16* b, bf16* y, int M,
                      int K, int N, int r, float scale, int bn, int split, cudaStream_t stream) {
   if (bn == 64) {
-    if (M <= 8) return launch<8, 64, MODE>(x, w, a, b, y, M, K, N, r, scale, split, stream);
-    return launch<16, 64, MODE>(x, w, a, b, y, M, K, N, r, scale, split, stream);
+    if (M <= 8) return launch<8, 64, MODE, COPY_A>(x, w, a, b, y, M, K, N, r, scale, split, stream);
+    return launch<16, 64, MODE, COPY_A>(x, w, a, b, y, M, K, N, r, scale, split, stream);
   }
-  if (M <= 8) return launch<8, 128, MODE>(x, w, a, b, y, M, K, N, r, scale, split, stream);
-  return launch<16, 128, MODE>(x, w, a, b, y, M, K, N, r, scale, split, stream);
+  if (M <= 8) return launch<8, 128, MODE, COPY_A>(x, w, a, b, y, M, K, N, r, scale, split, stream);
+  return launch<16, 128, MODE, COPY_A>(x, w, a, b, y, M, K, N, r, scale, split, stream);
+}
+
+// u's terms (2, M, r8) of scale·x·A (UPASS: A in W's place, r8 columns)
+template <bool COPY_A>
+cudaError_t u_launch(const bf16* x, const bf16* a, bf16* u, int M, int K, int r, float scale,
+                     int usplit, cudaStream_t stream) {
+  const int r8 = (r + 7) / 8 * 8;
+  return M <= 8 ? launch<8, 64, UPASS, COPY_A>(x, a, nullptr, nullptr, u, M, K, r8, r, scale,
+                                               usplit, stream)
+                : launch<16, 64, UPASS, COPY_A>(x, a, nullptr, nullptr, u, M, K, r8, r, scale,
+                                                usplit, stream);
 }
 
 }  // namespace decode
@@ -998,201 +1302,745 @@ cudaError_t launch(const bf16* x, const bf16* w, const bf16* a, const bf16* b, b
 }  // namespace generic
 
 // ===========================================================================
-// fp32: tiled SIMT kernel, fp32 FMAs on the CUDA cores (no TF32)
+// fp32: fp32 FMAs on the CUDA cores (no TF32), fed by cp.async rings
 // ===========================================================================
 namespace fp32 {
 
-constexpr int BM = 128, BN = 128, BK = 16;
-constexpr int THREADS = 256;   // 16 x 16 threads, each an 8 x 8 share of the tile
-constexpr int XLD = BM + 4;    // x tile stored transposed (k-major), padded rows
-constexpr int MAX_RC = 64;     // ranks of u held at once (a chunk)
-
-template <int RC>
-constexpr size_t smem_bytes() {
-  return (size_t)(BK * XLD + BK * BN + BK * RC + RC * XLD + RC * BN) * sizeof(float);
+// cp.async of 4 bytes (any fp32 address); src_bytes 0 writes a zero
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(hopper::smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
 }
 
-// 4 consecutive floats at (row, col) of a row-major (nrows x ncols) matrix
-// with leading dimension ld; zeros outside it. One 16-byte load where the
-// four are inside and aligned (vec: ld % 4 == 0 and a 16-byte aligned base).
-__device__ __forceinline__ float4 load4(const float* __restrict__ p, int row, int col,
-                                        int nrows, int ncols, int ld, bool vec) {
-  if (row >= nrows) return make_float4(0.f, 0.f, 0.f, 0.f);
-  const float* q = p + (size_t)row * ld + col;
-  if (vec && col + 4 <= ncols) return *reinterpret_cast<const float4*>(q);
-  float v[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) v[j] = col + j < ncols ? q[j] : 0.f;
-  return make_float4(v[0], v[1], v[2], v[3]);
+// y = out·([x | xe]·[W; We]) + scale·(x·A)·B, every operand row-major fp32:
+// the reduction's rows k < K come from x (M x K) and W (K x N), rows K +
+// [0, R) from xe (M x R) and We (R x N): a first launch's scale·u and B
+// (R = 0: none). A (K x r) and B (r x N): the fused u (RC > 0 only).
+struct Ops {
+  const float *x, *w, *xe, *we, *a, *b;
+  float* y;
+  int M, K, R, N, r;
+  float scale, out;
+  int wv, av;  // W and We (A) read 16 bytes at a time: N (r) % 4 == 0, 16-byte aligned
+};
+
+__device__ __forceinline__ const float* w_row(const Ops& o, int k) {
+  return k < o.K ? o.w + (size_t)k * o.N : o.we + (size_t)(k - o.K) * o.N;
+}
+
+// rows [k0, k0 + ROWS) and columns [c0, c0 + COLS) of [W; We] into dst
+// (ROWS x COLS), zeros at rows from kend and columns from N
+template <int ROWS, int COLS, int NT>
+__device__ __forceinline__ void copy_w(float* dst, const Ops& o, int k0, int c0, int kend) {
+  if (o.wv) {
+    for (int i = threadIdx.x; i < ROWS * COLS / 4; i += NT) {
+      const int row = i / (COLS / 4), col = (i % (COLS / 4)) * 4, k = k0 + row, n = c0 + col;
+      const bool in = k < kend && n < o.N;
+      hopper::cp_async16(dst + row * COLS + col, in ? w_row(o, k) + n : o.w, in ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < ROWS * COLS; i += NT) {
+      const int k = k0 + i / COLS, n = c0 + i % COLS;
+      const bool in = k < kend && n < o.N;
+      cp_async4(dst + i, in ? w_row(o, k) + n : o.w, in ? 4 : 0);
+    }
+  }
+}
+
+// rows [m0, m0 + MROWS) of [x | xe] at reduction rows [k0, k0 + ROWS) into
+// dst transposed (dst[k][m], leading dimension dld), zeros past M and kend;
+// consecutive threads read consecutive k
+template <int ROWS, int MROWS, int NT>
+__device__ __forceinline__ void copy_xt(float* dst, int dld, const Ops& o, int m0, int k0,
+                                        int kend) {
+  for (int i = threadIdx.x; i < ROWS * MROWS; i += NT) {
+    const int m = i / ROWS, kk = i % ROWS, k = k0 + kk, gm = m0 + m;
+    const bool in = k < kend && gm < o.M;
+    const float* src = !in ? o.x : k < o.K ? o.x + (size_t)gm * o.K + k
+                                           : o.xe + (size_t)gm * o.R + (k - o.K);
+    cp_async4(dst + kk * dld + m, src, in ? 4 : 0);
+  }
+}
+
+// A's rows [k0, k0 + ROWS) (below kend <= K), ranks [0, RC), into dst
+// (ROWS x RC), zeros past r
+template <int ROWS, int RC, int NT>
+__device__ __forceinline__ void copy_a(float* dst, const Ops& o, int k0, int kend) {
+  if (o.av) {
+    for (int i = threadIdx.x; i < ROWS * RC / 4; i += NT) {
+      const int row = i / (RC / 4), j = (i % (RC / 4)) * 4, k = k0 + row;
+      const bool in = k < kend && j < o.r;
+      hopper::cp_async16(dst + row * RC + j, in ? o.a + (size_t)k * o.r + j : o.a, in ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < ROWS * RC; i += NT) {
+      const int k = k0 + i / RC, j = i % RC;
+      const bool in = k < kend && j < o.r;
+      cp_async4(dst + i, in ? o.a + (size_t)k * o.r + j : o.a, in ? 4 : 0);
+    }
+  }
 }
 
 __device__ __forceinline__ void unpack(float4 v, float* out) {
   out[0] = v.x, out[1] = v.y, out[2] = v.z, out[3] = v.w;
 }
 
-// The thread's rows (and columns) of the tile: 4 at 4·t and 4 at 64 + 4·t.
-__device__ __forceinline__ int half_index(int t, int i) { return (i < 4 ? 0 : 64) + 4 * t + (i & 3); }
+// ---------------------------------------------------------------------------
+// prefill (M > 16) in one launch, for small shapes at up to 16 ranks (the
+// smoke configs'), and the first launch's u of two: fp32 FMAs on the CUDA cores (67 TFLOP/s
+// against 4·(M·K + K·N + M·N) bytes). A TILE x TILE output tile (TILE =
+// 64·G) a block of 16 x 16 threads, each G x G groups of 4 x 4 outputs; a
+// ring of STAGES cp.async stages, each 16 K-rows of x (stored k-major: a
+// thread's rows are two float4 reads), of W and of A (RC ranks; RC = 0: no
+// fused u). u = x·A from the same staged x tile; scale·u·B joins the fp32
+// accumulators at the end, u never rounded.
+// ---------------------------------------------------------------------------
+constexpr int BK = 16, THREADS = 256, STAGES = 4;
 
-// One pass over K: x·W into acc (when WITH_W) and ranks [r0, r0 + RC) of
-// u = x·A into u, from the same staged x tile. Global loads of the next K
-// step are issued into registers before the FMAs of this one.
-template <bool WITH_W, int RC>
-__device__ __forceinline__ void k_pass(const float* __restrict__ x, const float* __restrict__ w,
-                                       const float* __restrict__ a, float* xs, float* ws,
-                                       float* as, int M, int K, int N, int r, int m0, int n0,
-                                       int r0, bool x_vec, bool w_vec, bool a_vec,
-                                       float (&acc)[8][8], float (&u)[8][RC / 16]) {
-  constexpr int RPT = RC / 16;  // ranks of u per thread
-  constexpr int A_LOADS = BK * RC / 4;  // float4 loads of one A tile
+template <int G, int RC>
+struct Pre {
+  static constexpr int TILE = 64 * G;
+  static constexpr int XLD = TILE + 4;  // the x tile's rows (k-major), padded
+  static constexpr int STAGE = BK * XLD + BK * TILE + BK * RC;  // floats
+  static constexpr int FOLD = RC * XLD + RC * TILE;  // scale·u (rank-major) and B's rows
+  static constexpr int FLOATS = STAGES * STAGE > FOLD ? STAGES * STAGE : FOLD;
+  static constexpr size_t SMEM = (size_t)FLOATS * 4;
+};
+
+// RC = 0 (a first launch's u, N = r): two blocks an SM (registers for 128
+// a thread)
+template <int G, int RC>
+__global__ void __launch_bounds__(THREADS, RC == 0 ? 2 : 1) prefill_kernel(Ops o) {
+  using P = Pre<G, RC>;
+  constexpr int TILE = P::TILE, XLD = P::XLD, RPT = RC / 16 > 0 ? RC / 16 : 1;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* ring = reinterpret_cast<float*>(smem);
+  const int m0 = blockIdx.y * TILE, n0 = blockIdx.x * TILE;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  float4 px[2], pw[2], pa = make_float4(0.f, 0.f, 0.f, 0.f);
-  auto fetch = [&](int k0) {
+  const int nk = (o.K + BK - 1) / BK;
+
+  // step kt's stage: K-rows k0 + [0, 16) of x, W and A, zeros past K, M,
+  // N and r
+  auto load = [&](int kt, int slot) {
+    float* st = ring + slot * P::STAGE;
+    const int k0 = kt * BK;
+    {  // x, k-major: this thread's k, rows tid / 16 + 16·j
+      const int kk = tid % BK, mb = tid / BK;
+      const bool kin = k0 + kk < o.K;
+      const float* src = o.x + (size_t)(m0 + mb) * o.K + k0 + kk;
 #pragma unroll
-    for (int p = 0; p < 2; ++p) {
-      const int i = tid + p * THREADS;
-      px[p] = load4(x, m0 + (i >> 2), k0 + (i & 3) * 4, M, K, K, x_vec);
-      if (WITH_W) pw[p] = load4(w, k0 + (i >> 5), n0 + (i & 31) * 4, K, N, N, w_vec);
+      for (int j = 0; j < TILE / 16; ++j) {
+        const bool in = kin && m0 + mb + 16 * j < o.M;
+        cp_async4(st + kk * XLD + mb + 16 * j, in ? src + (size_t)16 * j * o.K : o.x, in ? 4 : 0);
+      }
     }
-    if (tid < A_LOADS)
-      pa = load4(a, k0 + tid / (RC / 4), r0 + (tid % (RC / 4)) * 4, K, r, r, a_vec);
+    const float* wsrc = o.w + (size_t)k0 * o.N + n0;
+    float* wdst = st + BK * XLD;
+    if (o.wv) {  // 16-byte chunks: rows tid / (TILE / 4) + (THREADS / (TILE / 4))·j
+      constexpr int CPR = TILE / 4, RPP = THREADS / CPR;
+      const int c = tid % CPR, rb = tid / CPR;
+      const bool cin = n0 + 4 * c < o.N;
+#pragma unroll
+      for (int j = 0; j < BK / RPP; ++j) {
+        const int row = rb + RPP * j;
+        const bool in = cin && k0 + row < o.K;
+        hopper::cp_async16(wdst + row * TILE + 4 * c, in ? wsrc + (size_t)row * o.N + 4 * c : o.w,
+                           in ? 16 : 0);
+      }
+    } else {
+      constexpr int RPP = THREADS / TILE;
+      const int c = tid % TILE, rb = tid / TILE;
+      const bool cin = n0 + c < o.N;
+#pragma unroll
+      for (int j = 0; j < BK / RPP; ++j) {
+        const int row = rb + RPP * j;
+        const bool in = cin && k0 + row < o.K;
+        cp_async4(wdst + row * TILE + c, in ? wsrc + (size_t)row * o.N + c : o.w, in ? 4 : 0);
+      }
+    }
+    if constexpr (RC > 0) copy_a<BK, RC, THREADS>(st + BK * XLD + BK * TILE, o, k0, o.K);
   };
-  fetch(0);
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    __syncthreads();  // the last step's tiles are read
+
+  float acc[4 * G][4 * G], u[4 * G][RPT];
 #pragma unroll
-    for (int p = 0; p < 2; ++p) {
-      const int i = tid + p * THREADS, m = i >> 2, kq = (i & 3) * 4;
-      float v[4];
-      unpack(px[p], v);
+  for (int i = 0; i < 4 * G; ++i) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) xs[(kq + j) * XLD + m] = v[j];
-      if (WITH_W) *reinterpret_cast<float4*>(ws + (i >> 5) * BN + (i & 31) * 4) = pw[p];
-    }
-    if (tid < A_LOADS)
-      *reinterpret_cast<float4*>(as + (tid / (RC / 4)) * RC + (tid % (RC / 4)) * 4) = pa;
-    __syncthreads();
-    if (k0 + BK < K) fetch(k0 + BK);
+    for (int j = 0; j < 4 * G; ++j) acc[i][j] = 0.f;
+#pragma unroll
+    for (int j = 0; j < RPT; ++j) u[i][j] = 0.f;
+  }
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk) load(s, s);
+    hopper::cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    hopper::cp_async_wait<STAGES - 2>();  // step kt's copies (this thread's) have landed
+    __syncthreads();  // everyone's, and step kt - 1's slot is read
+    if (kt + STAGES - 1 < nk) load(kt + STAGES - 1, (kt + STAGES - 1) % STAGES);
+    hopper::cp_async_commit();
+    const float* xs = ring + (kt % STAGES) * P::STAGE;
+    const float* ws = xs + BK * XLD;
+    const float* as = ws + BK * TILE;
 #pragma unroll
     for (int k = 0; k < BK; ++k) {
-      float xr[8], wr[8], ar[RPT];
-      unpack(*reinterpret_cast<const float4*>(xs + k * XLD + 4 * ty), xr);
-      unpack(*reinterpret_cast<const float4*>(xs + k * XLD + 64 + 4 * ty), xr + 4);
-      if (WITH_W) {
-        unpack(*reinterpret_cast<const float4*>(ws + k * BN + 4 * tx), wr);
-        unpack(*reinterpret_cast<const float4*>(ws + k * BN + 64 + 4 * tx), wr + 4);
+      float xr[4 * G], wr[4 * G];
 #pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(xr[i], wr[j], acc[i][j]);
+      for (int g = 0; g < G; ++g) {
+        unpack(*reinterpret_cast<const float4*>(xs + k * XLD + 64 * g + 4 * ty), xr + 4 * g);
+        unpack(*reinterpret_cast<const float4*>(ws + k * TILE + 64 * g + 4 * tx), wr + 4 * g);
       }
 #pragma unroll
-      for (int j = 0; j < RPT; ++j) ar[j] = as[k * RC + tx * RPT + j];
+      for (int i = 0; i < 4 * G; ++i)
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+        for (int j = 0; j < 4 * G; ++j) acc[i][j] = fmaf(xr[i], wr[j], acc[i][j]);
+      if constexpr (RC > 0) {
+        float ar[RPT];
 #pragma unroll
-        for (int j = 0; j < RPT; ++j) u[i][j] = fmaf(xr[i], ar[j], u[i][j]);
+        for (int j = 0; j < RPT; ++j) ar[j] = as[k * RC + tx * RPT + j];
+#pragma unroll
+        for (int i = 0; i < 4 * G; ++i)
+#pragma unroll
+          for (int j = 0; j < RPT; ++j) u[i][j] = fmaf(xr[i], ar[j], u[i][j]);
+      }
     }
   }
-}
+  hopper::cp_async_wait<0>();
 
-// y = x·W + scale·(x·A)·B for one 128 x 128 tile of y. Ranks go in chunks of
-// RC: the first pass over K computes x·W and the first chunk of u, each
-// further pass only its chunk of u (re-reading x, not W). Each chunk's
-// scale·u is staged in shared memory (transposed) beside its rows of B, and
-// its product joins the fp32 accumulators of x·W: u is never rounded below
-// fp32.
-template <int RC>
-__global__ void __launch_bounds__(THREADS, 1)
-lora_matmul_fp32_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                        const float* __restrict__ a, const float* __restrict__ b,
-                        float* __restrict__ y, int M, int K, int N, int r, float scale) {
-  constexpr int RPT = RC / 16;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* xs = reinterpret_cast<float*>(smem);  // BK x XLD   x tile, k-major
-  float* ws = xs + BK * XLD;                   // BK x BN    W tile
-  float* as = ws + BK * BN;                    // BK x RC    A tile (one chunk)
-  float* ut = as + BK * RC;                    // RC x XLD   scale·u, rank-major
-  float* bs = ut + RC * XLD;                   // RC x BN    the chunk's rows of B
-
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const bool x_vec = K % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
-  const bool w_vec = N % 4 == 0 && (reinterpret_cast<uintptr_t>(w) & 15) == 0;
-  const bool a_vec = r % 4 == 0 && (reinterpret_cast<uintptr_t>(a) & 15) == 0;
-  const bool b_vec = N % 4 == 0 && (reinterpret_cast<uintptr_t>(b) & 15) == 0;
-
-  float acc[8][8];
+  if constexpr (RC > 0) {  // acc += (scale·u)·B, over the ring
+    __syncthreads();
+    float* ut = ring;             // RC x XLD
+    float* bs = ring + RC * XLD;  // RC x TILE
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < 4 * G; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  for (int r0 = 0; r0 < r; r0 += RC) {
-    float u[8][RPT];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < RPT; ++j) u[i][j] = 0.f;
-    if (r0 == 0)
-      k_pass<true, RC>(x, w, a, xs, ws, as, M, K, N, r, m0, n0, r0, x_vec, w_vec, a_vec, acc, u);
-    else
-      k_pass<false, RC>(x, w, a, xs, ws, as, M, K, N, r, m0, n0, r0, x_vec, w_vec, a_vec, acc, u);
-
-    __syncthreads();  // the last chunk's ut and bs are read
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < RPT; ++j) ut[(tx * RPT + j) * XLD + half_index(ty, i)] = scale * u[i][j];
-    for (int i = tid; i < RC * BN / 4; i += THREADS) {
-      const int j = i / (BN / 4), n = (i % (BN / 4)) * 4;
-      *reinterpret_cast<float4*>(bs + j * BN + n) = load4(b, r0 + j, n0 + n, r, N, N, b_vec);
+      for (int j = 0; j < RPT; ++j)
+        ut[(tx * RPT + j) * XLD + 64 * (i / 4) + 4 * ty + i % 4] = o.scale * u[i][j];
+    for (int i = tid; i < RC * TILE; i += THREADS) {
+      const int j = i / TILE, n = n0 + i % TILE;
+      bs[i] = j < o.r && n < o.N ? o.b[(size_t)j * o.N + n] : 0.f;
     }
     __syncthreads();
-    const int rows = min(RC, r - r0);
+    const int rows = min(RC, o.r);
     for (int j = 0; j < rows; ++j) {
-      float ur[8], br[8];
-      unpack(*reinterpret_cast<const float4*>(ut + j * XLD + 4 * ty), ur);
-      unpack(*reinterpret_cast<const float4*>(ut + j * XLD + 64 + 4 * ty), ur + 4);
-      unpack(*reinterpret_cast<const float4*>(bs + j * BN + 4 * tx), br);
-      unpack(*reinterpret_cast<const float4*>(bs + j * BN + 64 + 4 * tx), br + 4);
+      float ur[4 * G], br[4 * G];
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+      for (int g = 0; g < G; ++g) {
+        unpack(*reinterpret_cast<const float4*>(ut + j * XLD + 64 * g + 4 * ty), ur + 4 * g);
+        unpack(*reinterpret_cast<const float4*>(bs + j * TILE + 64 * g + 4 * tx), br + 4 * g);
+      }
 #pragma unroll
-        for (int jj = 0; jj < 8; ++jj) acc[i][jj] = fmaf(ur[i], br[jj], acc[i][jj]);
+      for (int i = 0; i < 4 * G; ++i)
+#pragma unroll
+        for (int jj = 0; jj < 4 * G; ++jj) acc[i][jj] = fmaf(ur[i], br[jj], acc[i][jj]);
     }
   }
 
-  const bool y_vec = N % 4 == 0 && (reinterpret_cast<uintptr_t>(y) & 15) == 0;
+  const bool y_vec = o.N % 4 == 0 && (reinterpret_cast<uintptr_t>(o.y) & 15) == 0;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int gm = m0 + half_index(ty, i);
-    if (gm >= M) continue;
+  for (int i = 0; i < 4 * G; ++i) {
+    const int gm = m0 + 64 * (i / 4) + 4 * ty + i % 4;
+    if (gm >= o.M) continue;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int gn = n0 + h * 64 + 4 * tx;
-      float* dst = y + (size_t)gm * N + gn;
-      if (y_vec && gn + 4 <= N) {
-        *reinterpret_cast<float4*>(dst) =
-            make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]);
+    for (int g = 0; g < G; ++g) {
+      const int gn = n0 + 64 * g + 4 * tx;
+      float* dst = o.y + (size_t)gm * o.N + gn;
+      float v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[j] = o.out * acc[i][4 * g + j];
+      if (y_vec && gn + 4 <= o.N) {
+        *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
       } else {
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-          if (gn + j < N) dst[j] = acc[i][4 * h + j];
+          if (gn + j < o.N) dst[j] = v[j];
       }
     }
   }
 }
 
-template <int RC>
-cudaError_t launch(const float* x, const float* w, const float* a, const float* b, float* y,
-                   int M, int K, int N, int r, float scale, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<RC>();
+// ---------------------------------------------------------------------------
+// prefill in two launches (large shapes, and any shape above 64 ranks): the
+// product on the tensor cores in 3xTF32. Each fp32 operand is split into a
+// TF32 big term and the TF32 rounding of the rest (22 of fp32's 24 bits),
+// and three products, small·big + big·small + big·big, add into fp32
+// registers: the dropped small·small and the split's rounding are below
+// 2^-21 of each product. The tensor cores' fp32 sums are not rounded to
+// nearest (summed over all of K, the error passed 1e-5 of the largest
+// output at K = 2048 on the card), so each 32-row stage's 12 products start
+// from zero and the stage's sum joins the accumulators by an fp32 add.
+// 128 x 128 output tiles, two warpgroups of 64 rows; per stage the 256
+// threads cp.async 32 reduction rows of x and of W (a ring of TC_STAGES),
+// then write their big and small terms as K-major tiles (W transposed) of
+// 128-byte rows in the 128-byte swizzle that wgmma's descriptors read: TF32
+// wgmma takes K-major operands only. The terms are double-buffered: a
+// stage's are written while the last stage's wgmmas run. (mma.sync's
+// m16n8k8 in 3xTF32 ran no faster than the CUDA cores' FMAs on the card.)
+// ---------------------------------------------------------------------------
+constexpr int TC_BM = 128, TC_BK = 32, TC_STAGES = 2;
+constexpr int TC_XLD = TC_BK + 4;  // the raw x tile's padded rows (floats)
+constexpr int TC_XTERM = TC_BM * TC_BK * 4;  // bytes of one of x's terms, K-major
+
+// BN: the output tile's columns, 128 or 64 (the latter where 128-wide tiles
+// leave the card's last wave mostly idle)
+template <int BN>
+struct TcLayout {
+  static constexpr int WLD = BN + 4;  // the raw W tile's padded rows (floats)
+  static constexpr int RAW = TC_BM * TC_XLD + TC_BK * WLD;  // floats of a raw stage
+  static constexpr int WTERM = BN * TC_BK * 4;  // bytes of one of W's terms, K-major
+  static constexpr int TERMS = 2 * TC_XTERM + 2 * WTERM;  // a set of the four
+  static constexpr size_t SMEM = 1024 + 2 * TERMS + (size_t)TC_STAGES * RAW * 4;
+};
+
+__device__ __forceinline__ void split_tf32(float v, uint32_t& big, uint32_t& small) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(big) : "f"(v));
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(small) : "f"(v - __uint_as_float(big)));
+}
+
+// D (64 x 128 or 64 x 64, fp32) = A (64 x 8, tf32, smem) · B (8 x N, smem)
+// + (scale_d ? D : 0), both K-major
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
+                                           int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                           int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// 16 B of four tf32 at K-row `row`, chunk `c` (4 k's) of a K-major tile of
+// 128-byte rows in the 128-byte swizzle
+__device__ __forceinline__ void put_chunk(unsigned char* tile, int row, int c, uint32_t v0,
+                                          uint32_t v1, uint32_t v2, uint32_t v3) {
+  *reinterpret_cast<uint4*>(tile + row * 128 + ((c ^ (row & 7)) << 4)) = make_uint4(v0, v1, v2, v3);
+}
+
+// xv, xev: x (xe) read 16 bytes at a time (K (R) % 4 == 0, 16-byte aligned)
+template <int BN>
+__global__ void __launch_bounds__(THREADS, 1) tc_kernel(Ops o, int xv, int xev) {
+  using L = TcLayout<BN>;
+  constexpr int WLD = L::WLD, KPT = TC_BK * BN / THREADS;  // W's k's a thread converts
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base =
+      reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~1023ull);
+  // two sets of x's big and small terms (128 rows x 32 k) and W's (128
+  // columns x 32 k, transposed), then the raw ring
+  float* raw = reinterpret_cast<float*>(base + 2 * L::TERMS);
+  const int m0 = blockIdx.y * TC_BM, n0 = blockIdx.x * BN;
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int nkx = (o.K + TC_BK - 1) / TC_BK, nk = nkx + (o.R + TC_BK - 1) / TC_BK;
+
+  auto load = [&](int kt, int slot) {
+    float* xs = raw + slot * L::RAW;
+    float* ws = xs + TC_BM * TC_XLD;
+    const bool ext = kt >= nkx;
+    const int k0 = (ext ? kt - nkx : kt) * TC_BK, kmax = ext ? o.R : o.K;
+    const float* xsrc = (ext ? o.xe : o.x) + (size_t)m0 * kmax + k0;
+    if (ext ? xev : xv) {
+#pragma unroll
+      for (int i = tid; i < TC_BM * TC_BK / 4; i += THREADS) {
+        const int row = i / (TC_BK / 4), c = 4 * (i % (TC_BK / 4));
+        const bool in = m0 + row < o.M && k0 + c < kmax;
+        hopper::cp_async16(xs + row * TC_XLD + c, in ? xsrc + (size_t)row * kmax + c : o.x,
+                           in ? 16 : 0);
+      }
+    } else {
+#pragma unroll
+      for (int i = tid; i < TC_BM * TC_BK; i += THREADS) {
+        const int row = i / TC_BK, c = i % TC_BK;
+        const bool in = m0 + row < o.M && k0 + c < kmax;
+        cp_async4(xs + row * TC_XLD + c, in ? xsrc + (size_t)row * kmax + c : o.x, in ? 4 : 0);
+      }
+    }
+    const float* wsrc = (ext ? o.we : o.w) + (size_t)k0 * o.N + n0;
+    if (o.wv) {
+#pragma unroll
+      for (int i = tid; i < TC_BK * BN / 4; i += THREADS) {
+        const int row = i / (BN / 4), c = 4 * (i % (BN / 4));
+        const bool in = k0 + row < kmax && n0 + c < o.N;
+        hopper::cp_async16(ws + row * WLD + c, in ? wsrc + (size_t)row * o.N + c : o.w,
+                           in ? 16 : 0);
+      }
+    } else {
+#pragma unroll
+      for (int i = tid; i < TC_BK * BN; i += THREADS) {
+        const int row = i / BN, c = i % BN;
+        const bool in = k0 + row < kmax && n0 + c < o.N;
+        cp_async4(ws + row * WLD + c, in ? wsrc + (size_t)row * o.N + c : o.w, in ? 4 : 0);
+      }
+    }
+  };
+
+  float acc[BN / 2], part[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int s = 0; s < TC_STAGES - 1; ++s) {
+    if (s < nk) load(s, s);
+    hopper::cp_async_commit();
+  }
+  // this thread's share of the terms: x's row tid / 2, k's 16·(tid % 2) +
+  // [0, 16); W's column tid % BN, k's KPT·(tid / BN) + [0, KPT)
+  const int xr = tid / 2, xk = 16 * (tid % 2), wn = tid % BN, wk = KPT * (tid / BN);
+  for (int kt = 0; kt < nk; ++kt) {
+    hopper::cp_async_wait<TC_STAGES - 2>();
+    __syncthreads();  // step kt's raw tiles are in; the raw tiles of kt - 1 are read
+    if (kt + TC_STAGES - 1 < nk) load(kt + TC_STAGES - 1, (kt + TC_STAGES - 1) % TC_STAGES);
+    hopper::cp_async_commit();
+    const float* xs = raw + (kt % TC_STAGES) * L::RAW;
+    const float* ws = xs + TC_BM * TC_XLD;
+    // this step's terms: the set that step kt - 2's wgmmas read (waited for below at kt - 1)
+    unsigned char* xb = base + (kt % 2) * L::TERMS;
+    unsigned char* xsm = xb + TC_XTERM;
+    unsigned char* wb = xsm + TC_XTERM;
+    unsigned char* wsm = wb + L::WTERM;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      uint32_t b[4], sm[4];
+      const float4 v = *reinterpret_cast<const float4*>(xs + xr * TC_XLD + xk + 4 * c);
+      split_tf32(v.x, b[0], sm[0]);
+      split_tf32(v.y, b[1], sm[1]);
+      split_tf32(v.z, b[2], sm[2]);
+      split_tf32(v.w, b[3], sm[3]);
+      put_chunk(xb, xr, xk / 4 + c, b[0], b[1], b[2], b[3]);
+      put_chunk(xsm, xr, xk / 4 + c, sm[0], sm[1], sm[2], sm[3]);
+    }
+#pragma unroll
+    for (int c = 0; c < KPT / 4; ++c) {
+      uint32_t b[4], sm[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split_tf32(ws[(wk + 4 * c + e) * WLD + wn], b[e], sm[e]);
+      put_chunk(wb, wn, wk / 4 + c, b[0], b[1], b[2], b[3]);
+      put_chunk(wsm, wn, wk / 4 + c, sm[0], sm[1], sm[2], sm[3]);
+    }
+    hopper::fence_proxy_async();  // the terms' writes, visible to the tensor cores
+    if (kt > 0) {  // step kt - 1's products, into the accumulators
+      hopper::wgmma_wait<0>();
+      hopper::fence_operand(part);
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] += part[i];
+    }
+    __syncthreads();  // every thread's terms of step kt are written
+    const uint64_t da = hopper::make_desc(xb + wg * 64 * 128, 16, 1024, 1);
+    const uint64_t das = hopper::make_desc(xsm + wg * 64 * 128, 16, 1024, 1);
+    const uint64_t db = hopper::make_desc(wb, 16, 1024, 1);
+    const uint64_t dbs = hopper::make_desc(wsm, 16, 1024, 1);
+    hopper::fence_operand(part);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < TC_BK / 8; ++kk) {
+      wgmma_tf32(part, hopper::desc_add(das, 32 * kk), hopper::desc_add(db, 32 * kk), kk > 0);
+      wgmma_tf32(part, hopper::desc_add(da, 32 * kk), hopper::desc_add(dbs, 32 * kk), 1);
+      wgmma_tf32(part, hopper::desc_add(da, 32 * kk), hopper::desc_add(db, 32 * kk), 1);
+    }
+    hopper::wgmma_commit();
+  }
+  if (nk > 0) {
+    hopper::wgmma_wait<0>();
+    hopper::fence_operand(part);
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] += part[i];
+  }
+  hopper::cp_async_wait<0>();
+
+  // thread (warp w of the warpgroup, lane l) holds acc[4j + i] at row 16w +
+  // l/4 + 8(i/2), column 8j + 2(l%4) + i%2
+  const int warp = (tid % 128) / 32, lane = tid % 32;
+  const bool y_vec = o.N % 2 == 0 && (reinterpret_cast<uintptr_t>(o.y) & 7) == 0;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = m0 + 64 * wg + 16 * warp + lane / 4 + 8 * h;
+    if (m >= o.M) continue;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int n = n0 + 8 * j + 2 * (lane % 4);
+      float* dst = o.y + (size_t)m * o.N + n;
+      const float v0 = o.out * acc[4 * j + 2 * h], v1 = o.out * acc[4 * j + 2 * h + 1];
+      if (y_vec && n + 1 < o.N) {
+        *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+      } else {
+        if (n < o.N) dst[0] = v0;
+        if (n + 1 < o.N) dst[1] = v1;
+      }
+    }
+  }
+}
+
+template <int BN>
+cudaError_t tc_launch(const Ops& o, cudaStream_t stream) {
+  using L = TcLayout<BN>;
   static bool smem_set = false;
-  cudaError_t e = hopper::allow_smem(lora_matmul_fp32_kernel<RC>, smem, smem_set);
+  cudaError_t e = hopper::allow_smem(tc_kernel<BN>, L::SMEM, smem_set);
   if (e != cudaSuccess) return e;
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  lora_matmul_fp32_kernel<RC><<<grid, THREADS, smem, stream>>>(x, w, a, b, y, M, K, N, r, scale);
+  auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
+  const int xv = o.K % 4 == 0 && aligned(o.x), xev = o.R % 4 == 0 && aligned(o.xe);
+  dim3 grid((o.N + BN - 1) / BN, (o.M + TC_BM - 1) / TC_BM);
+  tc_kernel<BN><<<grid, THREADS, L::SMEM, stream>>>(o, xv, xev);
   return cudaGetLastError();
+}
+
+template <int G, int RC>
+cudaError_t prefill_launch(const Ops& o, cudaStream_t stream) {
+  using P = Pre<G, RC>;
+  static bool smem_set = false;
+  cudaError_t e = hopper::allow_smem(prefill_kernel<G, RC>, P::SMEM, smem_set);
+  if (e != cudaSuccess) return e;
+  dim3 grid((o.N + P::TILE - 1) / P::TILE, (o.M + P::TILE - 1) / P::TILE);
+  prefill_kernel<G, RC><<<grid, THREADS, P::SMEM, stream>>>(o);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// decode (M <= 16): what bounds it is reading W once (4·K·N bytes against
+// 2·M·K·N FMAs). Clusters of `split` blocks (up to 8) split the reduction's
+// rows for each 64-column slice of N, as the bf16 decode's do; each block
+// streams its rows of W, x's MT rows (k-major) and A's RC ranks through a
+// ring of cp.async stages of 32 rows (4-16 KB of W in flight a stage, two
+// blocks an SM). Its 4 warps take 8 rows of a stage each, a lane 2 of W's
+// columns for every row of x (and 2 of A's ranks for 1/KSUB of the warp's
+// rows: lanes split the rows where RC < 64); the warps' partials, then the
+// cluster's blocks' (through distributed shared memory), are added in a
+// fixed order, and each block adds scale·u·B to its share of the slice.
+// ---------------------------------------------------------------------------
+constexpr int DBK = 32, DBN = 64, DTHREADS = 128, DMAX_STAGES = 6, MAX_SPLIT = 8;
+constexpr size_t SM_SMEM = 233472;  // an SM's shared memory; each block also reserves 1 KB
+
+template <int MT, int RC>
+struct Dec {
+  static constexpr int STAGE = DBK * MT + DBK * DBN + DBK * RC;  // floats: x, W, A
+  static constexpr int RED = 4 * MT * DBN + 4 * MT * RC;  // the warps' partials, over the ring
+  static constexpr int FIXED = MT * DBN + 2 * MT * RC;  // the block's partials, the whole u
+  // as many stages as leave room for two blocks an SM, at most DMAX_STAGES
+  static constexpr int FIT = (int)((SM_SMEM / 2 - 1024 - 176 - 4 * FIXED) / (4 * STAGE));
+  static constexpr int STAGES = FIT < DMAX_STAGES ? FIT : DMAX_STAGES;
+  static constexpr int RING = STAGES * STAGE > RED ? STAGES * STAGE : RED;
+  // a block's shared memory: + the slots' barriers (W by TMA) and the slack
+  // that aligns the ring to 128 bytes, as TMA's boxes need (mirrored by
+  // kernels/lora_matmul.py ``fp32_decode_smem_bytes``)
+  static constexpr size_t SMEM = 4 * (size_t)(RING + FIXED) + 8 * DMAX_STAGES + 128;
+  static_assert(STAGES >= 2 && MT % 4 == 0 && (RC == 0 || RC == 16 || RC == 32 || RC == 64),
+                "unsupported tile");
+};
+
+// tma: W's tiles come by TMA through tm_w (boxes of 32 rows x 64 columns;
+// R = 0, W 16-byte readable), else by cp.async
+template <int MT, int RC>
+__global__ void __launch_bounds__(DTHREADS, 2)
+decode_kernel(Ops o, int kc, const __grid_constant__ CUtensorMap tm_w, int tma) {
+  using D = Dec<MT, RC>;
+  constexpr int STAGES = D::STAGES, RP = RC > 0 ? RC : 16, KSUB = 64 / RP, SUBROWS = 8 / KSUB;
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ unsigned char smem_raw[];
+  float* ring =
+      reinterpret_cast<float*>((reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~uintptr_t(127));
+  float* part = ring + D::RING;    // MT x DBN
+  float* upart = part + MT * DBN;  // MT x RC
+  float* ufull = upart + MT * RC;  // MT x RC
+  uint64_t* full = reinterpret_cast<uint64_t*>(ufull + MT * RC);  // W's slots (tma)
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int rank = (int)cluster.block_rank(), nc = (int)cluster.num_blocks();
+  const int n0 = blockIdx.y * DBN;
+  const int kbeg = rank * kc, kend = min(o.K + o.R, kbeg + kc);  // kc: a multiple of DBK
+  const int nk = kend > kbeg ? (kend - kbeg + DBK - 1) / DBK : 0;
+
+  auto load = [&](int t, int slot) {
+    float* st = ring + slot * D::STAGE;
+    const int k0 = kbeg + t * DBK;
+    copy_xt<DBK, MT, DTHREADS>(st, MT, o, 0, k0, kend);
+    if (!tma) {
+      copy_w<DBK, DBN, DTHREADS>(st + DBK * MT, o, k0, n0, kend);
+    } else if (tid == 0) {
+      hopper::mbar_arrive_expect_tx(&full[slot], DBK * DBN * 4);
+      hopper::tma_load_2d(st + DBK * MT, &tm_w, &full[slot], n0, k0);
+    }
+    if constexpr (RC > 0) copy_a<DBK, RC, DTHREADS>(st + DBK * MT + DBK * DBN, o, k0, kend);
+  };
+  if (tma && tid == 0) {
+    for (int s = 0; s < STAGES; ++s) hopper::mbar_init(&full[s], 1);
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  float acc[MT][2], uacc[MT][2];
+#pragma unroll
+  for (int m = 0; m < MT; ++m) acc[m][0] = acc[m][1] = uacc[m][0] = uacc[m][1] = 0.f;
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk) load(s, s);
+    hopper::cp_async_commit();
+  }
+  const int p = lane % (RP / 2), sub = lane / (RP / 2);  // u: ranks 2p, 2p + 1; rows of sub
+  for (int t = 0; t < nk; ++t) {
+    hopper::cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    if (t + STAGES - 1 < nk) load(t + STAGES - 1, (t + STAGES - 1) % STAGES);
+    hopper::cp_async_commit();
+    if (tma) hopper::mbar_wait(&full[t % STAGES], (t / STAGES) & 1);
+    const float* xs = ring + (t % STAGES) * D::STAGE;
+    const float* ws = xs + DBK * MT;
+    const float* as = ws + DBK * DBN;
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const int k = 8 * warp + kk;
+      float xr[MT];
+#pragma unroll
+      for (int m = 0; m < MT; m += 4)
+        unpack(*reinterpret_cast<const float4*>(xs + k * MT + m), xr + m);
+      const float2 wv = *reinterpret_cast<const float2*>(ws + k * DBN + 2 * lane);
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        acc[m][0] = fmaf(xr[m], wv.x, acc[m][0]);
+        acc[m][1] = fmaf(xr[m], wv.y, acc[m][1]);
+      }
+    }
+    if constexpr (RC > 0) {
+#pragma unroll
+      for (int kk = 0; kk < SUBROWS; ++kk) {
+        const int k = 8 * warp + sub * SUBROWS + kk;
+        float xr[MT];
+#pragma unroll
+        for (int m = 0; m < MT; m += 4)
+          unpack(*reinterpret_cast<const float4*>(xs + k * MT + m), xr + m);
+        const float2 av = *reinterpret_cast<const float2*>(as + k * RC + 2 * p);
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          uacc[m][0] = fmaf(xr[m], av.x, uacc[m][0]);
+          uacc[m][1] = fmaf(xr[m], av.y, uacc[m][1]);
+        }
+      }
+    }
+  }
+  hopper::cp_async_wait<0>();
+  __syncthreads();  // the ring is free: the warps' partials go there
+
+  // the lanes' partials of u over their rows, then the warps', in a fixed order
+  float* red = ring;                     // 4 x MT x DBN
+  float* ured = ring + 4 * MT * DBN;     // 4 x MT x RC
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    *reinterpret_cast<float2*>(red + (warp * MT + m) * DBN + 2 * lane) =
+        make_float2(acc[m][0], acc[m][1]);
+    if constexpr (RC > 0) {
+#pragma unroll
+      for (int off = RC / 2; off < 32; off *= 2) {
+        uacc[m][0] += __shfl_xor_sync(0xffffffffu, uacc[m][0], off);
+        uacc[m][1] += __shfl_xor_sync(0xffffffffu, uacc[m][1], off);
+      }
+      if (sub == 0)
+        *reinterpret_cast<float2*>(ured + (warp * MT + m) * RC + 2 * p) =
+            make_float2(uacc[m][0], uacc[m][1]);
+    }
+  }
+  __syncthreads();
+  for (int e = tid; e < MT * DBN; e += DTHREADS)
+    part[e] = ((red[e] + red[MT * DBN + e]) + red[2 * MT * DBN + e]) + red[3 * MT * DBN + e];
+  for (int e = tid; e < MT * RC; e += DTHREADS)
+    upart[e] = ((ured[e] + ured[MT * RC + e]) + ured[2 * MT * RC + e]) + ured[3 * MT * RC + e];
+
+  cluster.sync();  // every block's partials are written
+  // (the partials are added in rank order; the zeros past the cluster's
+  // blocks leave each sum as it is)
+  if constexpr (RC > 0) {
+    for (int i = tid; i < MT * o.r; i += DTHREADS) {
+      const int m = i / o.r, j = i % o.r;
+      float v[MAX_SPLIT];
+#pragma unroll
+      for (int c = 0; c < MAX_SPLIT; ++c)
+        v[c] = c < nc ? cluster.map_shared_rank(upart, c)[m * RC + j] : 0.f;
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < MAX_SPLIT; ++c) sum += v[c];
+      ufull[m * RC + j] = sum;
+    }
+    __syncthreads();
+  }
+  // this block's share of the slice: y = out · Σ partials + scale · u·B
+  const int per = (MT * DBN + nc - 1) / nc;
+  for (int i = tid; i < per; i += DTHREADS) {
+    const int e = rank * per + i, m = e / DBN, n = n0 + e % DBN;
+    if (e < MT * DBN && m < o.M && n < o.N) {
+      float v[MAX_SPLIT];
+#pragma unroll
+      for (int c = 0; c < MAX_SPLIT; ++c) v[c] = c < nc ? cluster.map_shared_rank(part, c)[e] : 0.f;
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < MAX_SPLIT; ++c) sum += v[c];
+      sum *= o.out;
+      if constexpr (RC > 0) {
+        float d = 0.f;
+#pragma unroll 8
+        for (int j = 0; j < o.r; ++j) d = fmaf(ufull[m * RC + j], o.b[(size_t)j * o.N + n], d);
+        sum += o.scale * d;
+      }
+      o.y[(size_t)m * o.N + n] = sum;
+    }
+  }
+  cluster.sync();  // the other blocks read this block's shared memory until here
+}
+
+// tma: W comes by TMA where it can (R = 0, W 16-byte readable), else by
+// cp.async
+template <int MT, int RC>
+cudaError_t decode_launch(const Ops& o, int split, int tma, cudaStream_t stream) {
+  using D = Dec<MT, RC>;
+  static bool smem_set = false;
+  cudaError_t e = hopper::allow_smem(decode_kernel<MT, RC>, D::SMEM, smem_set);
+  if (e != cudaSuccess) return e;
+  int kc = ((o.K + o.R + split - 1) / split + DBK - 1) / DBK * DBK;
+  CUtensorMap tm_w = {};
+  tma = tma && o.R == 0 && o.wv;
+  if (tma) {
+    const uint64_t ws[2] = {(uint64_t)o.N, (uint64_t)o.K}, wst[1] = {(uint64_t)o.N * 4};
+    const uint32_t wb[2] = {DBN, DBK};
+    if ((e = hopper::make_tensor_map(&tm_w, o.w, 2, ws, wst, wb, 0,
+                                     CU_TENSOR_MAP_DATA_TYPE_FLOAT32)) != cudaSuccess)
+      return e;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(split, (o.N + DBN - 1) / DBN);
+  cfg.blockDim = dim3(DTHREADS);
+  cfg.dynamicSmemBytes = D::SMEM;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  Ops ops = o;
+  void* args[] = {&ops, &kc, &tm_w, &tma};
+  e = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(decode_kernel<MT, RC>), args);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+// the fused u's tile: 16, 32 or 64 ranks (r <= 64), or none
+template <int MT>
+cudaError_t decode_ranks(const Ops& o, int split, int tma, cudaStream_t st) {
+  if (o.a == nullptr) return decode_launch<MT, 0>(o, split, tma, st);
+  if (o.r <= 16) return decode_launch<MT, 16>(o, split, tma, st);
+  if (o.r <= 32) return decode_launch<MT, 32>(o, split, tma, st);
+  return decode_launch<MT, 64>(o, split, tma, st);
+}
+
+cudaError_t decode(const Ops& o, int split, int tma, cudaStream_t st) {
+  if (o.M <= 4) return decode_ranks<4>(o, split, tma, st);
+  if (o.M <= 8) return decode_ranks<8>(o, split, tma, st);
+  return decode_ranks<16>(o, split, tma, st);
 }
 
 }  // namespace fp32
@@ -1204,14 +2052,16 @@ cudaError_t launch(const float* x, const float* w, const float* a, const float* 
 // cudaGetLastError() after the launch (cudaErrorInvalidValue for a shape
 // the variant does not take).
 
-// prefill: K, N, r multiples of 8, r <= 256, every pointer 16-byte aligned;
+// prefill: K and N multiples of 8, any r, every pointer 16-byte aligned;
 // bn = the output tile's width (64, 128, 192, 256; 256 not for 16 < r <= 64);
-// above 64 ranks u is scratch of 2·M·r bf16 (16-byte aligned), else unused.
-// Above 64 ranks two launches: u's terms, then the product.
+// copy_a: the producer warp copies A's tiles (needed at r % 8 != 0: A's rows
+// are not 16 bytes apart; allowed at any r); above 64 ranks u is scratch of
+// 2·M·r8 bf16 (16-byte aligned; r8 = r rounded up to a multiple of 8), else
+// unused. Above 64 ranks two launches: u's terms, then the product.
 extern "C" int lora_matmul_prefill_bf16(const void* x, const void* w, const void* a,
                                         const void* b, void* y, int M, int K, int N, int r,
-                                        float scale, int bn, void* u, void* stream) {
-  if (M <= 0 || K <= 0 || N <= 0 || r <= 0 || r > 256 || K % 8 || N % 8 || r % 8 ||
+                                        float scale, int bn, int copy_a, void* u, void* stream) {
+  if (M <= 0 || K <= 0 || N <= 0 || r <= 0 || K % 8 || N % 8 || (r % 8 && !copy_a) ||
       M > 65535 * prefill::BM || (r > 64 && u == nullptr))
     return (int)cudaErrorInvalidValue;
   const bf16 *xp = static_cast<const bf16*>(x), *wp = static_cast<const bf16*>(w);
@@ -1220,7 +2070,8 @@ extern "C" int lora_matmul_prefill_bf16(const void* x, const void* w, const void
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (r > 64) {
     if (bn != 64 && bn != 128 && bn != 192 && bn != 256) return (int)cudaErrorInvalidValue;
-    cudaError_t e = prefill::u_launch(xp, ap, up, M, K, r, scale, st);
+    cudaError_t e = copy_a ? prefill::u_launch<true>(xp, ap, up, M, K, r, scale, st)
+                           : prefill::u_launch<false>(xp, ap, up, M, K, r, scale, st);
     if (e != cudaSuccess) return (int)e;
     switch (bn) {
       case 64: return (int)prefill::wide_launch<64>(xp, wp, up, bp, yp, M, K, N, r, st);
@@ -1229,34 +2080,21 @@ extern "C" int lora_matmul_prefill_bf16(const void* x, const void* w, const void
       default: return (int)prefill::wide_launch<256>(xp, wp, up, bp, yp, M, K, N, r, st);
     }
   }
-  if (r <= 16) {
-    switch (bn) {
-      case 64: return (int)prefill::launch<64, 16>(xp, wp, ap, bp, yp, M, K, N, r, scale, st);
-      case 128: return (int)prefill::launch<128, 16>(xp, wp, ap, bp, yp, M, K, N, r, scale, st);
-      case 192: return (int)prefill::launch<192, 16>(xp, wp, ap, bp, yp, M, K, N, r, scale, st);
-      case 256: return (int)prefill::launch<256, 16>(xp, wp, ap, bp, yp, M, K, N, r, scale, st);
-    }
-  } else {
-    switch (bn) {
-      case 64: return (int)prefill::launch<64, 64>(xp, wp, ap, bp, yp, M, K, N, r, scale, st);
-      case 128: return (int)prefill::launch<128, 64>(xp, wp, ap, bp, yp, M, K, N, r, scale, st);
-      case 192: return (int)prefill::launch<192, 64>(xp, wp, ap, bp, yp, M, K, N, r, scale, st);
-    }
-  }
-  return (int)cudaErrorInvalidValue;
+  return (int)(copy_a ? prefill::fused<true>(xp, wp, ap, bp, yp, M, K, N, r, scale, bn, st)
+                      : prefill::fused<false>(xp, wp, ap, bp, yp, M, K, N, r, scale, bn, st));
 }
 
-// decode: M <= 16, K, N and r multiples of 8, r <= 256, every pointer
-// 16-byte aligned; bn = the columns of a cluster's slice (64 or 128), split =
-// the blocks of a cluster, each a slice of K (1-8); above 64 ranks u is
-// scratch of 2·M·r bf16 (16-byte aligned) and usplit the blocks of the u
-// launch's clusters (1-8), else both are unused. Above 64 ranks two
-// launches: u's terms, then the product with its fold.
+// decode: M <= 16, K and N multiples of 8, any r, every pointer 16-byte
+// aligned; bn = the columns of a cluster's slice (64 or 128), split = the
+// blocks of a cluster, each a slice of K (1-8); copy_a as the prefill's;
+// above 64 ranks u is scratch of 2·M·r8 bf16 (16-byte aligned) and usplit
+// the blocks of the u launch's clusters (1-8), else both are unused. Above
+// 64 ranks two launches: u's terms, then the product with its fold.
 extern "C" int lora_matmul_decode_bf16(const void* x, const void* w, const void* a,
                                        const void* b, void* y, int M, int K, int N, int r,
-                                       float scale, int bn, int split, int usplit, void* u,
-                                       void* stream) {
-  if (M <= 0 || M > 16 || K <= 0 || N <= 0 || r <= 0 || r > 256 || K % 8 || N % 8 || r % 8 ||
+                                       float scale, int bn, int split, int usplit, int copy_a,
+                                       void* u, void* stream) {
+  if (M <= 0 || M > 16 || K <= 0 || N <= 0 || r <= 0 || K % 8 || N % 8 || (r % 8 && !copy_a) ||
       (bn != 64 && bn != 128) || (N + bn - 1) / bn > 65535 || split < 1 ||
       split > decode::MAX_SPLIT ||
       (r > 64 && (u == nullptr || usplit < 1 || usplit > decode::MAX_SPLIT)))
@@ -1266,13 +2104,12 @@ extern "C" int lora_matmul_decode_bf16(const void* x, const void* w, const void*
   bf16 *yp = static_cast<bf16*>(y), *up = static_cast<bf16*>(u);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (r <= 64)
-    return (int)decode::dispatch<decode::FUSED>(xp, wp, ap, bp, yp, M, K, N, r, scale, bn, split,
-                                                st);
-  cudaError_t e =
-      M <= 8 ? decode::launch<8, 64, decode::UPASS>(xp, ap, nullptr, nullptr, up, M, K, r, r,
-                                                    scale, usplit, st)
-             : decode::launch<16, 64, decode::UPASS>(xp, ap, nullptr, nullptr, up, M, K, r, r,
-                                                     scale, usplit, st);
+    return (int)(copy_a ? decode::dispatch<decode::FUSED, true>(xp, wp, ap, bp, yp, M, K, N, r,
+                                                                scale, bn, split, st)
+                        : decode::dispatch<decode::FUSED>(xp, wp, ap, bp, yp, M, K, N, r, scale,
+                                                          bn, split, st));
+  cudaError_t e = copy_a ? decode::u_launch<true>(xp, ap, up, M, K, r, scale, usplit, st)
+                         : decode::u_launch<false>(xp, ap, up, M, K, r, scale, usplit, st);
   if (e != cudaSuccess) return (int)e;
   return (int)decode::dispatch<decode::UFOLD>(xp, wp, up, bp, yp, M, K, N, r, 1.f, bn, split, st);
 }
@@ -1295,19 +2132,43 @@ extern "C" int lora_matmul_generic_bf16(const void* x, const void* w, const void
   }
 }
 
-// fp32: x, w, a, b, y in fp32, any shape and rank (ranks in chunks of at
-// most 64), any alignment
+// fp32: x, w, a, b, y in fp32, any shape, rank and alignment. split > 0:
+// the decode design (M <= 16), clusters of `split` blocks (1-8); split 0:
+// the prefill design, in one launch up to 16 ranks. Given u (scratch of M·r
+// fp32; needed above 64 ranks, and above 16 at split 0), two launches: the first writes scale·x·A into u (the decode's with
+// clusters of usplit blocks, the prefill's in 64 x 64 tiles), and the
+// second is the product over K + r rows, [x | scale·u]·[W; B] (the
+// prefill's in 3xTF32, tiles of 128 rows and bn = 128 or 64 columns).
+// tma: the decode design's launches read W (A in the u launch) by TMA where
+// they can; 0: by cp.async (the wrapper always asks for TMA: no slower on
+// the card at any size of W).
 extern "C" int lora_matmul_fp32(const void* x, const void* w, const void* a, const void* b,
-                                void* y, int M, int K, int N, int r, float scale, void* stream) {
-  using namespace fp32;
-  if (M <= 0 || K <= 0 || N <= 0 || r <= 0 || M > 65535 * BM) return (int)cudaErrorInvalidValue;
-  const float *xp = static_cast<const float*>(x), *wp = static_cast<const float*>(w);
-  const float *ap = static_cast<const float*>(a), *bp = static_cast<const float*>(b);
-  float* yp = static_cast<float*>(y);
+                                void* y, int M, int K, int N, int r, float scale, int split,
+                                int usplit, int bn, int tma, void* u, void* stream) {
+  if (M <= 0 || K <= 0 || N <= 0 || r <= 0 || M > 65535 * 64 || split < 0 ||
+      split > fp32::MAX_SPLIT || (split > 0 && M > 16) ||
+      (r > (split > 0 ? 64 : 16) && u == nullptr) ||
+      (u != nullptr && split > 0 && (usplit < 1 || usplit > fp32::MAX_SPLIT)))
+    return (int)cudaErrorInvalidValue;
+  auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (r <= 16) return (int)launch<16>(xp, wp, ap, bp, yp, M, K, N, r, scale, st);
-  if (r <= 32) return (int)launch<32>(xp, wp, ap, bp, yp, M, K, N, r, scale, st);
-  return (int)launch<MAX_RC>(xp, wp, ap, bp, yp, M, K, N, r, scale, st);
+  fp32::Ops o = {static_cast<const float*>(x), static_cast<const float*>(w), nullptr, nullptr,
+                 static_cast<const float*>(a), static_cast<const float*>(b), static_cast<float*>(y),
+                 M, K, 0, N, r, scale, 1.f, N % 4 == 0 && aligned(w), r % 4 == 0 && aligned(a)};
+  if (u != nullptr) {
+    // u = scale·x·A: A in W's place, N = r, nothing fused
+    fp32::Ops uo = o;
+    uo.w = o.a, uo.N = r, uo.a = nullptr, uo.y = static_cast<float*>(u), uo.out = scale;
+    uo.wv = o.av;
+    cudaError_t e =
+        split > 0 ? fp32::decode(uo, usplit, tma, st) : fp32::prefill_launch<1, 0>(uo, st);
+    if (e != cudaSuccess) return (int)e;
+    o.xe = static_cast<const float*>(u), o.we = o.b, o.R = r, o.a = nullptr;
+    o.wv = o.wv && aligned(b);
+  }
+  if (split > 0) return (int)fp32::decode(o, split, tma, st);
+  if (u == nullptr) return (int)fp32::prefill_launch<2, 16>(o, st);
+  return (int)(bn == 64 ? fp32::tc_launch<64>(o, st) : fp32::tc_launch<128>(o, st));
 }
 
 extern "C" const char* repro_error_string(int err) {

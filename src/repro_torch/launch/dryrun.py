@@ -37,8 +37,10 @@ card has two halves:
   unchanged, at the largest power-of-two batch b <= the cell's global batch
   whose M2 fits the card, reckoned from the plan's bytes per row and M1's
   measured transient at b = 1. Each run records CUDA-event ms (median of 3
-  after a warm-up), ``torch.cuda.max_memory_allocated`` above the resident
-  bytes, and each kernel's launches by variant. ``compose_costs`` (the
+  after a warm-up; with ``full_depth``, M1, M2, M1t and the full depth are
+  built together and timed in turns, median of 7), the timed calls'
+  ``torch.cuda.max_memory_allocated`` above the resident bytes, and each
+  kernel's launches by variant. ``compose_costs`` (the
   reference's: stem + n_groups·per_group + tail, each term clamped at 0)
   composes ms and transient bytes at full depth; the result is then scaled
   linearly from b to the global batch, an extrapolation the record names.
@@ -59,6 +61,8 @@ Records go to ``results/dryrun_torch/<arch>__<shape>.json``, incrementally
 Usage:
   python -m repro_torch.launch.dryrun --all --device cpu        # plan only
   python -m repro_torch.launch.dryrun --arch gemma2-9b --shape prefill_32k --measure
+  python -m repro_torch.launch.dryrun --arch mamba2-130m --shape train_4k --measure \
+      --check 4 --force                           # composed against the full step
 """
 
 from __future__ import annotations
@@ -104,6 +108,11 @@ HBM_BYTES_PER_S = 3.35e12
 S2_THRESHOLD = 256
 SKIP_REASON = "full-attention arch at 500k context (DESIGN.md §5)"
 TIMED_RUNS = 3
+# a check cell's composed ms moves by n_groups - 2 times any change of M1's
+# ms (mamba2-130m x train_4k: 22x, so M1 read 3% slow against M2 and the
+# full step puts the composition 15% low), so its depths are timed in turns
+# and over more rounds
+CHECK_TIMED_RUNS = 7
 # of the card's memory that a measured run may plan to take: the rest is the
 # allocator's (at 0.85, olmoe-1b-7b x prefill_32k's M2 at b=8 ran out with
 # 22.8 GiB reserved but unallocated on an H100 80GB)
@@ -307,46 +316,85 @@ def _zero_counts() -> None:
             fn.variant_launches[k] = 0
 
 
+def _call(step, rec: dict, shape: ShapeConfig, dev, timed: bool) -> dict:
+    """One call of a step: its launches by variant (added to the record's
+    ``launches_total``), its peak allocated above what was allocated before
+    it (the largest of the timed calls in the record's ``transient_bytes``,
+    the warm-up's in ``warmup_transient_bytes``) and, if ``timed``, its
+    CUDA-event ms appended to ``ms_runs``."""
+    _zero_counts()
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with _step_mode(shape):
+        start.record()
+        out = step()
+        end.record()
+        del out
+    end.synchronize()
+    peak = float(torch.cuda.max_memory_allocated(dev) - before)
+    if timed:
+        rec["ms_runs"].append(start.elapsed_time(end))
+        rec["transient_bytes"] = max(rec["transient_bytes"], peak)
+    else:
+        rec["warmup_transient_bytes"] = peak
+    counts = _counts()
+    for name, by in counts.items():
+        for k, v in by.items():
+            rec["launches_total"][name][k] += v
+    rec["calls"] += 1
+    return counts
+
+
+def run_in_turns(cfgs: dict[str, ModelConfig], shape: ShapeConfig, device, *,
+                 timed: int = TIMED_RUNS, seed: int = 0) -> dict[str, dict]:
+    """One step of each config at the shape's batch on the card, all states
+    built first: the bytes each state takes (tensor bytes, their storages'
+    and the allocator's), a warm-up of each counted for launches by variant
+    (``launches``; every call's in ``launches_total``), then ``timed``
+    rounds in which each step runs once, in turn, timed by CUDA events (the
+    median), and each step's peak allocated above the state resident
+    before it: the timed calls' (the warm-up's where none is timed), as the
+    warm-up's also holds what the process allocates once and keeps (an
+    H100's first train step after a whisper-base prefill: 36 MB more).
+    Timed in turns, a drift of the card's or the host's speed during the
+    measurement reaches every config alike."""
+    dev = torch.device(device)
+    runs = {}
+    for name, cfg in cfgs.items():
+        torch.cuda.synchronize(dev)
+        base = torch.cuda.memory_allocated(dev)
+        parts, step = build_step(cfg, shape, dev, seed=seed)
+        torch.cuda.synchronize(dev)
+        resident = {k: nbytes(v) for k, v in parts.items()}
+        rec = {"layers": cfg.num_layers, "batch": shape.global_batch, "ms": None,
+               "ms_runs": [], "transient_bytes": 0.0, "warmup_transient_bytes": 0.0,
+               "resident_bytes": resident,
+               "resident_total": sum(resident.values()), "storage_bytes": storage_bytes(parts),
+               "allocated_bytes": torch.cuda.memory_allocated(dev) - base,
+               "launches": None, "calls": 0,
+               "launches_total": {n: {k: 0 for k in by} for n, by in _counts().items()}}
+        runs[name] = (rec, parts, step)
+    for rec, _, step in runs.values():
+        rec["launches"] = _call(step, rec, shape, dev, timed=False)
+    for _ in range(timed):
+        for rec, _, step in runs.values():
+            _call(step, rec, shape, dev, timed=True)
+    out = {}
+    for name, (rec, _, _) in runs.items():
+        rec["ms"] = statistics.median(rec["ms_runs"]) if rec["ms_runs"] else None
+        if not rec["ms_runs"]:
+            rec["transient_bytes"] = rec["warmup_transient_bytes"]
+        out[name] = rec
+    del runs
+    torch.cuda.empty_cache()
+    return out
+
+
 def run_on_card(cfg: ModelConfig, shape: ShapeConfig, device, *, timed: int = TIMED_RUNS,
                 seed: int = 0) -> dict:
-    """One step of the config at the shape's batch on the card: the bytes
-    its state takes (tensor bytes, their storages' and the allocator's), a
-    warm-up counted for launches by variant (``launches``; every call's in
-    ``launches_total``), then ``timed`` calls timed by CUDA events (the
-    median), and the peak allocated above the resident state."""
-    dev = torch.device(device)
-    torch.cuda.synchronize(dev)
-    base = torch.cuda.memory_allocated(dev)
-    parts, step = build_step(cfg, shape, dev, seed=seed)
-    torch.cuda.synchronize(dev)
-    allocated = torch.cuda.memory_allocated(dev) - base
-    resident = {k: nbytes(v) for k, v in parts.items()}
-    storages = storage_bytes(parts)
-    torch.cuda.reset_peak_memory_stats(dev)
-    with _step_mode(shape):
-        _zero_counts()
-        out = step()
-        del out
-        launches = _counts()
-        ms = []
-        for _ in range(timed):
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = step()
-            end.record()
-            del out
-            end.synchronize()
-            ms.append(start.elapsed_time(end))
-    launches_total = _counts()
-    transient = torch.cuda.max_memory_allocated(dev) - base - allocated
-    del parts, step
-    torch.cuda.empty_cache()
-    return {"layers": cfg.num_layers, "batch": shape.global_batch,
-            "ms": statistics.median(ms) if ms else None, "ms_runs": ms,
-            "transient_bytes": float(transient), "resident_bytes": resident,
-            "resident_total": sum(resident.values()), "storage_bytes": storages,
-            "allocated_bytes": allocated, "launches": launches,
-            "launches_total": launches_total, "calls": 1 + timed}
+    """``run_in_turns`` of one config."""
+    return run_in_turns({"run": cfg}, shape, device, timed=timed, seed=seed)["run"]
 
 
 def calibration_depths(cfg: ModelConfig) -> dict[str, int]:
@@ -380,8 +428,9 @@ def measure_cell(cfg: ModelConfig, shape: ShapeConfig, device="cuda", *,
                  batch: Optional[int] = None, full_depth: bool = False) -> dict:
     """The cell's step measured on the card at depths M1, M2 (and M1t) and
     composed to full depth and to the global batch (module docstring).
-    ``batch`` fixes b; ``full_depth`` also measures the full-depth step at b
-    (the composition's check). Where M1 at b = 1 cannot fit by the plan's
+    ``batch`` fixes b; ``full_depth`` also measures the full-depth step at b,
+    all depths timed in turns (``run_in_turns``), and records the composed
+    ms and transient against it (``compose_vs_full``, composed / full - 1). Where M1 at b = 1 cannot fit by the plan's
     resident and output bytes, or M2 by ``measure_batch``, nothing runs and
     ``fits`` is False; a run that still exhausts the card's memory is
     recorded as such (``error``). Raises without a card."""
@@ -411,16 +460,22 @@ def measure_cell(cfg: ModelConfig, shape: ShapeConfig, device="cuda", *,
                        f"transient")
             return rec
         sb = with_batch(shape, batch)
-        for name, layers in depths.items():
-            rec[name] = run_on_card(cfg.replace(num_layers=layers), sb, dev)
         if full_depth:
-            rec["full"] = run_on_card(cfg, sb, dev)
+            cfgs = {name: cfg.replace(num_layers=n) for name, n in depths.items()}
+            rec.update(run_in_turns(dict(cfgs, full=cfg), sb, dev, timed=CHECK_TIMED_RUNS))
+        else:
+            for name, layers in depths.items():
+                rec[name] = run_on_card(cfg.replace(num_layers=layers), sb, dev)
     except torch.cuda.OutOfMemoryError as e:
         rec.update(fits=False, error=f"OutOfMemoryError: {str(e)[:300]}")
     if "error" in rec:  # the failed run's tensors are free once its traceback is
         torch.cuda.empty_cache()
         return rec
     rec["composed"] = compose_costs(rec, cfg)
+    if full_depth:
+        rec["compose_vs_full"] = {
+            "ms": rec["composed"]["ms"] / rec["full"]["ms"] - 1,
+            "transient": rec["composed"]["transient_bytes"] / rec["full"]["transient_bytes"] - 1}
     scale = shape.global_batch / batch
     rec["at_global_batch"] = {
         "ms": rec["composed"]["ms"] * scale,
@@ -463,9 +518,12 @@ def all_cells():
 
 
 def run_cell(arch: str, shape_name: str, *, device="cuda", measure: bool = False,
-             out_dir: str = RESULTS_DIR, force: bool = False) -> dict:
+             out_dir: str = RESULTS_DIR, force: bool = False,
+             check_batch: Optional[int] = None) -> dict:
     """Plan (and with ``measure``, measure) one cell; write and return its
-    record. An existing record is returned as it is unless ``force``."""
+    record. An existing record is returned as it is unless ``force``.
+    ``check_batch`` measures at that batch and at full depth too (the
+    composition's check, ``measure_cell``'s ``full_depth``)."""
     if os.path.realpath(out_dir) == os.path.realpath(REFERENCE_DIR):
         raise ValueError(f"{out_dir} holds the reference's dry-run records; write elsewhere")
     if measure and torch.device(device).type != "cuda":
@@ -491,7 +549,8 @@ def run_cell(arch: str, shape_name: str, *, device="cuda", measure: bool = False
             fixed, row = fixed_and_per_row(rec["plan"], shape.kind)
             rec["plan"].update(fixed_bytes=fixed, bytes_per_row=row)
             if measure:
-                rec["measured"] = measure_cell(cfg, shape, dev)
+                rec["measured"] = measure_cell(cfg, shape, dev, batch=check_batch,
+                                               full_depth=check_batch is not None)
             if dev.type == "cuda":
                 memory = torch.cuda.get_device_properties(dev).total_memory
                 at = rec.get("measured", {}).get("at_global_batch")
@@ -582,6 +641,9 @@ def main(argv=None) -> int:
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--measure", action="store_true", help="measure on the card too")
     ap.add_argument("--force", action="store_true")
+    ap.add_argument("--check", type=int, default=None, metavar="B",
+                    help="with --measure: measure at batch B and at full depth too, and "
+                         "print the composition against the full step")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="cpu: plan only (fits and max_batch are None)")
     ap.add_argument("--out", type=str, default=RESULTS_DIR)
@@ -593,15 +655,18 @@ def main(argv=None) -> int:
         return 0
     if not args.all and not (args.arch and args.shape):
         ap.error("give --arch and --shape, or --all")
+    if args.check is not None and not args.measure:
+        ap.error("--check needs --measure")
     cells = list(all_cells()) if args.all else [(args.arch, args.shape)]
     failed = 0
     for arch, shape_name in cells:
         t0 = time.perf_counter()
         rec = run_cell(arch, shape_name, device=args.device, measure=args.measure,
-                       out_dir=args.out, force=args.force)
+                       out_dir=args.out, force=args.force, check_batch=args.check)
         status = "SKIP" if rec.get("skipped") else ("OK" if rec.get("ok") else "FAIL")
-        print(f"[{status}] {arch} x {shape_name}  ({time.perf_counter() - t0:.1f}s)",
-              flush=True)
+        gaps = rec.get("measured", {}).get("compose_vs_full")
+        print(f"[{status}] {arch} x {shape_name}  ({time.perf_counter() - t0:.1f}s)"
+              + (f"  composed / full - 1: {json.dumps(gaps)}" if gaps else ""), flush=True)
         if status == "FAIL":
             failed += 1
             print(rec.get("error"), flush=True)

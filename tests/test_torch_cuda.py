@@ -69,8 +69,8 @@ def test_lora_kernel_matches_plain(cuda, M, K, N, r):
     # K not a multiple of the stage depth (64 for prefill, 8 x 32 for decode)
     (8, 776, 256, 16, "decode"), (1000, 776, 256, 16, "prefill"), (13, 40, 64, 16, "decode"),
     (4096, 2048, 768, 16, "prefill"), (8, 2048, 768, 16, "decode"),
-    # ranks
-    (8, 768, 768, 1, "generic"), (4096, 768, 768, 1, "generic"),
+    # ranks (1: A's rows 2 bytes apart, copied by the producer warps)
+    (8, 768, 768, 1, "decode"), (4096, 768, 768, 1, "prefill"),
     (8, 768, 768, 8, "decode"), (512, 768, 768, 8, "prefill"),
     (8, 768, 768, 64, "decode"), (512, 768, 768, 64, "prefill"),
     (4096, 768, 2048, 64, "prefill"), (200, 768, 2048, 32, "prefill"),
@@ -211,11 +211,129 @@ def test_lora_decode_is_deterministic_at_rank_256(cuda, K, N):
 
 @pytest.mark.parametrize("M,K,N,r,offset", [
     (4096, 768, 2048, 128, 1), (8, 768, 768, 128, 1),  # x one element off 16 bytes
-    (4096, 768, 2048, 100, 0), (8, 768, 768, 100, 0),  # r not a multiple of 8
-    (300, 768, 256, 264, 0), (8, 768, 256, 264, 0),  # r above 256
+    (8, 772, 768, 16, 0), (300, 772, 256, 100, 0),  # K not a multiple of 8
 ])
 def test_lora_generic_keeps_misaligned_and_odd_ranks(cuda, M, K, N, r, offset):
+    """What TMA cannot read at all (a misaligned pointer, rows of K or N
+    elements not 16-byte strided) stays on the first port's kernel."""
     _held(*_lora_bf16(cuda, M, K, N, r, seed=M + r, offset=offset), "generic")
+
+
+@pytest.mark.parametrize("M,K,N,r", [
+    (4096, 768, 2048, 100), (8, 768, 768, 100),  # r not a multiple of 8 (once on generic)
+    (300, 768, 256, 264), (8, 768, 256, 264),  # r above 256 (once on generic)
+    *[(M, 768, 2048 if M > 16 else 768, r) for r in (1, 4, 7, 100, 264, 512)
+      for M in (8, 37, 4096)],
+    (1000, 776, 256, 5), (8, 776, 256, 5),  # K not a multiple of a ring step
+    (16, 18432, 4608, 7), (13, 4096, 14336, 33),  # long K, 128-column slices
+    (300, 4096, 14336, 100), (16, 2048, 768, 1023),
+])
+def test_lora_any_aligned_rank_takes_prefill_and_decode(cuda, M, K, N, r):
+    """Every rank at TMA-readable K, N and pointers runs the Hopper variants:
+    ranks that are not a multiple of 8 with A's tiles copied by the producer
+    warps, ranks above 64 in two launches with u's scratch padded to a
+    multiple of 8 ranks; each within 2 bf16 ulps of the largest output of the
+    plain version."""
+    _held(*_lora_bf16(cuda, M, K, N, r, seed=M + N + r), "prefill" if M > 16 else "decode")
+
+
+@pytest.mark.parametrize("M,K,N,r", [
+    (4096, 768, 2048, 16), (300, 776, 256, 64), (4096, 768, 2048, 128),
+    (8, 768, 768, 16), (16, 2048, 768, 64), (8, 768, 768, 128), (12, 4096, 14336, 16),
+])
+def test_lora_copied_a_matches_the_tensor_map_at_aligned_ranks(cuda, M, K, N, r):
+    """The producer warps' copy of A (its placement in the 32- and 128-byte
+    swizzled tiles the wgmma descriptors read) at ranks TMA also reads: the
+    same result within 2 bf16 ulps of the plain version."""
+    from repro_torch.kernels import lora_matmul as binding
+
+    x, w, a, b = _lora_bf16(cuda, M, K, N, r, seed=M + r)
+    kind, extra = binding.plan(M, K, N, r, True)
+    assert extra[-1] == 0
+    y = binding.lora_matmul_cuda(x, w, a, b, 2.0, kind, extra[:-1] + (1,))
+    torch.cuda.synchronize()
+    ref = lora_matmul_ref(x, w, a, b, scale=2.0)
+    err = (y.float() - ref.float()).abs().max().item()
+    assert err <= _bf16_ulps(ref), (err, _bf16_ulps(ref))
+
+
+def _lora_f32(cuda, M, K, N, r, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn((M, K), generator=gen, device=cuda)
+    w, a, b = (torch.randn(s, generator=gen, device=cuda).mul(0.05)
+               for s in ((K, N), (K, r), (r, N)))
+    return x, w, a, b
+
+
+@pytest.mark.parametrize("M", [1, 2, 8, 16])
+@pytest.mark.parametrize("K,N,r", [
+    (768, 768, 16), (2048, 768, 16), (768, 300, 16), (777, 301, 5), (14336, 300, 33),
+    (3584, 299, 64), (768, 768, 80), (2048, 301, 128),
+])
+def test_lora_fp32_decode_matches_plain(cuda, no_tf32, M, K, N, r):
+    """The fp32 decode design (clusters splitting K, a cp.async ring, CUDA-core
+    FMAs; above 64 ranks u in a launch of its own) within 1e-5 of the
+    largest output of the plain version, N = 300 and odd widths included."""
+    x, w, a, b = _lora_f32(cuda, M, K, N, r, seed=M + K + N + r)
+    before = dict(lora_matmul.variant_launches)
+    y = lora_matmul(x, w, a, b, scale=2.0)
+    torch.cuda.synchronize()
+    moved = {k: v - before[k] for k, v in lora_matmul.variant_launches.items()}
+    assert moved == {k: int(k == "fp32") for k in moved}, moved
+    ref = lora_matmul_ref(x, w, a, b, scale=2.0)
+    err = (y - ref).abs().max().item()
+    assert err <= 1e-5 * ref.abs().max().item(), (err, ref.abs().max().item())
+
+
+@pytest.mark.parametrize("M,K,N,r", [(8, 2048, 768, 16), (2, 14336, 3584, 16),
+                                     (16, 768, 768, 128)])
+def test_lora_fp32_decode_is_deterministic(cuda, no_tf32, M, K, N, r):
+    """The fp32 decode design adds the warps' and the cluster's partials in a
+    fixed order: the same inputs give the same bits."""
+    x, w, a, b = _lora_f32(cuda, M, K, N, r, seed=3)
+    first = lora_matmul(x, w, a, b, scale=2.0)
+    for _ in range(3):
+        assert torch.equal(lora_matmul(x, w, a, b, scale=2.0), first)
+
+
+@pytest.mark.parametrize("M,K,N,r", [
+    (8, 768, 768, 16), (2, 14336, 3584, 16), (16, 777, 300, 33), (4, 64, 64, 16),
+    (8, 2048, 768, 128), (3, 3584, 1024, 5),
+])
+def test_lora_fp32_decode_reads_w_by_tma_or_cp_async(cuda, no_tf32, M, K, N, r):
+    """The fp32 decode design's two ways of reading W (A in the u launch
+    above 64 ranks), TMA and cp.async, give the same bits, within 1e-5 of
+    the largest output of the plain version."""
+    from repro_torch.kernels import lora_matmul as binding
+
+    x, w, a, b = _lora_f32(cuda, M, K, N, r, seed=M + K + r)
+    split, usplit, _, _, two = binding.plan(M, K, N, r, True, True)[1]
+    ys = [binding.lora_matmul_cuda(x, w, a, b, 2.0, "fp32", (split, usplit, 0, tma, two))
+          for tma in (0, 1)]
+    torch.cuda.synchronize()
+    assert torch.equal(ys[0], ys[1])
+    ref = lora_matmul_ref(x, w, a, b, scale=2.0)
+    err = (ys[1] - ref).abs().max().item()
+    assert err <= 1e-5 * ref.abs().max().item(), (err, ref.abs().max().item())
+
+
+@pytest.mark.parametrize("bn", [128, 64])
+@pytest.mark.parametrize("M,K,N,r", [
+    (4096, 768, 2048, 16), (4096, 4096, 1024, 16), (1000, 2048, 768, 128), (300, 777, 301, 33),
+    (130, 96, 130, 5), (4096, 768, 2048, 80),
+])
+def test_lora_fp32_prefill_in_two_launches_matches_plain(cuda, no_tf32, M, K, N, r, bn):
+    """The fp32 prefill's two launches (u = scale·x·A, then [x | scale·u]·[W;
+    B] in 3xTF32 on the tensor cores, each stage's sum added in fp32) within
+    1e-5 of the largest output of the plain version, up to K = 4096."""
+    from repro_torch.kernels import lora_matmul as binding
+
+    x, w, a, b = _lora_f32(cuda, M, K, N, r, seed=M + r)
+    y = binding.lora_matmul_cuda(x, w, a, b, 2.0, "fp32", (0, 0, bn, 0, 1))
+    torch.cuda.synchronize()
+    ref = lora_matmul_ref(x, w, a, b, scale=2.0)
+    err = (y - ref).abs().max().item()
+    assert err <= 1e-5 * ref.abs().max().item(), (err, ref.abs().max().item())
 
 
 @pytest.mark.parametrize("B,H,Kv,Sq,Skv,d,causal,window,softcap", [

@@ -329,6 +329,70 @@ def test_measure_cell_raises_without_a_card():
     assert not os.path.exists(os.path.join(PD.RESULTS_DIR, "never"))
 
 
+def test_cli_check_needs_measure(tmp_path):
+    with pytest.raises(SystemExit):
+        PD.main(["--arch", "mamba2-130m", "--shape", "train_4k", "--device", "cpu",
+                 "--check", "4", "--out", str(tmp_path)])
+    assert not list(tmp_path.iterdir())
+
+
+def test_run_in_turns_times_each_config_in_turn(monkeypatch):
+    """Every state is built before any call; a warm-up of each, then rounds
+    in which each step runs once in turn; ms the median of a step's timed
+    calls; the transient the timed calls' peak above what was allocated
+    before each call, the warm-up's kept apart (it holds what the process
+    allocates once)."""
+    calls, clock, mem = [], [0.0], {"now": 100, "peak": 100}
+
+    class Event:
+        def __init__(self, enable_timing=False):
+            self.t = None
+
+        def record(self):
+            self.t = clock[0]
+
+        def synchronize(self):
+            pass
+
+        def elapsed_time(self, other):
+            return other.t - self.t
+
+    def reset_peak(dev=None):
+        mem["peak"] = mem["now"]
+
+    def build_step(cfg, shape, dev, seed=0):
+        n = cfg.num_layers
+
+        def step():
+            calls.append(n)
+            first = calls.count(n) == 1
+            mem["peak"] = mem["now"] + 10 * n + (1000 if first else calls.count(n))
+            clock[0] += n * (2.0 if len(calls) == 5 else 1.0)
+            return None
+        return {"params": torch.zeros(n)}, step
+
+    for name, fn in {"synchronize": lambda dev=None: None, "empty_cache": lambda: None,
+                     "memory_allocated": lambda dev=None: mem["now"],
+                     "max_memory_allocated": lambda dev=None: mem["peak"],
+                     "reset_peak_memory_stats": reset_peak, "Event": Event}.items():
+        monkeypatch.setattr(torch.cuda, name, fn)
+    monkeypatch.setattr(PD, "build_step", build_step)
+    cfg = PC.smoke_variant(PC.get_arch("fedsllm-100m"))
+    shape = PC.ShapeConfig("p", "prefill", 8, 1)
+    runs = PD.run_in_turns({"m1": cfg.replace(num_layers=1), "m2": cfg.replace(num_layers=2),
+                            "full": cfg.replace(num_layers=4)}, shape, "cpu", timed=3)
+    assert calls == [1, 2, 4] * 4 and list(runs) == ["m1", "m2", "full"]
+    for name, n in (("m1", 1), ("m2", 2), ("full", 4)):
+        r = runs[name]
+        assert r["layers"] == n and r["calls"] == 4 and len(r["ms_runs"]) == 3
+        assert r["ms"] == n  # call 5 (m2's first timed) took twice its time: the median drops it
+        assert r["warmup_transient_bytes"] == 10 * n + 1000
+        assert r["transient_bytes"] == 10 * n + 4
+    assert runs["m2"]["ms_runs"] == [4.0, 2.0, 2.0]
+    one = PD.run_on_card(cfg.replace(num_layers=3), shape, "cpu", timed=0)
+    assert one["ms"] is None and one["transient_bytes"] == 30 + 1000
+
+
 def test_calibration_depths_are_the_references():
     for arch in RC.list_archs():
         cfg = PC.get_arch(arch)

@@ -22,7 +22,8 @@ from repro_torch.kernels.attn_ref import flash_attention_ref
 from repro_torch.kernels import flash_attention as flash_binding
 from repro_torch.kernels import lora_matmul as lora_binding
 from repro_torch.kernels.lora_ops import lora_matmul
-from repro_torch.kernels.lora_ref import lora_matmul_ref, lora_matmul_split_ref
+from repro_torch.kernels.lora_ref import (lora_matmul_fp32_split_ref, lora_matmul_ref,
+                                          lora_matmul_split_ref)
 from repro_torch.config import LoRAConfig, get_arch
 from repro_torch.models import layers as torch_layers
 from repro_torch.models import mamba2
@@ -61,6 +62,10 @@ LORA_CASES = [
     # ranks 72-256 (the Hopper variants' two-launch range), small M/K/N
     (128, 256, 128, 128, "float32"), (64, 128, 256, 256, "float32"),
     (128, 256, 128, 128, "bfloat16"), (64, 128, 256, 256, "bfloat16"),
+    # ranks that are not a multiple of 8 (the copied A tiles), one and two
+    # launches
+    (64, 128, 256, 5, "float32"), (64, 128, 256, 5, "bfloat16"),
+    (32, 256, 128, 100, "float32"), (32, 256, 128, 100, "bfloat16"),
 ]
 
 
@@ -142,13 +147,16 @@ def test_lora_wrapper_rejects_bad_inputs():
     (1, 768, 768, 16, True, "decode"),
     (8, 768, 300, 16, True, "generic"),  # N % 8
     (4096, 772, 768, 16, True, "generic"),  # K % 8
-    (8, 768, 768, 1, True, "generic"), (4096, 768, 768, 5, True, "generic"),  # r % 8
+    (8, 768, 768, 1, True, "decode"), (4096, 768, 768, 5, True, "prefill"),  # r % 8: A copied
     (4096, 768, 768, 80, True, "prefill"),  # r above 64, a multiple of 8 (once generic)
     # ranks 72-256: prefill and decode, in two launches
     *[(M, K, N, r, True, "prefill" if M > 16 else "decode")
       for r in (72, 128, 256) for M in (4096, 16, 8) for K, N in ((768, 2048), (4096, 14336))],
-    (4096, 768, 768, 264, True, "generic"), (8, 768, 768, 264, True, "generic"),  # r above 256
-    (4096, 768, 768, 100, True, "generic"), (8, 768, 768, 100, True, "generic"),  # r % 8
+    (4096, 768, 768, 264, True, "prefill"), (8, 768, 768, 264, True, "decode"),  # r above 256
+    (4096, 768, 768, 100, True, "prefill"), (8, 768, 768, 100, True, "decode"),  # r % 8
+    *[(M, 768, 2048, r, True, "prefill" if M > 16 else "decode")
+      for r in (4, 7, 512) for M in (4096, 37, 8)],
+    (8, 772, 768, 5, True, "generic"), (4096, 768, 300, 100, True, "generic"),  # K % 8, N % 8
     (8, 768, 768, 128, False, "generic"),  # misaligned
     (8, 768, 768, 16, False, "generic"), (4096, 768, 768, 16, False, "generic"),  # misaligned
     (8, 200_000, 768, 64, True, "decode"),  # the decode ring's size does not grow with K
@@ -159,10 +167,100 @@ def test_lora_variant_rule(M, K, N, r, aligned, expected):
     assert lora_binding.variant(M, K, N, r, aligned) == expected
     kind, extra = lora_binding.plan(M, K, N, r, aligned)
     assert kind == expected
-    usplit = lora_binding.decode_split(K, r) if r > 64 else 0
-    want = {"prefill": (lora_binding.prefill_tile_n(M, N, r),),
-            "decode": (lora_binding.decode_tile_n(N), lora_binding.decode_split(K, N), usplit)}
+    usplit = lora_binding.decode_split(K, lora_binding.scratch_ranks(r)) if r > 64 else 0
+    copy_a = int(r % 8 != 0)
+    want = {"prefill": (lora_binding.prefill_tile_n(M, N, r), copy_a),
+            "decode": (lora_binding.decode_tile_n(N), lora_binding.decode_split(K, N), usplit,
+                       copy_a)}
     assert extra == want.get(kind, ())
+
+
+@pytest.mark.parametrize("r,r8", [(1, 8), (5, 8), (8, 8), (63, 64), (100, 104), (264, 264),
+                                  (512, 512), (1023, 1024)])
+def test_lora_scratch_ranks_pad_u_to_a_multiple_of_8(r, r8):
+    """Above 64 ranks the bf16 u scratch is (2, M, r8): rows of r8 ranks are
+    16-byte strided, so the product's tensor map reads them; B keeps r rows."""
+    assert lora_binding.scratch_ranks(r) == r8
+
+
+@pytest.mark.parametrize("M,K,N,r,extra", [
+    # the decode design at M <= 16: clusters of fp32_decode_split blocks, W by
+    # TMA (where it can)
+    (8, 768, 768, 16, (8, 0, 0, 1, 0)), (8, 2048, 768, 16, (8, 0, 0, 1, 0)),
+    (8, 768, 2048, 16, (8, 0, 0, 1, 0)), (8, 768, 256, 16, (8, 0, 0, 1, 0)),
+    (1, 768, 768, 5, (8, 0, 0, 1, 0)), (16, 768, 300, 64, (8, 0, 0, 1, 0)),
+    (4, 64, 64, 16, (2, 0, 0, 1, 0)),  # a smoke decode: no more blocks than K has 32-row steps
+    (2, 3584, 14336, 16, (1, 0, 0, 1, 0)), (2, 14336, 3584, 16, (5, 0, 0, 1, 0)),  # gemma2-9b
+    # above 64 ranks: u in a launch of its own (N = r), the product over K + r
+    (8, 768, 768, 80, (8, 8, 0, 1, 1)), (8, 768, 768, 128, (8, 8, 0, 1, 1)),
+    (2, 64, 64, 200, (8, 2, 0, 1, 1)), (8, 14336, 4096, 128, (4, 8, 0, 1, 1)),
+    # the prefill design: one launch for launch-bound shapes at up to 16
+    # ranks (the smoke configs'), two from FP32_TWO_LAUNCH_WORK (2^24) or
+    # above 16 ranks, the product's tiles 128 or 64 wide
+    (17, 768, 768, 16, (0, 0, 0, 0, 0)), (128, 64, 64, 16, (0, 0, 0, 0, 0)),
+    (128, 296, 64, 16, (0, 0, 0, 0, 0)), (128, 256, 256, 16, (0, 0, 0, 0, 0)),
+    (128, 384, 384, 16, (0, 0, 64, 0, 1)), (32, 768, 768, 16, (0, 0, 64, 0, 1)),
+    (128, 64, 64, 17, (0, 0, 64, 0, 1)), (128, 64, 64, 64, (0, 0, 64, 0, 1)),
+    (4096, 768, 256, 16, (0, 0, 64, 0, 1)),
+    (4096, 768, 768, 16, (0, 0, 128, 0, 1)), (4096, 2048, 768, 16, (0, 0, 128, 0, 1)),
+    (4096, 768, 2048, 16, (0, 0, 128, 0, 1)), (4096, 768, 2048, 128, (0, 0, 128, 0, 1)),
+    (37, 96, 130, 100, (0, 0, 64, 0, 1)), (16384, 3584, 14336, 16, (0, 0, 128, 0, 1)),
+])
+def test_lora_fp32_plan(M, K, N, r, extra):
+    assert lora_binding.plan(M, K, N, r, True, True) == ("fp32", extra)
+    assert lora_binding.plan(M, K, N, r, False, True) == ("fp32", extra)  # any alignment
+
+
+@pytest.mark.parametrize("K,N,split", [
+    (768, 768, 8), (2048, 768, 8), (768, 2048, 8), (768, 256, 8),  # fedsllm-100m: 96-256 blocks
+    (64, 64, 2), (40, 24, 2),  # no more blocks than K has 32-row steps
+    (3584, 14336, 1), (14336, 3584, 5), (18432, 4608, 4),  # 224, 280 and 288 blocks
+])
+def test_lora_fp32_decode_split_gives_about_two_blocks_an_sm(K, N, split):
+    assert lora_binding.fp32_decode_split(K, N) == split
+
+
+@pytest.mark.parametrize("M,r,smem", [
+    # stages of 32 rows of x (4, 8 or 16 rows), W (64 columns) and A (16, 32
+    # or 64 ranks), 6 or as many as leave room for two blocks an SM, beside
+    # the partials of x·W and u, the whole u, the 6 slots' barriers and the
+    # 128 bytes that align the ring for TMA
+    (4, 16, 4 * (6 * 32 * (4 + 64 + 16) + 4 * 64 + 2 * 4 * 16) + 176),
+    (8, 16, 4 * (6 * 32 * (8 + 64 + 16) + 8 * 64 + 2 * 8 * 16) + 176),
+    (8, 5, 4 * (6 * 32 * (8 + 64 + 16) + 8 * 64 + 2 * 8 * 16) + 176),
+    (16, 64, 4 * (5 * 32 * (16 + 64 + 64) + 16 * 64 + 2 * 16 * 64) + 176),
+    (16, 33, 4 * (6 * 32 * (16 + 64 + 64) + 16 * 64 + 2 * 16 * 64) + 176),
+    (8, 128, 4 * (6 * 32 * (8 + 64) + 8 * 64) + 176),  # above 64 ranks: no A, no u
+])
+def test_lora_fp32_decode_smem_matches_the_kernel_layout(M, r, smem):
+    """fp32_decode_smem_bytes mirrors csrc/lora_matmul.cu fp32::Dec::SMEM,
+    and two blocks fit on an SM (each also reserves 1 KB)."""
+    got = lora_binding.fp32_decode_smem_bytes(M, r)
+    assert 2 * (got + 1024) <= 233_472
+    if (M, r) != (16, 33):
+        assert got == smem
+    else:  # 6 stages of 64 ranks do not fit two blocks: 5, as at r = 64
+        assert got == lora_binding.fp32_decode_smem_bytes(16, 64) < smem
+
+
+@pytest.mark.parametrize("M,K,N,r,dtype", [
+    (8, 768, 300, 16, "float32"), (2, 777, 130, 5, "float32"), (16, 200, 64, 100, "float32"),
+    (1, 96, 64, 64, "float32"),
+])
+def test_lora_fp32_decode_order_matches_pallas_and_ref(M, K, N, r, dtype):
+    """The fp32 decode design sums in a fixed order (the cluster's K slices,
+    each warp's rows of every step; above 64 ranks [x | scale·u]·[W; B]):
+    its plain mirror against the Pallas kernel in interpret mode and both
+    plain versions at the reference's fp32 tolerance."""
+    (jx, tx), (jw, tw), (ja, ta), (jb, tb) = (_pair(t, dtype) for t in _lora_inputs(M, K, N, r))
+    split, usplit = lora_binding.plan(M, K, N, r, True, True)[1][:2]
+    y = lora_matmul_fp32_split_ref(tx, tw, ta, tb, scale=2.0, split=split,
+                                   usplit=max(usplit, 1))
+    for want in (jax_lora_matmul(jx, jw, ja, jb, scale=2.0),
+                 jax_lora_matmul_ref(jx, jw, ja, jb, scale=2.0)):
+        np.testing.assert_allclose(_np(y), _np(want), rtol=TOL[dtype], atol=TOL[dtype])
+    ref = lora_matmul_ref(tx, tw, ta, tb, scale=2.0)
+    assert (y - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
 
 
 @pytest.mark.parametrize("N,r,expected", [
@@ -225,6 +323,37 @@ def test_lora_decode_smem_matches_the_kernel_layout():
             smem = lora_binding.decode_smem_bytes(M, 200_000, N)
             assert 2 * (smem + 1024) <= 233_472
             assert smem == lora_binding.decode_smem_bytes(M, 100_000, N)
+
+
+@pytest.mark.parametrize("r,copied", [(5, True), (63, True), (16, False)])
+def test_lora_decode_smem_with_copied_a(r, copied):
+    """At r % 8 != 0 the decode's stages also hold the staging rows of A's
+    copied tile (64 rows of 144 bytes: a K-row's 64 ranks may straddle 9
+    16-byte chunks). M=8, K=N=768: 2 steps a block; K=18432: as many stages
+    as leave room for two blocks an SM, 4 (6 without the copy)."""
+    stage = 64 * 8 * 2 + 64 * 64 * 2 + 64 * 64 * 2 + (64 * 144 if copied else 0)
+    fixed = 1024 + 8 * 64 * 4 + 2 * 8 * 64 * 4 + 256
+    assert lora_binding.decode_smem_bytes(8, 768, 768, r) == fixed + 2 * stage
+    assert lora_binding.decode_smem_bytes(8, 18432, 768, r) == fixed + (4 if copied else 6) * stage
+    for M in (1, 8, 9, 16):
+        for N in (768, 4608, 22528):
+            assert 2 * (lora_binding.decode_smem_bytes(M, 200_000, N, r) + 1024) <= 233_472
+
+
+@pytest.mark.parametrize("r,copied", [(100, True), (264, False), (512, False), (1023, True)])
+def test_lora_decode_u_smem_at_any_rank(r, copied):
+    """The decode's u launch above 64 ranks: N = r8 columns (A in W's place,
+    copied at r % 8 != 0), its K split by decode_split of r8; two blocks an
+    SM at every K."""
+    r8 = lora_binding.scratch_ranks(r)
+    split = lora_binding.decode_split(768, r8)
+    stage = 64 * 8 * 2 + 64 * 64 * 2 + (64 * 144 if copied else 0)
+    fixed = 1024 + 8 * 64 * 4 + 256
+    steps = -(-(-(-768 // split)) // 64)
+    assert lora_binding.decode_u_smem_bytes(8, 768, r) == fixed + steps * stage
+    for M in (1, 8, 16):
+        assert 2 * (lora_binding.decode_u_smem_bytes(M, 200_000, r) + 1024) <= 233_472
+    assert 2 * (lora_binding.decode_smem_bytes(16, 200_000, 22528, r) + 1024) <= 233_472
 
 
 @pytest.mark.parametrize("r", [128, 256])
