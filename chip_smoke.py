@@ -89,8 +89,10 @@ then
   8. cli     — the entry points a user runs, and the variants they need:
                (a) the fp32 LoRA and flash variants, bf16 LoRA at ranks other
                than 16 (``prefill`` and ``decode`` at ranks 4, 80, 100, 128,
-               256 and 512 up to mistral-7b's w_gate) and ``generic`` at a
-               misaligned x; fp32 LoRA at fedsllm-100m's shapes, ranks 80 and
+               256 and 512 up to mistral-7b's w_gate) and at the shapes a
+               tensor map cannot read (x one element off 16 bytes, K or N %
+               8 != 0: ``prefill`` and ``decode`` with the producers'
+               copied tiles); fp32 LoRA at fedsllm-100m's shapes, ranks 80 and
                128, and gemma2-9b's M=2 decode shapes) against their plain
                versions at full width, TF32 off (limits ``CLI_LIMITS``),
                with event, device, plain, library and bound times (fp32
@@ -209,7 +211,7 @@ then
 Prints the compiled kernels' registers and spills, the card's name and power
 limit, a ``{"kernels": [...]}`` line (the three kernels on the bf16 serving
 paths, then each variant of the fp32 serve path of phase 8 and the bf16
-LoRA variants at ranks other than 16 (prefill, decode) and generic, then phase 9's
+LoRA variants at ranks other than 16 and with copied tiles (prefill, decode), then phase 9's
 flash variants at head dims 256 and 128 and the LoRA kernel on each of its
 serves, then phase 10's and phase 11's LoRA kernel and flash on each of
 their serves, then phase 12's 32k rows), and last
@@ -304,7 +306,11 @@ VARIANTS = {"lora_matmul": lora_matmul.variant_launches,
 # before each change; r=100 at prefill: this script's phase 8 (a) on that
 # checkout); fp32: the first fp32 SIMT tile's CUDA-graph device times
 # before its Hopper redesign (this script's phase 8 (a) on the checkout
-# before it; gemma2-9b's M=2 shapes: ``compare_kernels.py`` against it)
+# before it; gemma2-9b's M=2 shapes: ``compare_kernels.py`` against it);
+# bf16 shapes a tensor map cannot read (x misaligned, K or N % 8 != 0) and
+# fp32 flash: the generic variant's and the SIMT fp32 flash kernel's
+# CUDA-graph device times before their Hopper designs (``compare_kernels.py``
+# against the checkout before the change, NVIDIA H100 80GB HBM3, 700 W)
 EARLIER_US = {
     **{("lora_matmul", "bfloat16", *k): v for k, v in {
         (4096, 768, 768, 16): 93.3, (4096, 768, 256, 16): 74.5, (4096, 768, 2048, 16): 221.2,
@@ -323,6 +329,17 @@ EARLIER_US = {
         (4096, 768, 2048, 80): 705.8, (4096, 768, 2048, 128): 721.0, (8, 768, 768, 80): 173.2,
         (8, 768, 768, 128): 178.4, (4096, 768, 768, 16): 187.5, (8, 768, 256, 16): 88.7,
         (2, 3584, 14336, 16): 404.2, (2, 14336, 3584, 16): 1595.7,
+        }.items()},
+    **{("lora_matmul", "bfloat16", *k): v for k, v in {
+        (4096, 768, 2048, 16, "misaligned"): 527.8, (8, 768, 768, 16, "misaligned"): 66.3,
+        (8, 772, 768, 16): 67.1, (4096, 772, 768, 16): 217.0, (8, 768, 300, 16): 51.9,
+        (4096, 768, 300, 16): 142.9,
+        }.items()},
+    **{("flash_attention", "float32", *k): v for k, v in {
+        (8, 512, 12, 4, 64, 0, 0.0): 210.1, (8, 512, 12, 4, 64, 0, 50.0): 231.5,
+        (8, 512, 12, 4, 64, 128, 0.0): 100.8, (2, 512, 8, 2, 128, 0, 0.0): 140.4,
+        (2, 8192, 16, 8, 256, 0, 50.0): 58314.0, (2, 8192, 16, 8, 256, 4096, 50.0): 42445.0,
+        (4, 32, 4, 2, 16, 0, 0.0): 3.63,
         }.items()},
     ("flash_attention",): 140.2, ("ssd_scan",): 485.1,
 }
@@ -498,15 +515,21 @@ def judge(row: dict) -> dict:
     the library call's, or at most 10 µs at a bf16 decode shape whose bound
     is below 5 µs, and both at such an fp32 one), and its device time's share
     of the bound."""
-    key = (row["kernel"], row["dtype"], row["M"], row["K"], row["N"], row["r"]) \
-        if row["kernel"] == "lora_matmul" else (row["kernel"],)
-    # (the earlier times are of aligned inputs: a misaligned row has none)
-    earlier = None if row.get("misaligned") else EARLIER_US.get(key)
+    if row["kernel"] == "lora_matmul":  # (a misaligned row's are the copied shapes')
+        key = (row["kernel"], row["dtype"], row["M"], row["K"], row["N"], row["r"],
+               *(("misaligned",) if row.get("misaligned") else ()))
+    elif row.get("dtype") == "float32":
+        key = tuple(row[k] for k in ("kernel", "dtype", "B", "S", "H", "Kv", "d", "window",
+                                     "softcap"))
+    else:
+        key = (row["kernel"],)
+    earlier = EARLIER_US.get(key)
     row["earlier_ms"] = earlier / 1e3 if earlier else None
     row["floor_met"] = None if earlier is None else row["ms"] <= earlier / 2e3
     row["floor_met_device"] = None if earlier is None else row["device_ms"] <= earlier / 2e3
     row["bound_share"] = row["bound_ms"] / row["device_ms"]
-    fp32_decode = row.get("variant") == "fp32" and row["M"] <= lora_binding.DECODE_MAX_M
+    fp32_decode = (row["kernel"] == "lora_matmul" and row.get("variant") == "fp32"
+                   and row["M"] <= lora_binding.DECODE_MAX_M)
     if row.get("variant") == "decode" and row["bound_ms"] < DECODE_TARGET_MS / 2:
         row["target"], row["target_met"] = "device_ms <= 0.010", row["device_ms"] <= DECODE_TARGET_MS
     elif fp32_decode and row["bound_ms"] < DECODE_TARGET_MS / 2:
@@ -604,7 +627,7 @@ def path_variants(cfg) -> dict[str, dict[str, int]]:
     per_forward = sum(lora_shapes(cfg).values()) * cfg.num_layers
     ssm = cfg.layer_pattern == "M"
     return {"lora_matmul": {"prefill": per_forward, "decode": per_forward * (NEW - 1),
-                            "generic": 0, "fp32": 0},
+                            "fp32": 0},
             "flash_attention": {"wgmma": 0 if ssm else cfg.num_layers, "wmma": 0, "fp32": 0},
             "ssd_scan": {"wgmma": cfg.num_layers if ssm else 0, "fma": 0}}
 
@@ -2016,20 +2039,24 @@ def attn_row(gen, dev, B, S, H, Kv, d, dtype, window=0, softcap=0.0, launches=No
 # at prefill and its wq at decode, at ranks 80, 128 and 256 (two launches),
 # 4 (A's tiles copied by the producer warps), 100 (copied, two launches) and
 # 512, and mistral-7b's w_gate (K=4096, N=14336) at rank 128, all on prefill
-# or decode; then the generic variant at a shape TMA cannot read (x one
-# element off 16 bytes)
+# or decode; then prefill and decode at shapes TMA cannot read (the first
+# port's generic kernel's before their copied tiles): (M, K, N, r, x one
+# element off 16 bytes), x misaligned at fedsllm-100m's w_gate (prefill) and
+# wq (decode), K = 772 and N = 300 at both
 WIDE_RANKS = [(BATCH * PROMPT, 768, 2048, r) for r in (80, 128, 256, 4, 100, 512)] + \
     [(BATCH, 768, 768, r) for r in (80, 128, 256, 4, 100, 512)] + \
     [(BATCH * PROMPT, 4096, 14336, 128), (BATCH, 4096, 14336, 128)]
-GENERIC_MISALIGNED = (BATCH * PROMPT, 768, 2048, 16)
+COPIED = [(BATCH * PROMPT, 768, 2048, 16, True), (BATCH, 768, 768, 16, True),
+          (BATCH, 772, 768, 16, False), (BATCH * PROMPT, 772, 768, 16, False),
+          (BATCH, 768, 300, 16, False), (BATCH * PROMPT, 768, 300, 16, False)]
 # fp32 decode at gemma2-9b's MLP (M = 2, its served batch): w_gate/w_up and
 # w_down, 205 MB of W each, rank 16
 GEMMA_FP32_DECODE = [(2, 3584, 14336), (2, 14336, 3584)]
 
 
 def new_variants(dev) -> tuple[list, list]:
-    """Part (a): the fp32 variant, bf16 ranks other than 16 and the generic
-    variant against their plain versions (TF32 off), with their times and
+    """Part (a): the fp32 variant, bf16 ranks other than 16 and the shapes a
+    tensor map cannot read against their plain versions (TF32 off), with their times and
     verdicts (``judge``), at full width (the smoke shapes are
     ``smoke_serve_rows'``)."""
     gen = torch.Generator(device=dev).manual_seed(8)
@@ -2052,8 +2079,10 @@ def new_variants(dev) -> tuple[list, list]:
         assert expected == ("decode" if M <= 16 else "prefill")
         rows.append(lora_row(gen, dev, M, K, N, r, torch.bfloat16, scale, expected=expected,
                              iters=30 if K * N > 10 ** 7 else 100, at="rank != 16"))
-    rows.append(lora_row(gen, dev, *GENERIC_MISALIGNED, torch.bfloat16, scale, expected="generic",
-                         misaligned=True, at="misaligned"))
+    for M, K, N, r, misaligned in COPIED:
+        rows.append(lora_row(gen, dev, M, K, N, r, torch.bfloat16, scale,
+                             expected="decode" if M <= 16 else "prefill", misaligned=misaligned,
+                             at="copied tiles"))
     for row in rows:
         judge(row)
     H, Kv, d = full.num_heads, full.num_kv_heads, full.head_dim
@@ -2061,8 +2090,8 @@ def new_variants(dev) -> tuple[list, list]:
                dict(B=BATCH, S=PROMPT, H=H, Kv=Kv, d=d, window=128),
                dict(B=BATCH, S=PROMPT, H=H, Kv=Kv, d=d, softcap=50.0),
                dict(B=2, S=300, H=4, Kv=2, d=32, window=64, softcap=30.0)):
-        rows.append(dict(attn_row(gen, dev, dtype=torch.float32, iters=50, **kw),
-                         expected="fp32"))
+        rows.append(judge(dict(attn_row(gen, dev, dtype=torch.float32, iters=50, **kw),
+                               expected="fp32")))
     for row in rows:
         log(f"[cli] (a) {json.dumps(row)}")
     return rows, row_fails(rows)
@@ -2146,6 +2175,53 @@ def smoke_serve(dev) -> tuple[dict, list]:
     return out, fails
 
 
+def ssd_row(gen, dev, B, S, H, P, N, chunk, launches=None, iters=50, **meta) -> dict:
+    """One fp32 SSD scan shape (the ``fma`` variant) against the sequential
+    recurrence, 1e-4 of the largest output, with event, device, plain and
+    bound times (fp32 operations at ``PEAK_FP32``; no library call computes
+    it)."""
+    nbytes, ops = ssd_work(B, S, H, P, N, chunk, 4, False)
+    sets = [ssd_inputs(gen, B, S, H, P, N, dev) for _ in range(4)]
+    call = lambda x, dt, A, Bm, Cm, h: ssd_scan(x, dt, A, Bm, Cm)  # noqa: E731
+    y, h = call(*sets[0])
+    torch.cuda.synchronize()
+    yr, hr = ssd_scan_ref(*sets[0][:5])
+    b_ms, b_by = bound_ms(nbytes, ops, PEAK_FP32)
+    row = dict(kernel="ssd_scan", dtype="float32", B=B, S=S, H=H, P=P, N=N, **meta,
+               variant=ran_variant("ssd_scan", lambda: call(*sets[0])), expected="fma",
+               err=max((y - yr).abs().max().item(), (h - hr).abs().max().item()),
+               tol=1e-4 * max(yr.abs().max().item(), hr.abs().max().item()),
+               launches=launches, ms=time_ms(call, sets, iters),
+               **device_time_ms(call, sets, bound=b_ms),
+               plain_ms=time_ms(lambda x, dt, A, Bm, Cm, h: ssd_scan_ref(x, dt, A, Bm, Cm),
+                                sets, 2),
+               library_ms=None, **library(None), bound_ms=b_ms, bound_by=b_by)
+    row["bound_share"] = b_ms / row["device_ms"]
+    return row
+
+
+def next_rows(dev) -> list:
+    """The first port's kernels still to be redesigned, timed beside their
+    bounds and SDPA where it computes the same function: bf16 flash on
+    ``wmma`` at head dims 16 and 32 and at rows one element off 16 bytes at
+    64 (fedsllm-100m's prefill), 128 (phi4-mini's) and 256 (gemma2-9b's
+    heads at S=2048, no softcap), and the SSD scan's ``fma`` at mamba2-130m's
+    widths in fp32 (B=8 × 512, 24 heads of 64, N=128)."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    rows = [dict(attn_row(gen, dev, BATCH, PROMPT, 12, 4, d, torch.bfloat16, iters=20), at=at,
+                 expected="wmma") for d, at in ((16, "head dim 16"), (32, "head dim 32"))]
+    for B, S, H, Kv, d in ((BATCH, PROMPT, 12, 4, 64), (BATCH, PROMPT, 24, 8, 128),
+                           (2, 2048, 16, 8, 256)):
+        rows.append(dict(attn_row(gen, dev, B, S, H, Kv, d, torch.bfloat16, iters=10,
+                                  misaligned=True), at="misaligned", expected="wmma"))
+    _, H, Pd, N, _ = M2.dims(get_arch("mamba2-130m"))
+    rows.append(ssd_row(gen, dev, BATCH, PROMPT, H, Pd, N, get_arch("mamba2-130m").ssm_chunk,
+                        iters=20, at="mamba2-130m widths"))
+    for row in rows:
+        log(f"[cli] (a) next {json.dumps(row)}")
+    return rows
+
+
 def smoke_serve_rows(dev, launched: dict) -> tuple[list, list]:
     """The fp32 serve path's kernels against their plain versions, with their
     times, at the shapes one ``launch.serve --smoke`` call of each arch gives
@@ -2163,28 +2239,13 @@ def smoke_serve_rows(dev, launched: dict) -> tuple[list, list]:
                                      expected="fp32"))
         if cfg.layer_pattern == "M":
             _, H, Pd, N, _ = M2.dims(cfg)
-            nbytes, ops = ssd_work(B, P, H, Pd, N, cfg.ssm_chunk, 4, False)
-            sets = [ssd_inputs(gen, B, P, H, Pd, N, dev) for _ in range(4)]
-            call = lambda x, dt, A, Bm, Cm, h: ssd_scan(x, dt, A, Bm, Cm)  # noqa: E731
-            y, h = call(*sets[0])
-            torch.cuda.synchronize()
-            yr, hr = ssd_scan_ref(*sets[0][:5])
-            b_ms, b_by = bound_ms(nbytes, ops, PEAK_FP32)
-            row = dict(kernel="ssd_scan", path=arch, dtype="float32", B=B, S=P, H=H, P=Pd, N=N,
-                       variant=ran_variant("ssd_scan", lambda: call(*sets[0])), expected="fma",
-                       err=max((y - yr).abs().max().item(), (h - hr).abs().max().item()),
-                       tol=1e-4 * max(yr.abs().max().item(), hr.abs().max().item()),
-                       launches=cfg.num_layers, ms=time_ms(call, sets, 50),
-                       **device_time_ms(call, sets, bound=b_ms),
-                       plain_ms=time_ms(lambda x, dt, A, Bm, Cm, h: ssd_scan_ref(x, dt, A, Bm, Cm),
-                                        sets, 5),
-                       library_ms=None, **library(None), bound_ms=b_ms, bound_by=b_by)
-            row["bound_share"] = b_ms / row["device_ms"]
-            rows.append(row)
+            rows.append(ssd_row(gen, dev, B, P, H, Pd, N, cfg.ssm_chunk, launches=cfg.num_layers,
+                                path=arch))
         else:
-            rows.append(dict(attn_row(gen, dev, B, P, cfg.num_heads, cfg.num_kv_heads,
-                                      cfg.head_dim, torch.float32, launches=cfg.num_layers,
-                                      iters=50), path=arch, expected="fp32"))
+            rows.append(judge(dict(attn_row(gen, dev, B, P, cfg.num_heads, cfg.num_kv_heads,
+                                            cfg.head_dim, torch.float32,
+                                            launches=cfg.num_layers, iters=50),
+                                   path=arch, expected="fp32")))
     for row in rows:
         log(f"[cli] (b) serve-path row {json.dumps(row)}")
     # the rows' launches are those the two smoke serve calls made
@@ -2429,6 +2490,9 @@ def phase_cli(dev) -> tuple[dict, list]:
         fails += more
     rows, more = smoke_serve_rows(dev, result["serve"])
     result["serve_rows"] = rows
+    result["next"] = next_rows(dev)
+    more += [r for r in result["next"] if r["variant"] != r["expected"] or not (
+        r["ok"] if r["kernel"] == "flash_attention" else r["err"] <= r["tol"])]
     result["fails"] = fails + more
     result["seconds"] = time.perf_counter() - t0
     (OUT / "cli.json").write_text(json.dumps(result, indent=1, default=str))
@@ -2439,25 +2503,28 @@ def phase_cli(dev) -> tuple[dict, list]:
 
 def rank_entries(cli) -> list[dict]:
     """The kernels line's entries of the bf16 LoRA variants at ranks other
-    than 16: ``prefill`` and ``decode`` (ranks 80-512 and 4 and 100, A's
-    tiles copied where r % 8 != 0; two launches a call above 64) and
-    ``generic`` (x misaligned), each with its times summed over phase 8
-    (a)'s rows that ran it (one launch at each shape) and its launches in
-    the full-width bf16 serve that reaches it (``--lora-rank 100``; no
-    served path reaches ``generic``: its launches are 0)."""
+    than 16 (``prefill`` and ``decode`` at ranks 80-512 and 4 and 100, A's
+    tiles copied where r % 8 != 0; two launches a call above 64) and at the
+    shapes a tensor map cannot read (``prefill`` and ``decode`` with copied
+    tiles: x misaligned, K or N % 8 != 0), each with its times summed over
+    phase 8 (a)'s rows that ran it (one launch at each shape) and its
+    launches in the full-width bf16 serve that reaches it (``--lora-rank
+    100``; no served path has a shape that needs copied x, W or B tiles:
+    their launches are 0)."""
     out = []
-    for variant, serve_call in (("prefill", "fedsllm-100m rank 100 (bf16)"),
-                                ("decode", "fedsllm-100m rank 100 (bf16)"),
-                                ("generic", None)):
+    for variant, at, serve_call in (("prefill", "rank != 16", "fedsllm-100m rank 100 (bf16)"),
+                                    ("decode", "rank != 16", "fedsllm-100m rank 100 (bf16)"),
+                                    ("prefill", "copied tiles", None),
+                                    ("decode", "copied tiles", None)):
         mine = [r for r in cli["variants"] if r["kernel"] == "lora_matmul"
-                and r["dtype"] == "bfloat16" and r["variant"] == variant]
+                and r["dtype"] == "bfloat16" and r["variant"] == variant and r["at"] == at]
         total = {k: sum(r[k] for r in mine)
                  for k in ("ms", "device_ms", "graph_ms", "plain_ms", "bound_ms", "library_ms",
                            "library_device_ms")}
         by_bytes = sum(r["bound_ms"] for r in mine if r["bound_by"] == "bytes")
         launches = 0 if serve_call is None else \
             cli["serve"][serve_call]["variants"]["lora_matmul"][variant]
-        out.append({"name": f"lora_matmul/{variant}" + (" r!=16" if variant != "generic" else ""),
+        out.append({"name": f"lora_matmul/{variant}" + (" r!=16" if serve_call else " copied"),
                     "route": "cuda", "source": "src/repro_torch/csrc/lora_matmul.cu",
                     "replaces": "src/repro/kernels/lora_matmul.py:51", "variant": variant,
                     "launches": launches, "launches_in": serve_call,
@@ -2471,6 +2538,36 @@ def rank_entries(cli) -> list[dict]:
                            + ", ".join(f"{r['M']}x{r['K']}x{r['N']} r={r['r']}"
                                        + (" x misaligned" if r["misaligned"] else "")
                                        for r in mine)})
+    return out
+
+
+def next_entries(cli) -> list[dict]:
+    """The kernels line's entries of the first port's kernels still to be
+    redesigned, from phase 8 (a)'s ``next_rows``: flash ``wmma`` (bf16 head
+    dims 16 and 32, rows one element off 16 bytes) and the SSD scan's
+    ``fma`` at mamba2-130m's widths in fp32, times summed over one launch at
+    each shape (no served path reaches them at these shapes: launches 0)."""
+    out = []
+    for kernel, variant, source, replaces in (
+            ("flash_attention", "wmma", "src/repro_torch/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:84"),
+            ("ssd_scan", "fma", "src/repro_torch/csrc/ssd_scan.cu",
+             "src/repro/kernels/ssd_scan.py:71")):
+        mine = [r for r in cli["next"] if r["kernel"] == kernel]
+        total = {k: sum(r[k] for r in mine)
+                 for k in ("ms", "device_ms", "graph_ms", "plain_ms", "bound_ms")}
+        for key in ("library_ms", "library_device_ms"):
+            lib = [r[key] for r in mine]
+            total[key] = None if None in lib else sum(lib)
+        by_bytes = sum(r["bound_ms"] for r in mine if r["bound_by"] == "bytes")
+        out.append({"name": f"{kernel}/{variant} next", "route": "cuda", "source": source,
+                    "replaces": replaces, "variant": variant, "launches": 0,
+                    "max_abs_err": max(r["err"] for r in mine), **total,
+                    "bound_by": "bytes" if by_bytes >= total["bound_ms"] / 2 else "operations",
+                    "per": "one launch at each shape: " + ", ".join(
+                        r.get("at", "") + f" B={r['B']} S={r['S']} H={r['H']}"
+                        + (f" d={r['d']}" if "d" in r else f" P={r['P']} N={r['N']}")
+                        for r in mine)})
     return out
 
 
@@ -2552,6 +2649,8 @@ def dense_kernels(dev) -> tuple[list, list]:
     rows.append(attn_row(gen, dev, B, 300, H, Kv, d, torch.bfloat16, 64, cap, iters=20,
                          misaligned=True, case="misaligned", expected="wmma"))
     for row in rows:
+        if row["dtype"] == "float32":
+            judge(row)
         log(f"[dense] (a) {json.dumps(row)}")
     return rows, [r for r in rows if not r["ok"] or r["variant"] != r["expected"]]
 
@@ -4062,7 +4161,7 @@ def main() -> int:
     del ctx
     campaign = phase_campaign(dev)
     cli, rows = phase_cli(dev)
-    kernels += variant_entries(rows) + rank_entries(cli)
+    kernels += variant_entries(rows) + rank_entries(cli) + next_entries(cli)
     dense, more = phase_dense(dev)
     kernels += more
     families, more = phase_families(dev)

@@ -16,8 +16,11 @@ global and windowed to 4096) and of the LoRA kernel at
 fedsllm-100m's prefill (M=4096) and decode (M=8) shapes and at the dense
 family's large decode shapes (rank 16), at fedsllm-100m's shapes at rank 128
 and at a few shapes at ranks 4, 100, 128, 256 and 512 up to mistral-7b's
-w_gate (K=4096, N=14336), in fp32 (TF32 off) at fedsllm-100m's shapes
-(ranks 16, 80 and 128) and gemma2-9b's decode MLP (M=2), and the host's
+w_gate (K=4096, N=14336), at the shapes a tensor map cannot read (x one
+element off 16 bytes, K or N not a multiple of 8: tiles copied by the
+producers), in fp32 (TF32 off) at fedsllm-100m's shapes (ranks 16, 80 and
+128) and gemma2-9b's decode MLP (M=2), flash attention in fp32 at the
+same rows and the smoke serve's (B=4, S=32, d=16), and the host's
 time a call at fedsllm-100m's decode shapes; at the fp32 smoke serves'
 shapes (``launch.serve --smoke``: B=4, prompt 32, 16 new tokens) also the
 host's time and the event time a call (back-to-back calls between two
@@ -31,16 +34,19 @@ imports both sides' ``repro_torch`` into one process and calls their public
 LoRA wrapper in turns at the fp32 smoke serves' shapes, blocks of calls
 alternating between the sides, so that the host's drift between processes
 cancels: each side's median host and event ms a call, and both summed over
-the 288 launches.
+the 288 launches; then their flash attention at the fp32 smoke serve's
+shape (B=4, S=32, 4 heads over 2, d=16; 2 launches a serve) the same way.
 
     python3 compare_kernels.py --sweep
 
 times the choices of this checkout's LoRA rule against their alternatives
 (graph and event ms a call; one JSON line each): the fp32 prefill in one
 launch or two at rank 16 (``FP32_TWO_LAUNCH_WORK``), the fp32 decode
-reading W by TMA or by cp.async (the rule takes TMA wherever it can), and
-the bf16 prefill's tile width at ranks 17-63 not a multiple of 8 (A
-copied; ``prefill_tile_n``).
+reading W by TMA or by cp.async (the rule takes TMA wherever it can), the
+bf16 prefill's tile width at ranks 17-63 not a multiple of 8 (A
+copied; ``prefill_tile_n``), and the bf16 prefill and decode with x's or
+W's tiles copied by the producers (a view one element off 16 bytes)
+against the same values read by TMA.
 """
 
 from __future__ import annotations
@@ -54,6 +60,14 @@ from pathlib import Path
 # B, S, H, Kv, d, window, softcap: fedsllm-100m's prefill, phi4-mini's, gemma2-9b's
 FLASH = [(8, 512, 12, 4, 64, 0, 0.0), (8, 512, 12, 4, 64, 0, 50.0), (8, 512, 24, 8, 128, 0, 0.0),
          (2, 8192, 16, 8, 256, 0, 50.0), (2, 8192, 16, 8, 256, 4096, 50.0)]
+# the same in fp32 (the fp32 variant), with chip_smoke.py's fp32 rows: B=2,
+# 8/2 heads at d=128, fedsllm-100m's with a window of 128, the smoke serve's
+FLASH_FP32 = FLASH + [(2, 512, 8, 2, 128, 0, 0.0), (8, 512, 12, 4, 64, 128, 0.0),
+                      (4, 32, 4, 2, 16, 0, 0.0)]
+# bf16 LoRA where a tensor map cannot read an operand (M, K, N, r, x one
+# element off 16 bytes): chip_smoke.py's misaligned rows, K % 8 and N % 8
+COPIED = [(4096, 768, 2048, 16, True), (8, 768, 768, 16, True), (8, 772, 768, 16, False),
+          (4096, 772, 768, 16, False), (8, 768, 300, 16, False), (4096, 768, 300, 16, False)]
 LORA = [(4096, 768, 2048), (4096, 2048, 768), (4096, 768, 768), (8, 768, 768), (8, 2048, 768),
         (8, 768, 2048), (8, 768, 256), (8, 18432, 4608), (8, 22528, 8192), (2, 14336, 3584),
         (2, 3584, 14336)]  # M, K, N at rank 16
@@ -135,6 +149,12 @@ def lora_sets(torch, randn, M, K, N, r, dtype):
             for _ in range(n)]
 
 
+def shift(torch, t):
+    """t's values in a view one element off its buffer's 16-byte aligned
+    start: no tensor map reads it."""
+    return torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view_as(t).copy_(t)
+
+
 def measure(root: Path) -> dict:
     """One side: every metric of the module docstring, with `root`'s kernels."""
     sys.path.insert(0, str(root / "src"))
@@ -150,13 +170,22 @@ def measure(root: Path) -> dict:
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
 
     out = {}
-    for B, S, H, Kv, d, window, cap in FLASH:
-        sets = [(randn(B, S, H, d).transpose(1, 2), randn(B, S, Kv, d).transpose(1, 2),
-                 randn(B, S, Kv, d).transpose(1, 2)) for _ in range(2 if S > 512 else 8)]
+    flash = [(*f, torch.bfloat16) for f in FLASH] + [(*f, torch.float32) for f in FLASH_FP32]
+    for B, S, H, Kv, d, window, cap, dtype in flash:
+        sets = [(randn(B, S, H, d, dtype=dtype).transpose(1, 2),
+                 randn(B, S, Kv, d, dtype=dtype).transpose(1, 2),
+                 randn(B, S, Kv, d, dtype=dtype).transpose(1, 2)) for _ in range(2 if S > 512 else 8)]
         fn = lambda q, k, v: flash_attention(q, k, v, causal=True, window=window,  # noqa: E731
                                              softcap=cap)
-        out[f"flash d={d} S={S} window={window} softcap={cap:g}"] = graph_ms(
+        name = "flash" + (" fp32" if dtype == torch.float32 else "")
+        out[f"{name} d={d} B={B} S={S} H={H}/{Kv} window={window} softcap={cap:g}"] = graph_ms(
             torch, fn, sets, 4 if S > 512 else 50)
+        del sets
+    for M, K, N, r, shifted in COPIED:
+        sets = [(shift(torch, x) if shifted else x, w, a, b)
+                for x, w, a, b in lora_sets(torch, randn, M, K, N, r, torch.bfloat16)]
+        fn = lambda x, w, a, b: lora_matmul(x, w, a, b, scale=2.0)  # noqa: E731
+        out[f"lora copied {M}x{K}x{N}" + (" x+1" if shifted else "")] = graph_ms(torch, fn, sets)
         del sets
     rows = [(*s, 16, torch.bfloat16) for s in LORA] + [(*s, torch.bfloat16) for s in HIGH]
     for M, K, N, r, dtype in rows + [(*s, torch.float32) for s in FP32]:
@@ -231,6 +260,27 @@ def sweep() -> None:
         for M, K, N in [(4096, 768, 768), (4096, 2048, 768)]:
             row("bf16 prefill copied-A tile", M, K, N, r, torch.bfloat16, {
                 f"bn={bn}": ("prefill", (bn, 1)) for bn in (128, 192)})
+    # bf16 prefill and decode: x's or W's tiles copied by the producers (the
+    # same values one element off 16 bytes) or read by TMA, at fedsllm-100m's
+    # and gemma2-9b's shapes; the copied launch's tile as the rule picks it
+    for M, K, N in [(4096, 768, 2048), (4096, 2048, 768), (8, 768, 768), (8, 768, 2048),
+                    (8, 3584, 14336), (8, 14336, 3584)]:
+        for operand in ("x", "w"):
+            sets = lora_sets(torch, randn, M, K, N, 16, torch.bfloat16)
+            res = dict(sweep=f"bf16 copied {operand} against TMA", M=M, K=K, N=N, r=16,
+                       MKN=M * K * N)
+            for label, aligned in (("tma", True), ("copied", False)):
+                kind, extra = binding.plan(M, K, N, 16, aligned)
+                use = sets if aligned else [
+                    (shift(torch, x), w, a, b) if operand == "x" else (x, shift(torch, w), a, b)
+                    for x, w, a, b in sets]
+                fn = lambda x, w, a, b: binding.lora_matmul_cuda(  # noqa: E731
+                    x, w, a, b, 2.0, kind, extra)
+                res[f"{label} graph"] = graph_ms(torch, fn, use)
+                res[f"{label} event"] = event_ms(torch, fn, use)
+                res[f"{label} extra"] = list(extra)
+            print(json.dumps(res), flush=True)
+            del sets
 
 
 def host_ab(other: Path, rounds: int = 15, calls: int = 200) -> None:
@@ -240,13 +290,14 @@ def host_ab(other: Path, rounds: int = 15, calls: int = 200) -> None:
 
     import torch
 
-    fns = {}
+    fns, flash = {}, {}
     for side, root in (("other", other), ("this", Path(__file__).resolve().parent)):
         for name in [m for m in sys.modules if m.split(".")[0] == "repro_torch"]:
             del sys.modules[name]
         sys.path.insert(0, str(root / "src"))
+        from repro_torch.kernels.attn_ops import flash_attention
         from repro_torch.kernels.lora_ops import lora_matmul
-        fns[side] = lora_matmul
+        fns[side], flash[side] = lora_matmul, flash_attention
         sys.path.pop(0)
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -287,7 +338,32 @@ def host_ab(other: Path, rounds: int = 15, calls: int = 200) -> None:
              for k in next(iter(med.values()))[0]}
     print(json.dumps({"smoke serves fp32, 288 launches (ms)": total,
                       "ratio host": total["this host"] / total["other host"],
-                      "ratio event": total["this event"] / total["other event"]}))
+                      "ratio event": total["this event"] / total["other event"]}), flush=True)
+    sets = [tuple(randn(4, 32, n, 16).transpose(1, 2) for n in (4, 2, 2)) for _ in range(4)]
+    times = {side: {"host": [], "event": []} for side in flash}
+    for side, fn in flash.items():
+        for q, k, v in sets:
+            fn(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    for i in range(rounds):
+        for side in (("other", "this") if i % 2 == 0 else ("this", "other")):
+            fn = flash[side]
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            t0 = time.perf_counter()
+            for j in range(calls):
+                q, k, v = sets[j % len(sets)]
+                fn(q, k, v, causal=True)
+            t = time.perf_counter() - t0
+            end.record()
+            end.synchronize()
+            times[side]["host"].append(t / calls * 1e3)
+            times[side]["event"].append(start.elapsed_time(end) / calls)
+    row = {f"{side} {k}": statistics.median(v) for side, d in times.items() for k, v in d.items()}
+    print(json.dumps({"shape": "flash fp32 B=4 S=32 4/2 d=16, the smoke serve's", **row,
+                      "ratio host": row["this host"] / row["other host"],
+                      "ratio event": row["this event"] / row["other event"]}))
 
 
 def main() -> int:

@@ -6,9 +6,10 @@
 // l and the output accumulator in fp32; scale 1/sqrt(d) before the softcap
 // c·tanh(s/c); masked scores set to -1e30 (-inf in the wgmma variant: the
 // same weights); l clamped at 1e-30. Query head h reads kv head h / (H / Kv),
-// with no repeated K/V. P is rounded to bf16 for the P·V product, as flash
-// attention does on GPUs (the TPU kernel keeps it in fp32: that is the one
-// numerical difference). q, k, v and o are read and written in the model's
+// with no repeated K/V. In bf16 P is rounded to bf16 for the P·V product, as
+// flash attention does on GPUs (the TPU kernel keeps it in fp32, as the fp32
+// variant does: that is the one numerical difference). q, k, v and o are
+// read and written in the model's
 // (B, S, heads, d) layout through strides, so no transposed copies are
 // made, and ragged Sq/Skv are masked in the kernel.
 //
@@ -50,18 +51,25 @@
 //   V 64 x 264 bf16, P 64 x 72 bf16, S 64 x 68 and O 64 x 260 fp32): one
 //   block of 4 warps on an SM.
 // * fp32 (fp32 inputs, head dims 16, 32, 64, 128, 256, any strides; the
-//   smoke configs serve in fp32): SIMT, fp32 FMAs on the CUDA cores, P kept in
-//   fp32 as the TPU kernel keeps it. What bounds it is the fp32 CUDA-core
-//   rate. One block of 4 warps per 32 query rows of one (batch, head); a
-//   warp owns 8 rows. Per 32-key tile (K staged transposed and padded, so
-//   the lanes read neighbouring words), lane j computes the scores of key j
-//   for the warp's 8 rows (Q rows read as broadcast float4s), the online
-//   softmax reduces each row across the warp with shuffles, and P goes
-//   through a per-warp shared buffer into O += P·V, each lane holding O for
-//   its rows at d/32 columns (two half-warps of 4 rows at d = 16; 8 rows x 8
-//   columns, 64 accumulators, at d = 256, 103,424 bytes of shared memory).
-//   Only the tiles up to the causal frontier and from the window's start
-//   are read.
+//   smoke configs serve in fp32): 3xTF32 on wgmma, P kept in fp32 as the TPU
+//   kernel keeps it (namespace tf32x3). What bounds it is the tensor cores'
+//   TF32 rate over three products (165 TFLOP/s of fp32 work). Each fp32
+//   operand is split into a TF32 big and small term and three products
+//   (small·big, big·small, big·big) are taken, for S = Q·Kᵀ and for O +=
+//   P·V, with tc's schedule: one block per two query tiles (nq-1-i, then
+//   i) of 64 rows, only the key tiles up to the causal frontier and from the
+//   window's start, masks only at the edges, the softcap as tc's. Two
+//   producer warpgroups copy Q once a pass and K and V a chunk of 64 keys x
+//   64 dims at a time into raw slots by cp.async (16- or 8-byte copies
+//   where rows are 16-byte aligned, 4-byte copies otherwise, so every
+//   stride takes this variant), split them and write the terms as K-major
+//   tiles of the 128-byte swizzle (V transposed); one consumer warpgroup
+//   runs the wgmmas,
+//   S into registers, the online softmax there, P's terms as the register
+//   operand of P·V, each key tile's P·V summed from zero and added into O in
+//   fp32 (the tensor cores' sums are not rounded to nearest).
+//   kernels/attn_ref.py ``flash_attention_tf32x3_ref`` mirrors its
+//   arithmetic.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -673,194 +681,440 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, 
 }  // namespace legacy
 
 // ===========================================================================
-// fp32: SIMT online softmax, for fp32 inputs
+// fp32: 3xTF32 on wgmma, for fp32 inputs
 // ===========================================================================
-namespace simt {
+namespace tf32x3 {
 
-constexpr int BQ = 32, BKV = 32;  // query rows of a block, keys of a tile
-constexpr int ROWS = 8;           // query rows of a warp
-constexpr int NTHREADS = 128;     // 4 warps
-constexpr int KLD = BKV + 1;      // K tile stored transposed (d x keys), padded
-constexpr float NEG_INF = -1e30f;
+constexpr int BKV = 64;         // keys of a tile
+constexpr int TILE = 64 * 128;  // a column block of a 64-row term tile: rows of 32 fp32
+constexpr size_t SMEM_MAX = 227 * 1024;
 
+// One consumer warpgroup of 64 query rows and two producer warpgroups, and
+// their register budgets: a consumer holds O's D/2 accumulators, S's and
+// P's 64 and a tile's P·V (PIPE_PV: two of its pieces in flight, below d =
+// 256). setmaxnreg moves registers within the block's allocation at launch
+// (THREADS x what ptxas may give each at this size), so the budgets must
+// fit in it. On the card neither a third or fourth producer warpgroup nor
+// a deeper prefetch ran faster; two consumer warpgroups sharing the chunks
+// (128 query rows a block, 184-192 registers each) spilled and ran 1.2-2x
+// slower.
+constexpr int BQ = 64, PT = 256, THREADS = 128 + PT;
+constexpr int PRODUCER_REGS = 96, CONSUMER_REGS = 248;
+static_assert(PT * PRODUCER_REGS + 128 * CONSUMER_REGS <= THREADS * (65536 / THREADS / 8 * 8),
+              "the register budgets exceed the block's allocation");
+
+// Q's terms stay in shared memory for the whole pass; K and V come through a
+// ring of STAGES slots of one chunk each: a K chunk is 64 keys x NC dims
+// (K-major, as Q), a V chunk NC dims x 64 keys (transposed: TF32 wgmma
+// takes K-major operands only), each as its big and its small term. Each
+// job (a chunk of Q, K or V) first lands as loaded in one of RS raw slots
+// (64 rows x NC fp32). At d = 256 Q's terms take 128 KB: 64-dim chunks keep
+// 2 ring slots and 2 raw slots in what is left, and O's 128 accumulators
+// leave registers for P·V's sum of a tile in 32-column pieces (VN).
 template <int D>
-constexpr size_t smem_bytes() {
-  return (size_t)(BQ * D + D * KLD + BKV * D + NTHREADS / 32 * ROWS * BKV) * sizeof(float);
-}
+struct Layout {
+  static constexpr bool PIPE_PV = D < 256;
+  static constexpr int NC = D < 64 ? D : 64;           // dims of a chunk
+  static constexpr int NCH = D / NC;                   // chunks of a head dim
+  static constexpr int VN = D == 256 ? 32 : NC;        // P·V's columns a wgmma
+  static constexpr int Q_TERM = (D + 31) / 32 * TILE;  // one of Q's terms: 64 rows x D
+  static constexpr int K_TERM = (NC + 31) / 32 * TILE;  // one of a K chunk's: 64 keys x NC
+  static constexpr int V_TERM = NC * 2 * 128;           // one of a V chunk's: NC dims x 64 keys
+  static constexpr int SLOT = 2 * (K_TERM > V_TERM ? K_TERM : V_TERM);
+  static constexpr int RAW = 64 * NC * 4, RS = D == 256 ? 2 : 3;
+  static constexpr int FIT = (int)((SMEM_MAX - 2048 - 2 * Q_TERM - RS * RAW) / SLOT);
+  static constexpr int STAGES = FIT < 4 ? FIT : 4;
+  static constexpr size_t SMEM =
+      1024 + 2 * (size_t)Q_TERM + (size_t)STAGES * SLOT + (size_t)RS * RAW + 256;
+  static_assert(STAGES >= 2 && SMEM <= SMEM_MAX, "tiles too large for shared memory");
+};
 
-__device__ __forceinline__ float warp_max(float v) {
+// the rows of one (batch, head) of q, k or v: row i at p + i·s, `rows` rows;
+// vec: every row 16-byte aligned (16- and 8-byte copies)
+struct View {
+  const float* p;
+  long long s;
+  int rows;
+  bool vec;
+};
+
+// cp.async of n = 4 or 2 values of row `row` at column col (zeros past the
+// last row) into dst
+template <int N>
+__device__ __forceinline__ void copy(float* dst, const View& v, int row, int col) {
+  const bool in = row < v.rows;
+  const float* src = in ? v.p + row * v.s + col : v.p;
+  if (v.vec) {
+    if (N == 4) hopper::cp_async16(dst, src, in ? 16 : 0);
+    else hopper::cp_async8(dst, src, in ? 8 : 0);
+    return;
+  }
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+  for (int i = 0; i < N; ++i) hopper::cp_async4(dst + i, in ? src + i : v.p, in ? 4 : 0);
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
+// A producer thread's share (pt of PT) of a K-major chunk: rows r0 + [0,
+// 64) at columns c0 + [0, NC), 4 columns a copy, into the raw slot (row i
+// at raw + i·NC); it reads back only what it copied
+template <int NC>
+__device__ __forceinline__ void copy_rows(float* raw, const View& v, int r0, int c0, int pt) {
+  constexpr int C4 = NC / 4;
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+  for (int e = 0; e < 16 * NC / PT; ++e) {
+    const int f = pt + PT * e, row = f / C4, col = 4 * (f % C4);
+    copy<4>(raw + row * NC + col, v, r0 + row, c0 + col);
+  }
 }
 
-// 4 consecutive floats of row `row` (base + row·stride, d contiguous) at
-// column c; zeros for a row at or past nrows
-__device__ __forceinline__ float4 load4(const float* __restrict__ base, long long stride,
-                                        int row, int nrows, int c, bool vec) {
-  if (row >= nrows) return make_float4(0.f, 0.f, 0.f, 0.f);
-  const float* p = base + row * stride + c;
-  if (vec) return *reinterpret_cast<const float4*>(p);
-  return make_float4(p[0], p[1], p[2], p[3]);
+// ... its terms into the big and small tiles at row offset rb (column cb +
+// [0, NC) of their 128-byte rows of 32 fp32, one column block of 64 rows a
+// 32)
+template <int NC>
+__device__ __forceinline__ void put_rows(unsigned char* big, unsigned char* small,
+                                         const float* raw, int cb, int pt) {
+  constexpr int C4 = NC / 4;
+#pragma unroll
+  for (int e = 0; e < 16 * NC / PT; ++e) {
+    const int f = pt + PT * e, row = f / C4, col = 4 * (f % C4);
+    const float4 x = *reinterpret_cast<const float4*>(raw + row * NC + col);
+    uint32_t b[4], s[4];
+    hopper::split_tf32(x.x, b[0], s[0]);
+    hopper::split_tf32(x.y, b[1], s[1]);
+    hopper::split_tf32(x.z, b[2], s[2]);
+    hopper::split_tf32(x.w, b[3], s[3]);
+    const int at = ((cb + col) / 32) * TILE, c = ((cb + col) % 32) / 4;
+    hopper::put_chunk(big + at, row, c, b[0], b[1], b[2], b[3]);
+    hopper::put_chunk(small + at, row, c, s[0], s[1], s[2], s[3]);
+  }
 }
 
+// A V chunk in units u = pt + PT·e < 4·NC: columns c0 + 2·(u % (NC/2)) +
+// {0, 1} of keys k0 + 8·(u / (NC/2)) + [0, 8), one 8-key step of two rows
+// of the transposed tile, copied into the raw slot (a warp's copies and
+// reads run along a key's row)
+template <int NC>
+__device__ __forceinline__ void copy_cols(float* raw, const View& v, int k0, int c0, int pt) {
+#pragma unroll
+  for (int e = 0; e < (4 * NC + PT - 1) / PT; ++e) {
+    const int u = pt + PT * e;
+    if (u >= 4 * NC) return;
+    const int col = 2 * (u % (NC / 2)), key = 8 * (u / (NC / 2));
+#pragma unroll
+    for (int j = 0; j < 8; ++j) copy<2>(raw + (key + j) * NC + col, v, k0 + key + j, c0 + col);
+  }
+}
+
+// ... into rows (dims) of the transposed tiles (NC rows x 128 bytes per 32
+// keys). The P·V wgmma takes P from its accumulator registers, where a
+// thread holds keys 2q and 2q + 1 of each 8 (q = lane % 4) but the register
+// operand's k index is q and q + 4: so k index q holds key 2q and q + 4 key
+// 2q + 1, here as in P's fragment (keys 0, 2, 4, 6 in the step's first 16
+// bytes, 1, 3, 5, 7 in its second). A unit writes row 2dp + ((dp/4 + ii) &
+// 1) at step ii (dp = u % (NC/2)): a warp's 16-byte writes then cover all 8
+// swizzled positions of a 128-byte row (4 wavefronts for 512 bytes).
+template <int NC>
+__device__ __forceinline__ void put_cols(unsigned char* big, unsigned char* small,
+                                         const float* raw, int pt) {
+#pragma unroll
+  for (int e = 0; e < (4 * NC + PT - 1) / PT; ++e) {
+    const int u = pt + PT * e;
+    if (u >= 4 * NC) return;
+    const int dp = u % (NC / 2), kg = u / (NC / 2), c = 2 * (kg % 4);
+    unsigned char* bb = big + (kg / 4) * NC * 128;
+    unsigned char* sb = small + (kg / 4) * NC * 128;
+    float2 x[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      x[j] = *reinterpret_cast<const float2*>(raw + (8 * kg + j) * NC + 2 * dp);
+#pragma unroll
+    for (int ii = 0; ii < 2; ++ii) {
+      const bool odd = ((dp >> 2) + ii) & 1;
+      const int n = 2 * dp + odd;
+      uint32_t b[8], s[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) hopper::split_tf32(odd ? x[j].y : x[j].x, b[j], s[j]);
+      hopper::put_chunk(bb, n, c, b[0], b[2], b[4], b[6]);
+      hopper::put_chunk(bb, n, c + 1, b[1], b[3], b[5], b[7]);
+      hopper::put_chunk(sb, n, c, s[0], s[2], s[4], s[6]);
+      hopper::put_chunk(sb, n, c + 1, s[1], s[3], s[5], s[7]);
+    }
+  }
+}
+
+// keeps P's terms (read by the P·V wgmmas as registers) unchanged until
+// those wgmmas are done
+__device__ __forceinline__ void hold(const float (&pb)[32], const uint32_t (&ps)[32]) {
+#pragma unroll
+  for (int e = 0; e < 32; ++e) asm volatile("" ::"f"(pb[e]), "r"(ps[e]) : "memory");
+}
+
+// O's columns base + [0, VN) += a tile's P·V piece
+template <int D, int VN>
+__device__ __forceinline__ void add_piece(float (&oacc)[D / 2], const float (&tacc)[VN / 2],
+                                          int base) {
+#pragma unroll
+  for (int e = 0; e < VN / 2; ++e) oacc[base / 2 + e] += tacc[e];
+}
+
+// vec: bit 0, 1, 2: q, k, v rows 16-byte aligned; bit 3: o's 8-byte aligned
 template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-flash_attention_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                            const float* __restrict__ v, float* __restrict__ o, int H, int Kv,
-                            int Sq, int Skv, Strides qst, Strides kst, Strides vst, Strides ost,
-                            int causal, int window, float softcap, float scale) {
-  constexpr int DL = D < 32 ? D : 32;  // lanes across d in P·V
-  constexpr int RG = 32 / DL;          // row groups of a warp in P·V (2 at d = 16)
-  constexpr int RPL = ROWS / RG;       // rows of a lane in P·V
-  constexpr int EPL = D / DL;          // columns of a lane in P·V
-  constexpr int C4 = D / 4;            // float4s of a row
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* qs = reinterpret_cast<float*>(smem);  // BQ x D     query rows
-  float* kt = qs + BQ * D;                     // D x KLD    K tile, transposed
-  float* vs = kt + D * KLD;                    // BKV x D    V tile
-  float* ps = vs + BKV * D;                    // 4 warps x ROWS x BKV   probabilities
+__global__ void __launch_bounds__(THREADS, 1)
+kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+       float* __restrict__ o, int H, int Kv, int Sq, int Skv, Strides qst, Strides kst,
+       Strides vst, Strides ost, int causal, int window, float softcap, float scale, int vec) {
+  using L = Layout<D>;
+  constexpr int NC = L::NC, NCH = L::NCH, VN = L::VN, SUBS = NC / VN, STAGES = L::STAGES;
+  constexpr int QT = L::Q_TERM, KT = L::K_TERM, VT = L::V_TERM, SLOT = L::SLOT;
+  constexpr bool PIPE_PV = L::PIPE_PV;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* qs =
+      reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~1023ull);
+  unsigned char* ring = qs + 2 * QT;  // Q's big term, then its small one, then the slots
+  float* raw = reinterpret_cast<float*>(ring + STAGES * SLOT);  // then RS raw slots
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * SLOT + L::RS * L::RAW);
+  uint64_t* empty = full + STAGES;
+  uint64_t* qfull = empty + STAGES;
+  uint64_t* qempty = qfull + 1;
 
-  const int nq = (Sq + BQ - 1) / BQ;
-  const int q0 = (nq - 1 - (int)blockIdx.x) * BQ;  // longest causal rows first
-  const int h = blockIdx.y, bi = blockIdx.z;
-  const int kvh = h / (H / Kv);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int row0 = warp * ROWS;
-  float* pw = ps + warp * ROWS * BKV;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int nq = (Sq + BQ - 1) / BQ, bx = blockIdx.x;
+  const int passes = nq - 1 - bx > bx ? 2 : 1;  // the middle tile of an odd nq alone
+  const int h = blockIdx.y, bi = blockIdx.z, kvh = h / (H / Kv);
 
-  const float* qb = q + bi * qst.b + h * qst.h;
-  const float* kb = k + bi * kst.b + kvh * kst.h;
-  const float* vb = v + bi * vst.b + kvh * vst.h;
-  float* ob = o + bi * ost.b + h * ost.h;
-  const bool q_vec = qst.s % 4 == 0 && (reinterpret_cast<uintptr_t>(qb) & 15) == 0;
-  const bool k_vec = kst.s % 4 == 0 && (reinterpret_cast<uintptr_t>(kb) & 15) == 0;
-  const bool v_vec = vst.s % 4 == 0 && (reinterpret_cast<uintptr_t>(vb) & 15) == 0;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], PT / 32);  // every producer warp's arrive
+      hopper::mbar_init(&empty[s], 1);       // the consumer warpgroup's
+    }
+    hopper::mbar_init(qfull, PT / 32);
+    hopper::mbar_init(qempty, 1);
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
 
-  for (int i = threadIdx.x; i < BQ * C4; i += NTHREADS)
-    *reinterpret_cast<float4*>(qs + (i / C4) * D + (i % C4) * 4) =
-        load4(qb, qst.s, q0 + i / C4, Sq, (i % C4) * 4, q_vec);
+  // pass p's query tile and its key tiles [tb_p, te_p)
+  const int q00 = (nq - 1 - bx) * BQ, q01 = bx * BQ;
+  int tb0, te0, tb1 = 0, te1 = 0;
+  kv_range(q00, BQ, Skv, causal, window, tb0, te0);
+  if (passes > 1) kv_range(q01, BQ, Skv, causal, window, tb1, te1);
 
-  // KV tiles that hold at least one unmasked key for some row of this block
-  int t_end = (Skv + BKV - 1) / BKV;
-  if (causal) t_end = min(t_end, (q0 + BQ - 1) / BKV + 1);
-  int t_begin = 0;
-  if (window > 0) {
-    const int lo = q0 - window - (BKV - 1);
-    t_begin = lo < 0 ? 0 : lo / BKV + 1;
+  if (warp >= 4) {
+    // Producers: each job is one chunk (a pass's NCH chunks of Q, then each
+    // key tile's NCH chunks of K and NCH of V), shared by the PT threads:
+    // cp.async into a raw slot (16- or 8-byte copies where the rows are
+    // 16-byte aligned, 4-byte otherwise: every stride takes this path), RS
+    // - 1 jobs ahead, then each thread reads back what it copied, splits it
+    // and writes the terms. A V job's copies fall on other threads' values
+    // of the K job the slot held before, so the producers pass a barrier
+    // before a slot is filled again.
+    hopper::setmaxnreg_dec<PRODUCER_REGS>();
+    constexpr int RS = L::RS;
+    const int pt = tid - 128;
+    const View qv{q + bi * qst.b + h * qst.h, qst.s, Sq, (vec & 1) != 0};
+    const View kvw{k + bi * kst.b + kvh * kst.h, kst.s, Skv, (vec & 2) != 0};
+    const View vv{v + bi * vst.b + kvh * vst.h, vst.s, Skv, (vec & 4) != 0};
+    const int jobs0 = NCH + 2 * NCH * (te0 - tb0);
+    const int total = jobs0 + (passes > 1 ? NCH + 2 * NCH * (te1 - tb1) : 0);
+    // the terms' writes, visible to the tensor cores, then one arrive a warp
+    auto arrive = [&](uint64_t* bar) {
+      hopper::fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(bar);
+    };
+    auto issue = [&](int g) {  // job g's copies into raw slot g % RS, as one group
+      if (g < total) {
+        const bool second = g >= jobs0;
+        const int j = g - (second ? jobs0 : 0);
+        float* dst = raw + (g % RS) * (L::RAW / 4);
+        if (j < NCH) {
+          copy_rows<NC>(dst, qv, second ? q01 : q00, j * NC, pt);
+        } else {
+          const int t = (second ? tb1 : tb0) + (j - NCH) / (2 * NCH), c = (j - NCH) % (2 * NCH);
+          if (c < NCH) copy_rows<NC>(dst, kvw, t * BKV, c * NC, pt);
+          else copy_cols<NC>(dst, vv, t * BKV, (c - NCH) * NC, pt);
+        }
+      }
+      hopper::cp_async_commit();
+    };
+#pragma unroll
+    for (int g = 0; g < RS - 1; ++g) issue(g);
+    for (int g = 0; g < total; ++g) {
+      hopper::named_sync(1, PT);  // every producer is done with job g - 1's slot
+      issue(g + RS - 1);
+      hopper::cp_async_wait<RS - 1>();  // job g's copies (this thread's) have landed
+      const float* src = raw + (g % RS) * (L::RAW / 4);
+      const bool second = g >= jobs0;
+      const int j = g - (second ? jobs0 : 0);
+      if (j < NCH) {  // Q's chunk j, once the last pass is done with Q
+        if (j == 0) hopper::mbar_wait(qempty, second ? 0 : 1);
+        put_rows<NC>(qs, qs + QT, src, j * NC, pt);
+        if (j == NCH - 1) arrive(qfull);
+        continue;
+      }
+      const int rj = j - NCH + (second ? jobs0 - NCH : 0);  // the ring's job count
+      const int s = rj % STAGES;
+      hopper::mbar_wait(&empty[s], ((rj / STAGES) & 1) ^ 1);
+      unsigned char* slot = ring + s * SLOT;
+      if ((j - NCH) % (2 * NCH) < NCH) put_rows<NC>(slot, slot + KT, src, 0, pt);
+      else put_cols<NC>(slot, slot + VT, src, pt);
+      arrive(&full[s]);
+    }
+    return;
   }
 
-  // the lane's place in P·V: column dim0 + e·DL (e < EPL) of rows rg·RPL + i (i < RPL)
-  const int dim0 = lane % DL, rg = lane / DL;
-  float m[ROWS], l[ROWS], acc[RPL][EPL];
+  // Consumer warpgroup: lane l of warp w holds rows ra = q0 + 16w + l/4 and
+  // rb = ra + 8, columns 8j + 2(l%4) + {0, 1} of every fragment. Per key
+  // tile: S = Q·Kᵀ in 3xTF32 over the
+  // NCH chunks of K (each chunk's wgmmas issued before the last chunk's are
+  // waited for), the online softmax on S's registers (tc's), P split in
+  // place (its big term where P was, its small term beside), then per V
+  // chunk P·V in 3xTF32 into a tile accumulator summed from zero and added
+  // into O in fp32 (O = corr·O + tile): the tensor cores' sums are not
+  // rounded to nearest, and summed over all of Skv their error would reach
+  // the fp32 limit.
+  hopper::setmaxnreg_inc<CONSUMER_REGS>();
+  const int w = warp, ql = lane % 4;
+  const bool leader = tid == 0, capped = softcap > 0.f;
+  const tc::Softmax sm{Skv, causal, window, capped, capped ? 1.f : scale * tc::LOG2E,
+                       capped ? 2.f * tc::LOG2E * scale / softcap : 0.f, softcap * tc::LOG2E};
+  const uint64_t dqb = hopper::make_desc(qs, 16, 1024, 1);
+  const uint64_t dqs = hopper::make_desc(qs + QT, 16, 1024, 1);
+  float oacc[D / 2], sacc[32], tacc[2][VN / 2];
+  uint32_t ps[32];  // P's small terms
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) m[r] = NEG_INF, l[r] = 0.f;
+  for (int e = 0; e < 32; ++e) sacc[e] = 0.f;
+  int i = 0;  // ring slots consumed, over both passes
+  for (int pass = 0; pass < passes; ++pass) {
+    const int q0 = pass ? q01 : q00, ra = q0 + w * 16 + lane / 4, rb = ra + 8;
+    const int t_begin = pass ? tb1 : tb0, t_end = pass ? te1 : te0;
 #pragma unroll
-  for (int i = 0; i < RPL; ++i)
+    for (int e = 0; e < D / 2; ++e) oacc[e] = 0.f;
+    float m_a = tc::NEG, m_b = tc::NEG, l_a = 0.f, l_b = 0.f, corr_a, corr_b;
+    hopper::mbar_wait_opaque(qfull, pass & 1);
+    for (int t = t_begin; t < t_end; ++t) {
 #pragma unroll
-    for (int e = 0; e < EPL; ++e) acc[i][e] = 0.f;
-  const bool capped = softcap > 0.f;
-
-  for (int t = t_begin; t < t_end; ++t) {
-    const int k0 = t * BKV;
-    __syncthreads();  // the last tile's K and V are read
-    for (int i = threadIdx.x; i < BKV * C4; i += NTHREADS) {
-      const int j = i / C4, c = (i % C4) * 4;
-      const float4 kv4 = load4(kb, kst.s, k0 + j, Skv, c, k_vec);
-      kt[(c + 0) * KLD + j] = kv4.x;
-      kt[(c + 1) * KLD + j] = kv4.y;
-      kt[(c + 2) * KLD + j] = kv4.z;
-      kt[(c + 3) * KLD + j] = kv4.w;
-      *reinterpret_cast<float4*>(vs + j * D + c) = load4(vb, vst.s, k0 + j, Skv, c, v_vec);
-    }
-    __syncthreads();
-
-    // scores of key k0 + lane for the warp's rows
-    float s[ROWS];
+      for (int c = 0; c < NCH; ++c) {
+        const int s = (i + c) % STAGES;
+        hopper::mbar_wait_opaque(&full[s], ((i + c) / STAGES) & 1);
+        unsigned char* slot = ring + s * SLOT;
+        const uint64_t dkb = hopper::make_desc(slot, 16, 1024, 1);
+        const uint64_t dks = hopper::make_desc(slot + KT, 16, 1024, 1);
+        hopper::fence_operand(sacc);
+        hopper::wgmma_fence();
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) s[r] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < D; c += 4) {
-      const float k_0 = kt[(c + 0) * KLD + lane], k_1 = kt[(c + 1) * KLD + lane];
-      const float k_2 = kt[(c + 2) * KLD + lane], k_3 = kt[(c + 3) * KLD + lane];
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        const float4 qv = *reinterpret_cast<const float4*>(qs + (row0 + r) * D + c);
-        s[r] = fmaf(qv.x, k_0, s[r]);
-        s[r] = fmaf(qv.y, k_1, s[r]);
-        s[r] = fmaf(qv.z, k_2, s[r]);
-        s[r] = fmaf(qv.w, k_3, s[r]);
+        for (int kk = 0; kk < NC / 8; ++kk) {
+          const int kq = c * (NC / 8) + kk;
+          const uint32_t oq = (kq / 4) * TILE + (kq % 4) * 32;
+          const uint32_t ok = (kk / 4) * TILE + (kk % 4) * 32;
+          hopper::wgmma_tf32(sacc, hopper::desc_add(dqs, oq), hopper::desc_add(dkb, ok),
+                             c > 0 || kk > 0);
+          hopper::wgmma_tf32(sacc, hopper::desc_add(dqb, oq), hopper::desc_add(dks, ok), 1);
+          hopper::wgmma_tf32(sacc, hopper::desc_add(dqb, oq), hopper::desc_add(dkb, ok), 1);
+        }
+        hopper::wgmma_commit();
+        if (c > 0) {  // the last chunk's products are done: free its slot
+          hopper::wgmma_wait<1>();
+          if (leader) hopper::mbar_arrive(&empty[(i + c - 1) % STAGES]);
+        }
       }
+      hopper::wgmma_wait<0>();
+      hopper::fence_operand(sacc);
+      if (leader) {
+        hopper::mbar_arrive(&empty[(i + NCH - 1) % STAGES]);
+        if (t == t_end - 1) hopper::mbar_arrive(qempty);  // Q is read
+      }
+      i += NCH;
+      sm.tile(sacc, t * BKV, q0, ra, rb, ql, m_a, m_b, l_a, l_b, corr_a, corr_b);
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        uint32_t b;
+        hopper::split_tf32(sacc[e], b, ps[e]);
+        sacc[e] = __uint_as_float(b);
+      }
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        oacc[4 * j + 0] *= corr_a;
+        oacc[4 * j + 1] *= corr_a;
+        oacc[4 * j + 2] *= corr_b;
+        oacc[4 * j + 3] *= corr_b;
+      }
+      // P·V: piece p = (chunk c, sub) of VN columns into tacc[p % 2]; with
+      // PIPE_PV the next piece's wgmmas are issued before the last piece is
+      // added into O
+#pragma unroll
+      for (int p = 0; p < NCH * SUBS; ++p) {
+        const int c = p / SUBS, sub = p % SUBS, s = (i + c) % STAGES;
+        if (sub == 0) hopper::mbar_wait_opaque(&full[s], ((i + c) / STAGES) & 1);
+        unsigned char* slot = ring + s * SLOT;
+        const uint64_t dvb = hopper::make_desc(slot, 16, 1024, 1);
+        const uint64_t dvs = hopper::make_desc(slot + VT, 16, 1024, 1);
+        float(&acc)[VN / 2] = tacc[PIPE_PV ? p % 2 : 0];
+        hopper::fence_operand(acc);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BKV / 8; ++kk) {
+          const uint32_t off = (kk / 4) * NC * 128 + sub * VN * 128 + (kk % 4) * 32;
+          const uint32_t pb4[4] = {__float_as_uint(sacc[4 * kk]), __float_as_uint(sacc[4 * kk + 2]),
+                                   __float_as_uint(sacc[4 * kk + 1]),
+                                   __float_as_uint(sacc[4 * kk + 3])};
+          const uint32_t ps4[4] = {ps[4 * kk], ps[4 * kk + 2], ps[4 * kk + 1], ps[4 * kk + 3]};
+          hopper::wgmma_tf32_rs(acc, ps4, hopper::desc_add(dvb, off), kk > 0);
+          hopper::wgmma_tf32_rs(acc, pb4, hopper::desc_add(dvs, off), 1);
+          hopper::wgmma_tf32_rs(acc, pb4, hopper::desc_add(dvb, off), 1);
+        }
+        hopper::wgmma_commit();
+        if (PIPE_PV && p > 0) {  // the last piece is done: into O
+          hopper::wgmma_wait<1>();
+          float(&prev)[VN / 2] = tacc[(p + 1) % 2];
+          hopper::fence_operand(prev);
+          add_piece<D, VN>(oacc, prev, (p - 1) / SUBS * NC + (p - 1) % SUBS * VN);
+          if ((p - 1) % SUBS == SUBS - 1 && leader)
+            hopper::mbar_arrive(&empty[(i + (p - 1) / SUBS) % STAGES]);
+        }
+        if (!PIPE_PV) {
+          hopper::wgmma_wait<0>();
+          hopper::fence_operand(acc);
+          add_piece<D, VN>(oacc, acc, c * NC + sub * VN);
+          if (sub == SUBS - 1 && leader) hopper::mbar_arrive(&empty[s]);
+        }
+      }
+      if (PIPE_PV) {
+        constexpr int p = NCH * SUBS - 1;
+        hopper::wgmma_wait<0>();
+        float(&last)[VN / 2] = tacc[p % 2];
+        hopper::fence_operand(last);
+        add_piece<D, VN>(oacc, last, p / SUBS * NC + p % SUBS * VN);
+        if (leader) hopper::mbar_arrive(&empty[(i + NCH - 1) % STAGES]);
+      }
+      hold(sacc, ps);
+      i += NCH;
     }
 
-    // online softmax, row by row across the warp
-    const int kpos = k0 + lane;
-    float corr[ROWS];
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      const int qpos = q0 + row0 + r;
-      float x = s[r] * scale;
-      if (capped) x = softcap * tanhf(x / softcap);
-      bool ok = kpos < Skv;
-      if (causal) ok = ok && kpos <= qpos;
-      if (window > 0) ok = ok && kpos > qpos - window;
-      x = ok ? x : NEG_INF;
-      const float m_new = fmaxf(m[r], warp_max(x));
-      const float p = expf(x - m_new);
-      corr[r] = expf(m[r] - m_new);
-      l[r] = l[r] * corr[r] + warp_sum(p);
-      m[r] = m_new;
-      pw[r * BKV + lane] = p;
+    for (int off = 1; off < 4; off *= 2) {
+      l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
+      l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
     }
-    __syncwarp();
-
-    // O = corr·O + P·V for the lane's rows and columns
+    const float inv_a = 1.f / fmaxf(l_a, 1e-30f), inv_b = 1.f / fmaxf(l_b, 1e-30f);
+    float* ob = o + bi * ost.b + h * ost.h;
 #pragma unroll
-    for (int i = 0; i < RPL; ++i) {
-      float c;
-      if constexpr (RG == 2) c = rg ? corr[RPL + i] : corr[i];
-      else c = corr[i];
+    for (int j = 0; j < D / 8; ++j) {
+      const int col = 8 * j + 2 * ql;
 #pragma unroll
-      for (int e = 0; e < EPL; ++e) acc[i][e] *= c;
-    }
-#pragma unroll 2
-    for (int j = 0; j < BKV; j += 4) {
-      float vv[4][EPL];
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-        for (int e = 0; e < EPL; ++e) vv[jj][e] = vs[(j + jj) * D + dim0 + e * DL];
-#pragma unroll
-      for (int i = 0; i < RPL; ++i) {
-        const float4 pp = *reinterpret_cast<const float4*>(pw + (rg * RPL + i) * BKV + j);
-#pragma unroll
-        for (int e = 0; e < EPL; ++e) {
-          acc[i][e] = fmaf(pp.x, vv[0][e], acc[i][e]);
-          acc[i][e] = fmaf(pp.y, vv[1][e], acc[i][e]);
-          acc[i][e] = fmaf(pp.z, vv[2][e], acc[i][e]);
-          acc[i][e] = fmaf(pp.w, vv[3][e], acc[i][e]);
+      for (int r = 0; r < 2; ++r) {
+        const int row = r ? rb : ra;
+        const float inv = r ? inv_b : inv_a;
+        if (row >= Sq) continue;
+        float* dst = ob + row * ost.s + col;
+        const float x0 = oacc[4 * j + 2 * r] * inv, x1 = oacc[4 * j + 2 * r + 1] * inv;
+        if (vec & 8) {
+          *reinterpret_cast<float2*>(dst) = make_float2(x0, x1);
+        } else {
+          dst[0] = x0;
+          dst[1] = x1;
         }
       }
     }
-    __syncwarp();  // P is read before the next tile's scores overwrite it
-  }
-
-#pragma unroll
-  for (int i = 0; i < RPL; ++i) {
-    float li;
-    if constexpr (RG == 2) li = rg ? l[RPL + i] : l[i];
-    else li = l[i];
-    const int qpos = q0 + row0 + rg * RPL + i;
-    if (qpos >= Sq) continue;
-    const float inv = 1.f / fmaxf(li, 1e-30f);
-#pragma unroll
-    for (int e = 0; e < EPL; ++e) ob[qpos * ost.s + dim0 + e * DL] = acc[i][e] * inv;
   }
 }
 
@@ -868,17 +1122,25 @@ template <int D>
 cudaError_t launch(const float* q, const float* k, const float* v, float* o, int B, int H,
                    int Kv, int Sq, int Skv, const Strides* st, int causal, int window,
                    float softcap, float scale, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
+  using L = Layout<D>;
   static bool smem_set = false;
-  cudaError_t e = hopper::allow_smem(flash_attention_fp32_kernel<D>, smem, smem_set);
+  cudaError_t e = hopper::allow_smem(kernel<D>, L::SMEM, smem_set);
   if (e != cudaSuccess) return e;
-  dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_attention_fp32_kernel<D><<<grid, NTHREADS, smem, stream>>>(
-      q, k, v, o, H, Kv, Sq, Skv, st[0], st[1], st[2], st[3], causal, window, softcap, scale);
+  auto rows16 = [](const void* p, const Strides& s) {
+    return (reinterpret_cast<uintptr_t>(p) & 15) == 0 && s.b % 4 == 0 && s.h % 4 == 0 &&
+           s.s % 4 == 0;
+  };
+  const int vec = rows16(q, st[0]) | rows16(k, st[1]) << 1 | rows16(v, st[2]) << 2 |
+                  ((reinterpret_cast<uintptr_t>(o) & 7) == 0 && st[3].b % 2 == 0 &&
+                   st[3].h % 2 == 0 && st[3].s % 2 == 0) << 3;
+  dim3 grid(((Sq + BQ - 1) / BQ + 1) / 2, H, B);
+  kernel<D><<<grid, THREADS, L::SMEM, stream>>>(q, k, v, o, H, Kv, Sq, Skv, st[0], st[1],
+                                                   st[2], st[3], causal, window, softcap, scale,
+                                                   vec);
   return cudaGetLastError();
 }
 
-}  // namespace simt
+}  // namespace tf32x3
 
 bool valid(int B, int H, int Kv, int Sq, int Skv) {
   return B > 0 && H > 0 && Kv > 0 && H % Kv == 0 && Sq > 0 && Skv > 0 && B <= 65535 &&
@@ -942,7 +1204,7 @@ extern "C" int flash_attention_fp32(const void* q, const void* k, const void* v,
                                     int H, int Kv, int Sq, int Skv, int D,
                                     const long long* strides, int causal, int window,
                                     float softcap, float scale, void* stream) {
-  using namespace simt;
+  using namespace tf32x3;
   if (!valid(B, H, Kv, Sq, Skv)) return (int)cudaErrorInvalidValue;
   Strides st[4];
   for (int i = 0; i < 4; ++i) st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};

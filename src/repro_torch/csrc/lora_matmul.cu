@@ -11,14 +11,14 @@
 // 2^-16 of scale·u, far inside the bf16 output's rounding; kernels/lora_ref.py
 // ``lora_matmul_split_ref``), fp32 as fp32 scale·u.
 //
-// Four variants, picked by the wrapper from the dtype, shapes and alignment
+// Three variants, picked by the wrapper from the dtype, shapes and alignment
 // (kernels/lora_matmul.py ``variant``), never by failure:
 //
-// * prefill (bf16, M > 16, K and N multiples of 8, any rank, 16-byte aligned
-//   pointers): what bounds it is bf16 tensor-core throughput (2·M·K·N
-//   operations against 2·(M·K + K·N + M·N) bytes, far above the card's ~295
-//   operations per byte). A producer warp keeps TMA loads of the x, W and A
-//   tiles of the next K steps in flight through a ring of up to 4
+// * prefill (bf16, M > 16, any shape, rank and alignment): what bounds it
+//   is bf16 tensor-core throughput (2·M·K·N operations against 2·(M·K +
+//   K·N + M·N) bytes, far above the card's ~295 operations per byte). A
+//   producer warp keeps TMA loads of the x, W and A tiles of the next K
+//   steps in flight through a ring of up to 4
 //   shared-memory stages (mbarriers signal full and empty slots). Two
 //   consumer warpgroups, 64 rows of the 128-row tile each, run wgmma for x·W
 //   (fp32 accumulators in registers) and, from the same staged x tile, a
@@ -33,7 +33,7 @@
 //   zero-fills the ragged edges on load and clips them on store. At r % 8 !=
 //   0 A's K-rows are not 16 bytes apart and no tensor map reads them: two
 //   producer warps copy A's tiles instead (cp.async into staging, then each
-//   8-rank chunk shifted and placed in the swizzled tile; ``atile``). Each
+//   8-rank chunk shifted and placed in the swizzled tile; ``atile``, COPY_A). Each
 //   tile's u costs r/BN of its x·W, harmless at 16 ranks; above 64 ranks it
 //   would cost up to 4x, so there a first launch writes u's two bf16 terms h
 //   + l of scale·u once (M x r8 each, r8 = r rounded up to a multiple of 8,
@@ -41,7 +41,7 @@
 //   | l]·[W; B; B], on the same ring and consumers, its tile up to 256 wide,
 //   the blocks rastered in groups of 8 row tiles so that those in flight
 //   share W's tiles in L2.
-// * decode (bf16, M <= 16, the same shapes): what bounds it is reading W
+// * decode (bf16, M <= 16, any shape): what bounds it is reading W
 //   once from device memory (2·K·N bytes against 2·M·K·N operations). The
 //   clusters split N into 64-column slices (128 above N = 2048, to halve the
 //   clusters), and a cluster of up to 8 blocks splits K: about one block an
@@ -69,11 +69,14 @@
 //   bytes in flight as at 64 ranks), then the fold's 2·ceil(r/64) steps, [h
 //   | l]·[B; B], through the same ring and wgmmas, each step taken by one
 //   block of the cluster.
-// * generic (any other bf16 shape: misaligned pointers, K or N not a
-//   multiple of 8): the first port's kernel, one 64x64x32 wmma tile with
-//   plain loads, ranks in chunks of up to 64 (a pass over K for each further
-//   chunk of u, x re-read, W not); no bf16 shape of a served config reaches
-//   it.
+//   Where a tensor map cannot read an operand (a pointer off 16 bytes, x's
+//   rows at K % 8 != 0, W's, B's and the output's at N % 8 != 0), both
+//   designs take it through the producers (``atile``, COPY): an issuing
+//   warp cp.asyncs each row's 16-byte chunks (aligned down) into staging
+//   beside the step's TMA loads, four placing warps shift each 8-element
+//   chunk into the swizzled tile the wgmmas read, zeros past the edges; the
+//   prefill's B tile is loaded by plain loads, an output TMA cannot write is
+//   stored by plain stores, and the operands TMA can read stay on TMA.
 // * fp32 (fp32 inputs, any shape, rank and alignment; the smoke configs
 //   serve in fp32): TF32 alone would miss the reference's fp32 tolerance.
 //   At M <= 16 (``fp32::decode_kernel``) what bounds it is reading W once
@@ -111,61 +114,92 @@ namespace {
 constexpr size_t SMEM_MAX = 227 * 1024;  // a block's shared memory on the H100
 
 // ===========================================================================
-// A's tiles where TMA cannot map A: its K-rows are 2·r bytes apart, and a
-// tensor map's strides are multiples of 16 bytes, so at r % 8 != 0 two
-// producer warps copy the tile. The issuing warp cp.asyncs the 16-byte
-// chunks that hold each K-row's ranks (aligned down: a row may start at any
-// even byte) into a staging row of the ring slot, beside its TMA loads; the
-// placing warp, once they land, puts each 8-rank chunk of the tile (shifted
-// by the row's offset, zeros past r and past K, as TMA would leave them)
-// into the slot's swizzled tile, where the wgmma descriptor expects it, and
-// arrives a second time on the slot's full barrier. The tiles' chunks past
-// r, zeroed once, are never written again.
+// Tiles that TMA cannot map, copied by producer warps. A tensor map's
+// pointer and row strides are multiples of 16 bytes; a bf16 matrix misses
+// that when its pointer is not 16-byte aligned or its rows are not a
+// multiple of 8 elements (x at K % 8 != 0, W, B and the output at N % 8 !=
+// 0, A at r % 8 != 0). One issuing warp cp.asyncs, for each copied box of a
+// ring step, the 16-byte chunks that hold each row's span (aligned down: a
+// row may start at any even byte) into the box's staging rows in the slot,
+// beside its TMA loads; NP placing warps, once they land, put each 8-element
+// chunk of the box (shifted by the row's offset, zeros past the matrix's
+// rows and columns, as TMA would leave them) into the slot's swizzled tile,
+// where the wgmma descriptor expects it, and each arrives on the slot's
+// full barrier (which expects the issuer's arrive and theirs). The copies
+// are in flight as long as TMA's, and a tile is placed as soon as it lands.
 // ===========================================================================
 namespace atile {
 
-constexpr int ROWS = 64;  // K-rows of a tile (the prefill's and the decode's ring step)
-
-// RP: the tile's ranks, 16 (32-byte rows, 32-byte swizzle) or 64 (128-byte)
-template <int RP>
-struct Tile {
-  static constexpr int CHUNKS = RP / 8;           // 16-byte chunks of a tile row
-  // a staging row: the 16-byte chunks that hold a K-row's ranks
-  static constexpr int SROW = 16 * (CHUNKS + 1);
-  // 3 or 9 KB, a multiple of 1024; it also holds a run of 64 rows of r < RP
-  // ranks, and the 16 bytes that the last row's reads pass its end by
-  static constexpr int STAGING = ROWS * SROW;
-  static constexpr uint32_t SWZ = RP == 16 ? 1 : 7;  // the row bits the swizzle XORs into a chunk's
-  static_assert(RP == 16 || RP == 64, "unsupported tile");
+// a row-major bf16 matrix: rows x cols elements, pitch elements apart
+struct Mat {
+  const bf16* p;
+  int rows, cols, pitch;
 };
 
-// cp.async of ranks c0 + [0, n) of A's K-rows k0 + [0, 64) below K into the
-// staging. Where the tile holds every rank (r <= RP, c0 = 0) its rows are
-// one run of 128·r bytes from A's byte 2·r·k0 (a multiple of 16), copied as
-// it is; else lane l takes rows l and l + 32, each into a staging row of
-// its (at most n/8 + 2) 16-byte chunks
-template <int RP>
-__device__ __forceinline__ void issue(unsigned char* staging, const bf16* a, int K, int r, int k0,
-                                      int c0, int n, int lane) {
-  using T = Tile<RP>;
-  const unsigned char* src = reinterpret_cast<const unsigned char*>(a);
-  if (r <= RP) {
-    const int chunks = min(ROWS, K - k0) * r / 8;  // K % 8 == 0: whole chunks
-    src += (size_t)k0 * r * 2;
-    for (int i = lane; i < chunks; i += 32) hopper::cp_async16(staging + 16 * i, src + 16 * i, 16);
+// a copied box: rows [r0, r0 + n) and columns [c0, c0 + w) of m (w = 16:
+// 32-byte tile rows in the 32-byte swizzle, or 64: 128-byte rows in the
+// 128-byte one) into `tile`, staged at `staging`. A box whose columns past
+// m.cols are the same at every step of its tile (W's, A's: the tile's
+// columns are fixed) has them zeroed once; one whose are not (x's: its
+// columns follow K; a fold step's B rows, in a slot TMA may fill at other
+// steps) writes every chunk (zero_tail).
+struct Box {
+  Mat m;
+  int r0, c0, n, w;
+  unsigned char* tile;
+  unsigned char* staging;
+  bool zero_tail;
+};
+
+// W: the box's columns, 16 or 64
+template <int W>
+struct Tile {
+  static constexpr int CHUNKS = W / 8;  // 16-byte chunks of a tile row
+  // a staging row: the 16-byte chunks that hold a row's span
+  static constexpr int SROW = 16 * (CHUNKS + 1);
+  // a 64-row box's staging, a multiple of 1024 at W = 64; it also holds a
+  // run of 64 rows of cols <= W, and the 16 bytes that the last row's
+  // reads pass its end by
+  static constexpr int STAGING = 64 * SROW;
+  static constexpr uint32_t SWZ = W == 16 ? 1 : 7;  // the row bits the swizzle XORs into a chunk's
+  static_assert(W == 16 || W == 64, "unsupported tile");
+};
+
+__device__ __forceinline__ uintptr_t addr(const Mat& m, int row, int col) {
+  return reinterpret_cast<uintptr_t>(m.p + (size_t)row * m.pitch + col);
+}
+
+// the box's rows are one run of bytes from a 16-byte aligned start: it
+// holds every column of rows that are contiguous (A's tiles, r <= W)
+__device__ __forceinline__ bool is_run(const Box& b) {
+  return b.c0 == 0 && b.m.cols <= b.w && b.m.pitch == b.m.cols && (addr(b.m, b.r0, 0) & 15) == 0;
+}
+
+// cp.async of the box's rows below m.rows into its staging: one run of the
+// rows' bytes (is_run), else lane l takes rows l, l + 32, ..., each into a
+// staging row of its (at most W/8 + 1) 16-byte chunks; reads are cut short
+// at the matrix's last element
+template <int W>
+__device__ __forceinline__ void issue(const Box& b, int lane) {
+  using T = Tile<W>;
+  const int rows = min(b.n, b.m.rows - b.r0);
+  const uintptr_t end = addr(b.m, b.m.rows - 1, b.m.cols);
+  if (is_run(b)) {
+    const uintptr_t src = addr(b.m, b.r0, 0);
+    const int bytes = rows * b.m.cols * 2, chunks = (bytes + 15) / 16;
+    for (int i = lane; i < chunks; i += 32)
+      hopper::cp_async16(b.staging + 16 * i, reinterpret_cast<const void*>(src + 16 * i),
+                         bytes - 16 * i < 16 ? bytes - 16 * i : 16);
     return;
   }
-  const unsigned end = (unsigned)K * r * 2;  // A's bytes: a chunk past them is cut short
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = lane + 32 * h;
-    if (k0 + row >= K) break;
-    const unsigned first = ((unsigned)(k0 + row) * r + c0) * 2, last = first + 2 * n;
+  const int n = min(W, b.m.cols - b.c0);  // the box's columns below m.cols
+  for (int row = lane; row < rows; row += 32) {
+    const uintptr_t first = addr(b.m, b.r0 + row, b.c0), last = first + 2 * n;
 #pragma unroll
     for (int c = 0; c < T::CHUNKS + 1; ++c) {
-      const unsigned at = (first & ~15u) + 16 * c;
+      const uintptr_t at = (first & ~uintptr_t(15)) + 16 * c;
       if (at < last)
-        hopper::cp_async16(staging + row * T::SROW + 16 * c, src + at,
+        hopper::cp_async16(b.staging + row * T::SROW + 16 * c, reinterpret_cast<const void*>(at),
                            end - at < 16 ? (int)(end - at) : 16);
     }
   }
@@ -178,31 +212,33 @@ __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
                : "memory");
 }
 
-// the staged rows' chunks that hold ranks below r into the swizzled tile
-// (rows past K zero); lane l takes rows l and l + 32, every word of a
-// staging row read before any chunk is written
-template <int RP>
-__device__ __forceinline__ void place(unsigned char* tile, const unsigned char* staging, int K,
-                                      int r, int k0, int c0, int n, int lane) {
-  using T = Tile<RP>;
+// staged rows ra and rb of the box (either -1: none) into the swizzled
+// tile (zeros past m.rows and m.cols; the chunks wholly past m.cols only
+// where zero_tail), every word of a staging row read before any chunk is
+// written; two rows a call keep two rows' reads in flight
+template <int W>
+__device__ __forceinline__ void place(const Box& b, int ra, int rb) {
+  using T = Tile<W>;
   constexpr int WORDS = 4 * T::CHUNKS + 1;
-  const int per = (n + 7) / 8;
+  const int n = max(0, min(W, b.m.cols - b.c0)), per = (n + 7) / 8;
+  const bool run = is_run(b);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int row = lane + 32 * h;
-    const bool in = k0 + row < K;
-    // the row's first rank: element row·r of the run (r <= RP), or `off`
+    const int row = h ? rb : ra;
+    if (row < 0) continue;
+    const bool in = b.r0 + row < b.m.rows;
+    // the row's first element: element row·cols of the run, or `off`
     // elements into its staging row
-    const int off = r <= RP ? row * r : (int)(((unsigned)(k0 + row) * r + c0) & 7);
+    const int off = run ? row * b.m.cols : (int)((addr(b.m, b.r0 + row, b.c0) & 15) / 2);
     const uint32_t* s =
-        reinterpret_cast<const uint32_t*>(staging + (r <= RP ? 0 : row * T::SROW)) + off / 2;
+        reinterpret_cast<const uint32_t*>(b.staging + (run ? 0 : row * T::SROW)) + off / 2;
     uint32_t w[WORDS];
 #pragma unroll
     for (int j = 0; j < WORDS; ++j) w[j] = in && j <= 4 * per ? s[j] : 0u;
 #pragma unroll
     for (int c = 0; c < T::CHUNKS; ++c) {
-      if (c >= per) break;
-      const int valid = n - 8 * c;  // ranks of the chunk below r
+      if (c >= per && !b.zero_tail) break;
+      const int valid = n - 8 * c;  // the chunk's columns below m.cols
       uint32_t v[4];
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
@@ -210,59 +246,119 @@ __device__ __forceinline__ void place(unsigned char* tile, const unsigned char* 
             (off & 1) ? __funnelshift_r(w[4 * c + q], w[4 * c + q + 1], 16) : w[4 * c + q];
         v[q] = pair & ((2 * q < valid ? 0xFFFFu : 0u) | (2 * q + 1 < valid ? 0xFFFF0000u : 0u));
       }
-      const uint32_t at = row * RP * 2 + 16 * c;
-      *reinterpret_cast<uint4*>(tile + (at ^ (((at >> 7) & T::SWZ) << 4))) =
+      const uint32_t at = row * W * 2 + 16 * c;
+      *reinterpret_cast<uint4*>(b.tile + (at ^ (((at >> 7) & T::SWZ) << 4))) =
           make_uint4(v[0], v[1], v[2], v[3]);
     }
   }
 }
 
-// The two producer warps when A is copied, over `steps` ring steps, step t
-// in slot t % stages (stage_bytes apart). The issuing warp (`placer` false)
-// waits for the slot; lane 0 expects `tx` bytes on its full barrier and
-// calls tma(t, slot, bar); every lane cp.asyncs A's rows at K-rows k0 +
-// 64·t, ranks c0 + [0, RP), into the slot's staging (`staging_at`), and
-// the slot's `landed` barrier (32 arrivals) hears when they are in (64
-// small bulk copies a step on the TMA engine took twice as long on the
-// card). The placing warp waits for that, places
-// the tile at `a_at`, and arrives on the full barrier (which expects two
-// arrivals). The copies are in flight as long as TMA's, and a tile is
-// placed as soon as it lands.
-template <int RP, typename Tma>
-__device__ __forceinline__ void producer(bool placer, unsigned char* base, int stage_bytes,
-                                         int stages, int a_at, int staging_at, uint64_t* full,
-                                         uint64_t* empty, uint64_t* landed, int steps, uint32_t tx,
-                                         Tma tma, const bf16* a, int K, int r, int k0, int c0) {
-  const int lane = threadIdx.x % 32, n = min(RP, r - c0);
-  if (!placer) {
+// The producer warps over `steps` ring steps, step t in slot t % stages
+// (stage_bytes apart). boxes(t, slot, visit) calls visit(box) for each of
+// step t's copied boxes. The issuing warp (placer < 0) waits for the slot;
+// its lane 0 calls tma(t, slot, &full[s]), which arrives on the full
+// barrier expecting the step's TMA bytes; every lane cp.asyncs the boxes'
+// rows, and the slot's `landed` barrier (32 arrivals) hears when they are in
+// (64 small bulk copies a step on the TMA engine took twice as long on the
+// card). The placing warps take the step's boxes' 32-row groups in turn
+// (group g to placer g % np): each zeroes its groups' tiles in every slot
+// once (but zero_tail ones'), then for each step waits for the landing,
+// places its groups and arrives on the full barrier (which expects 1 + np
+// arrivals). (Placing warps that also copied their own boxes ran 1.2-1.4x
+// slower on the card; whole boxes a warp left half the warps idle.)
+template <typename Tma, typename Boxes>
+__device__ __forceinline__ void producer(int placer, int np, unsigned char* base, int stage_bytes,
+                                         int stages, uint64_t* full, uint64_t* empty,
+                                         uint64_t* landed, int steps, Tma tma, Boxes boxes) {
+  const int lane = threadIdx.x % 32;
+  if (placer < 0) {
     for (int t = 0; t < steps; ++t) {
       const int s = t % stages;
       hopper::mbar_wait(&empty[s], ((t / stages) & 1) ^ 1);
       unsigned char* st = base + s * stage_bytes;
-      if (lane == 0) {
-        hopper::mbar_arrive_expect_tx(&full[s], tx);
-        tma(t, st, &full[s]);
-      }
-      issue<RP>(st + staging_at, a, K, r, k0 + ROWS * t, c0, n, lane);
+      if (lane == 0) tma(t, st, &full[s]);
+      boxes(t, st, [&](const Box& b) {
+        if (b.w == 16) issue<16>(b, lane);
+        else issue<64>(b, lane);
+      });
       cp_async_arrive(&landed[s]);
     }
     return;
   }
-  for (int s = 0; s < stages; ++s)  // the chunks past r, zero from here on
-    for (int i = lane; i < ROWS * RP / 8; i += 32)
-      *reinterpret_cast<uint4*>(base + s * stage_bytes + a_at + 16 * i) = make_uint4(0, 0, 0, 0);
+  // this warp's rows of step t's boxes (at most 64 rows a box): row r0 +
+  // lane of each of its groups, two a call (-1: none)
+  auto mine = [&](int t, unsigned char* st, auto&& rows) {
+    int g = 0;
+    boxes(t, st, [&](const Box& b) {
+      int ra = -1, rb = -1;
+      for (int r0 = 0; r0 < b.n; r0 += 32, ++g)
+        if (g % np == placer && r0 + lane < b.n) (ra < 0 ? ra : rb) = r0 + lane;
+      if (ra >= 0) rows(b, ra, rb);
+    });
+  };
+  for (int s = 0; s < stages; ++s)
+    mine(0, base + s * stage_bytes, [&](const Box& b, int ra, int rb) {
+      if (b.zero_tail) return;
+      for (int e = 0; e < b.w / 8; ++e) {
+        *reinterpret_cast<uint4*>(b.tile + ra * b.w * 2 + 16 * e) = make_uint4(0, 0, 0, 0);
+        if (rb >= 0)
+          *reinterpret_cast<uint4*>(b.tile + rb * b.w * 2 + 16 * e) = make_uint4(0, 0, 0, 0);
+      }
+    });
   for (int t = 0; t < steps; ++t) {
     const int s = t % stages;
     unsigned char* st = base + s * stage_bytes;
     hopper::mbar_wait(&landed[s], (t / stages) & 1);
-    place<RP>(st + a_at, st + staging_at, K, r, k0 + ROWS * t, c0, n, lane);
-    hopper::fence_proxy_async();  // the tile's writes, visible to the tensor cores
+    mine(t, st, [&](const Box& b, int ra, int rb) {
+      if (b.w == 16) place<16>(b, ra, rb);
+      else place<64>(b, ra, rb);
+    });
+    hopper::fence_proxy_async();  // the tiles' writes, visible to the tensor cores
     __syncwarp();
     if (lane == 0) hopper::mbar_arrive(&full[s]);
   }
 }
 
+// B's rows [0, rows) x columns [n0, n0 + 64·nb) of m into 64-column boxes
+// of `rows` 128-byte swizzled rows, bytes rows·128 apart, by plain loads
+// (once a block, for the fold: any pointer and N); thread i of nt
+__device__ __forceinline__ void load_b(unsigned char* tile, const Mat& m, int rows, int n0, int nb,
+                                       int i, int nt) {
+  for (int e = i; e < nb * rows * 8; e += nt) {
+    const int box = e / (rows * 8), row = (e / 8) % rows, c = e % 8;
+    uint32_t v[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int col = n0 + 64 * box + 8 * c + 2 * q;
+      const bool in = row < m.rows;
+      const uint32_t lo = in && col < m.cols ? (uint32_t)__bfloat16_as_ushort(m.p[(size_t)row * m.pitch + col]) : 0u;
+      const uint32_t hi = in && col + 1 < m.cols ? (uint32_t)__bfloat16_as_ushort(m.p[(size_t)row * m.pitch + col + 1]) : 0u;
+      v[q] = lo | hi << 16;
+    }
+    const uint32_t at = row * 128 + 16 * c;
+    *reinterpret_cast<uint4*>(tile + box * rows * 128 + (at ^ (((at >> 7) & 7) << 4))) =
+        make_uint4(v[0], v[1], v[2], v[3]);
+  }
+}
+
 }  // namespace atile
+
+// How a kernel's producers fill a ring stage: TMA alone; A copied (r % 8 !=
+// 0, or forced: one placing warp); or COPY, any operand copied (a pointer
+// TMA cannot map, K or N % 8 != 0: NP placing warps), which ones said by
+// the launch's flags, and the output stored by plain stores at OUT_PLAIN.
+enum Fill { TMA_ALL = 0, COPY_A = 1, COPY = 2 };
+enum CopyFlag { CP_X = 1, CP_W = 2, CP_A = 4, CP_B = 8, OUT_PLAIN = 16 };
+constexpr int NP = 4;  // placing warps of COPY: x and W's boxes take four, A's one
+__host__ __device__ constexpr int placers(int fill) { return fill == COPY ? NP : fill == COPY_A ? 1 : 0; }
+constexpr int T64 = atile::Tile<64>::STAGING;  // a 64-row box's staging
+
+// the operands of a launch, as matrices (copied boxes read them) and flags
+struct Ops {
+  atile::Mat x, w, a, b;
+  bf16* y;
+  int flags;
+};
 
 // ===========================================================================
 // prefill: TMA + wgmma
@@ -271,39 +367,58 @@ namespace prefill {
 
 constexpr int BM = 128, BK = 64;
 constexpr int THREADS = 288;  // warpgroups 0-1 consume (64 rows each), warp 8 produces
-constexpr int COPY_THREADS = THREADS + 32;  // where A is copied: warp 9 places its tiles
+// + the placing warps 9, ... where tiles are copied
+__host__ __device__ constexpr int threads(int fill) { return THREADS + 32 * placers(fill); }
 
-// COPY_A: the producer warp copies A's tile (atile) into the slot after its
-// staging rows
-template <int BN, int RP, bool COPY_A = false>
+// COPY_A: staging for A's copied rows after the stage's tiles; COPY: for x's
+// two 64-row boxes, W's BN/64 and A's, at xs, ws and as
+template <int BN, int RP, int FILL = TMA_ALL>
 struct Layout {
   static constexpr int X_BYTES = BM * BK * 2;  // one 128-row box, 128-byte rows
   static constexpr int W_BYTES = BK * BN * 2;  // BN/64 boxes of 64 K-rows x 64 columns
   static constexpr int A_BYTES = BK * RP * 2;  // 64 K-rows x RP ranks
   static constexpr int A_SLOT = (A_BYTES + 1023) / 1024 * 1024;
-  static constexpr int STAGING = COPY_A ? atile::Tile<RP>::STAGING : 0;
-  static constexpr int STAGE = X_BYTES + W_BYTES + A_SLOT + STAGING;
+  static constexpr int TILES = X_BYTES + W_BYTES + A_SLOT;
+  static constexpr int A_STAGING = atile::Tile<RP>::STAGING;
+  static constexpr int STAGING = FILL == COPY_A ? A_STAGING
+                                 : FILL == COPY ? (2 + BN / 64) * T64 + A_STAGING : 0;
+  static constexpr int STAGE = TILES + STAGING;
+  static constexpr int XS = TILES, WS = XS + 2 * T64, AS = FILL == COPY ? WS + BN / 64 * T64 : TILES;
   static constexpr int B_BYTES = RP * BN * 2;  // the B tile: BN/64 boxes of RP rows x 64 columns
   static constexpr int FIXED = B_BYTES + 256 + 1024;  // + barriers + alignment slack
   static constexpr int FIT = (int)((SMEM_MAX - FIXED) / STAGE);
   static constexpr int STAGES = FIT < 4 ? FIT : 4;
   static constexpr size_t SMEM = FIXED + (size_t)STAGES * STAGE;
-  // bytes landing per stage by TMA
-  static constexpr uint32_t TX = X_BYTES + W_BYTES + (COPY_A ? 0 : A_BYTES);
   static_assert(STAGES >= 2, "tile too large for shared memory");
   static_assert(BM * BN * 2 <= STAGES * STAGE, "the output tile reuses the stages");
   static_assert(BN % 64 == 0 && BN <= 256 && (RP == 16 || RP == 64), "unsupported tile");
+  static_assert(FILL != COPY || BN <= 128, "registers: four placing warps beside 256 consumers");
 };
 
-// a: A itself, read where COPY_A (tm_a then unused), r its ranks
-template <int BN, int RP, bool COPY_A>
-__global__ void __launch_bounds__(COPY_A ? COPY_THREADS : THREADS, 1)
+// an accumulator fragment of a 64 x BN product (rows m0 + 64 wg of the
+// tile) as bf16 by plain, predicated stores (an output TMA cannot map)
+template <int BN>
+__device__ __forceinline__ void store_plain(const float (&acc)[BN / 2], bf16* y, int M, int N,
+                                            int m0, int n0) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row = m0 + 64 * (warp / 4) + (warp % 4) * 16 + lane / 4;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int m = row + 8 * (e / 2), n = n0 + 8 * j + 2 * (lane % 4) + e % 2;
+      if (m < M && n < N) y[(size_t)m * N + n] = __float2bfloat16(acc[4 * j + e]);
+    }
+}
+
+// A's matrix and the copy flags are o's; the y map is unused at OUT_PLAIN
+template <int BN, int RP, int FILL>
+__global__ void __launch_bounds__(threads(FILL), 1)
 kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w,
        const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_b,
-       const __grid_constant__ CUtensorMap tm_y, int K, float scale, const bf16* __restrict__ a,
-       int r) {
-  using L = Layout<BN, RP, COPY_A>;
-  constexpr int STAGES = L::STAGES;
+       const __grid_constant__ CUtensorMap tm_y, int K, float scale, Ops o) {
+  using L = Layout<BN, RP, FILL>;
+  constexpr int STAGES = L::STAGES, NPL = placers(FILL);
   constexpr uint32_t A_SWIZZLE = RP == 16 ? 3 : 1;  // 32-byte rows : 128-byte rows
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base =
@@ -312,72 +427,87 @@ kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtenso
   uint64_t* full = reinterpret_cast<uint64_t*>(bs + L::B_BYTES);
   uint64_t* empty = full + STAGES;
   uint64_t* bfull = empty + STAGES;
-  uint64_t* landed = bfull + 1;  // COPY_A: A's copies of a slot are in
+  uint64_t* landed = bfull + 1;  // copied tiles of a slot are in
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int nk = (K + BK - 1) / BK;
+  const int fl = FILL == COPY ? o.flags : FILL == COPY_A ? CP_A : 0;
 
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) {
-      // the producer's arrive + the bytes (and the placing warp's arrive)
-      hopper::mbar_init(&full[s], COPY_A ? 2 : 1);
-      hopper::mbar_init(&empty[s], 2);  // one arrive per consumer warpgroup
-      if (COPY_A) hopper::mbar_init(&landed[s], 32);
+      hopper::mbar_init(&full[s], 1 + NPL);  // the producer's arrive + the bytes, the placers'
+      hopper::mbar_init(&empty[s], 2);       // one arrive per consumer warpgroup
+      if (NPL) hopper::mbar_init(&landed[s], 32);
     }
-    hopper::mbar_init(bfull, 1);
+    hopper::mbar_init(bfull, FILL == COPY ? 1 + NPL : 1);
     hopper::fence_barrier_init();
   }
   __syncthreads();
 
-  if (warp >= 8 && COPY_A) {  // producers: x, W (and B) by TMA, A copied and placed
+  if (warp >= 8) {  // producers: x, W, A (and B) by TMA where they are not copied
     if (tid == 8 * 32) {
-      hopper::prefetch_tensormap(&tm_x);
-      hopper::prefetch_tensormap(&tm_w);
+      if (!(fl & CP_X)) hopper::prefetch_tensormap(&tm_x);
+      if (!(fl & CP_W)) hopper::prefetch_tensormap(&tm_w);
+      if (!(fl & CP_A)) hopper::prefetch_tensormap(&tm_a);
     }
-    atile::producer<RP>(warp == 9, base, L::STAGE, STAGES, L::X_BYTES + L::W_BYTES,
-                        L::STAGE - L::STAGING, full, empty, landed, nk, L::TX,
-                        [&](int kt, unsigned char* st, uint64_t* bar) {
-                          hopper::tma_load_2d(st, &tm_x, bar, kt * BK, m0);
-#pragma unroll
-                          for (int j = 0; j < BN / 64; ++j)
-                            hopper::tma_load_2d(st + L::X_BYTES + j * BK * 128, &tm_w, bar,
-                                                n0 + 64 * j, kt * BK);
-                          if (kt == 0) {
-                            hopper::mbar_arrive_expect_tx(bfull, L::B_BYTES);
-#pragma unroll
-                            for (int j = 0; j < BN / 64; ++j)
-                              hopper::tma_load_2d(bs + j * RP * 128, &tm_b, bfull, n0 + 64 * j, 0);
-                          }
-                        },
-                        a, K, r, 0, 0);
-    return;
-  }
-  if (warp == 8) {  // producer
-    if (lane == 0) {
-      hopper::prefetch_tensormap(&tm_x);
-      hopper::prefetch_tensormap(&tm_w);
-      hopper::prefetch_tensormap(&tm_a);
-      for (int kt = 0; kt < nk; ++kt) {
-        const int s = kt % STAGES;
-        hopper::mbar_wait(&empty[s], ((kt / STAGES) & 1) ^ 1);
-        unsigned char* st = base + s * L::STAGE;
-        hopper::mbar_arrive_expect_tx(&full[s], L::TX);
-        hopper::tma_load_2d(st, &tm_x, &full[s], kt * BK, m0);
+    // lane 0 of warp 8: step kt's TMA loads (the B tile, for the epilogue,
+    // behind the first stage)
+    auto tma = [&](int kt, unsigned char* st, uint64_t* bar) {
+      hopper::mbar_arrive_expect_tx(bar, (fl & CP_X ? 0 : L::X_BYTES) +
+                                             (fl & CP_W ? 0 : L::W_BYTES) +
+                                             (fl & CP_A ? 0 : L::A_BYTES));
+      if (!(fl & CP_X)) hopper::tma_load_2d(st, &tm_x, bar, kt * BK, m0);
+      if (!(fl & CP_W))
 #pragma unroll
         for (int j = 0; j < BN / 64; ++j)
-          hopper::tma_load_2d(st + L::X_BYTES + j * BK * 128, &tm_w, &full[s], n0 + 64 * j,
-                              kt * BK);
-        hopper::tma_load_2d(st + L::X_BYTES + L::W_BYTES, &tm_a, &full[s], 0, kt * BK);
-        if (kt == 0) {  // the B tile, for the epilogue, behind the first stage
-          hopper::mbar_arrive_expect_tx(bfull, L::B_BYTES);
+          hopper::tma_load_2d(st + L::X_BYTES + j * BK * 128, &tm_w, bar, n0 + 64 * j, kt * BK);
+      if (!(fl & CP_A)) hopper::tma_load_2d(st + L::X_BYTES + L::W_BYTES, &tm_a, bar, 0, kt * BK);
+      if (kt == 0) {
+        hopper::mbar_arrive_expect_tx(bfull, fl & CP_B ? 0 : L::B_BYTES);
+        if (!(fl & CP_B))
 #pragma unroll
           for (int j = 0; j < BN / 64; ++j)
             hopper::tma_load_2d(bs + j * RP * 128, &tm_b, bfull, n0 + 64 * j, 0);
-        }
       }
+    };
+    if constexpr (FILL == TMA_ALL) {
+      if (lane == 0)
+        for (int kt = 0; kt < nk; ++kt) {
+          const int s = kt % STAGES;
+          hopper::mbar_wait(&empty[s], ((kt / STAGES) & 1) ^ 1);
+          tma(kt, base + s * L::STAGE, &full[s]);
+        }
+      return;
+    } else {
+      // the copied boxes of step kt: x's two 64-row halves, W's 64-column
+      // boxes, A's ranks
+      auto boxes = [&](int kt, unsigned char* st, auto&& visit) {
+        if (fl & CP_X)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            visit(atile::Box{o.x, m0 + 64 * h, kt * BK, 64, 64, st + 64 * 128 * h,
+                             st + L::XS + h * T64, true});
+        if (fl & CP_W)
+#pragma unroll
+          for (int j = 0; j < BN / 64; ++j)
+            visit(atile::Box{o.w, kt * BK, n0 + 64 * j, 64, 64, st + L::X_BYTES + j * BK * 128,
+                             st + L::WS + j * T64, false});
+        if (fl & CP_A)
+          visit(atile::Box{o.a, kt * BK, 0, 64, RP, st + L::X_BYTES + L::W_BYTES, st + L::AS,
+                           false});
+      };
+      if (FILL == COPY && warp > 8) {  // the placers load a copied B first, then arrive
+        if (fl & CP_B) {
+          atile::load_b(bs, o.b, RP, n0, BN / 64, tid - 9 * 32, NPL * 32);
+          hopper::fence_proxy_async();
+        }
+        __syncwarp();
+        if (lane == 0) hopper::mbar_arrive(bfull);
+      }
+      atile::producer(warp - 9, NPL, base, L::STAGE, STAGES, full, empty, landed, nk, tma, boxes);
+      return;
     }
-    return;
   }
 
   // consumers: warpgroup wg owns rows [64 wg, 64 wg + 64) of the tile
@@ -452,6 +582,10 @@ kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtenso
     hopper::fence_operand(acc);
   }
 
+  if (FILL == COPY && (fl & OUT_PLAIN)) {
+    store_plain<BN>(acc, o.y, o.x.rows, o.w.cols, m0, n0);
+    return;
+  }
   // store: bf16 into 64 x 64 boxes of 128-byte swizzled rows (the stages are
   // free once both warpgroups are done), then one TMA store per box
   hopper::named_sync(1, 256);
@@ -490,13 +624,14 @@ kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtenso
 
 constexpr int GROUP_M = 8;  // row tiles of a raster group: a wave reads W's column tiles once
 
-// STAGING: bytes of a stage after x's and W's slots where the producer
-// warp copies A (u_kernel at r % 8 != 0), else 0
+// STAGING: bytes of a stage after x's and W's slots where copied boxes are
+// staged: x's two 64-row halves at xs, then W's (or A's, or B's) boxes
 template <int BN, int STAGING = 0>
 struct WideLayout {
   static constexpr int X_BYTES = BM * BK * 2;  // a box of x, or of 64 ranks of h or l
   static constexpr int W_BYTES = BK * BN * 2;  // BN/64 boxes of W, A or B: 64 rows x 64 columns
   static constexpr int STAGE = X_BYTES + W_BYTES + STAGING;
+  static constexpr int XS = X_BYTES + W_BYTES;
   static constexpr int FIXED = 256 + 1024;  // barriers + alignment slack
   static constexpr int FIT = (int)((SMEM_MAX - FIXED) / STAGE);
   static constexpr int STAGES = FIT < 8 ? FIT : 8;  // one block an SM: as many as fit
@@ -504,31 +639,28 @@ struct WideLayout {
   static_assert(STAGES >= 2 && BN % 64 == 0 && BN <= 256, "unsupported tile");
   static_assert(BM * BN * 2 <= STAGES * STAGE, "the output tile reuses the stages");
 };
-
-// A's rows where the producer warp copies them (u_kernel at r % 8 != 0):
-// ranks c0 + [0, 64) of A (K x r)
-struct ARows {
-  const bf16* a;
-  int K, r, c0;
-};
+// the staging a FILL needs: COPY_A A's box (into W's slot), COPY x's two
+// halves and `boxes` 64-column boxes of W's slot
+__host__ __device__ constexpr int wide_staging(int fill, int boxes) {
+  return fill == COPY_A ? T64 : fill == COPY ? (2 + boxes) * T64 : 0;
+}
 
 // The K loop of both launches: a producer warp (8) streams `steps` stages
-// from load(step, slot, bar), two consumer warpgroups accumulate 64 rows
-// each of x-slot·W-slot into acc. The first product overwrites the
-// accumulators (scale_d = 0) instead of a zeroing, which would make ptxas
-// serialize the wgmmas (C7515); acc is left undefined when steps is 0.
-// STAGING > 0: the producer warp copies the W slot's tile from `rows` (atile).
-template <int BN, int STAGING = 0, typename Load>
+// through load(step, slot, bar) (which arrives on bar expecting the step's
+// TMA bytes), the placing warps (9, ...) place boxes(step, slot, visit)'s
+// copied boxes, two consumer warpgroups accumulate 64 rows each of
+// x-slot·W-slot into acc. The first product overwrites the accumulators
+// (scale_d = 0) instead of a zeroing, which would make ptxas serialize the
+// wgmmas (C7515); acc is left undefined when steps is 0.
+template <int BN, int FILL, int STAGING, typename Load, typename Boxes>
 __device__ __forceinline__ void wide_loop(unsigned char* base, uint64_t* full, uint64_t* empty,
-                                          int steps, Load load, float (&acc)[BN / 2],
-                                          ARows rows = {}) {
+                                          int steps, Load load, Boxes boxes, float (&acc)[BN / 2]) {
   using L = WideLayout<BN, STAGING>;
   constexpr int STAGES = L::STAGES;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  if (warp >= 8 && STAGING > 0) {  // producers: x by TMA, A copied into W's slot and placed
-    atile::producer<64>(warp == 9, base, L::STAGE, STAGES, L::X_BYTES, L::X_BYTES + L::W_BYTES,
-                        full, empty, empty + STAGES, steps, L::X_BYTES, load, rows.a, rows.K,
-                        rows.r, 0, rows.c0);
+  if (warp >= 8 && FILL != TMA_ALL) {  // producers: TMA where not copied, the copied boxes placed
+    atile::producer(warp - 9, placers(FILL), base, L::STAGE, STAGES, full, empty, empty + STAGES,
+                    steps, load, boxes);
     return;
   }
   if (warp == 8) {  // producer
@@ -536,7 +668,6 @@ __device__ __forceinline__ void wide_loop(unsigned char* base, uint64_t* full, u
       for (int kt = 0; kt < steps; ++kt) {
         const int s = kt % STAGES;
         hopper::mbar_wait(&empty[s], ((kt / STAGES) & 1) ^ 1);
-        hopper::mbar_arrive_expect_tx(&full[s], L::STAGE);
         load(kt, base + s * L::STAGE, &full[s]);
       }
     }
@@ -566,15 +697,15 @@ __device__ __forceinline__ void wide_loop(unsigned char* base, uint64_t* full, u
   hopper::fence_operand(acc);
 }
 
-// copy: A is copied (atile): the full barriers also expect the placing
-// warp's arrive, and `landed` barriers follow the empty ones
+// np placing warps: the full barriers also expect their arrives, and
+// `landed` barriers follow the empty ones
 template <int STAGES>
-__device__ __forceinline__ void init_barriers(uint64_t* full, uint64_t* empty, bool copy = false) {
+__device__ __forceinline__ void init_barriers(uint64_t* full, uint64_t* empty, int np = 0) {
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
-      // the producer's arrive + the bytes (and the placing warp's arrive)
-      hopper::mbar_init(&full[s], copy ? 2 : 1);
-      if (copy) hopper::mbar_init(&empty[STAGES + s], 32);
+      // the producer's arrive + the bytes (and the placing warps' arrives)
+      hopper::mbar_init(&full[s], 1 + np);
+      if (np) hopper::mbar_init(&empty[STAGES + s], 32);
       hopper::mbar_init(&empty[s], 2);  // one arrive per consumer warpgroup
     }
     hopper::fence_barrier_init();
@@ -582,16 +713,27 @@ __device__ __forceinline__ void init_barriers(uint64_t* full, uint64_t* empty, b
   __syncthreads();
 }
 
+// x's two 64-row halves at rows m0, m0 + 64, columns k0 of the x slot (COPY)
+template <typename Visit>
+__device__ __forceinline__ void x_boxes(const atile::Mat& x, int m0, int k0, unsigned char* st,
+                                        int xs, Visit&& visit) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    visit(atile::Box{x, m0 + 64 * h, k0, 64, 64, st + 64 * 128 * h, st + xs + h * T64, true});
+}
+
 // y = [x | h | l]·[W; B; B] into tm_y (tm_u: u (2, M, r), boxes of 64 ranks
 // x 128 rows). The grid is one-dimensional: groups of GROUP_M row tiles,
 // column tiles outermost within a group, so that the blocks in flight share
-// W's tiles.
-template <int BN>
-__global__ void __launch_bounds__(THREADS, 1)
+// W's tiles. FILL: TMA_ALL or COPY (o's flags: x, W and B copied, the
+// output by plain stores).
+template <int BN, int FILL>
+__global__ void __launch_bounds__(threads(FILL), 1)
 wide_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w,
             const __grid_constant__ CUtensorMap tm_u, const __grid_constant__ CUtensorMap tm_b,
-            const __grid_constant__ CUtensorMap tm_y, int K, int r, int num_m, int num_n) {
-  using L = WideLayout<BN>;
+            const __grid_constant__ CUtensorMap tm_y, int K, int r, int num_m, int num_n, Ops o) {
+  constexpr int STAGING = wide_staging(FILL, BN / 64);
+  using L = WideLayout<BN, STAGING>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base =
       reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~1023ull);
@@ -601,30 +743,50 @@ wide_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CU
   const int rows = min(num_m - first, GROUP_M), in_group = blockIdx.x % per_group;
   const int m0 = (first + in_group % rows) * BM, n0 = in_group / rows * BN;
   const int nk = (K + BK - 1) / BK, nc = (r + BK - 1) / BK;
-  init_barriers<L::STAGES>(full, empty);
+  const int fl = FILL == COPY ? o.flags : 0;
+  init_barriers<L::STAGES>(full, empty, placers(FILL));
   if (threadIdx.x == 8 * 32) {
-    hopper::prefetch_tensormap(&tm_x);
-    hopper::prefetch_tensormap(&tm_w);
+    if (!(fl & CP_X)) hopper::prefetch_tensormap(&tm_x);
+    if (!(fl & CP_W)) hopper::prefetch_tensormap(&tm_w);
     hopper::prefetch_tensormap(&tm_u);
-    hopper::prefetch_tensormap(&tm_b);
+    if (!(fl & CP_B)) hopper::prefetch_tensormap(&tm_b);
   }
   float acc[BN / 2];
-  wide_loop<BN>(base, full, empty, nk + 2 * nc, [&](int kt, unsigned char* st, uint64_t* bar) {
+  auto load = [&](int kt, unsigned char* st, uint64_t* bar) {
     if (kt < nk) {
-      hopper::tma_load_2d(st, &tm_x, bar, kt * BK, m0);
+      hopper::mbar_arrive_expect_tx(bar, (fl & CP_X ? 0 : L::X_BYTES) + (fl & CP_W ? 0 : L::W_BYTES));
+      if (!(fl & CP_X)) hopper::tma_load_2d(st, &tm_x, bar, kt * BK, m0);
+      if (!(fl & CP_W))
 #pragma unroll
-      for (int j = 0; j < BN / 64; ++j)
-        hopper::tma_load_2d(st + L::X_BYTES + j * BK * 128, &tm_w, bar, n0 + 64 * j, kt * BK);
+        for (int j = 0; j < BN / 64; ++j)
+          hopper::tma_load_2d(st + L::X_BYTES + j * BK * 128, &tm_w, bar, n0 + 64 * j, kt * BK);
     } else {  // ranks c·64 + [0, 64) of term t (h, then l) and B's rows of them
       const int t = (kt - nk) / nc, c = (kt - nk) % nc;
+      hopper::mbar_arrive_expect_tx(bar, L::X_BYTES + (fl & CP_B ? 0 : L::W_BYTES));
       hopper::tma_load_3d(st, &tm_u, bar, c * BK, m0, t);
+      if (!(fl & CP_B))
+#pragma unroll
+        for (int j = 0; j < BN / 64; ++j)
+          hopper::tma_load_2d(st + L::X_BYTES + j * BK * 128, &tm_b, bar, n0 + 64 * j, c * BK);
+    }
+  };
+  auto boxes = [&](int kt, unsigned char* st, auto&& visit) {
+    const atile::Mat& wb = kt < nk ? o.w : o.b;
+    const int copied = kt < nk ? fl & CP_W : fl & CP_B, k0 = (kt < nk ? kt : (kt - nk) % nc) * BK;
+    if (kt < nk && (fl & CP_X)) x_boxes(o.x, m0, k0, st, L::XS, visit);
+    if (copied)
 #pragma unroll
       for (int j = 0; j < BN / 64; ++j)
-        hopper::tma_load_2d(st + L::X_BYTES + j * BK * 128, &tm_b, bar, n0 + 64 * j, c * BK);
-    }
-  }, acc);
-  if (threadIdx.x >= 8 * 32) return;  // the producer
+        visit(atile::Box{wb, k0, n0 + 64 * j, 64, 64, st + L::X_BYTES + j * BK * 128,
+                         st + L::XS + (2 + j) * T64, kt >= nk});
+  };
+  wide_loop<BN, FILL, STAGING>(base, full, empty, nk + 2 * nc, load, boxes, acc);
+  if (threadIdx.x >= 8 * 32) return;  // the producers
 
+  if (FILL == COPY && (fl & OUT_PLAIN)) {
+    store_plain<BN>(acc, o.y, o.x.rows, o.w.cols, m0, n0);
+    return;
+  }
   // store: as the prefill kernel's
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, wg = warp / 4;
   const int q = lane % 4, row = (warp % 4) * 16 + lane / 4;  // and row + 8
@@ -652,13 +814,13 @@ wide_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CU
 // [0, 64), written from the accumulators as the terms of scale·u, two
 // adjacent ranks a store, into u (2, M, r8): r8 = r rounded up to a multiple
 // of 8, so that the product's tensor map can read it (the ranks past r come
-// out as zeros). COPY_A: A's rows are not 16 bytes apart, so the producer
-// warp copies A's tiles (atile) into the stage after W's slot.
-template <bool COPY_A>
-__global__ void __launch_bounds__(COPY_A ? COPY_THREADS : THREADS, 1)
+// out as zeros). FILL: COPY_A (A's rows not 16 bytes apart: A's tiles
+// copied into W's slot) or COPY (o's flags: x, A copied).
+template <int FILL>
+__global__ void __launch_bounds__(threads(FILL), 1)
 u_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_a,
-         bf16* __restrict__ u, int M, int K, int r, float scale, const bf16* __restrict__ a) {
-  constexpr int STAGING = COPY_A ? atile::Tile<64>::STAGING : 0;
+         bf16* __restrict__ u, int M, int K, int r, float scale, Ops o) {
+  constexpr int STAGING = wide_staging(FILL, 1);
   using L = WideLayout<64, STAGING>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base =
@@ -666,19 +828,28 @@ u_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUten
   uint64_t* full = reinterpret_cast<uint64_t*>(base + L::STAGES * L::STAGE);
   uint64_t* empty = full + L::STAGES;
   const int m0 = blockIdx.y * BM, c0 = blockIdx.x * 64, r8 = (r + 7) / 8 * 8;
-  init_barriers<L::STAGES>(full, empty, COPY_A);
+  const int fl = FILL == COPY ? o.flags : FILL == COPY_A ? CP_A : 0;
+  init_barriers<L::STAGES>(full, empty, placers(FILL));
   if (threadIdx.x == 8 * 32) {
-    hopper::prefetch_tensormap(&tm_x);
-    if (!COPY_A) hopper::prefetch_tensormap(&tm_a);
+    if (!(fl & CP_X)) hopper::prefetch_tensormap(&tm_x);
+    if (!(fl & CP_A)) hopper::prefetch_tensormap(&tm_a);
   }
   float acc[32];
-  wide_loop<64, STAGING>(base, full, empty, (K + BK - 1) / BK,
-                         [&](int kt, unsigned char* st, uint64_t* bar) {
-                           hopper::tma_load_2d(st, &tm_x, bar, kt * BK, m0);
-                           if (!COPY_A)
-                             hopper::tma_load_2d(st + L::X_BYTES, &tm_a, bar, c0, kt * BK);
-                         }, acc, ARows{a, K, r, c0});
-  if (threadIdx.x >= 8 * 32) return;  // the producer
+  wide_loop<64, FILL, STAGING>(
+      base, full, empty, (K + BK - 1) / BK,
+      [&](int kt, unsigned char* st, uint64_t* bar) {
+        hopper::mbar_arrive_expect_tx(bar, (fl & CP_X ? 0 : L::X_BYTES) + (fl & CP_A ? 0 : L::W_BYTES));
+        if (!(fl & CP_X)) hopper::tma_load_2d(st, &tm_x, bar, kt * BK, m0);
+        if (!(fl & CP_A)) hopper::tma_load_2d(st + L::X_BYTES, &tm_a, bar, c0, kt * BK);
+      },
+      [&](int kt, unsigned char* st, auto&& visit) {
+        if (fl & CP_X) x_boxes(o.x, m0, kt * BK, st, L::XS, visit);
+        if (fl & CP_A)
+          visit(atile::Box{o.a, kt * BK, c0, 64, 64, st + L::X_BYTES,
+                           st + L::XS + (FILL == COPY ? 2 * T64 : 0), false});
+      },
+      acc);
+  if (threadIdx.x >= 8 * 32) return;  // the producers
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int row = m0 + (warp / 4) * 64 + (warp % 4) * 16 + lane / 4;  // and row + 8
 #pragma unroll
@@ -700,36 +871,38 @@ u_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUten
 }
 
 // u's terms (2, M, r8) of scale·x·A: tiles of 128 rows x 64 ranks
-template <bool COPY_A>
-cudaError_t u_launch(const bf16* x, const bf16* a, bf16* u, int M, int K, int r, float scale,
-                     cudaStream_t stream) {
-  using L = WideLayout<64, COPY_A ? atile::Tile<64>::STAGING : 0>;
+template <int FILL>
+cudaError_t u_launch(const Ops& o, bf16* u, float scale, cudaStream_t stream) {
+  using L = WideLayout<64, wide_staging(FILL, 1)>;
+  const int M = o.x.rows, K = o.x.cols, r = o.a.cols;
+  const int fl = FILL == COPY ? o.flags : FILL == COPY_A ? CP_A : 0;
   static bool smem_set = false;
-  cudaError_t e = hopper::allow_smem(u_kernel<COPY_A>, L::SMEM, smem_set);
+  cudaError_t e = hopper::allow_smem(u_kernel<FILL>, L::SMEM, smem_set);
   if (e != cudaSuccess) return e;
-  CUtensorMap tx, ta = {};
+  CUtensorMap tx = {}, ta = {};
   const uint64_t xs[2] = {(uint64_t)K, (uint64_t)M}, xst[1] = {(uint64_t)K * 2};
   const uint64_t as[2] = {(uint64_t)r, (uint64_t)K}, ast[1] = {(uint64_t)r * 2};
   const uint32_t xb[2] = {BK, BM}, ab[2] = {64, BK};
-  if ((e = hopper::make_tensor_map(&tx, x, 2, xs, xst, xb, 128)) != cudaSuccess) return e;
-  if (!COPY_A && (e = hopper::make_tensor_map(&ta, a, 2, as, ast, ab, 128)) != cudaSuccess)
+  if (!(fl & CP_X) && (e = hopper::make_tensor_map(&tx, o.x.p, 2, xs, xst, xb, 128)) != cudaSuccess)
+    return e;
+  if (!(fl & CP_A) && (e = hopper::make_tensor_map(&ta, o.a.p, 2, as, ast, ab, 128)) != cudaSuccess)
     return e;
   dim3 grid((r + 63) / 64, (M + BM - 1) / BM);
-  u_kernel<COPY_A><<<grid, COPY_A ? COPY_THREADS : THREADS, L::SMEM, stream>>>(tx, ta, u, M, K, r,
-                                                                             scale, a);
+  u_kernel<FILL><<<grid, threads(FILL), L::SMEM, stream>>>(tx, ta, u, M, K, r, scale, o);
   return cudaGetLastError();
 }
 
 // y = [x | h | l]·[W; B; B], u: the terms (2, M, r8); B's map has r rows
 // (TMA zero-fills the ranks past r)
-template <int BN>
-cudaError_t wide_launch(const bf16* x, const bf16* w, const bf16* u, const bf16* b, bf16* y,
-                        int M, int K, int N, int r, cudaStream_t stream) {
-  using L = WideLayout<BN>;
+template <int BN, int FILL>
+cudaError_t wide_launch(const Ops& o, const bf16* u, cudaStream_t stream) {
+  using L = WideLayout<BN, wide_staging(FILL, BN / 64)>;
+  const int M = o.x.rows, K = o.x.cols, N = o.w.cols, r = o.a.cols;
+  const int fl = FILL == COPY ? o.flags : 0;
   static bool smem_set = false;
-  cudaError_t e = hopper::allow_smem(wide_kernel<BN>, L::SMEM, smem_set);
+  cudaError_t e = hopper::allow_smem(wide_kernel<BN, FILL>, L::SMEM, smem_set);
   if (e != cudaSuccess) return e;
-  CUtensorMap tx, tw, tu, tb, ty;
+  CUtensorMap tx = {}, tw = {}, tu, tb = {}, ty = {};
   const uint64_t r8 = (uint64_t)(r + 7) / 8 * 8;
   const uint64_t xs[2] = {(uint64_t)K, (uint64_t)M}, xst[1] = {(uint64_t)K * 2};
   const uint64_t ws[2] = {(uint64_t)N, (uint64_t)K}, wst[1] = {(uint64_t)N * 2};
@@ -737,59 +910,68 @@ cudaError_t wide_launch(const bf16* x, const bf16* w, const bf16* u, const bf16*
   const uint64_t ust[2] = {r8 * 2, (uint64_t)M * r8 * 2};
   const uint64_t bsz[2] = {(uint64_t)N, (uint64_t)r}, ys[2] = {(uint64_t)N, (uint64_t)M};
   const uint32_t xb[2] = {BK, BM}, wb[2] = {64, BK}, ub[3] = {BK, BM, 1}, yb[2] = {64, 64};
-  if ((e = hopper::make_tensor_map(&tx, x, 2, xs, xst, xb, 128)) != cudaSuccess) return e;
-  if ((e = hopper::make_tensor_map(&tw, w, 2, ws, wst, wb, 128)) != cudaSuccess) return e;
+  if (!(fl & CP_X) && (e = hopper::make_tensor_map(&tx, o.x.p, 2, xs, xst, xb, 128)) != cudaSuccess)
+    return e;
+  if (!(fl & CP_W) && (e = hopper::make_tensor_map(&tw, o.w.p, 2, ws, wst, wb, 128)) != cudaSuccess)
+    return e;
   if ((e = hopper::make_tensor_map(&tu, u, 3, us, ust, ub, 128)) != cudaSuccess) return e;
-  if ((e = hopper::make_tensor_map(&tb, b, 2, bsz, wst, wb, 128)) != cudaSuccess) return e;
-  if ((e = hopper::make_tensor_map(&ty, y, 2, ys, wst, yb, 128)) != cudaSuccess) return e;
+  if (!(fl & CP_B) && (e = hopper::make_tensor_map(&tb, o.b.p, 2, bsz, wst, wb, 128)) != cudaSuccess)
+    return e;
+  if (!(fl & OUT_PLAIN) && (e = hopper::make_tensor_map(&ty, o.y, 2, ys, wst, yb, 128)) != cudaSuccess)
+    return e;
   const int num_m = (M + BM - 1) / BM, num_n = (N + BN - 1) / BN;
-  wide_kernel<BN><<<num_m * num_n, THREADS, L::SMEM, stream>>>(tx, tw, tu, tb, ty, K, r, num_m,
-                                                                 num_n);
+  wide_kernel<BN, FILL><<<num_m * num_n, threads(FILL), L::SMEM, stream>>>(tx, tw, tu, tb, ty, K, r,
+                                                                          num_m, num_n, o);
   return cudaGetLastError();
 }
 
-template <int BN, int RP, bool COPY_A>
-cudaError_t launch(const bf16* x, const bf16* w, const bf16* a, const bf16* b, bf16* y, int M,
-                   int K, int N, int r, float scale, cudaStream_t stream) {
-  using L = Layout<BN, RP, COPY_A>;
+template <int BN, int RP, int FILL>
+cudaError_t launch(const Ops& o, float scale, cudaStream_t stream) {
+  using L = Layout<BN, RP, FILL>;
+  const int M = o.x.rows, K = o.x.cols, N = o.w.cols, r = o.a.cols;
+  const int fl = FILL == COPY ? o.flags : FILL == COPY_A ? CP_A : 0;
   static bool smem_set = false;
-  cudaError_t e = hopper::allow_smem(kernel<BN, RP, COPY_A>, L::SMEM, smem_set);
+  cudaError_t e = hopper::allow_smem(kernel<BN, RP, FILL>, L::SMEM, smem_set);
   if (e != cudaSuccess) return e;
-  CUtensorMap tx, tw, ta = {}, tb, ty;
+  CUtensorMap tx = {}, tw = {}, ta = {}, tb = {}, ty = {};
   const uint64_t xs[2] = {(uint64_t)K, (uint64_t)M}, xst[1] = {(uint64_t)K * 2};
   const uint64_t ws[2] = {(uint64_t)N, (uint64_t)K}, wst[1] = {(uint64_t)N * 2};
   const uint64_t as[2] = {(uint64_t)r, (uint64_t)K}, ast[1] = {(uint64_t)r * 2};
   const uint64_t bsz[2] = {(uint64_t)N, (uint64_t)r}, ys[2] = {(uint64_t)N, (uint64_t)M};
   const uint32_t xb[2] = {BK, BM}, wb[2] = {64, BK}, ab[2] = {RP, BK}, bb[2] = {64, RP};
   const uint32_t yb[2] = {64, 64};
-  if ((e = hopper::make_tensor_map(&tx, x, 2, xs, xst, xb, 128)) != cudaSuccess) return e;
-  if ((e = hopper::make_tensor_map(&tw, w, 2, ws, wst, wb, 128)) != cudaSuccess) return e;
-  if (!COPY_A && (e = hopper::make_tensor_map(&ta, a, 2, as, ast, ab, RP * 2)) != cudaSuccess)
+  if (!(fl & CP_X) && (e = hopper::make_tensor_map(&tx, o.x.p, 2, xs, xst, xb, 128)) != cudaSuccess)
     return e;
-  if ((e = hopper::make_tensor_map(&tb, b, 2, bsz, wst, bb, 128)) != cudaSuccess) return e;
-  if ((e = hopper::make_tensor_map(&ty, y, 2, ys, wst, yb, 128)) != cudaSuccess) return e;
+  if (!(fl & CP_W) && (e = hopper::make_tensor_map(&tw, o.w.p, 2, ws, wst, wb, 128)) != cudaSuccess)
+    return e;
+  if (!(fl & CP_A) &&
+      (e = hopper::make_tensor_map(&ta, o.a.p, 2, as, ast, ab, RP * 2)) != cudaSuccess)
+    return e;
+  if (!(fl & CP_B) && (e = hopper::make_tensor_map(&tb, o.b.p, 2, bsz, wst, bb, 128)) != cudaSuccess)
+    return e;
+  if (!(fl & OUT_PLAIN) && (e = hopper::make_tensor_map(&ty, o.y, 2, ys, wst, yb, 128)) != cudaSuccess)
+    return e;
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  kernel<BN, RP, COPY_A><<<grid, COPY_A ? COPY_THREADS : THREADS, L::SMEM, stream>>>(
-      tx, tw, ta, tb, ty, K, scale, a, r);
+  kernel<BN, RP, FILL><<<grid, threads(FILL), L::SMEM, stream>>>(tx, tw, ta, tb, ty, K, scale, o);
   return cudaGetLastError();
 }
 
-// the fused product at r <= 64: RP = 16 or 64 ranks, tile width bn
-template <bool COPY_A>
-cudaError_t fused(const bf16* x, const bf16* w, const bf16* a, const bf16* b, bf16* y, int M,
-                  int K, int N, int r, float scale, int bn, cudaStream_t st) {
-  if (r <= 16) {
+// the fused product at r <= 64: RP = 16 or 64 ranks, tile width bn (at
+// most 128 under COPY)
+template <int FILL>
+cudaError_t fused(const Ops& o, float scale, int bn, cudaStream_t st) {
+  if (o.a.cols <= 16) {
     switch (bn) {
-      case 64: return launch<64, 16, COPY_A>(x, w, a, b, y, M, K, N, r, scale, st);
-      case 128: return launch<128, 16, COPY_A>(x, w, a, b, y, M, K, N, r, scale, st);
-      case 192: return launch<192, 16, COPY_A>(x, w, a, b, y, M, K, N, r, scale, st);
-      case 256: return launch<256, 16, COPY_A>(x, w, a, b, y, M, K, N, r, scale, st);
+      case 64: return launch<64, 16, FILL>(o, scale, st);
+      case 128: return launch<128, 16, FILL>(o, scale, st);
+      case 192: if constexpr (FILL != COPY) return launch<192, 16, FILL>(o, scale, st); break;
+      case 256: if constexpr (FILL != COPY) return launch<256, 16, FILL>(o, scale, st); break;
     }
   } else {
     switch (bn) {
-      case 64: return launch<64, 64, COPY_A>(x, w, a, b, y, M, K, N, r, scale, st);
-      case 128: return launch<128, 64, COPY_A>(x, w, a, b, y, M, K, N, r, scale, st);
-      case 192: return launch<192, 64, COPY_A>(x, w, a, b, y, M, K, N, r, scale, st);
+      case 64: return launch<64, 64, FILL>(o, scale, st);
+      case 128: return launch<128, 64, FILL>(o, scale, st);
+      case 192: if constexpr (FILL != COPY) return launch<192, 64, FILL>(o, scale, st); break;
     }
   }
   return cudaErrorInvalidValue;
@@ -806,7 +988,8 @@ constexpr int MAX_SPLIT = 8;   // blocks of a cluster (portable); block `rank` t
 constexpr int BK = 64;         // K rows of a ring slot
 constexpr int RANKS = 64;      // the A tile's columns: ranks past r arrive as zeros
 constexpr int THREADS = 160;   // warpgroup 0 consumes, warp 4 produces
-constexpr int COPY_THREADS = THREADS + 32;  // where A is copied: warp 5 places its tiles
+// + the placing warps 5, ... where tiles are copied
+__host__ __device__ constexpr int threads(int fill) { return THREADS + 32 * placers(fill); }
 constexpr int MAX_STAGES = 6;
 constexpr size_t SM_SMEM = 233472;  // an SM's shared memory; each block also reserves 1 KB
 
@@ -823,28 +1006,35 @@ constexpr size_t SM_SMEM = 233472;  // an SM's shared memory; each block also re
 // At r % 8 != 0 (COPY_A) the producer warp copies A's tiles (atile): FUSED's
 // into the A slot, UPASS's into W's; UPASS then writes u's terms at r8 = r
 // rounded up to a multiple of 8 ranks a row (zeros past r), which UFOLD's
-// map reads.
+// map reads. Under COPY (o's flags) x's, A's, W's and B's tiles are copied
+// where TMA cannot map them, one block an SM (the staging leaves no room
+// for two).
 enum Mode { FUSED, UPASS, UFOLD };
 
 // MT: rows of x padded to 8 or 16 (the n of the wgmmas); BN: columns of a
 // cluster's slice (64 or 128: the wider slice halves the clusters of a wide N)
-template <int MT, int BN, int MODE, bool COPY_A = false>
+template <int MT, int BN, int MODE, int FILL = TMA_ALL>
 struct Layout {
   static constexpr int X_BYTES = MT * BK * 2;     // x (or a term): MT rows of 64 K-columns, 128-byte rows
   static constexpr int A_BYTES = MODE == FUSED ? BK * RANKS * 2 : 0;  // A: 64 K-rows of 64 ranks
   static constexpr int W_BYTES = BK * BN * 2;     // W (or B): BN/64 boxes of 64 K-rows x 64 columns
-  static constexpr int STAGING = COPY_A ? atile::Tile<RANKS>::STAGING : 0;  // A's copied rows
-  static constexpr int STAGE = X_BYTES + A_BYTES + W_BYTES + STAGING;  // every part 1024-aligned
-  // bytes landing per stage by TMA (a copied tile is A's, or UPASS's W slot)
-  static constexpr uint32_t TX =
-      STAGE - STAGING - (COPY_A ? (MODE == FUSED ? A_BYTES : W_BYTES) : 0);
+  static constexpr int TILES = X_BYTES + A_BYTES + W_BYTES;  // every part 1024-aligned
+  // staging: COPY_A A's copied rows; COPY x's rows (at xs), A's (as) and
+  // W's or B's boxes (ws)
+  static constexpr int X_STAGING = (MT * atile::Tile<64>::SROW + 1023) / 1024 * 1024;
+  static constexpr int XS = TILES, AS = FILL == COPY ? XS + X_STAGING : TILES;
+  static constexpr int WS = AS + (MODE == UFOLD ? 0 : T64);
+  static constexpr int STAGING = FILL == COPY_A ? T64 : FILL == COPY ? WS + BN / 64 * T64 - TILES : 0;
+  static constexpr int STAGE = TILES + STAGING;
   // the block's partial of u and the whole u (fp32; FUSED only)
   static constexpr int U_BYTES = MODE == FUSED ? 2 * MT * RANKS * 4 : 0;
   // the slice's partial of x·W, u's, the barriers and the alignment slack
   static constexpr int FIXED = 1024 + MT * BN * 4 + U_BYTES + 256;
-  // at most as many stages as leave room for two blocks an SM, at most
-  // MAX_STAGES; a block whose K slice is shorter takes one per K step
-  static constexpr int FIT = (int)((SM_SMEM / 2 - 1024 - FIXED) / STAGE);
+  // at most as many stages as leave room for two blocks an SM (one under
+  // COPY), at most MAX_STAGES; a block whose K slice is shorter takes one
+  // per K step
+  static constexpr int MINB = FILL == COPY ? 1 : 2;
+  static constexpr int FIT = (int)((SM_SMEM / MINB - 1024 - FIXED) / STAGE);
   static constexpr int STAGES = FIT < MAX_STAGES ? FIT : MAX_STAGES;
   // a block's shared memory (mirrored by kernels/lora_matmul.py ``decode_smem_bytes``)
   static constexpr size_t smem(int stages) { return FIXED + (size_t)stages * STAGE; }
@@ -854,18 +1044,19 @@ struct Layout {
 // yᵀ = Wᵀ·xᵀ and uᵀ = Aᵀ·xᵀ on the tensor cores, swapped so that the 64-row
 // side of the wgmma is W's columns (and A's ranks), not x's few rows: per
 // K step, W's and A's tiles are MN-major A operands (their columns
-// contiguous) and x's tile is the K-major B operand of n = MT. tm_a: A's
-// map (FUSED), the terms' (UFOLD: u (2, M, r), boxes of 64 ranks x MT
-// rows); y: the output, or u's terms (UPASS: 2 x M x N with N = r, or r8
-// where COPY_A). a: A, copied where COPY_A (its map then unused).
-template <int MT, int BN, int MODE, bool COPY_A>
-__global__ void __launch_bounds__(COPY_A ? COPY_THREADS : THREADS, 2)
+// contiguous) and x's tile is the K-major B operand of n = MT. tm_w: W's
+// map (A's at UPASS); tm_a: A's map (FUSED), the terms' (UFOLD: u (2, M,
+// r), boxes of 64 ranks x MT rows); y: the output, or u's terms (UPASS: 2 x
+// M x N with N = r, or r8 where A is copied). o: the operands as matrices
+// (A's at UPASS in w) and, under COPY, which are copied.
+template <int MT, int BN, int MODE, int FILL>
+__global__ void __launch_bounds__(threads(FILL), Layout<MT, BN, MODE, FILL>::MINB)
 kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w,
        const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_b,
        const bf16* __restrict__ b, bf16* __restrict__ y, int M, int K, int N, int r, int kc,
-       int stages, float scale, const bf16* __restrict__ a) {
-  using L = Layout<MT, BN, MODE, COPY_A>;
-  constexpr int NB = BN / 64, NT = COPY_A ? COPY_THREADS : THREADS;
+       int stages, float scale, Ops o) {
+  using L = Layout<MT, BN, MODE, FILL>;
+  constexpr int NB = BN / 64, NT = threads(FILL), NPL = placers(FILL);
   constexpr bool RING_A = MODE == FUSED;
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ unsigned char smem_raw[];
@@ -885,64 +1076,86 @@ kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtenso
   // UFOLD: fold steps f = nc - 1 - rank + i·nc of the 2·ceil(r/64)
   const int nr = (r + BK - 1) / BK, f0 = nc - 1 - rank;
   const int nf = MODE == UFOLD && f0 < 2 * nr ? (2 * nr - 1 - f0) / nc + 1 : 0;
+  // the copied operands (UPASS: A's tiles in W's slot, flagged as A's)
+  const int fl = FILL == COPY ? o.flags : FILL == COPY_A ? CP_A : 0;
+  const bool w_tma = MODE == UPASS ? !(fl & CP_A) : !(fl & CP_W);
 
-  uint64_t* landed = empty + stages;  // COPY_A: A's copies of a slot are in
+  uint64_t* landed = empty + stages;  // the copied tiles of a slot are in
   if (tid == 0) {
     for (int s = 0; s < stages; ++s) {
-      // the producer's arrive + the bytes (and the placing warp's arrive)
-      hopper::mbar_init(&full[s], COPY_A ? 2 : 1);
+      // the producer's arrive + the bytes (and the placing warps' arrives)
+      hopper::mbar_init(&full[s], 1 + NPL);
       hopper::mbar_init(&empty[s], 1);  // the consumer warpgroup's arrive
-      if (COPY_A) hopper::mbar_init(&landed[s], 32);
+      if (NPL) hopper::mbar_init(&landed[s], 32);
     }
     hopper::fence_barrier_init();
   }
   __syncthreads();
 
-  if (warp >= 4 && COPY_A) {  // producers: x and W by TMA, A's tiles copied and placed
+  if (warp >= 4) {  // producers: the tiles of step t into slot s = t % stages
     if (tid == 4 * 32) {
-      hopper::prefetch_tensormap(&tm_x);
-      if (MODE == FUSED) hopper::prefetch_tensormap(&tm_w);
+      if (!(fl & CP_X)) hopper::prefetch_tensormap(&tm_x);
+      if (w_tma) hopper::prefetch_tensormap(&tm_w);
+      if (MODE == FUSED && !(fl & CP_A)) hopper::prefetch_tensormap(&tm_a);
+      if (MODE == UFOLD) hopper::prefetch_tensormap(&tm_a);
+      if (MODE == UFOLD && !(fl & CP_B)) hopper::prefetch_tensormap(&tm_b);
     }
-    atile::producer<RANKS>(warp == 5, base, L::STAGE, stages, L::X_BYTES, L::STAGE - L::STAGING,
-                           full, empty, landed, nkt, L::TX,
-                           [&](int t, unsigned char* st, uint64_t* bar) {
-                             const int k = kbeg + t * BK;
-                             hopper::tma_load_2d(st, &tm_x, bar, k, 0);
-                             if constexpr (MODE == FUSED) {
+    auto tma = [&](int t, unsigned char* st, uint64_t* bar) {
+      unsigned char* ws = st + L::X_BYTES + L::A_BYTES;
+      if (t < nkt) {  // x, A and W at K rows k + [0, 64)
+        const int k = kbeg + t * BK;
+        const bool a_tma = RING_A && !(fl & CP_A);
+        hopper::mbar_arrive_expect_tx(bar, (fl & CP_X ? 0 : L::X_BYTES) + (a_tma ? L::A_BYTES : 0) +
+                                               (w_tma ? L::W_BYTES : 0));
+        if (!(fl & CP_X)) hopper::tma_load_2d(st, &tm_x, bar, k, 0);
+        if (a_tma) hopper::tma_load_2d(st + L::X_BYTES, &tm_a, bar, 0, k);
+        if (w_tma)
 #pragma unroll
-                               for (int j = 0; j < NB; ++j)
-                                 hopper::tma_load_2d(st + L::X_BYTES + L::A_BYTES + j * BK * 128,
-                                                     &tm_w, bar, n0 + 64 * j, k);
-                             }
-                           },
-                           a, K, r, kbeg, MODE == UPASS ? n0 : 0);
-  } else if (warp == 4) {  // producer: the tiles of step t into slot s = t % stages
-    if (lane == 0) {
-      hopper::prefetch_tensormap(&tm_x);
-      hopper::prefetch_tensormap(&tm_w);
-      if constexpr (MODE != UPASS) hopper::prefetch_tensormap(&tm_a);
-      if constexpr (MODE == UFOLD) hopper::prefetch_tensormap(&tm_b);
-      for (int t = 0, s = 0, phase = 0; t < nkt + nf; ++t) {
-        hopper::mbar_wait(&empty[s], phase ^ 1);
-        unsigned char* st = base + s * L::STAGE;
-        unsigned char* ws = st + L::X_BYTES + L::A_BYTES;
-        hopper::mbar_arrive_expect_tx(&full[s], L::STAGE);
-        if (t < nkt) {  // x, A and W at K rows k + [0, 64)
-          const int k = kbeg + t * BK;
-          hopper::tma_load_2d(st, &tm_x, &full[s], k, 0);
-          if constexpr (RING_A) hopper::tma_load_2d(st + L::X_BYTES, &tm_a, &full[s], 0, k);
+          for (int j = 0; j < NB; ++j) hopper::tma_load_2d(ws + j * BK * 128, &tm_w, bar, n0 + 64 * j, k);
+      } else {  // fold step f: ranks c·64 + [0, 64) of term h or l, and B's rows of them
+        const int f = f0 + (t - nkt) * nc, c = f % nr;
+        hopper::mbar_arrive_expect_tx(bar, L::X_BYTES + (fl & CP_B ? 0 : L::W_BYTES));
+        hopper::tma_load_3d(st, &tm_a, bar, c * BK, 0, f / nr);
+        if (!(fl & CP_B))
 #pragma unroll
           for (int j = 0; j < NB; ++j)
-            hopper::tma_load_2d(ws + j * BK * 128, &tm_w, &full[s], n0 + 64 * j, k);
-        } else {  // fold step f: ranks c·64 + [0, 64) of term h or l, and B's rows of them
-          const int f = f0 + (t - nkt) * nc, c = f % nr;
-          hopper::tma_load_3d(st, &tm_a, &full[s], c * BK, 0, f / nr);
-#pragma unroll
-          for (int j = 0; j < NB; ++j)
-            hopper::tma_load_2d(ws + j * BK * 128, &tm_b, &full[s], n0 + 64 * j, c * BK);
-        }
-        if (++s == stages) s = 0, phase ^= 1;
+            hopper::tma_load_2d(ws + j * BK * 128, &tm_b, bar, n0 + 64 * j, c * BK);
       }
+    };
+    if constexpr (FILL == TMA_ALL) {
+      if (lane == 0)
+        for (int t = 0, s = 0, phase = 0; t < nkt + nf; ++t) {
+          hopper::mbar_wait(&empty[s], phase ^ 1);
+          tma(t, base + s * L::STAGE, &full[s]);
+          if (++s == stages) s = 0, phase ^= 1;
+        }
+    } else {
+      // the copied boxes of step t: x's MT rows, A's 64 ranks (FUSED: from
+      // rank 0 into the A slot; UPASS: from rank n0 into W's), W's (or a
+      // fold step's B rows') 64-column boxes
+      auto boxes = [&](int t, unsigned char* st, auto&& visit) {
+        unsigned char* ws = st + L::X_BYTES + L::A_BYTES;
+        if (t < nkt) {
+          const int k = kbeg + t * BK;
+          if (fl & CP_X) visit(atile::Box{o.x, 0, k, MT, 64, st, st + L::XS, true});
+          if (MODE != UFOLD && (fl & CP_A))
+            visit(atile::Box{MODE == UPASS ? o.w : o.a, k, MODE == UPASS ? n0 : 0, BK, 64,
+                             MODE == UPASS ? ws : st + L::X_BYTES, st + L::AS, false});
+          if (MODE != UPASS && (fl & CP_W))
+#pragma unroll
+            for (int j = 0; j < NB; ++j)
+              visit(atile::Box{o.w, k, n0 + 64 * j, BK, 64, ws + j * BK * 128,
+                               st + L::WS + j * T64, false});
+        } else if (fl & CP_B) {
+          const int c = (f0 + (t - nkt) * nc) % nr;
+#pragma unroll
+          for (int j = 0; j < NB; ++j)
+            visit(atile::Box{o.b, c * BK, n0 + 64 * j, BK, 64, ws + j * BK * 128,
+                             st + L::WS + j * T64, true});
+        }
+      };
+      atile::producer(warp - 5, NPL, base, L::STAGE, stages, full, empty, landed, nkt + nf, tma,
+                      boxes);
     }
   } else {
     // consumer warpgroup: thread (warp w, lane l) holds rows 16w + l/4 + {0, 8}
@@ -999,7 +1212,6 @@ kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtenso
         if constexpr (RING_A) upart[m * RANKS + row] = uacc[4 * jm + e];
       }
   }
-
   cluster.sync();  // every block's partials are written
   // (the partials are added in rank order; the zeros past the cluster's
   // blocks leave each sum as it is)
@@ -1047,17 +1259,21 @@ kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtenso
   cluster.sync();  // the other blocks read this block's shared memory until here
 }
 
-// FUSED: a is A; UPASS: w is A, N is r (r8 where COPY_A: r is then A's
-// ranks), y is u's terms (2, M, N), a and b are not read; UFOLD: a is u's
-// terms (2, M, r8), r8 = r rounded up to a multiple of 8
-template <int MT, int BN, int MODE, bool COPY_A>
-cudaError_t launch(const bf16* x, const bf16* w, const bf16* a, const bf16* b, bf16* y, int M,
-                   int K, int N, int r, float scale, int split, cudaStream_t stream) {
-  using L = Layout<MT, BN, MODE, COPY_A>;
+
+// FUSED: o.a is A; UPASS: o.w is A (N is r8 where A is copied: r is then
+// A's ranks), y is u's terms (2, M, N), o.a and b are not read; UFOLD: the
+// `a` map reads u's terms (2, M, r8), r8 = r rounded up to a multiple of 8
+template <int MT, int BN, int MODE, int FILL>
+cudaError_t launch(const Ops& o, const bf16* u, bf16* y, int N, int r, float scale, int split,
+                   cudaStream_t stream) {
+  using L = Layout<MT, BN, MODE, FILL>;
+  const int M = o.x.rows, K = o.x.cols;
+  const int fl = FILL == COPY ? o.flags : FILL == COPY_A ? CP_A : 0;
+  const bool w_tma = MODE == UPASS ? !(fl & CP_A) : !(fl & CP_W);
   static bool smem_set = false;
-  cudaError_t e = hopper::allow_smem(kernel<MT, BN, MODE, COPY_A>, L::smem(L::STAGES), smem_set);
+  cudaError_t e = hopper::allow_smem(kernel<MT, BN, MODE, FILL>, L::smem(L::STAGES), smem_set);
   if (e != cudaSuccess) return e;
-  CUtensorMap tx, tw = {}, ta = {}, tb = {};
+  CUtensorMap tx = {}, tw = {}, ta = {}, tb = {};
   const uint64_t r8 = (uint64_t)(r + 7) / 8 * 8;
   const uint64_t xs[2] = {(uint64_t)K, (uint64_t)M}, xst[1] = {(uint64_t)K * 2};
   const uint64_t ws[2] = {(uint64_t)N, (uint64_t)K}, wst[1] = {(uint64_t)N * 2};
@@ -1066,23 +1282,23 @@ cudaError_t launch(const bf16* x, const bf16* w, const bf16* a, const bf16* b, b
   const uint64_t ust[2] = {r8 * 2, (uint64_t)M * r8 * 2};
   const uint64_t bsz[2] = {(uint64_t)N, (uint64_t)r};
   const uint32_t xb[2] = {BK, MT}, wb[2] = {64, BK}, ab[2] = {RANKS, BK}, ub[3] = {BK, MT, 1};
-  if ((e = hopper::make_tensor_map(&tx, x, 2, xs, xst, xb, 128)) != cudaSuccess) return e;
-  if (!(COPY_A && MODE == UPASS) &&
-      (e = hopper::make_tensor_map(&tw, w, 2, ws, wst, wb, 128)) != cudaSuccess)
+  if (!(fl & CP_X) && (e = hopper::make_tensor_map(&tx, o.x.p, 2, xs, xst, xb, 128)) != cudaSuccess)
     return e;
-  if (MODE == FUSED && !COPY_A &&
-      (e = hopper::make_tensor_map(&ta, a, 2, as, ast, ab, 128)) != cudaSuccess)
+  if (w_tma && (e = hopper::make_tensor_map(&tw, o.w.p, 2, ws, wst, wb, 128)) != cudaSuccess)
+    return e;
+  if (MODE == FUSED && !(fl & CP_A) &&
+      (e = hopper::make_tensor_map(&ta, o.a.p, 2, as, ast, ab, 128)) != cudaSuccess)
     return e;
   if (MODE == UFOLD) {
-    if ((e = hopper::make_tensor_map(&ta, a, 3, us, ust, ub, 128)) != cudaSuccess) return e;
-    if ((e = hopper::make_tensor_map(&tb, b, 2, bsz, wst, wb, 128)) != cudaSuccess) return e;
+    if ((e = hopper::make_tensor_map(&ta, u, 3, us, ust, ub, 128)) != cudaSuccess) return e;
+    if (!(fl & CP_B) && (e = hopper::make_tensor_map(&tb, o.b.p, 2, bsz, wst, wb, 128)) != cudaSuccess)
+      return e;
   }
   int kc = ((K + split - 1) / split + BK - 1) / BK * BK;
   // one stage a step of the block with the most, at most L::STAGES: its K
   // steps and (UFOLD) its share of the fold's 2·ceil(r/64)
   const int most = kc / BK + (MODE == UFOLD ? (2 * ((r + BK - 1) / BK) + split - 1) / split : 0);
   int stages = most < L::STAGES ? most : L::STAGES;
-  const bf16* copied = MODE == UPASS ? w : a;  // A, where the producer copies it
   // a cluster of `split` blocks along K for each slice of N
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -1091,227 +1307,52 @@ cudaError_t launch(const bf16* x, const bf16* w, const bf16* a, const bf16* b, b
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(split, (N + BN - 1) / BN);
-  cfg.blockDim = dim3(COPY_A ? COPY_THREADS : THREADS);
+  cfg.blockDim = dim3(threads(FILL));
   cfg.dynamicSmemBytes = L::smem(stages);
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  void* args[] = {&tx, &tw, &ta, &tb, &b, &y, &M, &K, &N, &r, &kc, &stages, &scale, &copied};
-  e = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(kernel<MT, BN, MODE, COPY_A>), args);
+  const bf16* b = o.b.p;
+  Ops ops = o;
+  int Mi = M, Ki = K, Ni = N, ri = r;
+  void* args[] = {&tx, &tw, &ta, &tb, &b, &y, &Mi, &Ki, &Ni, &ri, &kc, &stages, &scale, &ops};
+  e = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(kernel<MT, BN, MODE, FILL>), args);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
 // the product at 8 or 16 rows of x (MT) and slices of bn columns
-template <int MODE, bool COPY_A = false>
-cudaError_t dispatch(const bf16* x, const bf16* w, const bf16* a, const bf16* b, bf16* y, int M,
-                     int K, int N, int r, float scale, int bn, int split, cudaStream_t stream) {
+template <int MODE, int FILL>
+cudaError_t dispatch(const Ops& o, const bf16* u, int r, float scale, int bn, int split,
+                     cudaStream_t stream) {
+  const int M = o.x.rows, N = o.w.cols;
   if (bn == 64) {
-    if (M <= 8) return launch<8, 64, MODE, COPY_A>(x, w, a, b, y, M, K, N, r, scale, split, stream);
-    return launch<16, 64, MODE, COPY_A>(x, w, a, b, y, M, K, N, r, scale, split, stream);
+    if (M <= 8) return launch<8, 64, MODE, FILL>(o, u, o.y, N, r, scale, split, stream);
+    return launch<16, 64, MODE, FILL>(o, u, o.y, N, r, scale, split, stream);
   }
-  if (M <= 8) return launch<8, 128, MODE, COPY_A>(x, w, a, b, y, M, K, N, r, scale, split, stream);
-  return launch<16, 128, MODE, COPY_A>(x, w, a, b, y, M, K, N, r, scale, split, stream);
+  if (M <= 8) return launch<8, 128, MODE, FILL>(o, u, o.y, N, r, scale, split, stream);
+  return launch<16, 128, MODE, FILL>(o, u, o.y, N, r, scale, split, stream);
 }
 
 // u's terms (2, M, r8) of scale·x·A (UPASS: A in W's place, r8 columns)
-template <bool COPY_A>
-cudaError_t u_launch(const bf16* x, const bf16* a, bf16* u, int M, int K, int r, float scale,
-                     int usplit, cudaStream_t stream) {
-  const int r8 = (r + 7) / 8 * 8;
-  return M <= 8 ? launch<8, 64, UPASS, COPY_A>(x, a, nullptr, nullptr, u, M, K, r8, r, scale,
-                                               usplit, stream)
-                : launch<16, 64, UPASS, COPY_A>(x, a, nullptr, nullptr, u, M, K, r8, r, scale,
-                                                usplit, stream);
+template <int FILL>
+cudaError_t u_launch(const Ops& o, bf16* u, float scale, int usplit, cudaStream_t stream) {
+  const int r = o.a.cols, r8 = (r + 7) / 8 * 8;
+  Ops uo = o;
+  uo.w = o.a;  // A's tiles in W's place
+  return o.x.rows <= 8
+             ? launch<8, 64, UPASS, FILL>(uo, nullptr, u, r8, r, scale, usplit, stream)
+             : launch<16, 64, UPASS, FILL>(uo, nullptr, u, r8, r, scale, usplit, stream);
 }
 
 }  // namespace decode
-
-// ===========================================================================
-// generic: the first port's kernel (wmma, plain loads), for any other shape
-// ===========================================================================
-namespace generic {
-
-constexpr int BM = 64, BN = 64, BK = 32;
-constexpr int NTHREADS = 128;  // 4 warps, 2 x 2 over the output tile
-constexpr int XS_LD = BK + 8;  // smem leading dims, padded against bank conflicts
-constexpr int WS_LD = BN + 8;
-constexpr int CS_LD = BN + 4;
-
-// Copy the ROWS x COLS tile at (r0, c0) of a row-major (nrows x ncols) bf16
-// matrix with leading dimension ld into shared memory, zero-filling what lies
-// outside the matrix. 16-byte loads where the whole chunk is inside and aligned.
-template <int ROWS, int COLS>
-__device__ __forceinline__ void load_tile(bf16* dst, int dst_ld, const bf16* __restrict__ src,
-                                          int ld, int nrows, int ncols, int r0, int c0,
-                                          bool vec_ok) {
-  constexpr int CPR = COLS / 8;  // 8-element chunks per row
-  for (int c = threadIdx.x; c < ROWS * CPR; c += NTHREADS) {
-    const int r = c / CPR, col = (c % CPR) * 8;
-    const int gr = r0 + r, gc = c0 + col;
-    bf16* d = dst + r * dst_ld + col;
-    if (vec_ok && gr < nrows && gc + 8 <= ncols) {
-      *reinterpret_cast<uint4*>(d) =
-          *reinterpret_cast<const uint4*>(src + (size_t)gr * ld + gc);
-    } else {
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        d[j] = (gr < nrows && gc + j < ncols) ? src[(size_t)gr * ld + gc + j]
-                                              : __float2bfloat16(0.f);
-    }
-  }
-}
-
-template <int RF>
-constexpr size_t smem_bytes() {
-  constexpr int RP = 16 * RF;
-  constexpr size_t loop = (size_t)(BM * XS_LD + BK * WS_LD + BK * (RP + 8)) * sizeof(bf16);
-  constexpr size_t epi = (size_t)(BM * CS_LD + BM * (RP + 4) + RP * BN) * sizeof(float);
-  return loop > epi ? loop : epi;
-}
-
-// RF = number of 16-wide fragments of one rank chunk (RP = 16·RF ranks). A
-// rank above RP runs in chunks of RP: the first pass over K computes x·W and
-// the first chunk of u = x·A from the same staged x tile, each further pass
-// re-reads x for the next chunk of u (W is not read again), and each chunk's
-// u·B is added to the thread's fp32 share of the delta (registers), so
-// scale·u·B joins x·W once, unrounded, as for a single chunk.
-template <int RF>
-__global__ void __launch_bounds__(NTHREADS)
-lora_matmul_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                   const bf16* __restrict__ a, const bf16* __restrict__ b,
-                   bf16* __restrict__ y, int M, int K, int N, int r, float scale) {
-  constexpr int RP = 16 * RF;
-  constexpr int AS_LD = RP + 8;
-  constexpr int US_LD = RP + 4;
-  constexpr int PER_THREAD = BM * BN / NTHREADS;  // output elements of one thread
-  extern __shared__ __align__(128) unsigned char smem[];
-  // K loop
-  bf16* xs = reinterpret_cast<bf16*>(smem);  // BM x XS_LD
-  bf16* ws = xs + BM * XS_LD;                // BK x WS_LD
-  bf16* as = ws + BK * WS_LD;                // BK x AS_LD
-  // epilogue: the same bytes, reused once a pass over K is over
-  float* cs = reinterpret_cast<float*>(smem);  // BM x CS_LD   x·W tile
-  float* us = cs + BM * CS_LD;                 // BM x US_LD   a chunk of u = x·A
-  float* bs = us + BM * US_LD;                 // RP x BN      the chunk's rows of B
-
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int warp = threadIdx.x / 32;
-  const int wm = warp / 2, wn = warp % 2;
-  const bool x_vec = (K % 8 == 0) && ((reinterpret_cast<uintptr_t>(x) & 15) == 0);
-  const bool w_vec = (N % 8 == 0) && ((reinterpret_cast<uintptr_t>(w) & 15) == 0);
-  const bool a_vec = (r % 8 == 0) && ((reinterpret_cast<uintptr_t>(a) & 15) == 0);
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2], uacc[RF];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-  float delta[PER_THREAD];
-#pragma unroll
-  for (int i = 0; i < PER_THREAD; ++i) delta[i] = 0.f;
-
-  const int chunks = (r + RP - 1) / RP;
-  for (int c = 0; c < chunks; ++c) {
-    const bool first = c == 0;  // the pass that also computes x·W
-#pragma unroll
-    for (int f = 0; f < RF; ++f) wmma::fill_fragment(uacc[f], 0.f);
-    for (int k0 = 0; k0 < K; k0 += BK) {
-      load_tile<BM, BK>(xs, XS_LD, x, K, M, K, m0, k0, x_vec);
-      if (first) load_tile<BK, BN>(ws, WS_LD, w, N, K, N, k0, n0, w_vec);
-      load_tile<BK, RP>(as, AS_LD, a, r, K, r, k0, c * RP, a_vec);
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2], fx;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-        if (first) {
-#pragma unroll
-          for (int i = 0; i < 2; ++i)
-            wmma::load_matrix_sync(fa[i], xs + (wm * 32 + i * 16) * XS_LD + kk, XS_LD);
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            wmma::load_matrix_sync(fb, ws + kk * WS_LD + wn * 32 + j * 16, WS_LD);
-#pragma unroll
-            for (int i = 0; i < 2; ++i) wmma::mma_sync(acc[i][j], fa[i], fb, acc[i][j]);
-          }
-        }
-        // low-rank path from the same staged x tile: warp w owns rows 16w..16w+15 of u
-        wmma::load_matrix_sync(fx, xs + warp * 16 * XS_LD + kk, XS_LD);
-#pragma unroll
-        for (int f = 0; f < RF; ++f) {
-          wmma::load_matrix_sync(fb, as + kk * AS_LD + f * 16, AS_LD);
-          wmma::mma_sync(uacc[f], fx, fb, uacc[f]);
-        }
-      }
-      __syncthreads();
-    }
-
-    // this chunk's u·B, in fp32, into the thread's share of the delta
-#pragma unroll
-    for (int f = 0; f < RF; ++f)
-      wmma::store_matrix_sync(us + warp * 16 * US_LD + f * 16, uacc[f], US_LD,
-                              wmma::mem_row_major);
-    for (int idx = threadIdx.x; idx < RP * BN; idx += NTHREADS) {
-      const int j = idx / BN, n = idx % BN, gj = c * RP + j;
-      bs[idx] = (gj < r && n0 + n < N) ? __bfloat162float(b[(size_t)gj * N + n0 + n]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < PER_THREAD; ++i) {
-      const int idx = threadIdx.x + i * NTHREADS;
-      const int m = idx / BN, n = idx % BN;
-      float d = 0.f;
-#pragma unroll 16
-      for (int j = 0; j < RP; ++j) d += us[m * US_LD + j] * bs[j * BN + n];
-      delta[i] += d;
-    }
-    __syncthreads();  // us and bs (over xs, ws, as) are read before the next pass loads
-  }
-
-  // epilogue: y = x·W + scale · u·B, in fp32
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(cs + (wm * 32 + i * 16) * CS_LD + wn * 32 + j * 16, acc[i][j],
-                              CS_LD, wmma::mem_row_major);
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < PER_THREAD; ++i) {
-    const int idx = threadIdx.x + i * NTHREADS;
-    const int m = idx / BN, n = idx % BN;
-    const int gm = m0 + m, gn = n0 + n;
-    if (gm < M && gn < N)
-      y[(size_t)gm * N + gn] = __float2bfloat16(cs[m * CS_LD + n] + scale * delta[i]);
-  }
-}
-
-template <int RF>
-cudaError_t launch(const bf16* x, const bf16* w, const bf16* a, const bf16* b, bf16* y, int M,
-                   int K, int N, int r, float scale, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<RF>();
-  static bool smem_set = false;
-  cudaError_t e = hopper::allow_smem(lora_matmul_kernel<RF>, smem, smem_set);
-  if (e != cudaSuccess) return e;
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  lora_matmul_kernel<RF><<<grid, NTHREADS, smem, stream>>>(x, w, a, b, y, M, K, N, r, scale);
-  return cudaGetLastError();
-}
-
-}  // namespace generic
 
 // ===========================================================================
 // fp32: fp32 FMAs on the CUDA cores (no TF32), fed by cp.async rings
 // ===========================================================================
 namespace fp32 {
 
-// cp.async of 4 bytes (any fp32 address); src_bytes 0 writes a zero
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(hopper::smem_u32(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
+using hopper::cp_async4;  // cp.async of 4 bytes (any fp32 address); src_bytes 0 writes a zero
 
 // y = out·([x | xe]·[W; We]) + scale·(x·A)·B, every operand row-major fp32:
 // the reduction's rows k < K come from x (M x K) and W (K x N), rows K +
@@ -1578,6 +1619,7 @@ __global__ void __launch_bounds__(THREADS, RC == 0 ? 2 : 1) prefill_kernel(Ops o
 // wgmma takes K-major operands only. The terms are double-buffered: a
 // stage's are written while the last stage's wgmmas run. (mma.sync's
 // m16n8k8 in 3xTF32 ran no faster than the CUDA cores' FMAs on the card.)
+// The split, the TF32 wgmmas and the swizzled chunk writes are hopper.cuh's.
 // ---------------------------------------------------------------------------
 constexpr int TC_BM = 128, TC_BK = 32, TC_STAGES = 2;
 constexpr int TC_XLD = TC_BK + 4;  // the raw x tile's padded rows (floats)
@@ -1593,39 +1635,6 @@ struct TcLayout {
   static constexpr int TERMS = 2 * TC_XTERM + 2 * WTERM;  // a set of the four
   static constexpr size_t SMEM = 1024 + 2 * TERMS + (size_t)TC_STAGES * RAW * 4;
 };
-
-__device__ __forceinline__ void split_tf32(float v, uint32_t& big, uint32_t& small) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(big) : "f"(v));
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(small) : "f"(v - __uint_as_float(big)));
-}
-
-// D (64 x 128 or 64 x 64, fp32) = A (64 x 8, tf32, smem) · B (8 x N, smem)
-// + (scale_d ? D : 0), both K-major
-__device__ __forceinline__ void wgmma_tf32(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
-                                           int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
-}
-__device__ __forceinline__ void wgmma_tf32(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
-                                           int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
-}
-
-// 16 B of four tf32 at K-row `row`, chunk `c` (4 k's) of a K-major tile of
-// 128-byte rows in the 128-byte swizzle
-__device__ __forceinline__ void put_chunk(unsigned char* tile, int row, int c, uint32_t v0,
-                                          uint32_t v1, uint32_t v2, uint32_t v3) {
-  *reinterpret_cast<uint4*>(tile + row * 128 + ((c ^ (row & 7)) << 4)) = make_uint4(v0, v1, v2, v3);
-}
 
 // xv, xev: x (xe) read 16 bytes at a time (K (R) % 4 == 0, 16-byte aligned)
 template <int BN>
@@ -1710,20 +1719,20 @@ __global__ void __launch_bounds__(THREADS, 1) tc_kernel(Ops o, int xv, int xev) 
     for (int c = 0; c < 4; ++c) {
       uint32_t b[4], sm[4];
       const float4 v = *reinterpret_cast<const float4*>(xs + xr * TC_XLD + xk + 4 * c);
-      split_tf32(v.x, b[0], sm[0]);
-      split_tf32(v.y, b[1], sm[1]);
-      split_tf32(v.z, b[2], sm[2]);
-      split_tf32(v.w, b[3], sm[3]);
-      put_chunk(xb, xr, xk / 4 + c, b[0], b[1], b[2], b[3]);
-      put_chunk(xsm, xr, xk / 4 + c, sm[0], sm[1], sm[2], sm[3]);
+      hopper::split_tf32(v.x, b[0], sm[0]);
+      hopper::split_tf32(v.y, b[1], sm[1]);
+      hopper::split_tf32(v.z, b[2], sm[2]);
+      hopper::split_tf32(v.w, b[3], sm[3]);
+      hopper::put_chunk(xb, xr, xk / 4 + c, b[0], b[1], b[2], b[3]);
+      hopper::put_chunk(xsm, xr, xk / 4 + c, sm[0], sm[1], sm[2], sm[3]);
     }
 #pragma unroll
     for (int c = 0; c < KPT / 4; ++c) {
       uint32_t b[4], sm[4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) split_tf32(ws[(wk + 4 * c + e) * WLD + wn], b[e], sm[e]);
-      put_chunk(wb, wn, wk / 4 + c, b[0], b[1], b[2], b[3]);
-      put_chunk(wsm, wn, wk / 4 + c, sm[0], sm[1], sm[2], sm[3]);
+      for (int e = 0; e < 4; ++e) hopper::split_tf32(ws[(wk + 4 * c + e) * WLD + wn], b[e], sm[e]);
+      hopper::put_chunk(wb, wn, wk / 4 + c, b[0], b[1], b[2], b[3]);
+      hopper::put_chunk(wsm, wn, wk / 4 + c, sm[0], sm[1], sm[2], sm[3]);
     }
     hopper::fence_proxy_async();  // the terms' writes, visible to the tensor cores
     if (kt > 0) {  // step kt - 1's products, into the accumulators
@@ -1741,9 +1750,9 @@ __global__ void __launch_bounds__(THREADS, 1) tc_kernel(Ops o, int xv, int xev) 
     hopper::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < TC_BK / 8; ++kk) {
-      wgmma_tf32(part, hopper::desc_add(das, 32 * kk), hopper::desc_add(db, 32 * kk), kk > 0);
-      wgmma_tf32(part, hopper::desc_add(da, 32 * kk), hopper::desc_add(dbs, 32 * kk), 1);
-      wgmma_tf32(part, hopper::desc_add(da, 32 * kk), hopper::desc_add(db, 32 * kk), 1);
+      hopper::wgmma_tf32(part, hopper::desc_add(das, 32 * kk), hopper::desc_add(db, 32 * kk), kk > 0);
+      hopper::wgmma_tf32(part, hopper::desc_add(da, 32 * kk), hopper::desc_add(dbs, 32 * kk), 1);
+      hopper::wgmma_tf32(part, hopper::desc_add(da, 32 * kk), hopper::desc_add(db, 32 * kk), 1);
     }
     hopper::wgmma_commit();
   }
@@ -2052,84 +2061,97 @@ cudaError_t decode(const Ops& o, int split, int tma, cudaStream_t st) {
 // cudaGetLastError() after the launch (cudaErrorInvalidValue for a shape
 // the variant does not take).
 
-// prefill: K and N multiples of 8, any r, every pointer 16-byte aligned;
-// bn = the output tile's width (64, 128, 192, 256; 256 not for 16 < r <= 64);
-// copy_a: the producer warp copies A's tiles (needed at r % 8 != 0: A's rows
-// are not 16 bytes apart; allowed at any r); above 64 ranks u is scratch of
-// 2·M·r8 bf16 (16-byte aligned; r8 = r rounded up to a multiple of 8), else
-// unused. Above 64 ranks two launches: u's terms, then the product.
+namespace {
+
+// The operands as matrices and the copy flags of a launch: x, W, A and B
+// where a tensor map cannot read them (a pointer off 16 bytes, rows not a
+// multiple of 8 elements; A also where copy_a asks), the output by plain
+// stores where TMA cannot write it. COPY where any of x, W, B and the
+// output needs it, COPY_A where only A does, else TMA_ALL.
+Ops operands(const void* x, const void* w, const void* a, const void* b, void* y, int M, int K,
+             int N, int r, int copy_a, int& fill) {
+  auto tma = [](const void* p, int cols) {
+    return (reinterpret_cast<uintptr_t>(p) & 15) == 0 && cols % 8 == 0;
+  };
+  const int flags = (tma(x, K) ? 0 : CP_X) | (tma(w, N) ? 0 : CP_W) |
+                    (tma(a, r) && !copy_a ? 0 : CP_A) | (tma(b, N) ? 0 : CP_B) |
+                    (tma(y, N) ? 0 : OUT_PLAIN);
+  fill = flags & ~CP_A ? COPY : flags ? COPY_A : TMA_ALL;
+  const bf16 *xp = static_cast<const bf16*>(x), *wp = static_cast<const bf16*>(w);
+  const bf16 *ap = static_cast<const bf16*>(a), *bp = static_cast<const bf16*>(b);
+  return Ops{{xp, M, K, K}, {wp, K, N, N}, {ap, K, r, r}, {bp, r, N, N}, static_cast<bf16*>(y),
+             flags};
+}
+
+}  // namespace
+
+// prefill: any M, K, N, r and pointers; bn = the output tile's width (64,
+// 128, 192, 256; 256 not for 16 < r <= 64; where a tile other than A's is
+// copied, a wider one asked takes 128); copy_a: the producer warps copy A's tiles even where
+// a tensor map could read them; above 64 ranks u is scratch of 2·M·r8 bf16
+// (16-byte aligned; r8 = r rounded up to a multiple of 8), else unused.
+// Above 64 ranks two launches: u's terms, then the product.
 extern "C" int lora_matmul_prefill_bf16(const void* x, const void* w, const void* a,
                                         const void* b, void* y, int M, int K, int N, int r,
                                         float scale, int bn, int copy_a, void* u, void* stream) {
-  if (M <= 0 || K <= 0 || N <= 0 || r <= 0 || K % 8 || N % 8 || (r % 8 && !copy_a) ||
-      M > 65535 * prefill::BM || (r > 64 && u == nullptr))
+  if (M <= 0 || K <= 0 || N <= 0 || r <= 0 || M > 65535 * prefill::BM || (r > 64 && u == nullptr))
     return (int)cudaErrorInvalidValue;
-  const bf16 *xp = static_cast<const bf16*>(x), *wp = static_cast<const bf16*>(w);
-  const bf16 *ap = static_cast<const bf16*>(a), *bp = static_cast<const bf16*>(b);
-  bf16 *yp = static_cast<bf16*>(y), *up = static_cast<bf16*>(u);
+  int fill;
+  const Ops o = operands(x, w, a, b, y, M, K, N, r, copy_a, fill);
+  if (fill == COPY && bn > 128) bn = 128;  // the placing warps leave registers for 128
+  bf16* up = static_cast<bf16*>(u);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (r > 64) {
     if (bn != 64 && bn != 128 && bn != 192 && bn != 256) return (int)cudaErrorInvalidValue;
-    cudaError_t e = copy_a ? prefill::u_launch<true>(xp, ap, up, M, K, r, scale, st)
-                           : prefill::u_launch<false>(xp, ap, up, M, K, r, scale, st);
+    cudaError_t e = fill == COPY     ? prefill::u_launch<COPY>(o, up, scale, st)
+                    : fill == COPY_A ? prefill::u_launch<COPY_A>(o, up, scale, st)
+                                     : prefill::u_launch<TMA_ALL>(o, up, scale, st);
     if (e != cudaSuccess) return (int)e;
+    if (fill == COPY)
+      return (int)(bn == 64 ? prefill::wide_launch<64, COPY>(o, up, st)
+                            : prefill::wide_launch<128, COPY>(o, up, st));
     switch (bn) {
-      case 64: return (int)prefill::wide_launch<64>(xp, wp, up, bp, yp, M, K, N, r, st);
-      case 128: return (int)prefill::wide_launch<128>(xp, wp, up, bp, yp, M, K, N, r, st);
-      case 192: return (int)prefill::wide_launch<192>(xp, wp, up, bp, yp, M, K, N, r, st);
-      default: return (int)prefill::wide_launch<256>(xp, wp, up, bp, yp, M, K, N, r, st);
+      case 64: return (int)prefill::wide_launch<64, TMA_ALL>(o, up, st);
+      case 128: return (int)prefill::wide_launch<128, TMA_ALL>(o, up, st);
+      case 192: return (int)prefill::wide_launch<192, TMA_ALL>(o, up, st);
+      default: return (int)prefill::wide_launch<256, TMA_ALL>(o, up, st);
     }
   }
-  return (int)(copy_a ? prefill::fused<true>(xp, wp, ap, bp, yp, M, K, N, r, scale, bn, st)
-                      : prefill::fused<false>(xp, wp, ap, bp, yp, M, K, N, r, scale, bn, st));
+  return (int)(fill == COPY     ? prefill::fused<COPY>(o, scale, bn, st)
+               : fill == COPY_A ? prefill::fused<COPY_A>(o, scale, bn, st)
+                                : prefill::fused<TMA_ALL>(o, scale, bn, st));
 }
 
-// decode: M <= 16, K and N multiples of 8, any r, every pointer 16-byte
-// aligned; bn = the columns of a cluster's slice (64 or 128), split = the
-// blocks of a cluster, each a slice of K (1-8); copy_a as the prefill's;
-// above 64 ranks u is scratch of 2·M·r8 bf16 (16-byte aligned) and usplit
-// the blocks of the u launch's clusters (1-8), else both are unused. Above
-// 64 ranks two launches: u's terms, then the product with its fold.
+// decode: M <= 16, any K, N, r and pointers; bn = the columns of a
+// cluster's slice (64 or 128), split = the blocks of a cluster, each a
+// slice of K (1-8); copy_a as the prefill's; above 64 ranks u is scratch of
+// 2·M·r8 bf16 (16-byte aligned) and usplit the blocks of the u launch's
+// clusters (1-8), else both are unused. Above 64 ranks two launches: u's
+// terms, then the product with its fold.
 extern "C" int lora_matmul_decode_bf16(const void* x, const void* w, const void* a,
                                        const void* b, void* y, int M, int K, int N, int r,
                                        float scale, int bn, int split, int usplit, int copy_a,
                                        void* u, void* stream) {
-  if (M <= 0 || M > 16 || K <= 0 || N <= 0 || r <= 0 || K % 8 || N % 8 || (r % 8 && !copy_a) ||
-      (bn != 64 && bn != 128) || (N + bn - 1) / bn > 65535 || split < 1 ||
-      split > decode::MAX_SPLIT ||
+  if (M <= 0 || M > 16 || K <= 0 || N <= 0 || r <= 0 || (bn != 64 && bn != 128) ||
+      (N + bn - 1) / bn > 65535 || split < 1 || split > decode::MAX_SPLIT ||
       (r > 64 && (u == nullptr || usplit < 1 || usplit > decode::MAX_SPLIT)))
     return (int)cudaErrorInvalidValue;
-  const bf16 *xp = static_cast<const bf16*>(x), *wp = static_cast<const bf16*>(w);
-  const bf16 *ap = static_cast<const bf16*>(a), *bp = static_cast<const bf16*>(b);
-  bf16 *yp = static_cast<bf16*>(y), *up = static_cast<bf16*>(u);
+  int fill;
+  const Ops o = operands(x, w, a, b, y, M, K, N, r, copy_a, fill);
+  bf16* up = static_cast<bf16*>(u);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (r <= 64)
-    return (int)(copy_a ? decode::dispatch<decode::FUSED, true>(xp, wp, ap, bp, yp, M, K, N, r,
-                                                                scale, bn, split, st)
-                        : decode::dispatch<decode::FUSED>(xp, wp, ap, bp, yp, M, K, N, r, scale,
-                                                          bn, split, st));
-  cudaError_t e = copy_a ? decode::u_launch<true>(xp, ap, up, M, K, r, scale, usplit, st)
-                         : decode::u_launch<false>(xp, ap, up, M, K, r, scale, usplit, st);
+    return (int)(fill == COPY     ? decode::dispatch<decode::FUSED, COPY>(o, nullptr, r, scale, bn, split, st)
+                 : fill == COPY_A ? decode::dispatch<decode::FUSED, COPY_A>(o, nullptr, r, scale, bn, split, st)
+                                  : decode::dispatch<decode::FUSED, TMA_ALL>(o, nullptr, r, scale, bn, split, st));
+  // the u launch copies what it reads of x and A; the product reads x, W,
+  // u's aligned terms and B
+  cudaError_t e = fill == COPY     ? decode::u_launch<COPY>(o, up, scale, usplit, st)
+                  : fill == COPY_A ? decode::u_launch<COPY_A>(o, up, scale, usplit, st)
+                                   : decode::u_launch<TMA_ALL>(o, up, scale, usplit, st);
   if (e != cudaSuccess) return (int)e;
-  return (int)decode::dispatch<decode::UFOLD>(xp, wp, up, bp, yp, M, K, N, r, 1.f, bn, split, st);
-}
-
-// generic: any shape and rank (ranks above 64 in chunks of 64)
-extern "C" int lora_matmul_generic_bf16(const void* x, const void* w, const void* a,
-                                        const void* b, void* y, int M, int K, int N, int r,
-                                        float scale, void* stream) {
-  using namespace generic;
-  if (M <= 0 || K <= 0 || N <= 0 || r <= 0 || M > 65535 * BM) return (int)cudaErrorInvalidValue;
-  const bf16 *xp = static_cast<const bf16*>(x), *wp = static_cast<const bf16*>(w);
-  const bf16 *ap = static_cast<const bf16*>(a), *bp = static_cast<const bf16*>(b);
-  bf16* yp = static_cast<bf16*>(y);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch ((r + 15) / 16) {
-    case 1: return (int)launch<1>(xp, wp, ap, bp, yp, M, K, N, r, scale, st);
-    case 2: return (int)launch<2>(xp, wp, ap, bp, yp, M, K, N, r, scale, st);
-    case 3: return (int)launch<3>(xp, wp, ap, bp, yp, M, K, N, r, scale, st);
-    default: return (int)launch<4>(xp, wp, ap, bp, yp, M, K, N, r, scale, st);
-  }
+  return (int)(fill == COPY ? decode::dispatch<decode::UFOLD, COPY>(o, up, r, 1.f, bn, split, st)
+                            : decode::dispatch<decode::UFOLD, TMA_ALL>(o, up, r, 1.f, bn, split, st));
 }
 
 // fp32: x, w, a, b, y in fp32, any shape, rank and alignment. split > 0:

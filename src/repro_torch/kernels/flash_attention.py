@@ -7,8 +7,9 @@ rule that picks one of its three variants:
   (gemma2-9b) with 16-byte aligned rows: every bf16 serve;
 * ``wmma``: the first port's kernel, bf16, head dims 16 and 32, and every
   head dim with strides or pointers that TMA cannot read;
-* ``fp32``: SIMT online softmax for fp32 inputs (fp32 FMAs, P in fp32),
-  every head dim and any strides.
+* ``fp32``: fp32 inputs, every head dim and any strides: 3xTF32 on wgmma
+  (each operand a TF32 big and small term, three products), P kept in fp32;
+  ``attn_ref.flash_attention_tf32x3_ref`` mirrors its arithmetic.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Binding of the fused LoRA matmul CUDA kernels (``csrc/lora_matmul.cu``),
 the port of ``repro/kernels/lora_matmul.py``'s Pallas kernel, and the rule
-that picks one of its four variants from the dtype, shapes and alignment:
+that picks one of its three variants from the dtype, shapes and alignment:
 
 * ``prefill`` (bf16, M > 16): TMA + wgmma, output tiles 128 x
   ``prefill_tile_n``;
@@ -8,13 +8,14 @@ that picks one of its four variants from the dtype, shapes and alignment:
   K, x, A and W streamed by TMA through a ring whose size does not grow with
   K, the products on the tensor cores (operands swapped), slices of
   ``decode_tile_n`` columns;
-  both take any rank: at r % 8 != 0 (A's rows are not 16 bytes apart, so no
-  tensor map reads them) the producer warp copies A's tiles itself
-  (``copy_a``); above ``FUSED_RANK`` both take two launches: u's two bf16
-  terms once, into scratch of ``scratch_ranks(r)`` a row, then the product
-  with the fold as extra steps of its ring;
-* ``generic``: the first port's wmma kernel, for what TMA cannot read at
-  all: misaligned pointers, K or N not a multiple of 8;
+  both take any shape, rank and alignment: at r % 8 != 0 (A's rows are not
+  16 bytes apart, so no tensor map reads them) the producer warps copy A's
+  tiles themselves (``copy_a``), and where x, W or B cannot be read by a
+  tensor map (a pointer off 16 bytes, K or N % 8 != 0) theirs too, the
+  output then by plain stores at N % 8 != 0 (``copied``: the prefill's tile
+  at most 128 wide); above ``FUSED_RANK`` both take two launches: u's two
+  bf16 terms once, into scratch of ``scratch_ranks(r)`` a row, then the
+  product with the fold as extra steps of its ring;
 * ``fp32`` (fp32 inputs, any shape, rank and alignment): at M <= 16
   clusters of ``fp32_decode_split`` blocks split K as the bf16 decode's do,
   CUDA-core FMAs fed by a ring of TMA or cp.async stages; above 16 rows a
@@ -154,24 +155,33 @@ def fp32_tile_n(M: int, N: int) -> int:
 
 
 def variant(M: int, K: int, N: int, r: int, aligned: bool, fp32: bool = False) -> str:
-    """The variant that computes this shape. ``aligned``: every operand's
-    pointer is 16-byte aligned (TMA needs it, and rows of K and N elements a
-    multiple of 8; A's rows, of r, are copied where TMA cannot map them).
-    ``fp32``: the operands are fp32 (the others take bf16), whatever the
-    shape."""
+    """The variant that computes this shape: ``fp32`` for fp32 operands,
+    else ``decode`` up to ``DECODE_MAX_M`` rows and ``prefill`` above, at any
+    K, N, r and alignment (``aligned``: x's, W's and B's pointers are
+    16-byte aligned; where they are not, or K or N % 8 != 0, the variants
+    copy the tiles TMA cannot read: ``copied``)."""
     if fp32:
         return "fp32"
-    if aligned and K % 8 == 0 and N % 8 == 0:
-        return "decode" if M <= DECODE_MAX_M else "prefill"
-    return "generic"
+    return "decode" if M <= DECODE_MAX_M else "prefill"
 
 
-def prefill_tile_n(M: int, N: int, r: int) -> int:
+def copied(K: int, N: int, aligned: bool) -> bool:
+    """Whether a bf16 launch copies x's, W's or B's tiles (a tensor map
+    cannot read them: a pointer off 16 bytes, rows of K or N elements not a
+    multiple of 8), four placing warps beside the consumers."""
+    return not aligned or K % 8 != 0 or N % 8 != 0
+
+
+def prefill_tile_n(M: int, N: int, r: int, copy: bool = False) -> int:
     """The prefill tile's width: the fewest waves of 128 x BN tiles over the
     card's SMs, each wave costing BN + 32 (the epilogue and pipeline fill);
     the wider tile on a tie. Ranks 17-64 (u's accumulators beside the
     tile's) leave no registers for 256; above ``FUSED_RANK`` the product's
-    tile holds the output alone."""
+    tile holds the output alone. ``copy`` (``copied``): 128, the widest the
+    four placing warps leave registers for (a copied x tile serves the
+    wider tile's work: 64 ran slower on the card)."""
+    if copy:
+        return 128
     options = (64, 128, 192) if 16 < r <= FUSED_RANK else (64, 128, 192, 256)
     rows = math.ceil(M / PREFILL_BM)
 
@@ -190,7 +200,7 @@ def _entries():
     # fp32: split, usplit, bn, tma, u
     for name, extra in (("prefill", [ctypes.c_int] * 2 + [ctypes.c_void_p]),
                         ("decode", [ctypes.c_int] * 4 + [ctypes.c_void_p]),
-                        ("generic", []), ("fp32", [ctypes.c_int] * 4 + [ctypes.c_void_p])):
+                        ("fp32", [ctypes.c_int] * 4 + [ctypes.c_void_p])):
         fn = getattr(lib, "lora_matmul_fp32" if name == "fp32" else f"lora_matmul_{name}_bf16")
         fn.argtypes = args + extra + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -202,7 +212,9 @@ def _entries():
 def plan(M: int, K: int, N: int, r: int, aligned: bool, fp32: bool = False) -> tuple[str, tuple]:
     """The variant of a shape and its extra launch arguments (looked up once
     per shape: the decode loop calls the same few shapes hundreds of times):
-    prefill: the tile width and whether the producer copies A (r % 8 != 0);
+    prefill: the tile width (at most 128 where tiles are ``copied``) and
+    whether the producers copy A (r % 8 != 0; the kernel also copies it,
+    and x's, W's and B's tiles, wherever a tensor map cannot read them);
     decode: the slice width, the cluster's split of K, that of the u launch
     above ``FUSED_RANK`` (N = ``scratch_ranks(r)``; else 0) and whether the
     producer copies A; fp32: the decode design's cluster split at M <= 16 (0:
@@ -221,32 +233,31 @@ def plan(M: int, K: int, N: int, r: int, aligned: bool, fp32: bool = False) -> t
             return kind, (0, 0, fp32_tile_n(M, N) if two else 0, 0, int(two))
         return kind, (fp32_decode_split(K + (r if high else 0), N),
                       fp32_decode_split(K, r) if high else 0, 0, 1, int(high))
-    extra = {"prefill": (prefill_tile_n(M, N, r), copy_a),
-             "decode": (decode_tile_n(N), decode_split(K, N),
-                        decode_split(K, scratch_ranks(r)) if high else 0, copy_a)}
-    return kind, extra.get(kind, ())
+    if kind == "prefill":
+        return kind, (prefill_tile_n(M, N, r, copied(K, N, aligned)), copy_a)
+    return kind, (decode_tile_n(N), decode_split(K, N),
+                  decode_split(K, scratch_ranks(r)) if high else 0, copy_a)
 
 
-def lora_matmul_cuda(x, w, a, b, scale: float, kind: str, extra: tuple = ()):
+def lora_matmul_cuda(x, w, a, b, scale: float, kind: str, extra: tuple = (), out=None):
     """x (M,K), w (K,N), a (K,r), b (r,N): contiguous, bf16 (fp32 for the
     ``fp32`` variant), on one CUDA device; ``kind`` and ``extra`` from ``plan``.
+    ``out``: a contiguous (M, N) tensor to write y into (else allocated).
     Above ``FUSED_RANK`` prefill and decode take scratch for the two bf16
     terms h + l of scale·u, (2, M, ``scratch_ranks(r)``), and fp32 in two
     launches for scale·u, (M, r), written by their first launch."""
     lib, fns = _entries()
     M, K = x.shape
     N, r = w.shape[1], a.shape[1]
-    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    scratch = ()
+    y = torch.empty((M, N), dtype=x.dtype, device=x.device) if out is None else out
     if kind == "fp32":
         extra, two = extra[:4], extra[4]
         u = torch.empty((M, r), dtype=x.dtype, device=x.device) if two else None
-        scratch = (None if u is None else u.data_ptr(),)
-    elif kind != "generic":
+    else:
         u = None
         if r > FUSED_RANK:
             u = torch.empty((2, M, scratch_ranks(r)), dtype=x.dtype, device=x.device)
-        scratch = (None if u is None else u.data_ptr(),)
+    scratch = (None if u is None else u.data_ptr(),)
     _build.launch(lib, fns[kind], f"lora_matmul ({kind})", x.device, x.data_ptr(), w.data_ptr(),
                   a.data_ptr(), b.data_ptr(), y.data_ptr(), M, K, N, r, float(scale), *extra,
                   *scratch)

@@ -50,7 +50,7 @@ def lora_matmul(x, w, a, b, *, scale: float = 1.0):
     if x.device.type in ("cpu", "meta"):
         y = lora_matmul_ref(x2, w, a, b, scale=scale)
     else:
-        aligned = not (x2.data_ptr() | w.data_ptr() | a.data_ptr() | b.data_ptr()) % 16
+        aligned = not (x2.data_ptr() | w.data_ptr() | b.data_ptr()) % 16
         kind, extra = plan(x2.shape[0], K, N, a.shape[1], aligned, x.dtype == torch.float32)
         y = lora_matmul_cuda(x2, w, a, b, scale, kind, extra)
         lora_matmul.launches += 1
@@ -59,6 +59,6 @@ def lora_matmul(x, w, a, b, *, scale: float = 1.0):
 
 
 lora_matmul.launches = 0
-lora_matmul.variant_launches = {"prefill": 0, "decode": 0, "generic": 0, "fp32": 0}
+lora_matmul.variant_launches = {"prefill": 0, "decode": 0, "fp32": 0}
 
 __all__ = ["lora_matmul", "lora_matmul_ref"]

@@ -65,7 +65,7 @@ def test_lora_kernel_matches_plain(cuda, M, K, N, r):
     (17, 768, 768, 16, "prefill"), (4096, 768, 768, 16, "prefill"),
     # N not a multiple of the tile; 300 is not a multiple of 8 either
     (8, 768, 3352, 16, "decode"), (4096, 768, 3352, 16, "prefill"),
-    (8, 768, 300, 16, "generic"), (300, 768, 300, 16, "generic"),
+    (8, 768, 300, 16, "decode"), (300, 768, 300, 16, "prefill"),  # W, B, y copied
     # K not a multiple of the stage depth (64 for prefill, 8 x 32 for decode)
     (8, 776, 256, 16, "decode"), (1000, 776, 256, 16, "prefill"), (13, 40, 64, 16, "decode"),
     (4096, 2048, 768, 16, "prefill"), (8, 2048, 768, 16, "decode"),
@@ -136,10 +136,10 @@ F32, BF16 = torch.float32, torch.bfloat16
     (4096, 768, 2048, 16, F32, "fp32"), (4096, 2048, 768, 16, F32, "fp32"),
     (8, 768, 256, 16, F32, "fp32"), (8, 2048, 768, 16, F32, "fp32"),
     (100, 200, 300, 8, F32, "fp32"), (3, 40, 24, 5, F32, "fp32"), (130, 96, 130, 33, F32, "fp32"),
-    # ranks above 64: bf16 multiples of 8 through prefill and decode (two
-    # launches), others through generic's rank chunks; fp32 through fp32's
+    # ranks above 64: bf16 through prefill and decode (two launches; at N =
+    # 130 W's, B's and the output's rows copied); fp32 through fp32's
     (64, 768, 768, 80, BF16, "prefill"), (4096, 768, 2048, 128, BF16, "prefill"),
-    (8, 768, 768, 128, BF16, "decode"), (37, 96, 130, 100, BF16, "generic"),
+    (8, 768, 768, 128, BF16, "decode"), (37, 96, 130, 100, BF16, "prefill"),
     (64, 768, 768, 80, F32, "fp32"), (4096, 768, 768, 128, F32, "fp32"),
     (8, 768, 768, 200, F32, "fp32"), (37, 96, 130, 100, F32, "fp32"),
 ])
@@ -209,14 +209,42 @@ def test_lora_decode_is_deterministic_at_rank_256(cuda, K, N):
         assert torch.equal(lora_matmul(x, w, a, b, scale=2.0), first)
 
 
-@pytest.mark.parametrize("M,K,N,r,offset", [
-    (4096, 768, 2048, 128, 1), (8, 768, 768, 128, 1),  # x one element off 16 bytes
-    (8, 772, 768, 16, 0), (300, 772, 256, 100, 0),  # K not a multiple of 8
+@pytest.mark.parametrize("M,K,N,r,shifted", [
+    (4096, 768, 2048, 128, "x"), (8, 768, 768, 128, "x"),  # x one element off 16 bytes
+    (4096, 768, 2048, 16, "x"), (8, 768, 768, 16, "x"), (300, 776, 256, 5, "x"),
+    (8, 772, 768, 16, None), (300, 772, 256, 100, None),  # K not a multiple of 8
+    (4096, 772, 2048, 16, None), (8, 768, 300, 16, None), (4096, 768, 300, 16, None),  # N % 8
+    (8, 768, 300, 100, None), (37, 40, 24, 5, None),
+    (4096, 768, 2048, 16, "w"), (8, 768, 768, 16, "w"), (8, 2048, 768, 128, "w"),  # W off
+    (4096, 768, 2048, 16, "b"), (8, 768, 768, 100, "b"),  # B off
+    (4096, 768, 2048, 16, "a"), (8, 768, 768, 16, "a"),  # A off (A's tiles copied alone)
+    (4096, 768, 2048, 16, "y"), (8, 768, 768, 16, "y"), (300, 768, 256, 128, "y"),  # y off
 ])
-def test_lora_generic_keeps_misaligned_and_odd_ranks(cuda, M, K, N, r, offset):
-    """What TMA cannot read at all (a misaligned pointer, rows of K or N
-    elements not 16-byte strided) stays on the first port's kernel."""
-    _held(*_lora_bf16(cuda, M, K, N, r, seed=M + r, offset=offset), "generic")
+def test_lora_generic_keeps_misaligned_and_odd_ranks(cuda, M, K, N, r, shifted):
+    """What TMA cannot read (a pointer one element off 16 bytes, rows of K
+    or N elements not 16-byte strided), the first port's kernel's shapes,
+    runs on prefill and decode: the producers copy the tiles TMA cannot map
+    and an output TMA cannot write takes plain stores; within 2 bf16 ulps
+    of the largest output of the plain version."""
+    from repro_torch.kernels import lora_matmul as binding
+
+    ops = dict(zip("xwab", _lora_bf16(cuda, M, K, N, r, seed=M + r + K)))
+    if shifted in ops:  # the operand's values one element into a buffer
+        t = ops[shifted]
+        ops[shifted] = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)[1:].view_as(
+            t).copy_(t)
+    expected = "prefill" if M > 16 else "decode"
+    if shifted != "y":
+        _held(*ops.values(), expected)
+        return
+    out = torch.empty(M * N + 1, dtype=torch.bfloat16, device=cuda)[1:].view(M, N)
+    kind, extra = binding.plan(M, K, N, r, True)
+    assert kind == expected
+    binding.lora_matmul_cuda(*ops.values(), 2.0, kind, extra, out=out)
+    torch.cuda.synchronize()
+    ref = lora_matmul_ref(*ops.values(), scale=2.0)
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= _bf16_ulps(ref), (err, _bf16_ulps(ref))
 
 
 @pytest.mark.parametrize("M,K,N,r", [
@@ -349,14 +377,31 @@ def test_lora_fp32_prefill_in_two_launches_matches_plain(cuda, no_tf32, M, K, N,
     (1, 4, 2, 512, 512, 256, True, 0, 50.0),  # gemma2's head dim and softcap
     (2, 4, 2, 300, 300, 256, True, 64, 50.0),  # ragged, window
     (1, 2, 1, 70, 130, 256, False, 0, 0.0),
+    (2, 4, 2, 130, 130, 16, True, 32, 30.0),  # head dims 16 and 32: window, softcap, ragged
+    (1, 4, 1, 200, 200, 32, True, 0, 0.0),
+    (1, 4, 2, 32, 4096, 64, False, 0, 0.0),  # a long Skv: O summed over 64 key tiles
+    (1, 4, 2, 4096, 4096, 128, True, 0, 0.0),
+    (1, 2, 1, 4160, 4160, 256, True, 0, 50.0),
 ])
-def test_flash_fp32_matches_plain(cuda, no_tf32, B, H, Kv, Sq, Skv, d, causal, window, softcap):
-    """The fp32 variant at the reference's fp32 tolerance, 2e-5 + 2e-5·|o|
-    per element (tests/test_kernels.py): both keep P in fp32."""
+@pytest.mark.parametrize("layout", ["model", "misaligned", "strided"])
+def test_flash_fp32_matches_plain(cuda, no_tf32, B, H, Kv, Sq, Skv, d, causal, window, softcap,
+                                  layout):
+    """The fp32 variant (3xTF32 on wgmma) at the reference's fp32
+    tolerance, 2e-5 + 2e-5·|o| per element (tests/test_kernels.py): both
+    keep P in fp32. Views in the model's (B, S, heads, d) layout; q one
+    element off 16 bytes (4-byte loads); k and v rows of a wider buffer,
+    strides not a multiple of 4."""
     gen = torch.Generator(device=cuda).manual_seed(Sq * 5 + d)
     q = torch.randn((B, Sq, H, d), generator=gen, device=cuda).transpose(1, 2)
     k, v = (torch.randn((B, Skv, Kv, d), generator=gen, device=cuda).transpose(1, 2)
             for _ in range(2))
+    if layout == "misaligned":
+        q = torch.empty(q.numel() + 1, device=cuda)[1:].view(B, Sq, H, d).copy_(
+            q.transpose(1, 2)).transpose(1, 2)
+    if layout == "strided":  # rows Kv·d + 1 apart
+        k, v = (torch.zeros((B, Skv, Kv * d + 1), device=cuda)[..., :Kv * d].unflatten(
+            -1, (Kv, d)).copy_(t.transpose(1, 2)).transpose(1, 2) for t in (k, v))
+        assert k.stride(2) % 4 != 0
     before = dict(flash_attention.variant_launches)
     o = flash_attention(q, k, v, causal=causal, window=window, softcap=softcap)
     torch.cuda.synchronize()

@@ -14,11 +14,13 @@ import torch
 
 from repro.kernels.attn_ops import flash_attention as jax_flash_attention
 from repro.kernels.attn_ref import flash_attention_ref as jax_flash_attention_ref
+from repro.kernels.flash_attention import flash_attention_pallas as jax_flash_attention_pallas
 from repro.kernels.lora_ops import lora_matmul as jax_lora_matmul
 from repro.kernels.lora_ref import lora_matmul_ref as jax_lora_matmul_ref
 from repro.models import layers as jax_layers
 from repro_torch.kernels.attn_ops import flash_attention
-from repro_torch.kernels.attn_ref import flash_attention_ref
+from repro_torch.kernels import attn_ref
+from repro_torch.kernels.attn_ref import flash_attention_ref, flash_attention_tf32x3_ref
 from repro_torch.kernels import flash_attention as flash_binding
 from repro_torch.kernels import lora_matmul as lora_binding
 from repro_torch.kernels.lora_ops import lora_matmul
@@ -145,8 +147,8 @@ def test_lora_wrapper_rejects_bad_inputs():
                                       (768, 3352), (1536, 768))],
     (16, 768, 768, 16, True, "decode"), (17, 768, 768, 16, True, "prefill"),
     (1, 768, 768, 16, True, "decode"),
-    (8, 768, 300, 16, True, "generic"),  # N % 8
-    (4096, 772, 768, 16, True, "generic"),  # K % 8
+    (8, 768, 300, 16, True, "decode"),  # N % 8: W, B and y copied (once generic)
+    (4096, 772, 768, 16, True, "prefill"),  # K % 8: x copied (once generic)
     (8, 768, 768, 1, True, "decode"), (4096, 768, 768, 5, True, "prefill"),  # r % 8: A copied
     (4096, 768, 768, 80, True, "prefill"),  # r above 64, a multiple of 8 (once generic)
     # ranks 72-256: prefill and decode, in two launches
@@ -156,9 +158,9 @@ def test_lora_wrapper_rejects_bad_inputs():
     (4096, 768, 768, 100, True, "prefill"), (8, 768, 768, 100, True, "decode"),  # r % 8
     *[(M, 768, 2048, r, True, "prefill" if M > 16 else "decode")
       for r in (4, 7, 512) for M in (4096, 37, 8)],
-    (8, 772, 768, 5, True, "generic"), (4096, 768, 300, 100, True, "generic"),  # K % 8, N % 8
-    (8, 768, 768, 128, False, "generic"),  # misaligned
-    (8, 768, 768, 16, False, "generic"), (4096, 768, 768, 16, False, "generic"),  # misaligned
+    (8, 772, 768, 5, True, "decode"), (4096, 768, 300, 100, True, "prefill"),  # K % 8, N % 8
+    (8, 768, 768, 128, False, "decode"),  # misaligned: copied (once generic)
+    (8, 768, 768, 16, False, "decode"), (4096, 768, 768, 16, False, "prefill"),  # misaligned
     (8, 200_000, 768, 64, True, "decode"),  # the decode ring's size does not grow with K
 ])
 def test_lora_variant_rule(M, K, N, r, aligned, expected):
@@ -169,7 +171,9 @@ def test_lora_variant_rule(M, K, N, r, aligned, expected):
     assert kind == expected
     usplit = lora_binding.decode_split(K, lora_binding.scratch_ranks(r)) if r > 64 else 0
     copy_a = int(r % 8 != 0)
-    want = {"prefill": (lora_binding.prefill_tile_n(M, N, r), copy_a),
+    copy = not aligned or K % 8 != 0 or N % 8 != 0
+    assert lora_binding.copied(K, N, aligned) == copy
+    want = {"prefill": (lora_binding.prefill_tile_n(M, N, r, copy), copy_a),
             "decode": (lora_binding.decode_tile_n(N), lora_binding.decode_split(K, N), usplit,
                        copy_a)}
     assert extra == want.get(kind, ())
@@ -276,6 +280,20 @@ def test_lora_prefill_tile_fills_the_card(N, r, expected):
     assert bn == expected
     if N in (256, 768):
         assert 32 * -(-N // bn) == 128  # one wave
+
+
+@pytest.mark.parametrize("M,K,N,r,aligned,expected", [
+    (4096, 768, 2048, 16, False, 128), (4096, 772, 2048, 16, True, 128),  # x copied: 256 → 128
+    (4096, 768, 256, 16, False, 128), (4096, 768, 3350, 16, True, 128),  # 64 without copies
+    (4096, 768, 300, 64, True, 128),
+    (4096, 768, 2048, 16, True, 256),  # nothing copied: the widest tile
+])
+def test_lora_prefill_tile_with_copied_tiles(M, K, N, r, aligned, expected):
+    """Where the producers copy x's, W's or B's tiles (four placing warps
+    beside the consumers), the prefill's tile is 128 wide: the widest their
+    registers leave room for."""
+    assert lora_binding.copied(K, N, aligned) == (not aligned or K % 8 != 0 or N % 8 != 0)
+    assert lora_binding.plan(M, K, N, r, aligned)[1][0] == expected
 
 
 @pytest.mark.parametrize("K,r,usplit", [
@@ -491,6 +509,77 @@ def test_flash_plain_matches_attend_full_in_model_layout(B, H, Kv, S, d, window,
         out = attend(tq, tk, tv, causal=True, window=window, softcap=softcap)
         assert out.shape == (B, S, H * d)
         np.testing.assert_allclose(_np(out), _np(ref), rtol=2e-5, atol=2e-5)
+
+
+# (B, H, Kv, Sq, Skv, d, causal, window, softcap): head dims 16, 64 and 256,
+# causal with a window and a softcap, non-causal with Skv != Sq (the Pallas
+# kernel unpadded: Skv a multiple of its key block)
+TF32X3_CASES = [
+    (2, 4, 2, 160, 160, 16, True, 0, 0.0),
+    (1, 2, 1, 128, 128, 64, True, 32, 30.0),
+    (1, 2, 1, 96, 96, 256, True, 0, 50.0),
+    (1, 4, 2, 64, 128, 64, False, 0, 0.0),
+]
+
+
+def _pallas_fp32(q, k, v, causal, window, softcap):
+    """The reference's Pallas kernel in interpret mode, 64-row blocks, as
+    test_flash_plain_matches_pallas_and_ref runs it (its wrapper pads a
+    causal S; a non-causal Sq != Skv goes to the kernel itself)."""
+    args = [jnp.asarray(t) for t in (q, k, v)]
+    if causal:
+        return _np(jax_flash_attention(*args, window=window, softcap=softcap, bq=64, bk=64))
+    return _np(jax_flash_attention_pallas(*args, causal=False, window=window, softcap=softcap,
+                                          bq=64, bk=64, interpret=True))
+
+
+@pytest.mark.parametrize("B,H,Kv,Sq,Skv,d,causal,window,softcap", TF32X3_CASES)
+def test_flash_tf32x3_ref_matches_pallas(B, H, Kv, Sq, Skv, d, causal, window, softcap):
+    """The fp32 variant's arithmetic (TF32 big and small terms, three
+    products, 64-key tiles each summed from zero, the online softmax) within
+    the reference's fp32 limit, 2e-5 + 2e-5·|o| per element, of the Pallas
+    kernel in interpret mode."""
+    rng = np.random.default_rng(Sq + d)
+    q = rng.standard_normal((B, H, Sq, d), np.float32)
+    k, v = (rng.standard_normal((B, Kv, Skv, d), np.float32) for _ in range(2))
+    o = flash_attention_tf32x3_ref(*(torch.from_numpy(t) for t in (q, k, v)), causal=causal,
+                                   window=window, softcap=softcap)
+    assert o.dtype == torch.float32 and o.shape == (B, H, Sq, d)
+    np.testing.assert_allclose(_np(o), _pallas_fp32(q, k, v, causal, window, softcap),
+                               rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("dropped", [None, "q", "k", "p", "v"])
+def test_flash_tf32x3_needs_each_small_term(dropped):
+    """The precision argument of the fp32 variant: with the small terms of
+    Q, K, P and V the three products are within 2e-5 + 2e-5·|o| of the
+    Pallas kernel; without any one of them (its product, small·big, left
+    out) they are not."""
+    B, H, Kv, Sq, Skv, d, causal, window, softcap = TF32X3_CASES[1]
+    rng = np.random.default_rng(Sq + d)
+    q = rng.standard_normal((B, H, Sq, d), np.float32)
+    k, v = (rng.standard_normal((B, Kv, Skv, d), np.float32) for _ in range(2))
+    want = _pallas_fp32(q, k, v, causal, window, softcap)
+    terms = tuple(t for t in attn_ref.TF32_TERMS if t != dropped)
+    o = _np(flash_attention_tf32x3_ref(*(torch.from_numpy(t) for t in (q, k, v)), causal=causal,
+                                       window=window, softcap=softcap, terms=terms))
+    excess = (np.abs(o - want) - 2e-5 * np.abs(want)).max()
+    assert (excess <= 2e-5) == (dropped is None), excess
+
+
+def test_tf32_rounds_to_nearest_ties_away():
+    """The mirror's TF32 rounding, the kernel's: 10 mantissa bits, to
+    nearest, ties away from zero, on the fp32 bits; v = big + small within
+    small's own rounding."""
+    one = 1.0
+    cases = {one + 2 ** -11: one + 2 ** -10, -(one + 2 ** -11): -(one + 2 ** -10),  # ties
+             one + 2 ** -12: one, one + 3 * 2 ** -12: one + 2 ** -10, 3.0: 3.0, 0.0: 0.0}
+    x = torch.tensor(list(cases), dtype=torch.float32)
+    assert attn_ref.tf32(x).tolist() == list(cases.values())
+    v = torch.from_numpy(np.random.default_rng(0).standard_normal(1000).astype(np.float32))
+    big, small = attn_ref.split_tf32(v)
+    assert (((big.view(torch.int32) | small.view(torch.int32)) & 0x1FFF) == 0).all()
+    assert ((v - big - small).abs() <= 2.0 ** -21 * v.abs()).all()
 
 
 def test_flash_plain_non_causal_ragged_kv():
