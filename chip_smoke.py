@@ -101,7 +101,7 @@ then
                target and bound share (``judge``);
                (b) ``launch.serve.main(["--smoke"])``
                for both archs, every launch on the fp32 variants (SSD on
-               ``fma``) by the per-variant counters, plus ``--lora-rank 80``
+               ``tf32``) by the per-variant counters, plus ``--lora-rank 80``
                in fp32 and ``--lora-rank 80``, ``100`` and ``4`` in bf16
                (``prefill`` and ``decode`` only), and the fp32 model's
                logits through the kernels within 1e-4 of the plain path's;
@@ -118,13 +118,14 @@ then
                ``pipelined_split_grads`` (M = 4) at full width against the
                full-batch split step; (f) ``repro_torch.examples.quickstart``
                and ``serve_demo`` on the card, their prefills on the fp32
-               flash variant (and SSD ``fma``). Written to
+               flash variant (and SSD ``tf32``). Written to
                ``build/chip_smoke/cli.json``;
   9. dense   — the rest of the dense family: (a) flash attention at
                gemma2-9b's prefill (B=2, H=16, Kv=8, S=8192, head dim 256;
                global and windowed 4096, with and without its softcap 50,
                and a ragged S=300) in bf16 (``wgmma``) and fp32, and once
-               with q misaligned for TMA (bf16 ``wmma``), against the
+               with q misaligned for TMA (bf16 ``wgmma``, q's tiles copied
+               by the producer warps), against the
                plain version, with event, device, plain, SDPA and bound
                times, and the LoRA kernel at every (M, K, N, r) that the
                serves below launch, on the variant its rule picks, against
@@ -224,6 +225,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import gc
 import io
 import json
 import math
@@ -622,14 +624,13 @@ def path_variants(cfg) -> dict[str, dict[str, int]]:
     """Launches of each variant in one decode_tokens call: the prefill's LoRA
     products (M = B·S) through the prefill variant, the decode steps' (M = B)
     through the decode variant, flash and the SSD scan (one per layer of the
-    prefill) through their wgmma variants; none through the first port's
-    kernels."""
+    prefill) through their wgmma variants; none through SSD ``fma``."""
     per_forward = sum(lora_shapes(cfg).values()) * cfg.num_layers
     ssm = cfg.layer_pattern == "M"
     return {"lora_matmul": {"prefill": per_forward, "decode": per_forward * (NEW - 1),
                             "fp32": 0},
-            "flash_attention": {"wgmma": 0 if ssm else cfg.num_layers, "wmma": 0, "fp32": 0},
-            "ssd_scan": {"wgmma": cfg.num_layers if ssm else 0, "fma": 0}}
+            "flash_attention": {"wgmma": 0 if ssm else cfg.num_layers, "fp32": 0},
+            "ssd_scan": {"wgmma": cfg.num_layers if ssm else 0, "tf32": 0, "fma": 0}}
 
 
 def path_kernels(cfg) -> dict[str, int]:
@@ -662,17 +663,23 @@ def lora_bound(M, K, N, r, dtype) -> tuple[float, str]:
     return bound_ms(*lora_work(M, K, N, r, 4 if fp32 else 2), PEAK_FP32 if fp32 else PEAK_BF16)
 
 
+def shifted(t):
+    """t's values in a view one element off a 16-byte boundary (no tensor
+    map reads it)."""
+    return torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view_as(t).copy_(t)
+
+
 def attn_inputs(gen, B, S, H, Kv, d, dev, dtype=torch.bfloat16, misaligned=False, Skv=None):
     """q, k, v in the model's (B, S, heads, d) layout, as (B, heads, S, d)
     views (k and v of ``Skv`` positions, S by default); ``misaligned``: q
-    one element off a 16-byte boundary (TMA cannot read it)."""
+    (True) or the operands it names ("kv") one element off a 16-byte
+    boundary (TMA cannot read them)."""
+    names = "q" if misaligned is True else misaligned or ""
     q = torch.randn((B, S, H, d), generator=gen, device=dev).to(dtype)
-    if misaligned:
-        q = torch.empty(q.numel() + 1, dtype=dtype, device=dev)[1:].view_as(q).copy_(q)
-    q = q.transpose(1, 2)
-    k, v = (torch.randn((B, Skv or S, Kv, d), generator=gen, device=dev).to(dtype).transpose(1, 2)
+    k, v = (torch.randn((B, Skv or S, Kv, d), generator=gen, device=dev).to(dtype)
             for _ in range(2))
-    return q, k, v
+    return tuple((shifted(t) if name in names else t).transpose(1, 2)
+                 for name, t in zip("qkv", (q, k, v)))
 
 
 def attn_work(B, S, H, Kv, d, causal, window, esize=2, Skv=None):
@@ -701,17 +708,26 @@ def ssd_inputs(gen, B, S, H, P, N, dev, dtype=torch.float32, h0=False):
     return x, dt, A, Bm, Cm, state
 
 
-def ssd_work(B, S, H, P, N, chunk, esize, h0):
+def ssd_chunk_ops(B, S, H, P, N, Q):
+    """Operations of the chunked algorithm at chunks of Q steps: scores C·Bᵀ
+    and their product with dt·x, 2·Q²·(N+P) per chunk; the state's
+    contribution and update, 4·Q·N·P; per (b, h). At Q = 64 it is what the
+    wgmma and tf32 variants do."""
+    Q = min(Q, S)
+    return B * H * math.ceil(S / Q) * (2 * Q * Q * (N + P) + 4 * Q * N * P)
+
+
+def ssd_work(B, S, H, P, N, esize, h0):
     """Bytes: x, dt, A, Bm, Cm read once, y (fp32) and the final state written
-    once, the initial state read once if given. Operations: the chunked
-    algorithm at the reference's chunk Q (scores C·Bᵀ and their product with
-    dt·x, 2·Q²·(N+P) per chunk; the state's contribution and update,
-    4·Q·N·P), per (b, h)."""
+    once, the initial state read once if given. Operations: the least any
+    chunk needs, ``ssd_chunk_ops`` at Q = 1 (the sequential recurrence,
+    4·N·P a step, and the step's own C·B times dt·x, 2·(N+P)): the result
+    does not depend on the chunk and the count falls with Q, so the bound
+    reads the function's work whatever variant runs (at mamba2-130m's widths
+    the 64-step chunk counts 1.7x as many, the reference's 256 4x)."""
     nbytes = (esize * (B * S * H * P + 2 * B * S * N) + 4 * (B * S * H + H)
               + 4 * B * S * H * P + 4 * B * H * P * N * (2 if h0 else 1))
-    Q = min(chunk, S)
-    ops = B * H * math.ceil(S / Q) * (2 * Q * Q * (N + P) + 4 * Q * N * P)
-    return nbytes, ops
+    return nbytes, ssd_chunk_ops(B, S, H, P, N, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -851,18 +867,18 @@ def flash_checks(cfg, dev, gen, rows, errs) -> list:
 def ssd_checks(cfg, dev, gen, rows, errs) -> list:
     """y and the final state against the sequential recurrence, at the path's
     widths: the full prompt, a ragged S, an initial state, 8 reference
-    chunks, in fp32 (the fma variant) and in bf16 (the wgmma variant), and
+    chunks, in fp32 (the tf32 variant) and in bf16 (the wgmma variant), and
     the prefill's own bf16 strided views of the conv output. Tolerance 1e-4
     of the largest reference output, the reference's own
-    (tests/test_kernels.py): fma's products are fp32 FMAs, wgmma's take its
-    fp32 operands (decayed scores, state, w·x) as two bf16 terms each; both
-    sum in another order (and exp(cs_q − cs_s) stands for a product of
+    (tests/test_kernels.py): tf32's products are 3xTF32 (each fp32 operand a
+    TF32 big and small term), wgmma's take its fp32 operands (decayed scores,
+    state, w·x) as two bf16 terms each; both sum in another order (and exp(cs_q − cs_s) stands for a product of
     per-step decays)."""
     fails = []
     errs["ssd_scan"] = 0.0
     _, H, P, N, _ = M2.dims(cfg)
     cases = [(S, h0, dtype, expected)
-             for dtype, expected in ((torch.float32, "fma"), (torch.bfloat16, "wgmma"))
+             for dtype, expected in ((torch.float32, "tf32"), (torch.bfloat16, "wgmma"))
              for S, h0 in ((PROMPT, False), (200, True), (PROMPT, True), (8 * cfg.ssm_chunk, False))]
     for S, h0, dtype, expected in cases + [(PROMPT, True, "views", "wgmma")]:
         if dtype == "views":
@@ -1123,7 +1139,7 @@ def ssd_timing(cfg, dev, gen) -> dict:
     kernel's device time should be below (``below_chunked``). No single
     PyTorch call computes this function: no library time."""
     _, H, P, N, _ = M2.dims(cfg)
-    nbytes, ops = ssd_work(BATCH, PROMPT, H, P, N, cfg.ssm_chunk, 2, True)
+    nbytes, ops = ssd_work(BATCH, PROMPT, H, P, N, 2, True)
     sets = [ssd_path_inputs(gen, cfg, dev) for _ in range(n_sets(nbytes))]
     b_ms, b_by = bound_ms(nbytes, ops)
 
@@ -2110,7 +2126,7 @@ def counters() -> dict:
 
 def smoke_serve(dev) -> tuple[dict, list]:
     """Part (b): ``launch.serve.main(["--smoke"])`` on the card for both
-    archs (every launch on the fp32 variants, SSD on ``fma``), the fp32
+    archs (every launch on the fp32 variants, SSD on ``tf32``), the fp32
     model's logits through the kernels against the plain path, and calls at
     other ranks: ``--smoke --lora-rank 80`` (fp32) and full-width bf16
     ``--lora-rank 80``, ``--lora-rank 100`` and ``--lora-rank 4`` (not
@@ -2125,7 +2141,7 @@ def smoke_serve(dev) -> tuple[dict, list]:
     calls["fedsllm-100m rank 100 (bf16)"] = ["--lora-rank", "100", *small]
     calls["fedsllm-100m rank 4 (bf16)"] = ["--lora-rank", "4", *small]
     allowed = {"fedsllm-100m": {"lora_matmul": {"fp32"}, "flash_attention": {"fp32"}},
-               "mamba2-130m": {"lora_matmul": {"fp32"}, "ssd_scan": {"fma"}},
+               "mamba2-130m": {"lora_matmul": {"fp32"}, "ssd_scan": {"tf32"}},
                "fedsllm-100m rank 80 (fp32)": {"lora_matmul": {"fp32"},
                                                "flash_attention": {"fp32"}},
                "fedsllm-100m rank 80 (bf16)": {"lora_matmul": {"prefill", "decode"},
@@ -2175,49 +2191,109 @@ def smoke_serve(dev) -> tuple[dict, list]:
     return out, fails
 
 
-def ssd_row(gen, dev, B, S, H, P, N, chunk, launches=None, iters=50, **meta) -> dict:
-    """One fp32 SSD scan shape (the ``fma`` variant) against the sequential
-    recurrence, 1e-4 of the largest output, with event, device, plain and
-    bound times (fp32 operations at ``PEAK_FP32``; no library call computes
-    it)."""
-    nbytes, ops = ssd_work(B, S, H, P, N, chunk, 4, False)
-    sets = [ssd_inputs(gen, B, S, H, P, N, dev) for _ in range(4)]
+def ssd_row(gen, dev, B, S, H, P, N, launches=None, iters=50, dtype=torch.float32,
+            expected="tf32", misaligned=False, **meta) -> dict:
+    """One SSD scan shape (fp32: the ``tf32`` variant; bf16: ``wgmma``)
+    against the sequential recurrence, 1e-4 of the largest output, with
+    event, device, plain and bound times (fp32 operations at ``PEAK_FP32``;
+    no library call computes it). ``misaligned``: x, Bm and Cm one element
+    off 16 bytes (no tensor map reads them)."""
+    fp32 = dtype == torch.float32
+    nbytes, ops = ssd_work(B, S, H, P, N, 4 if fp32 else 2, False)
+    sets = [ssd_inputs(gen, B, S, H, P, N, dev, dtype) for _ in range(4)]
+    if misaligned:
+        sets = [(shifted(x), dt, A, shifted(Bm), shifted(Cm), h) for x, dt, A, Bm, Cm, h in sets]
     call = lambda x, dt, A, Bm, Cm, h: ssd_scan(x, dt, A, Bm, Cm)  # noqa: E731
     y, h = call(*sets[0])
     torch.cuda.synchronize()
     yr, hr = ssd_scan_ref(*sets[0][:5])
-    b_ms, b_by = bound_ms(nbytes, ops, PEAK_FP32)
-    row = dict(kernel="ssd_scan", dtype="float32", B=B, S=S, H=H, P=P, N=N, **meta,
-               variant=ran_variant("ssd_scan", lambda: call(*sets[0])), expected="fma",
+    b_ms, b_by = bound_ms(nbytes, ops, PEAK_FP32 if fp32 else PEAK_BF16)
+    row = dict(kernel="ssd_scan", dtype=str(dtype).split(".")[-1], B=B, S=S, H=H, P=P, N=N,
+               misaligned=misaligned, **meta,
+               variant=ran_variant("ssd_scan", lambda: call(*sets[0])),
+               expected=expected,
                err=max((y - yr).abs().max().item(), (h - hr).abs().max().item()),
                tol=1e-4 * max(yr.abs().max().item(), hr.abs().max().item()),
                launches=launches, ms=time_ms(call, sets, iters),
                **device_time_ms(call, sets, bound=b_ms),
                plain_ms=time_ms(lambda x, dt, A, Bm, Cm, h: ssd_scan_ref(x, dt, A, Bm, Cm),
                                 sets, 2),
-               library_ms=None, **library(None), bound_ms=b_ms, bound_by=b_by)
+               library_ms=None, **library(None), bound_ms=b_ms, bound_by=b_by,
+               chunk64_ops=ssd_chunk_ops(B, S, H, P, N, 64), ops=ops)
     row["bound_share"] = b_ms / row["device_ms"]
     return row
 
 
+# The redesigned rows of phase 8 (a)'s ``next_rows``: label -> (the earlier
+# graph ms a launch, the kind of target). Earlier: this script's final run
+# before the redesign (the first port's flash ``wmma`` and SSD ``fma``; the smoke
+# SSD row: its device ms a launch; bf16 SSD: ``wgmma`` at mamba2-130m's
+# widths, 0.966 ms of device time over a serve's 24 launches), NVIDIA H100
+# 80GB HBM3 at 700 W. Floor: half the parent (launch-bound smoke row: within
+# 10% of it; bf16 SSD: within 3%); target: no slower than SDPA's graph time
+# (flash), twice the bound (fp32 SSD at mamba2-130m's widths).
+NEXT_PARENT = {"flash d=16": (0.0758, "sdpa"), "flash d=32": (0.0958, "sdpa"),
+               "flash q misaligned d=64": (0.1430, "sdpa"),
+               "flash q misaligned d=128": (0.4346, "sdpa"),
+               "flash q misaligned d=256": (2.661, "sdpa"),
+               "flash k, v misaligned d=64": (None, "sdpa"),
+               "ssd fp32 mamba2-130m widths": (0.4736, "bound"),
+               "ssd fp32 smoke serve shape": (0.010, "launch"),
+               "ssd bf16 mamba2-130m widths": (0.966 / 24, "parent"),
+               "ssd bf16 copied x, B, C": (None, None),
+               "ssd bf16 N over 256 (fma)": (None, None)}
+
+
+def next_verdict(row: dict) -> dict:
+    """The row's floor and target against ``NEXT_PARENT`` (graph ms)."""
+    parent, kind = NEXT_PARENT[row["at"]]
+    t = row["graph_ms"]
+    floor = None if parent is None else parent * (1.1 if kind == "launch" else
+                                                  1.03 if kind == "parent" else 0.5)
+    target = {"sdpa": row.get("library_graph_ms"), "bound": 2 * row["bound_ms"]}.get(kind)
+    row.update(parent_ms=parent, floor_ms=floor, target_ms=target,
+               floor_met=None if floor is None else t <= floor,
+               target_met=None if target is None else t <= target)
+    return row
+
+
 def next_rows(dev) -> list:
-    """The first port's kernels still to be redesigned, timed beside their
-    bounds and SDPA where it computes the same function: bf16 flash on
-    ``wmma`` at head dims 16 and 32 and at rows one element off 16 bytes at
-    64 (fedsllm-100m's prefill), 128 (phi4-mini's) and 256 (gemma2-9b's
-    heads at S=2048, no softcap), and the SSD scan's ``fma`` at mamba2-130m's
-    widths in fp32 (B=8 × 512, 24 heads of 64, N=128)."""
+    """The designs of the first port's last two variants, timed beside their
+    bounds, the parent's times and SDPA where it computes the same function
+    (``NEXT_PARENT``): bf16 flash on ``wgmma`` at head dims 16 and 32 (native
+    widths), with q's rows one element off 16 bytes (copied by the producer
+    warps) at 64 (fedsllm-100m's prefill), 128 (phi4-mini's) and 256
+    (gemma2-9b's heads at S=2048, no softcap), and with k's and v's at 64;
+    the SSD scan's ``tf32`` at mamba2-130m's widths in fp32 (B=8 × 512, 24
+    heads of 64, N=128) and at the smoke serve's shape (B=4 × 32, 8 heads of
+    16, N=16), its ``wgmma`` at mamba2-130m's widths in bf16, aligned and
+    with x, B and C one element off 16 bytes, and ``fma`` at N=320 (the
+    range it keeps)."""
     gen = torch.Generator(device=dev).manual_seed(12)
-    rows = [dict(attn_row(gen, dev, BATCH, PROMPT, 12, 4, d, torch.bfloat16, iters=20), at=at,
-                 expected="wmma") for d, at in ((16, "head dim 16"), (32, "head dim 32"))]
+    rows = [dict(attn_row(gen, dev, BATCH, PROMPT, 12, 4, d, torch.bfloat16, iters=20),
+                 at=f"flash d={d}", expected="wgmma") for d in (16, 32)]
     for B, S, H, Kv, d in ((BATCH, PROMPT, 12, 4, 64), (BATCH, PROMPT, 24, 8, 128),
                            (2, 2048, 16, 8, 256)):
         rows.append(dict(attn_row(gen, dev, B, S, H, Kv, d, torch.bfloat16, iters=10,
-                                  misaligned=True), at="misaligned", expected="wmma"))
+                                  misaligned=True), at=f"flash q misaligned d={d}",
+                         expected="wgmma"))
+    rows.append(dict(attn_row(gen, dev, BATCH, PROMPT, 12, 4, 64, torch.bfloat16, iters=10,
+                              misaligned="kv"), at="flash k, v misaligned d=64",
+                     expected="wgmma"))
     _, H, Pd, N, _ = M2.dims(get_arch("mamba2-130m"))
-    rows.append(ssd_row(gen, dev, BATCH, PROMPT, H, Pd, N, get_arch("mamba2-130m").ssm_chunk,
-                        iters=20, at="mamba2-130m widths"))
+    _, sH, sP, sN, _ = M2.dims(smoke_variant(get_arch("mamba2-130m")))
+    B, S, _ = SMOKE_SERVE
+    rows += [ssd_row(gen, dev, BATCH, PROMPT, H, Pd, N, iters=20,
+                     at="ssd fp32 mamba2-130m widths"),
+             ssd_row(gen, dev, B, S, sH, sP, sN, at="ssd fp32 smoke serve shape"),
+             ssd_row(gen, dev, BATCH, PROMPT, H, Pd, N, iters=20, dtype=torch.bfloat16,
+                     expected="wgmma", at="ssd bf16 mamba2-130m widths"),
+             ssd_row(gen, dev, BATCH, PROMPT, H, Pd, N, iters=20, dtype=torch.bfloat16,
+                     expected="wgmma", misaligned=True, at="ssd bf16 copied x, B, C"),
+             ssd_row(gen, dev, 2, PROMPT, 4, 64, 320, iters=10, dtype=torch.bfloat16,
+                     expected="fma", at="ssd bf16 N over 256 (fma)")]
     for row in rows:
+        next_verdict(row)
         log(f"[cli] (a) next {json.dumps(row)}")
     return rows
 
@@ -2239,8 +2315,7 @@ def smoke_serve_rows(dev, launched: dict) -> tuple[list, list]:
                                      expected="fp32"))
         if cfg.layer_pattern == "M":
             _, H, Pd, N, _ = M2.dims(cfg)
-            rows.append(ssd_row(gen, dev, B, P, H, Pd, N, cfg.ssm_chunk, launches=cfg.num_layers,
-                                path=arch))
+            rows.append(ssd_row(gen, dev, B, P, H, Pd, N, launches=cfg.num_layers, path=arch))
         else:
             rows.append(judge(dict(attn_row(gen, dev, B, P, cfg.num_heads, cfg.num_kv_heads,
                                             cfg.head_dim, torch.float32,
@@ -2250,7 +2325,7 @@ def smoke_serve_rows(dev, launched: dict) -> tuple[list, list]:
         log(f"[cli] (b) serve-path row {json.dumps(row)}")
     # the rows' launches are those the two smoke serve calls made
     for name, variant in (("lora_matmul", "fp32"), ("flash_attention", "fp32"),
-                          ("ssd_scan", "fma")):
+                          ("ssd_scan", "tf32")):
         want = sum(launched[arch]["variants"][name][variant] for arch in ARCHS)
         got = sum(r["launches"] for r in rows if r["kernel"] == name)
         assert got == want, (name, got, want)
@@ -2458,7 +2533,7 @@ def cli_pipelined(dev) -> tuple[dict, list]:
 
 def cli_examples(dev) -> tuple[dict, list]:
     """Part (f): the quickstart and serve demo on the card; their prefills
-    launch the fp32 flash variant and, for mamba2, the SSD ``fma``."""
+    launch the fp32 flash variant and, for mamba2, the SSD ``tf32``."""
     out, fails = {}, []
     for name, mod in (("quickstart", quickstart), ("serve_demo", serve_demo)):
         zero_counters()
@@ -2473,7 +2548,7 @@ def cli_examples(dev) -> tuple[dict, list]:
     if not out["quickstart"]["variants"]["flash_attention"]["fp32"] > 0:
         fails.append("quickstart launched no fp32 flash")
     demo = out["serve_demo"]["variants"]
-    if not (demo["flash_attention"]["fp32"] > 0 and demo["ssd_scan"]["fma"] > 0):
+    if not (demo["flash_attention"]["fp32"] > 0 and demo["ssd_scan"]["tf32"] > 0):
         fails.append(f"serve_demo launched {demo}")
     return out, fails
 
@@ -2542,30 +2617,41 @@ def rank_entries(cli) -> list[dict]:
 
 
 def next_entries(cli) -> list[dict]:
-    """The kernels line's entries of the first port's kernels still to be
-    redesigned, from phase 8 (a)'s ``next_rows``: flash ``wmma`` (bf16 head
-    dims 16 and 32, rows one element off 16 bytes) and the SSD scan's
-    ``fma`` at mamba2-130m's widths in fp32, times summed over one launch at
-    each shape (no served path reaches them at these shapes: launches 0)."""
+    """The kernels line's entries of the designs of the first port's last
+    two variants, from phase 8 (a)'s ``next_rows``: flash ``wgmma`` at head
+    dims 16 and 32 and with copied tiles (rows one element off 16 bytes),
+    the SSD scan's ``tf32`` (fp32) at full width and its ``wgmma`` with
+    copied tiles, and ``fma`` (N above 256), times summed over one launch at
+    each shape (no served path reaches them at these shapes: launches 0; the
+    fp32 smoke serve's ``tf32`` launches are ``variant_entries``')."""
     out = []
-    for kernel, variant, source, replaces in (
-            ("flash_attention", "wmma", "src/repro_torch/csrc/flash_attention.cu",
-             "src/repro/kernels/flash_attention.py:84"),
-            ("ssd_scan", "fma", "src/repro_torch/csrc/ssd_scan.cu",
-             "src/repro/kernels/ssd_scan.py:71")):
-        mine = [r for r in cli["next"] if r["kernel"] == kernel]
+    flash = ("src/repro_torch/csrc/flash_attention.cu", "src/repro/kernels/flash_attention.py:84")
+    ssd = ("src/repro_torch/csrc/ssd_scan.cu", "src/repro/kernels/ssd_scan.py:71")
+    for name, variant, (source, replaces), pick in (
+            ("flash_attention/wgmma d=16, 32", "wgmma", flash,
+             lambda r: r["at"] in ("flash d=16", "flash d=32")),
+            ("flash_attention/wgmma copied", "wgmma", flash,
+             lambda r: "misaligned" in r["at"]),
+            ("ssd_scan/tf32 full width", "tf32", ssd,
+             lambda r: r["at"] == "ssd fp32 mamba2-130m widths"),
+            ("ssd_scan/wgmma copied", "wgmma", ssd, lambda r: r["at"] == "ssd bf16 copied x, B, C"),
+            ("ssd_scan/fma N > 256", "fma", ssd, lambda r: r["variant"] == "fma")):
+        mine = [r for r in cli["next"] if pick(r)]
         total = {k: sum(r[k] for r in mine)
                  for k in ("ms", "device_ms", "graph_ms", "plain_ms", "bound_ms")}
         for key in ("library_ms", "library_device_ms"):
             lib = [r[key] for r in mine]
             total[key] = None if None in lib else sum(lib)
         by_bytes = sum(r["bound_ms"] for r in mine if r["bound_by"] == "bytes")
-        out.append({"name": f"{kernel}/{variant} next", "route": "cuda", "source": source,
-                    "replaces": replaces, "variant": variant, "launches": 0,
+        out.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                    "variant": variant, "launches": 0,
                     "max_abs_err": max(r["err"] for r in mine), **total,
                     "bound_by": "bytes" if by_bytes >= total["bound_ms"] / 2 else "operations",
+                    "rows": {v: f"{sum(bool(r[v]) for r in mine)}/"
+                                f"{sum(r[v] is not None for r in mine)}"
+                             for v in ("floor_met", "target_met")},
                     "per": "one launch at each shape: " + ", ".join(
-                        r.get("at", "") + f" B={r['B']} S={r['S']} H={r['H']}"
+                        r["at"] + f" B={r['B']} S={r['S']} H={r['H']}"
                         + (f" d={r['d']}" if "d" in r else f" P={r['P']} N={r['N']}")
                         for r in mine)})
     return out
@@ -2579,7 +2665,7 @@ def variant_entries(rows) -> list[dict]:
                             "src/repro/kernels/lora_matmul.py:51"),
             "flash_attention": ("fp32", "src/repro_torch/csrc/flash_attention.cu",
                                 "src/repro/kernels/flash_attention.py:84"),
-            "ssd_scan": ("fma", "src/repro_torch/csrc/ssd_scan.cu",
+            "ssd_scan": ("tf32", "src/repro_torch/csrc/ssd_scan.cu",
                          "src/repro/kernels/ssd_scan.py:71")}
     out = []
     for name, (variant, source, replaces) in meta.items():
@@ -2630,8 +2716,8 @@ DENSE_LIMITS = {
 
 def dense_kernels(dev) -> tuple[list, list]:
     """Part (a): flash at gemma2-9b's prefill shapes, bf16 (wgmma) and fp32,
-    and once with q's rows misaligned for TMA (bf16 wmma, the first port's
-    kernel)."""
+    and once with q's rows misaligned for TMA (bf16 wgmma, q's tiles copied
+    by the producer warps)."""
     gen = torch.Generator(device=dev).manual_seed(10)
     cfg = get_arch(GEMMA)
     B, S = GEMMA_SERVE[:2]
@@ -2647,7 +2733,7 @@ def dense_kernels(dev) -> tuple[list, list]:
         rows.append(attn_row(gen, dev, B, 300, H, Kv, d, dtype, 64, 0.0, iters=20,
                              case="ragged", expected=expected))
     rows.append(attn_row(gen, dev, B, 300, H, Kv, d, torch.bfloat16, 64, cap, iters=20,
-                         misaligned=True, case="misaligned", expected="wmma"))
+                         misaligned=True, case="misaligned", expected="wgmma"))
     for row in rows:
         if row["dtype"] == "float32":
             judge(row)
@@ -2792,15 +2878,13 @@ def lora_plan(cfg, B, S, new) -> collections.Counter:
 
 def dense_expected(cfg, B, S, new, fp32=False) -> dict:
     """Each variant's launches in one decode_tokens call, by the wrappers'
-    own rule: bf16 LoRA products on ``prefill`` and ``decode`` (none on
-    ``generic``), flash on ``wgmma`` (none on ``wmma``), one a prefill's
-    attention layer."""
+    own rule: bf16 LoRA products on ``prefill`` and ``decode``, flash on
+    ``wgmma`` (``fp32`` in fp32), one a prefill's attention layer."""
     lora = dict.fromkeys(lora_matmul.variant_launches, 0)
     for (M, K, N, r), n in lora_plan(cfg, B, S, new).items():
         lora[lora_binding.variant(M, K, N, r, True, fp32)] += n
     flash = dict.fromkeys(flash_attention.variant_launches, 0)
-    flash["fp32" if fp32 else "wgmma" if cfg.head_dim in flash_binding.WGMMA_HEAD_DIMS
-          else "wmma"] = flash_calls(cfg, S)
+    flash[flash_binding.variant(cfg.head_dim, fp32)] = flash_calls(cfg, S)
     return {"lora_matmul": lora, "flash_attention": flash,
             "ssd_scan": dict.fromkeys(ssd_scan.variant_launches, 0)}
 
@@ -4079,8 +4163,26 @@ def phase_dryrun(dev, smi: str) -> tuple[dict, list]:
         fails += more
     res["checks"] = {}
     for (arch, shape_name), (b, expect) in DRYRUN_CHECKS.items():
-        check, more = dryrun_cell(arch, shape_name, dev, expect, batch=b, full_depth=True)
+        # read in this process too, after its garbage and the allocator's
+        # cache are freed: recorded beside the fresh process's reading, which
+        # the limits judge (``fresh_check_cell``)
+        gc.collect()
+        torch.cuda.empty_cache()
+        here, more = dryrun_cell(arch, shape_name, dev, expect, batch=b, full_depth=True)
         fails += more
+        m = here["measured"]
+        in_process = {"compose_vs_full": m.get("compose_vs_full"),
+                      "composed_ms": m.get("composed", {}).get("ms"),
+                      "full_ms": m.get("full", {}).get("ms")}
+        log(f"[dryrun] check {arch} x {shape_name} in this process: {json.dumps(in_process)}")
+        del here
+        gc.collect()
+        torch.cuda.empty_cache()  # the check cell's process shares the card
+        check, more = fresh_check_cell(arch, shape_name, b)
+        fails += more
+        if check is None:
+            continue
+        check["in_process"] = in_process
         m, c = check["measured"], check["measured"]["composed"]
         gaps = m["compose_vs_full"]
         # the share of the composed transient that the depth composes: 0 where
@@ -4105,6 +4207,37 @@ def phase_dryrun(dev, smi: str) -> tuple[dict, list]:
     if fails:
         raise SystemExit(f"[dryrun] {len(fails)} check(s) failed: {fails}")
     return res, dryrun_entries(res)
+
+
+def fresh_check_cell(arch: str, shape_name: str, b: int) -> tuple[dict | None, list]:
+    """``dryrun_cell`` of a check cell (composed and measured whole) in a
+    process of its own, as the dry-run CLI measures it: after this process's
+    phases 1-11, mamba2-130m x train_4k's full-depth step alone ran 20-28%
+    slower in 2 of 3 runs on an H100 (M1 and M2 unchanged; composed vs full
+    −15.1%), while four fresh processes read within 0.6% (PERF.md §7). The
+    cause is not known; ``phase_dryrun`` keeps this process's reading beside
+    the fresh one, so the gap stays in the record."""
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--check-cell", arch,
+                           shape_name, str(b)], capture_output=True, text=True, timeout=1200)
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        print(line, flush=True)
+    if proc.returncode != 0 or not lines:
+        return None, [f"check cell {arch} x {shape_name}: its process exited {proc.returncode}: "
+                      + proc.stderr[-2000:]]
+    out = json.loads(lines[-1])
+    return out["rec"], out["fails"]
+
+
+def check_cell_main(arch: str, shape_name: str, b: str) -> int:
+    """The process of ``fresh_check_cell``: its record and failures as the
+    last line of its standard output."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rec, fails = dryrun_cell(arch, shape_name, torch.device("cuda", 0),
+                             DRYRUN_CHECKS[(arch, shape_name)][1], batch=int(b), full_depth=True)
+    print(json.dumps({"rec": rec, "fails": fails}, default=str))
+    return 0
 
 
 def dryrun_entries(res) -> list[dict]:
@@ -4145,6 +4278,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--check-cell"]:
+        return check_cell_main(*sys.argv[2:5])
     torch.backends.cuda.matmul.allow_tf32 = False  # fp32 products in full fp32
     torch.backends.cudnn.allow_tf32 = False
     OUT.mkdir(parents=True, exist_ok=True)

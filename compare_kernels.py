@@ -25,8 +25,15 @@ time a call at fedsllm-100m's decode shapes; at the fp32 smoke serves'
 shapes (``launch.serve --smoke``: B=4, prompt 32, 16 new tokens) also the
 host's time and the event time a call (back-to-back calls between two
 events, as ``chip_smoke.py`` times a row), and both summed over the 288
-launches of the two smoke serves; the last line holds each metric's least
-time on each side and their ratio (this / other).
+launches of the two smoke serves; then the rows of the first port's last
+two variants' designs (``NEXT``): bf16 flash at head dims 16 and 32 (B=8,
+S=512, 12 heads over 4) and with q one element off 16 bytes at d=64 (the
+same heads), d=128 (24 over 8) and d=256 (B=2, S=2048, 16 over 8), and the
+SSD scan in fp32 at mamba2-130m's widths (B=8, S=512, 24 heads of 64,
+N=128) and at the smoke serve's shape (B=4, S=32, 8 heads of 16, N=16), and
+in bf16 at mamba2-130m's widths. The last line holds each
+metric's least time on each side and their ratio (this / other; none
+where only this side measured it).
 
     python3 compare_kernels.py OTHER_CHECKOUT --host
 
@@ -92,6 +99,11 @@ SMOKE = {(64, 64): 4, (64, 32): 4, (64, 128): 4, (128, 64): 4, (64, 296): 2}
 SMOKE_CALLS = {128: 1, 4: 15}
 FP32 += [(M, K, N, 16) for M in SMOKE_CALLS for K, N in SMOKE]
 HOST = [(8, 768, 768), (8, 2048, 768), (8, 768, 2048)]
+# bf16 flash (B, S, H, Kv, d, q one element off 16 bytes) and the SSD scan
+# (B, S, H, P, N, fp32) of the first port's last two variants' designs
+NEXT_FLASH = [(8, 512, 12, 4, 16, False), (8, 512, 12, 4, 32, False), (8, 512, 12, 4, 64, True),
+              (8, 512, 24, 8, 128, True), (2, 2048, 16, 8, 256, True)]
+NEXT_SSD = [(8, 512, 24, 64, 128, True), (4, 32, 8, 16, 16, True), (8, 512, 24, 64, 128, False)]
 
 
 def graph_ms(torch, fn, sets, iters=50):
@@ -204,6 +216,34 @@ def measure(root: Path) -> dict:
         out[f"smoke serves fp32 {metric} ms, 288 launches"] = sum(
             out[f"{key} {M}x{K}x{N}"] * n * calls
             for M, calls in SMOKE_CALLS.items() for (K, N), n in SMOKE.items())
+    out.update(measure_next(torch, randn))
+    return out
+
+
+def measure_next(torch, randn) -> dict:
+    """The ``NEXT`` rows (module docstring) on one side."""
+    from repro_torch.kernels.attn_ops import flash_attention
+    from repro_torch.kernels.ssd_ops import ssd_scan
+
+    out = {}
+    for B, S, H, Kv, d, misaligned in NEXT_FLASH:
+        sets = [((shift(torch, q) if misaligned else q).transpose(1, 2),
+                 randn(B, S, Kv, d).transpose(1, 2), randn(B, S, Kv, d).transpose(1, 2))
+                for q in (randn(B, S, H, d) for _ in range(4))]
+        name = f"next flash d={d} B={B} S={S} H={H}/{Kv}" + (" q+1" if misaligned else "")
+        out[name] = graph_ms(torch, lambda q, k, v: flash_attention(q, k, v, causal=True), sets)
+        del sets
+    for B, S, H, P, N, fp32 in NEXT_SSD:
+        dtype = torch.float32 if fp32 else torch.bfloat16
+        sets = [(randn(B, S, H, P, dtype=dtype),
+                 torch.nn.functional.softplus(randn(B, S, H, dtype=torch.float32)),
+                 -torch.exp(randn(H, scale=0.3, dtype=torch.float32)),
+                 randn(B, S, N, scale=0.5, dtype=dtype), randn(B, S, N, scale=0.5, dtype=dtype),
+                 randn(B, H, P, N, dtype=torch.float32)) for _ in range(4)]
+        name = f"next ssd {'fp32' if fp32 else 'bf16'} B={B} S={S} H={H} P={P} N={N}"
+        out[name] = graph_ms(torch, lambda x, dt, A, Bm, Cm, h: ssd_scan(
+            x, dt, A, Bm, Cm, initial_state=h), sets, 20)
+        del sets
     return out
 
 
@@ -390,8 +430,9 @@ def main() -> int:
         runs[side].append(json.loads(res.stdout.strip().splitlines()[-1]))
         print(json.dumps({"side": side, "root": str(sides[side]), **runs[side][-1]}), flush=True)
     best = {side: {k: min(r[k] for r in rs) for k in rs[0]} for side, rs in runs.items()}
-    print(json.dumps({k: {"other": best["other"][k], "this": best["this"][k],
-                          "ratio": best["this"][k] / best["other"][k]} for k in best["this"]}))
+    print(json.dumps({k: {"other": best["other"].get(k), "this": best["this"][k],
+                          "ratio": best["this"][k] / best["other"][k]
+                          if k in best["other"] else None} for k in best["this"]}))
     return 0
 
 

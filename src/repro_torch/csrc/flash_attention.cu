@@ -20,10 +20,10 @@
 // gemma2-9b's prefill (S = 8192, d = 256, half its layers windowed to 4096)
 // and the other dense configs' (d = 128).
 //
-// Three variants, picked by the wrapper (kernels/flash_attention.py
+// Two variants, picked by the wrapper (kernels/flash_attention.py
 // ``variant``):
 //
-// * wgmma (d = 64, 128, 256 with 16-byte aligned rows; the main path): one
+// * wgmma (bf16, d = 16, 32, 64, 128, 256, any strides; the main path): one
 //   block per two query tiles of one (batch, head), tile nq-1-i then tile i,
 //   so every block of a causal prefill has the same work and pays the start
 //   of its load pipeline once for both; the longest rows run first. A
@@ -34,8 +34,11 @@
 //   start. Rows wider than 64 bf16 arrive as one TMA
 //   box per 64-column block (the 128-byte swizzle's width), so Q·Kᵀ walks
 //   the column blocks every 4 k-steps and P·V's B operand (V, MN-major)
-//   spans them at one tile's stride. Consumer warpgroups (one at d = 64 and
-//   128, two blocks an SM at d = 128; two of 64 rows each at d = 256, whose
+//   spans them at one tile's stride; rows of 16 or 32 (32 or 64 bytes) are
+//   one block in the 32- or 64-byte swizzle, Q·Kᵀ in d/16 k-steps and P·V
+//   as m64n16k16 or m64n32k16. Consumer warpgroups (one at d <= 128, two
+//   blocks an SM at d = 128, three at 64, four at 16 and 32; two of 64 rows
+//   each at d = 256, whose
 //   O takes 128 registers a thread) compute S = Q·Kᵀ with wgmma (both
 //   operands in shared memory) into registers and run the online softmax on
 //   the accumulator fragment (row max and sum over the 4 lanes of a quad,
@@ -45,11 +48,14 @@
 //   register operand of the P·V wgmma (n = d, V from shared memory), which
 //   runs while the next tile's softmax does. O stays in registers for the
 //   whole KV loop and is written once.
-// * wmma (head dims 16 and 32, and any head dim with misaligned strides):
-//   the first port's kernel, wmma fragments with the scores and O in shared
-//   memory. At d = 256 its tiles take 195,072 bytes of shared memory (Q, K,
-//   V 64 x 264 bf16, P 64 x 72 bf16, S 64 x 68 and O 64 x 260 fp32): one
-//   block of 4 warps on an SM.
+//   Rows TMA cannot read (a pointer off 16 bytes, a stride not a positive
+//   multiple of 8 elements, a broadcast batch): the C entry decides operand
+//   by operand; the kernel's COPY instance has a producer warpgroup whose
+//   issuing warp cp.asyncs each copied 64-row box's rows through a ring of
+//   staging slots (hopper.cuh's atile, LoRA's copier) and whose three
+//   placing warps shift them into the swizzled tiles; the operands a map
+//   reads stay on TMA. The producer gives its registers to the consumers
+//   (setmaxnreg), which run as above.
 // * fp32 (fp32 inputs, head dims 16, 32, 64, 128, 256, any strides; the
 //   smoke configs serve in fp32): 3xTF32 on wgmma, P kept in fp32 as the TPU
 //   kernel keeps it (namespace tf32x3). What bounds it is the tensor cores'
@@ -73,12 +79,11 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
+#include <string.h>
 
 #include "hopper.cuh"
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 typedef __nv_bfloat162 bf162;
 
@@ -112,42 +117,85 @@ namespace tc {
 constexpr int BKV = 64;
 constexpr float NEG = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr int NPL = 3;  // placing warps of a copying producer (beside its issuing warp)
 
 // Per head dim: NWG consumer warpgroups of 64 query rows each (a block's
 // query tile is 64·NWG rows), a ring of STAGES K/V tiles, QBUFS query tiles
 // (2: both passes' tiles load up front; 1: the second pass's once the first
 // is done with it) and MINB blocks an SM, so that another warpgroup's
-// products run during one's softmax: at d = 64 three blocks (the launch
-// bound holds registers to 136), at d = 128 two (96 KB each), at d = 256 a
-// second warpgroup of the block (Q, K and V take 192 KB).
+// products run during one's softmax: at d = 16 four blocks (96 registers a
+// thread), at d = 32 and 64 three (the launch bound holds registers to
+// 136), at d = 128 two (96 KB each), at d = 256 a second warpgroup of the
+// block (Q, K and V take 192 KB).
 // PWARPS: the producer's warps. At d = 256 it is a whole warpgroup that
 // gives its registers to the consumers (REGS: 232 a thread, for O's 128
 // accumulators; with a lone producer warp the 9 warps' registers are split
 // evenly, 168 a thread, and O spills).
+// Where an operand's tiles are copied (COPY: rows TMA cannot read), the
+// producer is a warpgroup, one issuing and NPL placing warps, always on a
+// budget of its own (setmaxnreg), and the ring, query tiles, staging slots
+// (SB, one 64-row box each) and blocks an SM are the C* values.
 template <int D> struct Cfg;
+template <> struct Cfg<16> {
+  static constexpr int NWG = 1, STAGES = 4, QBUFS = 2, MINB = 4, PWARPS = 1, REGS = 0;
+  static constexpr int CSTAGES = 4, CQBUFS = 2, SB = 4, CMINB = 2;
+};
+template <> struct Cfg<32> {
+  static constexpr int NWG = 1, STAGES = 4, QBUFS = 2, MINB = 3, PWARPS = 1, REGS = 0;
+  static constexpr int CSTAGES = 4, CQBUFS = 2, SB = 4, CMINB = 2;
+};
 template <> struct Cfg<64> {
   static constexpr int NWG = 1, STAGES = 3, QBUFS = 2, MINB = 3, PWARPS = 1, REGS = 0;
+  static constexpr int CSTAGES = 3, CQBUFS = 2, SB = 4, CMINB = 2;
 };
 template <> struct Cfg<128> {
   static constexpr int NWG = 1, STAGES = 2, QBUFS = 2, MINB = 2, PWARPS = 1, REGS = 0;
+  static constexpr int CSTAGES = 2, CQBUFS = 1, SB = 1, CMINB = 2;  // 115 KB: two blocks an SM
 };
 template <> struct Cfg<256> {
   static constexpr int NWG = 2, STAGES = 2, QBUFS = 1, MINB = 1, PWARPS = 4, REGS = 232;
+  static constexpr int CSTAGES = 2, CQBUFS = 1, SB = 3, CMINB = 1;
 };
-constexpr int PRODUCER_REGS = 40;  // 128 x 40 + 256 x 232 <= the SM's 65,536
 
-template <int D>
+template <int D, bool COPY>
 struct Layout {
-  static constexpr int NWG = Cfg<D>::NWG, STAGES = Cfg<D>::STAGES, QBUFS = Cfg<D>::QBUFS;
+  using C = Cfg<D>;
+  static constexpr int NWG = C::NWG;
+  static constexpr int STAGES = COPY ? C::CSTAGES : C::STAGES;
+  static constexpr int QBUFS = COPY ? C::CQBUFS : C::QBUFS;
+  static constexpr int SB = COPY ? C::SB : 0;
+  static constexpr int MINB = COPY ? C::CMINB : C::MINB;
+  static constexpr int PWARPS = COPY ? 1 + NPL : C::PWARPS;
+  // setmaxnreg budgets (0: none): the producer's and the consumers' (the
+  // consumers without copies use 165 registers at d = 128, 126 at d = 64)
+  static constexpr int PREGS = COPY ? (NWG == 2 ? 40 : D == 128 ? 80 : 112) : (C::REGS ? 40 : 0);
+  static constexpr int CREGS = COPY ? (NWG == 2 ? 232 : D == 128 ? 176 : 144) : C::REGS;
   static constexpr int BQ = 64 * NWG;  // query rows of a block
   // the consumer warpgroups, then the producer
-  static constexpr int THREADS = 128 * NWG + 32 * Cfg<D>::PWARPS;
-  // A tile of R rows is stored as D/64 column blocks of R rows x 128 bytes
-  // (64 bf16, the 128-byte swizzle's width), one TMA box each, 1024-aligned.
+  static constexpr int THREADS = 128 * NWG + 32 * PWARPS;
+  // A tile of R rows is stored as D/TW column blocks of R rows x RB bytes
+  // (TW columns: the swizzle's width, 64 bf16 at d >= 64, else d), one TMA
+  // box each, 1024-aligned; swizzle RB bytes (wgmma's code SWZ)
+  static constexpr int TW = D < 64 ? D : 64, RB = 2 * TW, NCB = D / TW;
+  static constexpr uint32_t SWZ = TW == 16 ? 3 : TW == 32 ? 2 : 1;
   static constexpr int Q_BYTES = BQ * D * 2;
   static constexpr int KV_BYTES = BKV * D * 2;
-  static constexpr size_t SMEM = 1024 + QBUFS * Q_BYTES + 2 * STAGES * KV_BYTES + 256;
+  static constexpr int STG = hopper::atile::Tile<TW>::STAGING;  // a 64-row box's staging
+  static constexpr size_t SMEM =
+      1024 + QBUFS * Q_BYTES + 2 * STAGES * KV_BYTES + (size_t)SB * STG + 256;
   static_assert(SMEM <= 227 * 1024, "tiles too large for shared memory");
+  // setmaxnreg moves registers within the block's allocation at launch
+  static_assert(PREGS == 0 ||
+                    128 * PREGS + 128 * NWG * CREGS <= THREADS * (65536 / (THREADS * MINB) / 8 * 8),
+                "the register budgets exceed the block's allocation");
+};
+
+// The operands whose tiles are copied (bit i of `flags`: q, k, v), with
+// their pointers and strides; a copied row has `d` columns
+struct Copied {
+  const bf16* p[3];
+  Strides st[3];
+  int flags;
 };
 
 // c·tanh(x·scale/c) in the log2 domain (times log2 e), as 1 - 2/(2^(2x·scale·log2(e)/c) + 1):
@@ -157,31 +205,35 @@ __device__ __forceinline__ float softcap_log2(float x, float cap_in2, float cap_
   return fmaf(-2.f * cap_out, __fdividef(1.f, hopper::exp2_approx(x * cap_in2) + 1.f), cap_out);
 }
 
-// S (64 x 64) = Q·Kᵀ for one warpgroup: K-major Q and K with 128-byte rows,
-// k-step kk reading 32 bytes of column block kk/4 (column blocks `qblock`
-// and one 64-row tile apart)
+// S (64 x 64) = Q·Kᵀ for one warpgroup: K-major Q and K with RB-byte rows,
+// k-step kk reading 32 bytes of column block kk/(TW/16) (column blocks
+// `qblock` and one 64-row tile apart)
 template <int D>
 __device__ __forceinline__ void issue_qk(float (&sacc)[32], uint64_t dq, uint64_t dk, int qblock) {
+  constexpr int TW = D < 64 ? D : 64, KPB = TW / 16;
   hopper::fence_operand(sacc);
   hopper::wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
-    hopper::wgmma_ss<0>(sacc, hopper::desc_add(dq, (kk / 4) * qblock + (kk % 4) * 32),
-                        hopper::desc_add(dk, (kk / 4) * BKV * 128 + (kk % 4) * 32), kk > 0);
+    hopper::wgmma_ss<0>(sacc, hopper::desc_add(dq, (kk / KPB) * qblock + (kk % KPB) * 32),
+                        hopper::desc_add(dk, (kk / KPB) * BKV * 2 * TW + (kk % KPB) * 32),
+                        kk > 0);
   hopper::wgmma_commit();
 }
 
 // O += P·V: P's bf16 fragment as the register operand, V MN-major (its
-// column blocks one 64-row tile apart, 8-row groups 1024 bytes)
+// column blocks one 64-row tile apart, 8-row groups 8·RB bytes)
 template <int D>
 __device__ __forceinline__ void issue_pv(float (&oacc)[D / 2], const uint32_t (&pa)[4][4],
                                          const unsigned char* v) {
-  const uint64_t dv = hopper::make_desc(v, BKV * 128, 1024, 1);
+  constexpr int RB = D < 64 ? 2 * D : 128;
+  constexpr uint32_t SWZ = RB == 32 ? 3 : RB == 64 ? 2 : 1;
+  const uint64_t dv = hopper::make_desc(v, BKV * RB, 8 * RB, SWZ);
   hopper::fence_operand(oacc);
   hopper::wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < BKV / 16; ++kk)
-    hopper::wgmma_rs<1>(oacc, pa[kk], hopper::desc_add(dv, kk * 16 * 128));
+    hopper::wgmma_rs<1>(oacc, pa[kk], hopper::desc_add(dv, kk * 16 * RB));
   hopper::wgmma_commit();
 }
 
@@ -268,27 +320,104 @@ __device__ __forceinline__ void hold(const uint32_t (&pa)[4][4]) {
     for (int e = 0; e < 4; ++e) asm volatile("" ::"r"(pa[kk][e]) : "memory");
 }
 
+// The copying producer (COPY): per pass a Q job, then per key tile a K and
+// a V job, in the order the consumers take them. The issuing warp (pw 0)
+// waits for each job's tile to be free; its lane 0 loads what a tensor map
+// reads by TMA (expecting its bytes on the job's full barrier) or arrives
+// there; for a copied operand every lane cp.asyncs each 64-row box's rows
+// into a staging slot (a ring of SB, each refilled only once the placers
+// have arrived on its `sempty`) and the slot's `landed` barrier hears when
+// they are in. The placing warps (pw 1..NPL) take the boxes' 32-row groups
+// in turn, place them into the swizzled tile, free the staging slot, and
+// after a job's last box arrive on its full barrier (1 + NPL arrivals).
 template <int D>
-__global__ void __launch_bounds__(Layout<D>::THREADS, Cfg<D>::MINB)
+struct Producer {
+  using L = Layout<D, true>;
+  // PART: chunks a placing read pass, to fit the producer's budget
+  static constexpr int TW = L::TW, RB = L::RB, PART = L::NWG == 2 ? 1 : 2;
+  const Copied& cp;
+  int pw, lane, bi, h, kvh, Sq, Skv;
+  unsigned char* stg;
+  uint64_t *landed, *sempty;
+  int sb = 0, g = 0;  // boxes through staging, 32-row groups placed
+
+  __device__ __forceinline__ hopper::atile::Mat mat(int op) const {
+    const Strides& s = cp.st[op];
+    return {cp.p[op] + bi * s.b + (op ? kvh : h) * s.h, op ? Skv : Sq, D, (int)s.s};
+  }
+
+  // job of operand op: `rows` rows from row r0 into `tile` (column blocks
+  // rows·RB bytes apart), full barrier `full`; tma() issues its TMA loads
+  template <typename Tma>
+  __device__ __forceinline__ void job(int op, uint64_t* full, unsigned char* tile, int rows,
+                                      int r0, Tma tma) {
+    const bool copied = (cp.flags >> op) & 1;
+    if (pw == 0 && lane == 0) {
+      if (copied) hopper::mbar_arrive(full);
+      else tma();
+    }
+    if (!copied) return;
+    const hopper::atile::Mat m = mat(op);
+#pragma unroll 1
+    for (int c = 0; c < L::NCB; ++c)
+#pragma unroll 1
+      for (int rr = 0; rr < rows; rr += 64) {
+        const int s = sb % L::SB;
+        const hopper::atile::Box b{m, r0 + rr, c * TW, 64, TW, tile + c * rows * RB + rr * RB,
+                                   stg + s * L::STG, true};
+        if (pw == 0) {
+          hopper::mbar_wait(&sempty[s], ((sb / L::SB) & 1) ^ 1);
+          hopper::atile::issue<TW>(b, lane);
+          hopper::atile::cp_async_arrive(&landed[s]);
+        } else {
+          hopper::mbar_wait(&landed[s], (sb / L::SB) & 1);
+          int ra = -1, rb = -1;
+          for (int g0 = 0; g0 < 64; g0 += 32, ++g)
+            if (g % NPL == pw - 1) (ra < 0 ? ra : rb) = g0 + lane;
+          if (L::NWG == 2) {  // one row a call: the producer's 40 registers
+            if (ra >= 0) hopper::atile::place<TW, PART>(b, ra, -1);
+            if (rb >= 0) hopper::atile::place<TW, PART>(b, rb, -1);
+          } else if (ra >= 0) {
+            hopper::atile::place<TW, PART>(b, ra, rb);
+          }
+          __syncwarp();
+          if (lane == 0) hopper::mbar_arrive(&sempty[s]);  // this warp is done with the slot
+        }
+        ++sb;
+      }
+    if (pw > 0) {
+      hopper::fence_proxy_async();  // the tile's writes, visible to the tensor cores
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(full);
+    }
+  }
+};
+
+template <int D, bool COPY>
+__global__ void __launch_bounds__(Layout<D, COPY>::THREADS, Layout<D, COPY>::MINB)
 kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
        const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ o, int H, int Kv, int Sq,
-       int Skv, Strides ost, int causal, int window, float softcap, float scale) {
-  using Lay = Layout<D>;
+       int Skv, Strides ost, int causal, int window, float softcap, float scale,
+       const __grid_constant__ Copied cp) {
+  using Lay = Layout<D, COPY>;
   constexpr int NWG = Lay::NWG, STAGES = Lay::STAGES, QBUFS = Lay::QBUFS, BQ = Lay::BQ;
-  constexpr int QB = Lay::Q_BYTES, KVB = Lay::KV_BYTES;
+  constexpr int QB = Lay::Q_BYTES, KVB = Lay::KV_BYTES, TW = Lay::TW, RB = Lay::RB;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base =
       reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~1023ull);
   unsigned char* qs = base;                       // QBUFS query tiles
   unsigned char* ks = base + QBUFS * QB;          // STAGES tiles
   unsigned char* vs = ks + STAGES * KVB;          // STAGES tiles
-  uint64_t* bars = reinterpret_cast<uint64_t*>(vs + STAGES * KVB);
+  unsigned char* stg = vs + STAGES * KVB;         // SB staging slots (COPY)
+  uint64_t* bars = reinterpret_cast<uint64_t*>(stg + Lay::SB * Lay::STG);
   uint64_t* qfull = bars;  // QBUFS
   uint64_t* qempty = qfull + QBUFS;
   uint64_t* kfull = qempty + QBUFS;  // STAGES each
   uint64_t* vfull = kfull + STAGES;
   uint64_t* kempty = vfull + STAGES;
   uint64_t* vempty = kempty + STAGES;
+  uint64_t* landed = vempty + STAGES;  // SB each (COPY)
+  uint64_t* sempty = landed + Lay::SB;
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int nq = (Sq + BQ - 1) / BQ;
@@ -298,61 +427,100 @@ kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtenso
   const int kvh = h / (H / Kv);
 
   if (tid == 0) {
+    // a copied operand's full barrier also expects the placers' arrivals
+    const int fq = 1 + (COPY && (cp.flags & 1) ? NPL : 0);
+    const int fk = 1 + (COPY && (cp.flags & 2) ? NPL : 0);
+    const int fv = 1 + (COPY && (cp.flags & 4) ? NPL : 0);
     for (int s = 0; s < QBUFS; ++s) {
-      hopper::mbar_init(&qfull[s], 1);
+      hopper::mbar_init(&qfull[s], fq);
       hopper::mbar_init(&qempty[s], NWG);  // one arrive per consumer warpgroup
     }
     for (int s = 0; s < STAGES; ++s) {
-      hopper::mbar_init(&kfull[s], 1);
-      hopper::mbar_init(&vfull[s], 1);
+      hopper::mbar_init(&kfull[s], fk);
+      hopper::mbar_init(&vfull[s], fv);
       hopper::mbar_init(&kempty[s], NWG);
       hopper::mbar_init(&vempty[s], NWG);
+    }
+    for (int s = 0; s < Lay::SB; ++s) {
+      hopper::mbar_init(&landed[s], 32);   // every issuing lane's cp.asyncs
+      hopper::mbar_init(&sempty[s], NPL);  // every placer is done with the slot
     }
     hopper::fence_barrier_init();
   }
   __syncthreads();
 
   if (warp >= 4 * NWG) {  // producer
-    if constexpr (Cfg<D>::REGS > 0) hopper::setmaxnreg_dec<PRODUCER_REGS>();
-    if (warp == 4 * NWG && lane == 0) {
-      hopper::prefetch_tensormap(&tm_q);
-      hopper::prefetch_tensormap(&tm_k);
-      hopper::prefetch_tensormap(&tm_v);
-      int i = 0;  // K/V tiles loaded so far, over both passes
+    if constexpr (Lay::PREGS > 0) hopper::setmaxnreg_dec<Lay::PREGS>();
+    // the Q tile of a pass and the K, V tiles of key tile t by TMA
+    auto tma = [&](const CUtensorMap* map, uint64_t* full, unsigned char* tile, int bytes,
+                   int rows, int r0, int head) {
+      hopper::mbar_arrive_expect_tx(full, bytes);
+#pragma unroll
+      for (int c = 0; c < Lay::NCB; ++c)
+        hopper::tma_load_4d(tile + c * rows * RB, map, full, TW * c, r0, head, bi);
+    };
+    if constexpr (!COPY) {
+      if (warp == 4 * NWG && lane == 0) {
+        hopper::prefetch_tensormap(&tm_q);
+        hopper::prefetch_tensormap(&tm_k);
+        hopper::prefetch_tensormap(&tm_v);
+        int i = 0;  // K/V tiles loaded so far, over both passes
+        for (int pass = 0; pass < passes; ++pass) {
+          const int q0 = (pass == 0 ? nq - 1 - bx : bx) * BQ;
+          int t_begin, t_end;
+          kv_range(q0, BQ, Skv, causal, window, t_begin, t_end);
+          const int slot = pass % QBUFS;
+          hopper::mbar_wait(&qempty[slot], ((pass / QBUFS) & 1) ^ 1);
+          tma(&tm_q, &qfull[slot], qs + slot * QB, QB, BQ, q0, h);
+          // K and V of a slot are freed apart: K once its Q·Kᵀ is done, V once
+          // its P·V is, a tile later
+          for (int t = t_begin; t < t_end; ++t, ++i) {
+            const int s = i % STAGES, parity = ((i / STAGES) & 1) ^ 1;
+            hopper::mbar_wait(&kempty[s], parity);
+            tma(&tm_k, &kfull[s], ks + s * KVB, KVB, BKV, t * BKV, kvh);
+            hopper::mbar_wait(&vempty[s], parity);
+            tma(&tm_v, &vfull[s], vs + s * KVB, KVB, BKV, t * BKV, kvh);
+          }
+        }
+      }
+    } else {
+      Producer<D> pr{cp, warp - 4 * NWG, lane, bi, h, kvh, Sq, Skv, stg, landed, sempty};
+      const bool issuer = pr.pw == 0;
+      if (issuer && lane == 0) {
+        if (!(cp.flags & 1)) hopper::prefetch_tensormap(&tm_q);
+        if (!(cp.flags & 2)) hopper::prefetch_tensormap(&tm_k);
+        if (!(cp.flags & 4)) hopper::prefetch_tensormap(&tm_v);
+      }
+      // a pass's Q job; with two query buffers the second pass's right
+      // after the first's, so that its copy is not late for the consumers
+      auto q_job = [&](int pass) {
+        const int q0 = (pass == 0 ? nq - 1 - bx : bx) * BQ, slot = pass % QBUFS;
+        if (issuer) hopper::mbar_wait(&qempty[slot], ((pass / QBUFS) & 1) ^ 1);
+        pr.job(0, &qfull[slot], qs + slot * QB, BQ, q0,
+               [&] { tma(&tm_q, &qfull[slot], qs + slot * QB, QB, BQ, q0, h); });
+      };
+      int i = 0;
       for (int pass = 0; pass < passes; ++pass) {
         const int q0 = (pass == 0 ? nq - 1 - bx : bx) * BQ;
         int t_begin, t_end;
         kv_range(q0, BQ, Skv, causal, window, t_begin, t_end);
-        const int slot = pass % QBUFS;
-        hopper::mbar_wait(&qempty[slot], ((pass / QBUFS) & 1) ^ 1);
-        hopper::mbar_arrive_expect_tx(&qfull[slot], QB);
-#pragma unroll
-        for (int c = 0; c < D / 64; ++c)
-          hopper::tma_load_4d(qs + slot * QB + c * BQ * 128, &tm_q, &qfull[slot], 64 * c, q0, h,
-                              bi);
-        // K and V of a slot are freed apart: K once its Q·Kᵀ is done, V once
-        // its P·V is, a tile later
+        if (QBUFS == 1 || pass == 0) q_job(pass);
+        if (QBUFS == 2 && pass == 0 && passes == 2) q_job(1);
         for (int t = t_begin; t < t_end; ++t, ++i) {
           const int s = i % STAGES, parity = ((i / STAGES) & 1) ^ 1;
-          hopper::mbar_wait(&kempty[s], parity);
-          hopper::mbar_arrive_expect_tx(&kfull[s], KVB);
-#pragma unroll
-          for (int c = 0; c < D / 64; ++c)
-            hopper::tma_load_4d(ks + s * KVB + c * BKV * 128, &tm_k, &kfull[s], 64 * c, t * BKV,
-                                kvh, bi);
-          hopper::mbar_wait(&vempty[s], parity);
-          hopper::mbar_arrive_expect_tx(&vfull[s], KVB);
-#pragma unroll
-          for (int c = 0; c < D / 64; ++c)
-            hopper::tma_load_4d(vs + s * KVB + c * BKV * 128, &tm_v, &vfull[s], 64 * c, t * BKV,
-                                kvh, bi);
+          if (issuer) hopper::mbar_wait(&kempty[s], parity);
+          pr.job(1, &kfull[s], ks + s * KVB, BKV, t * BKV,
+                 [&] { tma(&tm_k, &kfull[s], ks + s * KVB, KVB, BKV, t * BKV, kvh); });
+          if (issuer) hopper::mbar_wait(&vempty[s], parity);
+          pr.job(2, &vfull[s], vs + s * KVB, BKV, t * BKV,
+                 [&] { tma(&tm_v, &vfull[s], vs + s * KVB, KVB, BKV, t * BKV, kvh); });
         }
       }
     }
     return;
   }
 
-  if constexpr (Cfg<D>::REGS > 0) hopper::setmaxnreg_inc<Cfg<D>::REGS>();
+  if constexpr (Lay::CREGS > 0) hopper::setmaxnreg_inc<Lay::CREGS>();
   // consumer warpgroup wg owns rows [64 wg, 64 wg + 64) of the block's query
   // tile: lane l of its warp w holds rows ra = q0 + 16w + l/4 and rb = ra + 8,
   // columns 8j + 2(l%4) + {0, 1} of every fragment
@@ -381,12 +549,12 @@ kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtenso
 
     const int slot = pass % QBUFS;
     hopper::mbar_wait_opaque(&qfull[slot], (pass / QBUFS) & 1);
-    const uint64_t dq = hopper::make_desc(qs + slot * QB + wg * 64 * 128, 16, 1024, 1);
+    const uint64_t dq = hopper::make_desc(qs + slot * QB + wg * 64 * RB, 16, 8 * RB, Lay::SWZ);
 
     // the first tile's scores and P (O is still 0)
     int s = i % STAGES;
     hopper::mbar_wait_opaque(&kfull[s], (i / STAGES) & 1);
-    issue_qk<D>(sacc, dq, hopper::make_desc(ks + s * KVB, 16, 1024, 1), BQ * 128);
+    issue_qk<D>(sacc, dq, hopper::make_desc(ks + s * KVB, 16, 8 * RB, Lay::SWZ), BQ * RB);
     hopper::wgmma_wait<0>();
     hopper::fence_operand(sacc);
     if (leader) hopper::mbar_arrive(&kempty[s]);  // K slot s is free (of this warpgroup)
@@ -401,7 +569,7 @@ kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtenso
       s = i % STAGES;
       hopper::mbar_wait_opaque(&kfull[s], (i / STAGES) & 1);
       hopper::mbar_wait_opaque(&vfull[sp], ((i - 1) / STAGES) & 1);
-      issue_qk<D>(sacc, dq, hopper::make_desc(ks + s * KVB, 16, 1024, 1), BQ * 128);
+      issue_qk<D>(sacc, dq, hopper::make_desc(ks + s * KVB, 16, 8 * RB, Lay::SWZ), BQ * RB);
       issue_pv<D>(oacc, pa, vs + sp * KVB);
       hopper::wgmma_wait<1>();  // Q·Kᵀ of tile t is done
       hopper::fence_operand(sacc);
@@ -452,233 +620,64 @@ kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtenso
   }
 }
 
-// q (B,H,Sq,D), k/v (B,Kv,Skv,D) as 4-D tensor maps {d, seq, head, batch}
-// read in boxes of 64 columns: BQ query rows, 64 key rows
-template <int D>
-cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int H, int Kv,
-                   int Sq, int Skv, const Strides* st, int causal, int window, float softcap,
+// q (B,H,Sq,D), k/v (B,Kv,Skv,D) as 4-D tensor maps {D, seq, head, batch}
+// read in boxes of TW columns: BQ query rows, 64 key rows. An operand TMA
+// cannot read is copied (COPY), its map left unused.
+template <int D, bool COPY>
+cudaError_t launch(const bf16* const* ptrs, bf16* o, int B, int H, int Kv, int Sq, int Skv,
+                   const Strides* st, int copied, int causal, int window, float softcap,
                    float scale, cudaStream_t stream) {
-  using Lay = Layout<D>;
+  using Lay = Layout<D, COPY>;
   static bool smem_set = false;
-  cudaError_t e = hopper::allow_smem(kernel<D>, Lay::SMEM, smem_set);
+  cudaError_t e = hopper::allow_smem(kernel<D, COPY>, Lay::SMEM, smem_set);
   if (e != cudaSuccess) return e;
   CUtensorMap maps[3];
-  const bf16* ptrs[3] = {q, k, v};
+  Copied cp{};
+  cp.flags = copied;
   for (int i = 0; i < 3; ++i) {
+    cp.p[i] = ptrs[i];
+    cp.st[i] = st[i];
+    if ((copied >> i) & 1) {
+      memset(&maps[i], 0, sizeof(CUtensorMap));
+      continue;
+    }
     const uint64_t sizes[4] = {(uint64_t)D, (uint64_t)(i ? Skv : Sq), (uint64_t)(i ? Kv : H),
                                (uint64_t)B};
     const uint64_t strides[3] = {(uint64_t)st[i].s * 2, (uint64_t)st[i].h * 2,
                                  (uint64_t)st[i].b * 2};
-    const uint32_t box[4] = {64, (uint32_t)(i ? BKV : Lay::BQ), 1, 1};
-    if ((e = hopper::make_tensor_map(&maps[i], ptrs[i], 4, sizes, strides, box, 128)) !=
+    const uint32_t box[4] = {(uint32_t)Lay::TW, (uint32_t)(i ? BKV : Lay::BQ), 1, 1};
+    if ((e = hopper::make_tensor_map(&maps[i], ptrs[i], 4, sizes, strides, box, Lay::RB)) !=
         cudaSuccess)
       return e;
   }
   dim3 grid(((Sq + Lay::BQ - 1) / Lay::BQ + 1) / 2, H, B);
-  kernel<D><<<grid, Lay::THREADS, Lay::SMEM, stream>>>(maps[0], maps[1], maps[2], o, H, Kv, Sq,
-                                                       Skv, st[3], causal, window, softcap, scale);
+  kernel<D, COPY><<<grid, Lay::THREADS, Lay::SMEM, stream>>>(
+      maps[0], maps[1], maps[2], o, H, Kv, Sq, Skv, st[3], causal, window, softcap, scale, cp);
   return cudaGetLastError();
+}
+
+// the operands of q, k, v (bits 0, 1, 2) that TMA cannot read
+int copied_operands(const bf16* const* ptrs, const Strides* st) {
+  int copied = 0;
+  for (int i = 0; i < 3; ++i)
+    if (!hopper::tma_readable(ptrs[i], {st[i].b, st[i].h, st[i].s})) copied |= 1 << i;
+  return copied;
+}
+
+// the operands TMA cannot read decide between the kernel with copied tiles
+// and the one without
+template <int D>
+cudaError_t launch_any(const bf16* const* ptrs, bf16* o, int B, int H, int Kv, int Sq, int Skv,
+                       const Strides* st, int causal, int window, float softcap,
+                       float scale, cudaStream_t stream) {
+  const int copied = copied_operands(ptrs, st);
+  return copied ? launch<D, true>(ptrs, o, B, H, Kv, Sq, Skv, st, copied, causal, window,
+                                  softcap, scale, stream)
+                : launch<D, false>(ptrs, o, B, H, Kv, Sq, Skv, st, 0, causal, window, softcap,
+                                   scale, stream);
 }
 
 }  // namespace tc
-
-// ===========================================================================
-// wmma: the first port's kernel, for the other head dims
-// ===========================================================================
-namespace legacy {
-
-constexpr int BQ = 64, BKV = 64;
-constexpr int NTHREADS = 128;  // 4 warps x 16 query rows
-constexpr float NEG_INF = -1e30f;
-
-template <int D>
-constexpr size_t smem_bytes() {
-  return (size_t)(3 * 64 * (D + 8) + BQ * (BKV + 8)) * sizeof(bf16) +
-         (size_t)(BQ * (BKV + 4) + BQ * (D + 4) + 2 * BQ) * sizeof(float);
-}
-
-// rows [r0, r0+64) of a (rows x D) matrix whose row i starts at src + i*stride;
-// rows at or past nrows are zero-filled
-template <int D>
-__device__ __forceinline__ void load_rows(bf16* dst, int dst_ld, const bf16* __restrict__ src,
-                                          long long stride, int nrows, int r0, bool vec_ok) {
-  constexpr int CPR = D / 8;
-  for (int c = threadIdx.x; c < 64 * CPR; c += NTHREADS) {
-    const int r = c / CPR, col = (c % CPR) * 8;
-    const int gr = r0 + r;
-    bf16* d = dst + r * dst_ld + col;
-    if (gr >= nrows) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) d[j] = __float2bfloat16(0.f);
-    } else if (vec_ok) {
-      *reinterpret_cast<uint4*>(d) = *reinterpret_cast<const uint4*>(src + gr * stride + col);
-    } else {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) d[j] = src[gr * stride + col + j];
-    }
-  }
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v, bf16* __restrict__ o, int H, int Kv, int Sq,
-                       int Skv, Strides qst, Strides kst, Strides vst, Strides ost, int causal,
-                       int window, float softcap, float scale) {
-  constexpr int QLD = D + 8, PLD = BKV + 8, SLD = BKV + 4, OLD = D + 4;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);          // BQ x QLD
-  bf16* ks = qs + BQ * QLD;                          // BKV x QLD
-  bf16* vs = ks + BKV * QLD;                         // BKV x QLD
-  bf16* ps = vs + BKV * QLD;                         // BQ x PLD   probabilities
-  float* ss = reinterpret_cast<float*>(ps + BQ * PLD);  // BQ x SLD   scores
-  float* os = ss + BQ * SLD;                         // BQ x OLD   output accumulator
-  float* ms = os + BQ * OLD;                         // BQ         running max
-  float* ls = ms + BQ;                               // BQ         running denominator
-
-  const int nq = (Sq + BQ - 1) / BQ;
-  const int q0 = (nq - 1 - (int)blockIdx.x) * BQ;  // longest causal rows first
-  const int h = blockIdx.y, bi = blockIdx.z;
-  const int kvh = h / (H / Kv);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-
-  const bf16* qb = q + bi * qst.b + h * qst.h;
-  const bf16* kb = k + bi * kst.b + kvh * kst.h;
-  const bf16* vb = v + bi * vst.b + kvh * vst.h;
-  bf16* ob = o + bi * ost.b + h * ost.h;
-  const bool q_vec = (qst.s % 8 == 0) && ((reinterpret_cast<uintptr_t>(qb) & 15) == 0);
-  const bool k_vec = (kst.s % 8 == 0) && ((reinterpret_cast<uintptr_t>(kb) & 15) == 0);
-  const bool v_vec = (vst.s % 8 == 0) && ((reinterpret_cast<uintptr_t>(vb) & 15) == 0);
-
-  load_rows<D>(qs, QLD, qb, qst.s, Sq, q0, q_vec);
-  for (int i = threadIdx.x; i < BQ * OLD; i += NTHREADS) os[i] = 0.f;
-  for (int i = threadIdx.x; i < BQ; i += NTHREADS) {
-    ms[i] = NEG_INF;
-    ls[i] = 0.f;
-  }
-  __syncthreads();
-
-  // KV tiles that hold at least one unmasked key for some row of this tile
-  int t_end = (Skv + BKV - 1) / BKV;
-  if (causal) t_end = min(t_end, (q0 + BQ - 1) / BKV + 1);
-  int t_begin = 0;
-  if (window > 0) {
-    const int lo = q0 - window - (BKV - 1);
-    t_begin = lo < 0 ? 0 : lo / BKV + 1;
-  }
-
-  const int row0 = warp * 16;
-  for (int t = t_begin; t < t_end; ++t) {
-    const int k0 = t * BKV;
-    load_rows<D>(ks, QLD, kb, kst.s, Skv, k0, k_vec);
-    load_rows<D>(vs, QLD, vb, vst.s, Skv, k0, v_vec);
-    __syncthreads();
-
-    // S = Q·Kᵀ for this warp's 16 rows
-#pragma unroll
-    for (int j = 0; j < BKV / 16; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> sacc;
-      wmma::fill_fragment(sacc, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < D; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fq;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fk;
-        wmma::load_matrix_sync(fq, qs + row0 * QLD + kk, QLD);
-        wmma::load_matrix_sync(fk, ks + j * 16 * QLD + kk, QLD);
-        wmma::mma_sync(sacc, fq, fk, sacc);
-      }
-      wmma::store_matrix_sync(ss + row0 * SLD + j * 16, sacc, SLD, wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    // online softmax, one row at a time; each lane holds two of the 64 columns
-    for (int rr = 0; rr < 16; ++rr) {
-      const int row = row0 + rr, qpos = q0 + row;
-      float s[2];
-      float mx = NEG_INF;
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int c = lane + 32 * i, kpos = k0 + c;
-        float x = ss[row * SLD + c] * scale;
-        if (softcap > 0.f) x = softcap * tanhf(x / softcap);
-        bool ok = kpos < Skv;
-        if (causal) ok = ok && kpos <= qpos;
-        if (window > 0) ok = ok && kpos > qpos - window;
-        s[i] = ok ? x : NEG_INF;
-        mx = fmaxf(mx, s[i]);
-      }
-      mx = warp_max(mx);
-      const float m_prev = ms[row];
-      const float m_new = fmaxf(m_prev, mx);
-      const float p0 = expf(s[0] - m_new), p1 = expf(s[1] - m_new);
-      ps[row * PLD + lane] = __float2bfloat16(p0);
-      ps[row * PLD + lane + 32] = __float2bfloat16(p1);
-      const float psum = warp_sum(p0 + p1);
-      const float corr = expf(m_prev - m_new);
-      for (int c = lane; c < D; c += 32) os[row * OLD + c] *= corr;
-      __syncwarp();  // every lane has read ms[row] before it changes
-      if (lane == 0) {
-        ms[row] = m_new;
-        ls[row] = ls[row] * corr + psum;
-      }
-    }
-    __syncwarp();
-
-    // O += P·V for this warp's 16 rows
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> oacc;
-      wmma::load_matrix_sync(oacc, os + row0 * OLD + j * 16, OLD, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < BKV; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fp;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fv;
-        wmma::load_matrix_sync(fp, ps + row0 * PLD + kk, PLD);
-        wmma::load_matrix_sync(fv, vs + kk * QLD + j * 16, QLD);
-        wmma::mma_sync(oacc, fp, fv, oacc);
-      }
-      wmma::store_matrix_sync(os + row0 * OLD + j * 16, oacc, OLD, wmma::mem_row_major);
-    }
-    __syncthreads();  // K/V tiles are overwritten next
-  }
-
-  __syncwarp();
-  for (int rr = 0; rr < 16; ++rr) {
-    const int row = row0 + rr, qpos = q0 + row;
-    if (qpos >= Sq) break;
-    const float l = fmaxf(ls[row], 1e-30f);
-    for (int c = lane; c < D; c += 32)
-      ob[qpos * ost.s + c] = __float2bfloat16(os[row * OLD + c] / l);
-  }
-}
-
-template <int D>
-cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int H, int Kv,
-                   int Sq, int Skv, const Strides* st, int causal, int window, float softcap,
-                   float scale, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  static bool smem_set = false;
-  cudaError_t e = hopper::allow_smem(flash_attention_kernel<D>, smem, smem_set);
-  if (e != cudaSuccess) return e;
-  dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_attention_kernel<D><<<grid, NTHREADS, smem, stream>>>(
-      q, k, v, o, H, Kv, Sq, Skv, st[0], st[1], st[2], st[3], causal, window, softcap, scale);
-  return cudaGetLastError();
-}
-
-}  // namespace legacy
 
 // ===========================================================================
 // fp32: 3xTF32 on wgmma, for fp32 inputs
@@ -1154,8 +1153,9 @@ bool valid(int B, int H, int Kv, int Sq, int Skv) {
 // q, k, v, o in that order. Each entry launches one variant on `stream` and
 // returns cudaGetLastError() (cudaErrorInvalidValue for what it does not take).
 
-// wgmma: D in {64, 128, 256}; every stride of q, k, v a multiple of 8 and
-// their pointers 16-byte aligned (TMA)
+// wgmma: D in {16, 32, 64, 128, 256}, any strides of q, k, v: what a tensor
+// map reads (a 16-byte aligned pointer, strides positive multiples of 8)
+// comes by TMA, the rest is copied by the producer warps
 extern "C" int flash_attention_wgmma_bf16(const void* q, const void* k, const void* v, void* o,
                                           int B, int H, int Kv, int Sq, int Skv, int D,
                                           const long long* strides, int causal, int window,
@@ -1164,39 +1164,29 @@ extern "C" int flash_attention_wgmma_bf16(const void* q, const void* k, const vo
   if (!valid(B, H, Kv, Sq, Skv)) return (int)cudaErrorInvalidValue;
   Strides st[4];
   for (int i = 0; i < 4; ++i) st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
-  const bf16 *qp = static_cast<const bf16*>(q), *kp = static_cast<const bf16*>(k);
-  const bf16* vp = static_cast<const bf16*>(v);
+  const bf16* ptrs[3] = {static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                         static_cast<const bf16*>(v)};
   bf16* op = static_cast<bf16*>(o);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 64: return (int)launch<64>(qp, kp, vp, op, B, H, Kv, Sq, Skv, st, causal, window, softcap, scale, s);
-    case 128: return (int)launch<128>(qp, kp, vp, op, B, H, Kv, Sq, Skv, st, causal, window, softcap, scale, s);
-    case 256: return (int)launch<256>(qp, kp, vp, op, B, H, Kv, Sq, Skv, st, causal, window, softcap, scale, s);
+    case 16: return (int)launch_any<16>(ptrs, op, B, H, Kv, Sq, Skv, st, causal, window, softcap, scale, s);
+    case 32: return (int)launch_any<32>(ptrs, op, B, H, Kv, Sq, Skv, st, causal, window, softcap, scale, s);
+    case 64: return (int)launch_any<64>(ptrs, op, B, H, Kv, Sq, Skv, st, causal, window, softcap, scale, s);
+    case 128: return (int)launch_any<128>(ptrs, op, B, H, Kv, Sq, Skv, st, causal, window, softcap, scale, s);
+    case 256: return (int)launch_any<256>(ptrs, op, B, H, Kv, Sq, Skv, st, causal, window, softcap, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// wmma: D in {16, 32, 64, 128, 256}, any strides
-extern "C" int flash_attention_wmma_bf16(const void* q, const void* k, const void* v, void* o,
-                                         int B, int H, int Kv, int Sq, int Skv, int D,
-                                         const long long* strides, int causal, int window,
-                                         float softcap, float scale, void* stream) {
-  using namespace legacy;
-  if (!valid(B, H, Kv, Sq, Skv)) return (int)cudaErrorInvalidValue;
-  Strides st[4];
-  for (int i = 0; i < 4; ++i) st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
-  const bf16 *qp = static_cast<const bf16*>(q), *kp = static_cast<const bf16*>(k);
-  const bf16* vp = static_cast<const bf16*>(v);
-  bf16* op = static_cast<bf16*>(o);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16: return (int)launch<16>(qp, kp, vp, op, B, H, Kv, Sq, Skv, st, causal, window, softcap, scale, s);
-    case 32: return (int)launch<32>(qp, kp, vp, op, B, H, Kv, Sq, Skv, st, causal, window, softcap, scale, s);
-    case 64: return (int)launch<64>(qp, kp, vp, op, B, H, Kv, Sq, Skv, st, causal, window, softcap, scale, s);
-    case 128: return (int)launch<128>(qp, kp, vp, op, B, H, Kv, Sq, Skv, st, causal, window, softcap, scale, s);
-    case 256: return (int)launch<256>(qp, kp, vp, op, B, H, Kv, Sq, Skv, st, causal, window, softcap, scale, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+// the operands (bits 0, 1, 2: q, k, v) whose tiles flash_attention_wgmma_bf16
+// copies for these pointers and the first 9 of its strides
+extern "C" int flash_attention_copied(const void* q, const void* k, const void* v,
+                                      const long long* strides) {
+  Strides st[3];
+  for (int i = 0; i < 3; ++i) st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+  const bf16* ptrs[3] = {static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                         static_cast<const bf16*>(v)};
+  return tc::copied_operands(ptrs, st);
 }
 
 // fp32: fp32 q, k, v, o; D in {16, 32, 64, 128, 256}, any strides

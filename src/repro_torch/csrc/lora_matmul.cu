@@ -113,235 +113,8 @@ namespace {
 
 constexpr size_t SMEM_MAX = 227 * 1024;  // a block's shared memory on the H100
 
-// ===========================================================================
-// Tiles that TMA cannot map, copied by producer warps. A tensor map's
-// pointer and row strides are multiples of 16 bytes; a bf16 matrix misses
-// that when its pointer is not 16-byte aligned or its rows are not a
-// multiple of 8 elements (x at K % 8 != 0, W, B and the output at N % 8 !=
-// 0, A at r % 8 != 0). One issuing warp cp.asyncs, for each copied box of a
-// ring step, the 16-byte chunks that hold each row's span (aligned down: a
-// row may start at any even byte) into the box's staging rows in the slot,
-// beside its TMA loads; NP placing warps, once they land, put each 8-element
-// chunk of the box (shifted by the row's offset, zeros past the matrix's
-// rows and columns, as TMA would leave them) into the slot's swizzled tile,
-// where the wgmma descriptor expects it, and each arrives on the slot's
-// full barrier (which expects the issuer's arrive and theirs). The copies
-// are in flight as long as TMA's, and a tile is placed as soon as it lands.
-// ===========================================================================
-namespace atile {
-
-// a row-major bf16 matrix: rows x cols elements, pitch elements apart
-struct Mat {
-  const bf16* p;
-  int rows, cols, pitch;
-};
-
-// a copied box: rows [r0, r0 + n) and columns [c0, c0 + w) of m (w = 16:
-// 32-byte tile rows in the 32-byte swizzle, or 64: 128-byte rows in the
-// 128-byte one) into `tile`, staged at `staging`. A box whose columns past
-// m.cols are the same at every step of its tile (W's, A's: the tile's
-// columns are fixed) has them zeroed once; one whose are not (x's: its
-// columns follow K; a fold step's B rows, in a slot TMA may fill at other
-// steps) writes every chunk (zero_tail).
-struct Box {
-  Mat m;
-  int r0, c0, n, w;
-  unsigned char* tile;
-  unsigned char* staging;
-  bool zero_tail;
-};
-
-// W: the box's columns, 16 or 64
-template <int W>
-struct Tile {
-  static constexpr int CHUNKS = W / 8;  // 16-byte chunks of a tile row
-  // a staging row: the 16-byte chunks that hold a row's span
-  static constexpr int SROW = 16 * (CHUNKS + 1);
-  // a 64-row box's staging, a multiple of 1024 at W = 64; it also holds a
-  // run of 64 rows of cols <= W, and the 16 bytes that the last row's
-  // reads pass its end by
-  static constexpr int STAGING = 64 * SROW;
-  static constexpr uint32_t SWZ = W == 16 ? 1 : 7;  // the row bits the swizzle XORs into a chunk's
-  static_assert(W == 16 || W == 64, "unsupported tile");
-};
-
-__device__ __forceinline__ uintptr_t addr(const Mat& m, int row, int col) {
-  return reinterpret_cast<uintptr_t>(m.p + (size_t)row * m.pitch + col);
-}
-
-// the box's rows are one run of bytes from a 16-byte aligned start: it
-// holds every column of rows that are contiguous (A's tiles, r <= W)
-__device__ __forceinline__ bool is_run(const Box& b) {
-  return b.c0 == 0 && b.m.cols <= b.w && b.m.pitch == b.m.cols && (addr(b.m, b.r0, 0) & 15) == 0;
-}
-
-// cp.async of the box's rows below m.rows into its staging: one run of the
-// rows' bytes (is_run), else lane l takes rows l, l + 32, ..., each into a
-// staging row of its (at most W/8 + 1) 16-byte chunks; reads are cut short
-// at the matrix's last element
-template <int W>
-__device__ __forceinline__ void issue(const Box& b, int lane) {
-  using T = Tile<W>;
-  const int rows = min(b.n, b.m.rows - b.r0);
-  const uintptr_t end = addr(b.m, b.m.rows - 1, b.m.cols);
-  if (is_run(b)) {
-    const uintptr_t src = addr(b.m, b.r0, 0);
-    const int bytes = rows * b.m.cols * 2, chunks = (bytes + 15) / 16;
-    for (int i = lane; i < chunks; i += 32)
-      hopper::cp_async16(b.staging + 16 * i, reinterpret_cast<const void*>(src + 16 * i),
-                         bytes - 16 * i < 16 ? bytes - 16 * i : 16);
-    return;
-  }
-  const int n = min(W, b.m.cols - b.c0);  // the box's columns below m.cols
-  for (int row = lane; row < rows; row += 32) {
-    const uintptr_t first = addr(b.m, b.r0 + row, b.c0), last = first + 2 * n;
-#pragma unroll
-    for (int c = 0; c < T::CHUNKS + 1; ++c) {
-      const uintptr_t at = (first & ~uintptr_t(15)) + 16 * c;
-      if (at < last)
-        hopper::cp_async16(b.staging + row * T::SROW + 16 * c, reinterpret_cast<const void*>(at),
-                           end - at < 16 ? (int)(end - at) : 16);
-    }
-  }
-}
-
-// an arrival on `bar` once this thread's cp.asyncs so far have landed
-// (the barrier counts it among its expected arrivals)
-__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(hopper::smem_u32(bar))
-               : "memory");
-}
-
-// staged rows ra and rb of the box (either -1: none) into the swizzled
-// tile (zeros past m.rows and m.cols; the chunks wholly past m.cols only
-// where zero_tail), every word of a staging row read before any chunk is
-// written; two rows a call keep two rows' reads in flight
-template <int W>
-__device__ __forceinline__ void place(const Box& b, int ra, int rb) {
-  using T = Tile<W>;
-  constexpr int WORDS = 4 * T::CHUNKS + 1;
-  const int n = max(0, min(W, b.m.cols - b.c0)), per = (n + 7) / 8;
-  const bool run = is_run(b);
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = h ? rb : ra;
-    if (row < 0) continue;
-    const bool in = b.r0 + row < b.m.rows;
-    // the row's first element: element row·cols of the run, or `off`
-    // elements into its staging row
-    const int off = run ? row * b.m.cols : (int)((addr(b.m, b.r0 + row, b.c0) & 15) / 2);
-    const uint32_t* s =
-        reinterpret_cast<const uint32_t*>(b.staging + (run ? 0 : row * T::SROW)) + off / 2;
-    uint32_t w[WORDS];
-#pragma unroll
-    for (int j = 0; j < WORDS; ++j) w[j] = in && j <= 4 * per ? s[j] : 0u;
-#pragma unroll
-    for (int c = 0; c < T::CHUNKS; ++c) {
-      if (c >= per && !b.zero_tail) break;
-      const int valid = n - 8 * c;  // the chunk's columns below m.cols
-      uint32_t v[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const uint32_t pair =
-            (off & 1) ? __funnelshift_r(w[4 * c + q], w[4 * c + q + 1], 16) : w[4 * c + q];
-        v[q] = pair & ((2 * q < valid ? 0xFFFFu : 0u) | (2 * q + 1 < valid ? 0xFFFF0000u : 0u));
-      }
-      const uint32_t at = row * W * 2 + 16 * c;
-      *reinterpret_cast<uint4*>(b.tile + (at ^ (((at >> 7) & T::SWZ) << 4))) =
-          make_uint4(v[0], v[1], v[2], v[3]);
-    }
-  }
-}
-
-// The producer warps over `steps` ring steps, step t in slot t % stages
-// (stage_bytes apart). boxes(t, slot, visit) calls visit(box) for each of
-// step t's copied boxes. The issuing warp (placer < 0) waits for the slot;
-// its lane 0 calls tma(t, slot, &full[s]), which arrives on the full
-// barrier expecting the step's TMA bytes; every lane cp.asyncs the boxes'
-// rows, and the slot's `landed` barrier (32 arrivals) hears when they are in
-// (64 small bulk copies a step on the TMA engine took twice as long on the
-// card). The placing warps take the step's boxes' 32-row groups in turn
-// (group g to placer g % np): each zeroes its groups' tiles in every slot
-// once (but zero_tail ones'), then for each step waits for the landing,
-// places its groups and arrives on the full barrier (which expects 1 + np
-// arrivals). (Placing warps that also copied their own boxes ran 1.2-1.4x
-// slower on the card; whole boxes a warp left half the warps idle.)
-template <typename Tma, typename Boxes>
-__device__ __forceinline__ void producer(int placer, int np, unsigned char* base, int stage_bytes,
-                                         int stages, uint64_t* full, uint64_t* empty,
-                                         uint64_t* landed, int steps, Tma tma, Boxes boxes) {
-  const int lane = threadIdx.x % 32;
-  if (placer < 0) {
-    for (int t = 0; t < steps; ++t) {
-      const int s = t % stages;
-      hopper::mbar_wait(&empty[s], ((t / stages) & 1) ^ 1);
-      unsigned char* st = base + s * stage_bytes;
-      if (lane == 0) tma(t, st, &full[s]);
-      boxes(t, st, [&](const Box& b) {
-        if (b.w == 16) issue<16>(b, lane);
-        else issue<64>(b, lane);
-      });
-      cp_async_arrive(&landed[s]);
-    }
-    return;
-  }
-  // this warp's rows of step t's boxes (at most 64 rows a box): row r0 +
-  // lane of each of its groups, two a call (-1: none)
-  auto mine = [&](int t, unsigned char* st, auto&& rows) {
-    int g = 0;
-    boxes(t, st, [&](const Box& b) {
-      int ra = -1, rb = -1;
-      for (int r0 = 0; r0 < b.n; r0 += 32, ++g)
-        if (g % np == placer && r0 + lane < b.n) (ra < 0 ? ra : rb) = r0 + lane;
-      if (ra >= 0) rows(b, ra, rb);
-    });
-  };
-  for (int s = 0; s < stages; ++s)
-    mine(0, base + s * stage_bytes, [&](const Box& b, int ra, int rb) {
-      if (b.zero_tail) return;
-      for (int e = 0; e < b.w / 8; ++e) {
-        *reinterpret_cast<uint4*>(b.tile + ra * b.w * 2 + 16 * e) = make_uint4(0, 0, 0, 0);
-        if (rb >= 0)
-          *reinterpret_cast<uint4*>(b.tile + rb * b.w * 2 + 16 * e) = make_uint4(0, 0, 0, 0);
-      }
-    });
-  for (int t = 0; t < steps; ++t) {
-    const int s = t % stages;
-    unsigned char* st = base + s * stage_bytes;
-    hopper::mbar_wait(&landed[s], (t / stages) & 1);
-    mine(t, st, [&](const Box& b, int ra, int rb) {
-      if (b.w == 16) place<16>(b, ra, rb);
-      else place<64>(b, ra, rb);
-    });
-    hopper::fence_proxy_async();  // the tiles' writes, visible to the tensor cores
-    __syncwarp();
-    if (lane == 0) hopper::mbar_arrive(&full[s]);
-  }
-}
-
-// B's rows [0, rows) x columns [n0, n0 + 64·nb) of m into 64-column boxes
-// of `rows` 128-byte swizzled rows, bytes rows·128 apart, by plain loads
-// (once a block, for the fold: any pointer and N); thread i of nt
-__device__ __forceinline__ void load_b(unsigned char* tile, const Mat& m, int rows, int n0, int nb,
-                                       int i, int nt) {
-  for (int e = i; e < nb * rows * 8; e += nt) {
-    const int box = e / (rows * 8), row = (e / 8) % rows, c = e % 8;
-    uint32_t v[4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int col = n0 + 64 * box + 8 * c + 2 * q;
-      const bool in = row < m.rows;
-      const uint32_t lo = in && col < m.cols ? (uint32_t)__bfloat16_as_ushort(m.p[(size_t)row * m.pitch + col]) : 0u;
-      const uint32_t hi = in && col + 1 < m.cols ? (uint32_t)__bfloat16_as_ushort(m.p[(size_t)row * m.pitch + col + 1]) : 0u;
-      v[q] = lo | hi << 16;
-    }
-    const uint32_t at = row * 128 + 16 * c;
-    *reinterpret_cast<uint4*>(tile + box * rows * 128 + (at ^ (((at >> 7) & 7) << 4))) =
-        make_uint4(v[0], v[1], v[2], v[3]);
-  }
-}
-
-}  // namespace atile
+// Tiles that TMA cannot map are copied by producer warps: hopper.cuh's atile.
+namespace atile = hopper::atile;
 
 // How a kernel's producers fill a ring stage: TMA alone; A copied (r % 8 !=
 // 0, or forced: one placing warp); or COPY, any operand copied (a pointer

@@ -1,12 +1,13 @@
 """Public wrapper of flash attention (after ``repro/kernels/attn_ops.py``).
 
 A tensor on the CPU goes to the plain version (on the meta device too: shapes
-only, no launch, nothing counted); a CUDA tensor launches one of
-the CUDA kernel's variants (bf16 or fp32, head dim 16/32/64/128/256; picked
-by ``variant`` of ``flash_attention.py``) or raises. Unlike the reference
-wrapper, nothing is padded and ragged lengths never fall back: the kernel
-masks the edge itself. ``flash_attention.launches`` counts kernel launches,
-``flash_attention.variant_launches`` counts them by variant.
+only, no launch, nothing counted); a CUDA tensor launches one of the CUDA
+kernel's variants (``wgmma`` for bf16, ``fp32``; head dim 16/32/64/128/256,
+any strides; picked by ``variant`` of ``flash_attention.py``) or raises.
+Unlike the reference wrapper, nothing is padded and ragged lengths never
+fall back: the kernel masks the edge itself. ``flash_attention.launches``
+counts kernel launches, ``flash_attention.variant_launches`` counts them by
+variant.
 Forward-only: with grad mode on, an input that requires grad raises
 (``kernels.require_no_grad``), on every device."""
 
@@ -51,8 +52,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, softcap: f
     require_no_grad("flash_attention", q, k, v)
     if q.device.type in ("cpu", "meta"):
         return flash_attention_ref(q, k, v, causal=causal, window=window, softcap=softcap)
-    kind = variant(q.shape[-1], [s for t in (q, k, v) for s in t.stride()[:3]],
-                   [t.data_ptr() for t in (q, k, v)], q.dtype == torch.float32)
+    kind = variant(q.shape[-1], q.dtype == torch.float32)
     o = flash_attention_cuda(q, k, v, causal, window, softcap, kind)
     flash_attention.launches += 1
     flash_attention.variant_launches[kind] += 1
@@ -60,6 +60,6 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, softcap: f
 
 
 flash_attention.launches = 0
-flash_attention.variant_launches = {"wgmma": 0, "wmma": 0, "fp32": 0}
+flash_attention.variant_launches = {"wgmma": 0, "fp32": 0}
 
 __all__ = ["flash_attention", "flash_attention_ref"]

@@ -1,12 +1,12 @@
 """Binding of the flash attention CUDA kernels (``csrc/flash_attention.cu``),
 the port of ``repro/kernels/flash_attention.py``'s Pallas kernel, and the
-rule that picks one of its three variants:
+rule that picks one of its two variants:
 
 * ``wgmma``: TMA + warpgroup MMA with the softmax in registers, bf16, head
-  dims 64 (fedsllm-100m), 128 (phi4-mini, starcoder2, command-r) and 256
-  (gemma2-9b) with 16-byte aligned rows: every bf16 serve;
-* ``wmma``: the first port's kernel, bf16, head dims 16 and 32, and every
-  head dim with strides or pointers that TMA cannot read;
+  dims 16, 32, 64 (fedsllm-100m), 128 (phi4-mini, starcoder2, command-r) and
+  256 (gemma2-9b), any strides: every bf16 serve. The C entry reads each of
+  q, k, v by TMA where a tensor map can (``copied`` asks it which) and has
+  the producer warps copy the tiles of the others;
 * ``fp32``: fp32 inputs, every head dim and any strides: 3xTF32 on wgmma
   (each operand a TF32 big and small term, three products), P kept in fp32;
   ``attn_ref.flash_attention_tf32x3_ref`` mirrors its arithmetic.
@@ -23,28 +23,35 @@ import torch
 from repro_torch.kernels import _build
 
 HEAD_DIMS = (16, 32, 64, 128, 256)  # the kernels' compiled head widths
-WGMMA_HEAD_DIMS = (64, 128, 256)
 
 
-def variant(d: int, strides, pointers, fp32: bool = False) -> str:
-    """The variant for head dim ``d``, the (batch, head, seq) element strides
-    of q, k and v, and their data pointers: TMA needs every stride a
-    positive multiple of 8 elements (16 bytes) and 16-byte aligned pointers.
-    ``fp32``: the inputs are fp32, which only the ``fp32`` variant takes."""
-    if fp32:
-        return "fp32"
-    aligned = (all(s > 0 and s % 8 == 0 for s in strides)
-               and all(p % 16 == 0 for p in pointers))
-    return "wgmma" if d in WGMMA_HEAD_DIMS and aligned else "wmma"
+def variant(d: int, fp32: bool = False) -> str:
+    """The variant for head dim ``d`` (one of ``HEAD_DIMS``): ``fp32`` for
+    fp32 inputs, else ``wgmma``, at every stride and alignment (``copied``
+    says which operands it copies)."""
+    return "fp32" if fp32 else "wgmma"
+
+
+def copied(strides, pointers) -> str:
+    """The operands of q, k, v (in that order) whose tiles the ``wgmma``
+    variant copies, asked of its C entry's own rule (``flash_attention_copied``:
+    a tensor map needs a 16-byte aligned pointer and (batch, head, seq)
+    strides that are positive multiples of 8 elements). ``strides``: the 9
+    element strides of q, k and v; ``pointers``: their data pointers. Needs
+    the built library, as a launch does."""
+    lib, _ = _entries()
+    mask = lib.flash_attention_copied(*(ctypes.c_void_p(p) for p in pointers),
+                                      (ctypes.c_longlong * 9)(*strides))
+    return "".join(name for i, name in enumerate("qkv") if mask >> i & 1)
 
 
 @functools.cache
 def _entries():
     lib = _build.load("flash_attention")
     fns = {}
-    for name in ("wgmma", "wmma", "fp32"):
-        fn = getattr(lib, "flash_attention_fp32" if name == "fp32"
-                     else f"flash_attention_{name}_bf16")
+    for name, symbol in (("wgmma", "flash_attention_wgmma_bf16"),
+                         ("fp32", "flash_attention_fp32")):
+        fn = getattr(lib, symbol)
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int,
                           ctypes.c_float, ctypes.c_float, ctypes.c_void_p])

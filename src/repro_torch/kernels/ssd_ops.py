@@ -1,9 +1,10 @@
 """Public wrapper of the SSD chunked scan (after ``repro/kernels/ssd_ops.py``).
 
 A tensor on the CPU goes to the plain version (the exact sequential
-recurrence; on the meta device too: shapes only, no launch, nothing counted); a CUDA tensor launches one of the CUDA kernel's variants
-(``wgmma`` or ``fma``, picked by ``variant`` of ``ssd_scan.py`` from shapes,
-dtypes, strides and pointers before the launch) or raises. Unlike the
+recurrence; on the meta device too: shapes only, no launch, nothing
+counted); a CUDA tensor launches one of the CUDA kernel's variants (``wgmma``
+for bf16, ``tf32`` for fp32, ``fma`` above N = 256; picked by ``variant`` of
+``ssd_scan.py`` from the dtype and N before the launch) or raises. Unlike the
 reference wrapper, a ragged S is masked inside the kernel (no padded copies),
 an initial state goes in and the final state comes out, and y is fp32.
 ``ssd_scan.launches`` counts kernel launches, ``ssd_scan.variant_launches``
@@ -64,8 +65,7 @@ def ssd_scan(x, dt, A, Bm, Cm, *, initial_state=None):
     if x.device.type in ("cpu", "meta"):
         return ssd_scan_ref(x, dt, A, Bm, Cm, initial_state)
     P, N = x.shape[-1], Bm.shape[-1]
-    kind = variant(x.dtype, P, N, [*x.stride()[:3], *Bm.stride()[:2], *Cm.stride()[:2]],
-                   [t.data_ptr() for t in (x, Bm, Cm)])
+    kind = variant(x.dtype, N)
     if smem_bytes(kind, P, N) > MAX_SMEM:
         raise ValueError(f"ssd_scan: P={P}, N={N} need {smem_bytes(kind, P, N)} bytes of "
                          f"shared memory ({kind} variant), more than a block's {MAX_SMEM}")
@@ -76,6 +76,6 @@ def ssd_scan(x, dt, A, Bm, Cm, *, initial_state=None):
 
 
 ssd_scan.launches = 0
-ssd_scan.variant_launches = {"wgmma": 0, "fma": 0}
+ssd_scan.variant_launches = {"wgmma": 0, "tf32": 0, "fma": 0}
 
 __all__ = ["ssd_scan", "ssd_scan_ref"]

@@ -4,8 +4,10 @@ the exact sequential recurrence
     h_t = exp(dt_t·A)·h_{t-1} + dt_t·(x_t ⊗ B_t),    y_t = h_t·C_t
 
 extended with an initial state and the final state, as the model's prefill
-needs them; and ``ssd_scan_split_ref``, the chunked arithmetic of the CUDA
-kernel's ``wgmma`` variant (two-term bf16 splits), for the tests."""
+needs them; ``ssd_scan_split_ref``, the chunked arithmetic of the CUDA
+kernel's ``wgmma`` variant (two-term bf16 splits), and
+``ssd_scan_tf32x3_ref``, that of its ``tf32`` variant (3xTF32), for the
+tests."""
 
 from __future__ import annotations
 
@@ -13,6 +15,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels.attn_ref import split_tf32
 
 
 def ssd_scan_ref(x, dt, A, Bm, Cm, initial_state=None):
@@ -92,4 +96,62 @@ def ssd_scan_split_ref(x, dt, A, Bm, Cm, initial_state=None, lo_terms=SPLIT_OPER
         xw_hi, xw_lo = _split(w[..., None] * xc, "xw" in lo_terms)
         h = (h * torch.exp(cs[:, -1])[:, :, None, None]
              + torch.einsum("bsn,bshp->bhpn", Bc, xw_hi) + torch.einsum("bsn,bshp->bhpn", Bc, xw_lo))
+    return torch.cat(ys, dim=1)[:, :S], h
+
+
+TF32_OPERANDS = ("C", "B", "h", "G", "x", "xw")
+
+
+def ssd_scan_tf32x3_ref(x, dt, A, Bm, Cm, initial_state=None, terms=TF32_OPERANDS):
+    """The arithmetic of the CUDA kernel's ``tf32`` variant (fp32 x, Bm, Cm),
+    in plain PyTorch (for the tests): chunks of 64 steps (a ragged S padded
+    with dt = 0); per chunk, with cs the inclusive cumulative sum of dt·A and
+    every product in 3xTF32 (each fp32 operand split into a TF32 big and
+    small term, ``attn_ref.split_tf32``; a·b = a_s·b_b + a_b·b_s + a_b·b_b),
+
+        scores = C·Bᵀ,   y = exp(cs_q)·(C·hᵀ) + G·x,
+        G      = scores ⊙ exp(cs_q − cs_s) ⊙ dt_s   for s <= q, else 0
+        h      = exp(cs_L)·h + (Bᵀ·(w⊙x))ᵀ,  w_s = exp(cs_L − cs_s)·dt_s
+
+    where h is the state entering the chunk and the update Bᵀ·(w⊙x) is summed
+    from zero and added to the decayed state in fp32. Same arguments and
+    results as ``ssd_scan_ref``. ``terms`` names the operands whose small
+    term is kept (all six in the kernel; the tests drop one to show that it
+    is needed)."""
+    Bsz, S, H, P = x.shape
+    chunk = 64
+    pad = -S % chunk
+    xf, Bf, Cf = (F.pad(t.float(), (0, 0) * (t.ndim - 2) + (0, pad)) for t in (x, Bm, Cm))
+    dtf = F.pad(dt.float(), (0, 0, 0, pad))
+    Af = A.float()
+    N = Bm.shape[-1]
+    if initial_state is None:
+        h = torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+    else:
+        h = initial_state.float().clone()
+    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=x.device))
+
+    def mul(eq, a, b, a_name, b_name):
+        (ab, as_), (bb, bs) = split_tf32(a), split_tf32(b)
+        out = torch.einsum(eq, ab, bb)
+        if a_name in terms:
+            out = out + torch.einsum(eq, as_, bb)
+        if b_name in terms:
+            out = out + torch.einsum(eq, ab, bs)
+        return out
+
+    ys = []
+    for t0 in range(0, S + pad, chunk):
+        xc, Bc, Cc = (t[:, t0:t0 + chunk] for t in (xf, Bf, Cf))
+        d = dtf[:, t0:t0 + chunk]  # (B,Q,H)
+        cs = torch.cumsum(d * Af, dim=1)  # (B,Q,H)
+        scores = mul("bqn,bsn->bqs", Cc, Bc, "C", "B")
+        diff = (cs[:, :, None, :] - cs[:, None, :, :]).masked_fill(~mask[None, :, :, None],
+                                                                   -math.inf)
+        G = scores[..., None] * torch.exp(diff) * d[:, None, :, :]  # (B,Q,Q,H)
+        y = mul("bqn,bhpn->bqhp", Cc, h, "C", "h") * torch.exp(cs)[..., None]
+        ys.append(y + mul("bqsh,bshp->bqhp", G, xc, "G", "x"))
+        w = torch.exp(cs[:, -1:] - cs) * d  # (B,Q,H)
+        h = (h * torch.exp(cs[:, -1])[:, :, None, None]
+             + mul("bsn,bshp->bhpn", Bc, w[..., None] * xc, "B", "xw"))
     return torch.cat(ys, dim=1)[:, :S], h

@@ -8,6 +8,8 @@ a machine with the card and without JAX; there the repository's
     PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py
 """
 
+import math
+
 import pytest
 import torch
 
@@ -15,6 +17,8 @@ from repro_torch.config import FedsLLMConfig, get_arch, smoke_variant
 from repro_torch.core import fedsllm, split
 from repro_torch.core.lora import init_lora, merge
 from repro_torch.data.tokens import TokenStream, client_batches
+from repro_torch.kernels import flash_attention as flash_binding
+from repro_torch.kernels import ssd_scan as ssd_binding
 from repro_torch.kernels.attn_ops import flash_attention
 from repro_torch.kernels.attn_ref import flash_attention_fp32, flash_attention_ref
 from repro_torch.kernels.lora_ops import lora_matmul
@@ -415,11 +419,11 @@ def test_flash_fp32_matches_plain(cuda, no_tf32, B, H, Kv, Sq, Skv, d, causal, w
 
 @pytest.mark.parametrize("arch,variants", [
     ("fedsllm-100m", {"lora_matmul": "fp32", "flash_attention": "fp32"}),
-    ("mamba2-130m", {"lora_matmul": "fp32", "ssd_scan": "fma"}),
+    ("mamba2-130m", {"lora_matmul": "fp32", "ssd_scan": "tf32"}),
 ])
 def test_fp32_smoke_serving_runs_the_fp32_variants(cuda, no_tf32, arch, variants):
     """Prefill + one decode step of the fp32 smoke model, as ``launch.serve
-    --smoke`` runs it: every launch on the fp32 (or SSD ``fma``) variant,
+    --smoke`` runs it: every launch on the fp32 (or SSD ``tf32``) variant,
     logits within 1e-4 of the plain path's largest."""
     cfg = smoke_variant(get_arch(arch))
     params = T.init_params(cfg, seed=0, device=cuda)
@@ -493,8 +497,13 @@ def test_flash_kernel_matches_plain(cuda, B, H, Kv, Sq, Skv, d, causal, window, 
     (2, 8, 4, 130, 130, 64, True, 0, 0.0, "wgmma"),
     (2, 8, 2, 130, 130, 64, True, 0, 0.0, "wgmma"),
     (1, 12, 1, 200, 200, 64, True, 0, 0.0, "wgmma"),
-    (2, 4, 2, 100, 100, 16, True, 0, 0.0, "wmma"),
-    (2, 4, 2, 100, 100, 32, True, 0, 0.0, "wmma"),
+    # head dims 16 and 32: native widths (32- and 64-byte rows)
+    (2, 4, 2, 100, 100, 16, True, 0, 0.0, "wgmma"),
+    (2, 4, 2, 100, 100, 32, True, 0, 0.0, "wgmma"),
+    (8, 12, 4, 512, 512, 16, True, 0, 0.0, "wgmma"),
+    (2, 12, 4, 300, 300, 32, True, 64, 30.0, "wgmma"),
+    (2, 4, 1, 70, 130, 16, False, 0, 20.0, "wgmma"),
+    (2, 8, 2, 1, 200, 32, False, 0, 0.0, "wgmma"),
     # head dim 128 (phi4-mini, starcoder2, command-r): their heads, GQA, MQA,
     # window and softcap, ragged
     (2, 4, 2, 100, 100, 128, True, 0, 0.0, "wgmma"),
@@ -583,19 +592,56 @@ def test_flash_wrapper_raises_on_other_head_dims(cuda):
             flash_attention(q, q[:, :1], q[:, :1])
 
 
-@pytest.mark.parametrize("d", [64, 128, 256])
-def test_flash_misaligned_rows_take_the_wmma_variant(cuda, d):
-    """Views whose rows are not 16-byte aligned cannot be read by TMA: the
-    first port's kernel takes them at every head dim that wgmma takes."""
-    gen = torch.Generator(device=cuda).manual_seed(4)
-    buf = torch.randn((2 * 100 * 4 * d + 1,), generator=gen, device=cuda).bfloat16()
-    q = buf[1:].view(2, 100, 4, d).transpose(1, 2)  # one element off
-    k = torch.randn((2, 100, 2, d), generator=gen, device=cuda).bfloat16().transpose(1, 2)
-    before = flash_attention.variant_launches["wmma"]
-    o = flash_attention(q, k, k, causal=True)
+S_ = 512  # the sequence length in the strides below
+
+
+@pytest.mark.parametrize("strides,pointers,expected", [
+    ([S_ * 12 * 64, 64, 12 * 64] * 3, [0, 4096, 8192], ""),  # the model's layout
+    ([512 * 64 * 12, 512 * 64, 64] * 3, [256] * 3, ""),  # contiguous (B, H, S, d)
+    ([S_ * 12 * 64, 64, 12 * 64] * 3, [2, 4096, 8192], "q"),  # q 2 bytes off
+    ([100 * 4 * 64 + 1, 64, 4 * 64] + [S_ * 12 * 64, 64, 12 * 64] * 2, [0] * 3, "q"),
+    ([0, 64, 12 * 64] * 3, [0] * 3, "qkv"),  # a broadcast batch
+    ([S_ * 4 * 16, 16, 4 * 16] * 3, [0] * 3, ""),  # d = 16
+    ([S_ * 4 * 32, 32, 4 * 32] * 3, [0] * 3, ""),  # d = 32
+    ([S_ * 4 * 128, 128, 4 * 128] * 3, [0] * 3, ""),  # phi4, starcoder2, command-r
+    ([S_ * 4 * 128, 128, 4 * 128] * 3, [0, 0, 8], "v"),  # v 8 bytes off
+    ([S_ * 16 * 256, 256, 16 * 256] * 3, [0] * 3, ""),  # gemma2's prefill
+    ([S_ * 16 * 256, 256, 16 * 256] * 3, [2, 0, 0], "q"),  # misaligned
+])
+def test_flash_copied_follows_the_tma_rule(cuda, strides, pointers, expected):
+    """The operands whose tiles the wgmma entry copies, as it decides them
+    (a tensor map cannot read a pointer off 16 bytes or a stride that is not
+    a positive multiple of 8 elements); nothing is read at these pointers."""
+    assert flash_binding.copied(strides, pointers) == expected
+
+
+@pytest.mark.parametrize("case", ["q", "k", "v", "broadcast"])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
+def test_flash_misaligned_rows_take_copied_tiles(cuda, d, case):
+    """Views TMA cannot read (q, k or v one element off 16 bytes, or a batch
+    broadcast by a stride of 0) stay on the wgmma variant at every head dim:
+    the producer warps copy those operands' tiles, the others come by TMA."""
+    gen = torch.Generator(device=cuda).manual_seed(4 + d)
+    B, S, H, Kv = 2, 100, 4, 2
+
+    def view(heads, off):
+        buf = torch.randn((B * S * heads * d + off,), generator=gen, device=cuda).bfloat16()
+        return buf[off:].view(B, S, heads, d).transpose(1, 2)
+
+    q, k, v = view(H, case == "q"), view(Kv, case == "k"), view(Kv, case == "v")
+    window, softcap = 0, 0.0
+    if case == "broadcast":
+        q, k, v = (t[:1].expand(B, -1, -1, -1) for t in (q, k, v))
+        window, softcap = 32, 20.0
+    assert flash_binding.copied([s for t in (q, k, v) for s in t.stride()[:3]],
+                                [t.data_ptr() for t in (q, k, v)]) == \
+        {"q": "q", "k": "k", "v": "v", "broadcast": "qkv"}[case]
+    before = dict(flash_attention.variant_launches)
+    o = flash_attention(q, k, v, causal=True, window=window, softcap=softcap)
     torch.cuda.synchronize()
-    assert flash_attention.variant_launches["wmma"] == before + 1
-    ref = flash_attention_ref(q, k, k, causal=True)
+    moved = {k_: v_ - before[k_] for k_, v_ in flash_attention.variant_launches.items()}
+    assert moved == {"wgmma": 1, "fp32": 0}, moved
+    ref = flash_attention_ref(q, k, v, causal=True, window=window, softcap=softcap)
     assert (o.float() - ref.float()).abs().max().item() <= _bf16_ulps(ref)
 
 
@@ -648,6 +694,10 @@ def _ssd_inputs(cuda, B, S, H, P, N, dtype, h0, seed):
     (3, 1, 2, 16, 16, torch.float32, True),  # S = 1
     (2, 40, 8, 16, 16, torch.bfloat16, False),  # smoke widths
     (1, 64, 2, 100, 200, torch.float32, True),  # beyond one thread tile
+    (8, 512, 24, 64, 128, torch.float32, True),  # mamba2-130m widths in fp32
+    (1, 4, 1, 256, 256, torch.float32, False),  # the widest state tf32 holds
+    (2, 70, 2, 64, 320, torch.bfloat16, True),  # N over 256: fma
+    (1, 40, 2, 24, 300, torch.float32, False),
 ])
 def test_ssd_kernel_matches_plain(cuda, B, S, H, P, N, dtype, h0):
     x, dt, A, Bm, Cm, state = _ssd_inputs(cuda, B, S, H, P, N, dtype, h0, seed=S + P)
@@ -696,7 +746,7 @@ def test_ssd_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
         ssd_scan(x, dt, A, Bm, Cm, initial_state=state.transpose(-1, -2))
     with pytest.raises(ValueError):
         ssd_scan(x, dt, A, Bm.cpu(), Cm)  # mixed devices
-    big = _ssd_inputs(cuda, 1, 4, 1, 256, 256, torch.float32, False, seed=0)
+    big = _ssd_inputs(cuda, 1, 4, 1, 64, 1024, torch.float32, False, seed=0)
     with pytest.raises(ValueError, match="shared"):
         ssd_scan(*big[:5])  # the (P, N) state does not fit a block's shared memory
 
@@ -755,6 +805,9 @@ def _ssd_views(cuda, B, S, H, P, N, h0, seed):
     (2, 40, 2, 32, 64, True),  # the narrowest widths the variant takes
     (1, 100, 3, 96, 192, True),  # three P slices, N = 192
     (1, 130, 2, 32, 256, False),  # N = 256
+    (2, 70, 3, 24, 40, True),  # P and N padded: the last P slice masked, N by TMA's zero fill
+    (4, 32, 8, 16, 16, True),  # the smoke widths
+    (1, 100, 2, 80, 100, False),
 ])
 def test_ssd_wgmma_matches_plain(cuda, B, S, H, P, N, h0):
     x, dt, A, Bm, Cm, state = _ssd_views(cuda, B, S, H, P, N, h0, seed=S + N)
@@ -762,7 +815,7 @@ def test_ssd_wgmma_matches_plain(cuda, B, S, H, P, N, h0):
     y, h = ssd_scan(x, dt, A, Bm, Cm, initial_state=state)
     torch.cuda.synchronize()
     moved = {k: v - before[k] for k, v in ssd_scan.variant_launches.items()}
-    assert moved == {"wgmma": 1, "fma": 0}, moved
+    assert moved == {"wgmma": 1, "tf32": 0, "fma": 0}, moved
     yr, hr = ssd_scan_ref(x, dt, A, Bm, Cm, state)
     # 1e-4 of the largest output, the reference's own SSD tolerance: the
     # variant's fp32 operands (G, h, w·x) go in as two bf16 terms each
@@ -774,10 +827,11 @@ def test_ssd_wgmma_matches_plain(cuda, B, S, H, P, N, h0):
 
 @pytest.mark.parametrize("dtype,P,N,offset,expected", [
     (torch.bfloat16, 64, 128, 0, "wgmma"),
-    (torch.float32, 64, 128, 0, "fma"),
-    (torch.bfloat16, 24, 40, 0, "fma"),  # P not a multiple of 32, N not of 64
+    (torch.float32, 64, 128, 0, "tf32"),
+    (torch.bfloat16, 24, 40, 0, "wgmma"),  # P not a multiple of 32, N not of 64
     (torch.bfloat16, 64, 320, 0, "fma"),  # N over 256
-    (torch.bfloat16, 64, 128, 1, "fma"),  # views not 16-byte aligned
+    (torch.bfloat16, 64, 128, 1, "wgmma"),  # views not 16-byte aligned: tiles copied
+    (torch.float32, 64, 128, 1, "tf32"),  # rows not 16-byte aligned: 4-byte copies
 ])
 def test_ssd_variants_route_by_shape_dtype_and_alignment(cuda, dtype, P, N, offset, expected):
     B, S, H = 2, 70, 2
@@ -796,6 +850,65 @@ def test_ssd_variants_route_by_shape_dtype_and_alignment(cuda, dtype, P, N, offs
     yr, hr = ssd_scan_ref(x, dt, A, Bm, Cm)
     for got, want in ((y, yr), (h, hr)):
         assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("strides,pointers,expected", [
+    # the mamba2-130m prefill: views of the (B, S, 1792) conv output
+    ((917504, 1792, 64, 917504, 1792, 917504, 1792), (0, 3072, 3328), ""),
+    ((8, 8, 8, 8, 8, 8, 8), (0, 0, 0), ""),
+    ((8, 8, 8, 8, 8, 8, 8), (0, 2, 0), "B"),  # a pointer off 16 bytes
+    ((8, 12, 8, 8, 8, 8, 8), (0, 0, 0), "x"),  # a stride off 16 bytes
+    ((0, 8, 8, 0, 8, 0, 8), (0, 0, 0), "xBC"),  # a broadcast batch
+])
+def test_ssd_copied_follows_the_tma_rule(cuda, strides, pointers, expected):
+    """The operands whose tiles the wgmma entry copies, as it decides them;
+    nothing is read at these pointers."""
+    assert ssd_binding.copied(strides, pointers) == expected
+
+
+@pytest.mark.parametrize("case", ["x", "B", "C", "broadcast"])
+def test_ssd_wgmma_copied_tiles_match_plain(cuda, case):
+    """Views TMA cannot read (x, Bm or Cm one element off 16 bytes, or a
+    batch broadcast by a stride of 0) stay on the wgmma variant: its warps
+    copy those operands' tiles, the others come by TMA."""
+    B, S, H, P, N = 2, 150, 3, 64, 128
+    gen = torch.Generator(device=cuda).manual_seed(7)
+
+    def view(*shape, off):
+        n = math.prod(shape)
+        buf = torch.randn((n + off,), generator=gen, device=cuda).mul(0.5).bfloat16()
+        return buf[off:].view(shape)
+
+    x = view(B, S, H, P, off=case == "x")
+    Bm, Cm = view(B, S, N, off=case == "B"), view(B, S, N, off=case == "C")
+    if case == "broadcast":
+        x, Bm, Cm = x[:1].expand(B, -1, -1, -1), Bm[:1].expand(B, -1, -1), Cm[:1].expand(B, -1, -1)
+    dt = torch.nn.functional.softplus(torch.randn((B, S, H), generator=gen, device=cuda) - 2)
+    A = -torch.exp(torch.randn((H,), generator=gen, device=cuda))
+    state = torch.randn((B, H, P, N), generator=gen, device=cuda)
+    assert ssd_binding.copied([*x.stride()[:3], *Bm.stride()[:2], *Cm.stride()[:2]],
+                              [t.data_ptr() for t in (x, Bm, Cm)]) == \
+        {"x": "x", "B": "B", "C": "C", "broadcast": "xBC"}[case]
+    before = dict(ssd_scan.variant_launches)
+    y, h = ssd_scan(x, dt, A, Bm, Cm, initial_state=state)
+    torch.cuda.synchronize()
+    moved = {k: v - before[k] for k, v in ssd_scan.variant_launches.items()}
+    assert moved == {"wgmma": 1, "tf32": 0, "fma": 0}, moved
+    yr, hr = ssd_scan_ref(x, dt, A, Bm, Cm, state)
+    for got, want in ((y, yr), (h, hr)):
+        err = (got - want).abs().max().item()
+        assert err <= 1e-4 * want.abs().max().item(), (err, want.abs().max().item())
+
+
+def test_ssd_tf32_is_deterministic(cuda):
+    """Every sum of the tf32 variant has a fixed order: the same inputs give
+    the same bits."""
+    x, dt, A, Bm, Cm, state = _ssd_inputs(cuda, 2, 300, 8, 64, 128, torch.float32, True, seed=9)
+    y0, h0 = ssd_scan(x, dt, A, Bm, Cm, initial_state=state)
+    assert ssd_scan.variant_launches["tf32"] > 0
+    for _ in range(3):
+        y, h = ssd_scan(x, dt, A, Bm, Cm, initial_state=state)
+        assert torch.equal(y, y0) and torch.equal(h, h0)
 
 
 def test_ssd_wgmma_is_deterministic(cuda):

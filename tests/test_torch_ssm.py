@@ -42,7 +42,7 @@ from repro_torch.config import LoRAConfig, get_arch, smoke_variant
 from repro_torch.kernels import ssd_ref
 from repro_torch.kernels import ssd_scan as ssd_binding
 from repro_torch.kernels.ssd_ops import ssd_scan
-from repro_torch.kernels.ssd_ref import ssd_scan_ref, ssd_scan_split_ref
+from repro_torch.kernels.ssd_ref import ssd_scan_ref, ssd_scan_split_ref, ssd_scan_tf32x3_ref
 from repro_torch.models import mamba2 as M2
 from repro_torch.models import transformer as T
 from repro_torch.serving.decode import decode_tokens
@@ -183,28 +183,82 @@ def test_ssd_split_needs_two_terms_of_each_operand(dropped):
     assert (err <= SSD_REL) == (dropped is None), err
 
 
-@pytest.mark.parametrize("dtype,P,N,strides,pointers,expected", [
-    # the mamba2-130m prefill: views of the (B, S, 1792) conv output
-    (torch.bfloat16, 64, 128, (917504, 1792, 64, 917504, 1792, 917504, 1792), (0, 3072, 3328),
-     "wgmma"),
-    (torch.float32, 64, 128, (8, 8, 8, 8, 8, 8, 8), (0, 0, 0), "fma"),
-    (torch.bfloat16, 24, 40, (8, 8, 8, 8, 8, 8, 8), (0, 0, 0), "fma"),
-    (torch.bfloat16, 64, 320, (8, 8, 8, 8, 8, 8, 8), (0, 0, 0), "fma"),
-    (torch.bfloat16, 64, 128, (8, 8, 8, 8, 8, 8, 8), (0, 2, 0), "fma"),  # a pointer off 16 bytes
-    (torch.bfloat16, 64, 128, (8, 12, 8, 8, 8, 8, 8), (0, 0, 0), "fma"),  # a stride off 16 bytes
+@pytest.mark.parametrize("b,s,h,p,n,chunk,with_state", SPLIT_CASES)
+def test_ssd_tf32x3_ref_matches_pallas_and_ref(b, s, h, p, n, chunk, with_state):
+    """The tf32 variant's arithmetic (chunks of 64, every product in 3xTF32:
+    TF32 big and small terms of C, B, h, G, x and w⊙x, the chunk's state
+    update summed from zero) within 1e-4 of the largest output of the
+    reference's Pallas kernel (interpret mode) and sequential oracle, or,
+    from an initial state, of its ssd_chunked; fp32 inputs."""
+    x, dt, A, Bm, Cm, h0 = _ssd_inputs(b, s, h, p, n, seed=s + p + 1)
+    h0 = h0 if with_state else None
+    jargs = [jnp.asarray(a) for a in (x, dt, A, Bm, Cm)]
+    y, h_final = ssd_scan_tf32x3_ref(*(torch.from_numpy(a) for a in (x, dt, A, Bm, Cm)),
+                                     None if h0 is None else torch.from_numpy(h0))
+    assert y.dtype == h_final.dtype == torch.float32
+    assert y.shape == (b, s, h, p) and h_final.shape == (b, h, p, n)
+    jy, jh = JM2.ssd_chunked(*jargs, chunk, initial_state=None if h0 is None else jnp.asarray(h0))
+    if h0 is None:
+        _close_rel(y, jax_ssd_scan(*jargs, chunk=chunk))
+        _close_rel(y, jax_ssd_scan_ref(*jargs))
+    _close_rel(y, jy)
+    _close_rel(h_final, jh)
+
+
+@pytest.mark.parametrize("dropped", [None, *ssd_ref.TF32_OPERANDS])
+def test_ssd_tf32x3_needs_each_small_term(dropped):
+    """The precision argument of the tf32 variant, at mamba2-130m widths with
+    the prefill's distributions in fp32: with the small terms of C, B, h, G,
+    x and w⊙x the three products a pair are within 1e-4 of the largest
+    output of the sequential recurrence (y and the final state); without any
+    one of them (its product, small·big, left out) they are not."""
+    rng = np.random.default_rng(3)
+    b, s, h, p, n = 1, 512, 2, 64, 128
+    x = (0.5 * rng.standard_normal((b, s, h, p))).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((b, s, h)) - 2)).astype(np.float32)
+    A = -np.exp(rng.standard_normal(h)).astype(np.float32)
+    Bm, Cm = ((0.5 * rng.standard_normal((b, s, n))).astype(np.float32) for _ in range(2))
+    h0 = rng.standard_normal((b, h, p, n)).astype(np.float32)
+    args = [torch.from_numpy(a) for a in (x, dt, A, Bm, Cm, h0)]
+    y_ref, h_ref = ssd_scan_ref(*args)
+    kept = tuple(o for o in ssd_ref.TF32_OPERANDS if o != dropped)
+    y, h_final = ssd_scan_tf32x3_ref(*args, terms=kept)
+    err = max(float((y - y_ref).abs().max() / y_ref.abs().max()),
+              float((h_final - h_ref).abs().max() / h_ref.abs().max()))
+    assert (err <= SSD_REL) == (dropped is None), err
+
+
+@pytest.mark.parametrize("dtype,P,N,expected", [
+    (torch.bfloat16, 64, 128, "wgmma"),  # the mamba2-130m prefill
+    (torch.float32, 64, 128, "tf32"),
+    (torch.bfloat16, 24, 40, "wgmma"),
+    (torch.float32, 24, 40, "tf32"),
+    (torch.bfloat16, 64, 320, "fma"),
+    (torch.float32, 64, 320, "fma"),
 ])
-def test_ssd_variant_rule(dtype, P, N, strides, pointers, expected):
-    """The rule that routes a CUDA launch, decided before it from shapes,
-    dtypes, strides and pointers (the card tests run both variants)."""
-    assert ssd_binding.variant(dtype, P, N, strides, pointers) == expected
+def test_ssd_variant_rule(dtype, P, N, expected):
+    """The rule that routes a CUDA launch, decided before it from the dtype
+    and N (the card tests run every variant); the wgmma variant takes every
+    stride and alignment, copying the tiles of the operands a tensor map
+    cannot read (``test_torch_cuda.py::test_ssd_copied_follows_the_tma_rule``)."""
+    assert ssd_binding.variant(dtype, N) == expected
 
 
 def test_ssd_smem_bytes_mirror_the_kernel_layouts():
-    """smem_bytes mirrors csrc/ssd_scan.cu: tc::Layout<2>::SMEM at the main
-    path (1 KiB alignment + x, B, C of a chunk + h's and w⊙x's terms + the
-    chunk's cs, dt + the barrier: three blocks per SM) and simt::smem_floats."""
+    """smem_bytes mirrors csrc/ssd_scan.cu: tc::Layout<2, COPY>::SMEM at the
+    main path (1 KiB alignment + x, B, C of a chunk + h's and w⊙x's terms +
+    the chunk's cs, dt + the barrier: three blocks per SM; + the copied
+    boxes' staging: two), tf32::Layout::SMEM (the raw blocks + the terms + cs,
+    dt: two) and simt::smem_floats."""
     assert ssd_binding.smem_bytes("wgmma", 64, 128) == 1024 + 36864 + 16384 + 8192 + 512 + 8
     assert 3 * (ssd_binding.smem_bytes("wgmma", 64, 128) + 1024) <= 228 * 1024
+    copied = ssd_binding.smem_bytes("wgmma", 64, 128, copied=True)
+    assert copied == ssd_binding.smem_bytes("wgmma", 64, 128) + 5120 + 4 * 9216
+    assert 2 * (copied + 1024) <= 228 * 1024
+    assert ssd_binding.smem_bytes("wgmma", 24, 40) == ssd_binding.smem_bytes("wgmma", 64, 64)
+    assert ssd_binding.smem_bytes("tf32", 64, 128) == 1024 + 40960 + 32768 + 32768 + 512
+    assert ssd_binding.smem_bytes("tf32", 16, 16) == ssd_binding.smem_bytes("tf32", 64, 256)
+    assert 2 * (ssd_binding.smem_bytes("tf32", 64, 128) + 1024) <= 228 * 1024
     assert ssd_binding.smem_bytes("fma", 64, 128) == 4 * (64 * 129 + 32 * 64 + 2 * 32 * 129
                                                           + 32 * 32 + 32)
 
