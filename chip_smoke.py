@@ -38,6 +38,14 @@ then, for each serving path:
                for the same kernel, and the host's cost of a LoRA launch (``host_ms``);
                prefill ms and decode tokens/s;
 then
+  4b. wide   — two serves of configs outside the kernels' compiled widths,
+               at full width and depth (B=8, prompt 512, 32 new tokens):
+               fedsllm-100m with 8 heads of 96 over 4 (flash ``wgmma`` at
+               d=96, run at its 128-wide instance) and mamba2-130m with a
+               state of 512 (the SSD split across blocks in two slices),
+               each with phase 2's checks at its widths, held to phase 3's
+               rules, its kernel timed at the serve's own shape and its
+               prefill timed;
   5. train   — (a) one round of smoke fedsllm-100m (fp32) on the card and on
                the CPU from the same state and batches, agreeing within 1e-4;
                (b) three rounds of full-width, full-depth fedsllm-100m (bf16,
@@ -211,8 +219,9 @@ then
 
 Prints the compiled kernels' registers and spills, the card's name and power
 limit, a ``{"kernels": [...]}`` line (the three kernels on the bf16 serving
-paths, then each variant of the fp32 serve path of phase 8 and the bf16
-LoRA variants at ranks other than 16 and with copied tiles (prefill, decode), then phase 9's
+paths, then each variant of the fp32 serve path of phase 8, the bf16
+LoRA variants at ranks other than 16 and with copied tiles (prefill, decode)
+and phase 8 (a)'s redesigned rows (``next_entries``), then phase 9's
 flash variants at head dims 256 and 128 and the LoRA kernel on each of its
 serves, then phase 10's and phase 11's LoRA kernel and flash on each of
 their serves, then phase 12's 32k rows), and last
@@ -624,13 +633,13 @@ def path_variants(cfg) -> dict[str, dict[str, int]]:
     """Launches of each variant in one decode_tokens call: the prefill's LoRA
     products (M = B·S) through the prefill variant, the decode steps' (M = B)
     through the decode variant, flash and the SSD scan (one per layer of the
-    prefill) through their wgmma variants; none through SSD ``fma``."""
+    prefill) through their wgmma variants."""
     per_forward = sum(lora_shapes(cfg).values()) * cfg.num_layers
     ssm = cfg.layer_pattern == "M"
     return {"lora_matmul": {"prefill": per_forward, "decode": per_forward * (NEW - 1),
                             "fp32": 0},
             "flash_attention": {"wgmma": 0 if ssm else cfg.num_layers, "fp32": 0},
-            "ssd_scan": {"wgmma": cfg.num_layers if ssm else 0, "tf32": 0, "fma": 0}}
+            "ssd_scan": {"wgmma": cfg.num_layers if ssm else 0, "tf32": 0}}
 
 
 def path_kernels(cfg) -> dict[str, int]:
@@ -1200,6 +1209,55 @@ def kernel_entries(results) -> list[dict]:
                     "per": "one decode_tokens call of each path: B=8, prompt 512, 32 new tokens",
                     "shapes": rows})
     return out
+
+
+# Phase 4b's serves of the kernels' last inputs, at full width and depth:
+# fedsllm-100m with 8 heads of 96 (phi-3-mini's head width; d_model 768
+# kept) over 4 kv heads, whose flash runs at the 128-wide instance, and
+# mamba2-130m with a state of 512, split across blocks in two slices
+WIDE_HEADS, WIDE_STATE = "fedsllm-100m, 8 heads of 96", "mamba2-130m, state 512"
+
+
+def wide_configs() -> dict:
+    return {WIDE_HEADS: get_arch("fedsllm-100m").replace(num_heads=8, num_kv_heads=4,
+                                                         head_dim=96),
+            WIDE_STATE: get_arch("mamba2-130m").replace(ssm_state=512)}
+
+
+def run_wide(name: str, cfg, dev) -> dict:
+    """Phase 4b: phases 2 and 3 of a config outside the kernels' compiled
+    widths (``wide_configs``): every kernel against its plain version at
+    the config's widths (``phase_kernels``: flash at its heads and d, the
+    SSD scan at its N, each in bf16 and fp32, ragged, windowed, capped or
+    with an initial state), one serve held to phase 3's rules (launches by
+    variant, logits against the plain path and fp32, greedy tokens), the
+    kernel its layers launch timed at the serve's own shape
+    (``flash_timing``/``ssd_timing``; no earlier time at these widths) and
+    the prefill timed (CUDA events, mean of 3 after a warm call)."""
+    t0 = time.perf_counter()
+    checks = phase_kernels(cfg, dev)
+    params, lora, prompt = make_model(cfg, dev)
+    res = phase_slice(cfg, dev, params, lora, prompt)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    timing = (ssd_timing if cfg.layer_pattern == "M" else flash_timing)(cfg, dev, gen)
+    timing.update(earlier_ms=None, floor_met=None, floor_met_device=None)
+    log(f"[timing] {name}: {json.dumps(timing)}")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with torch.no_grad():
+        cache = T.init_cache(cfg, BATCH, PROMPT + NEW, device=dev)
+        T.prefill(params, {"tokens": prompt}, cfg, cache, lora=lora)
+        start.record()
+        for _ in range(3):
+            T.prefill(params, {"tokens": prompt}, cfg, cache, lora=lora)
+        end.record()
+        end.synchronize()
+    res.update(checks=checks, timing=timing, prefill_ms=start.elapsed_time(end) / 3)
+    del params, lora, cache
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t0
+    log(f"[wide] {name}: prefill {res['prefill_ms']:.3f} ms (B={BATCH}, S={PROMPT}); "
+        f"done in {res['seconds']:.1f} s")
+    return res
 
 
 def run_path(arch: str, dev) -> dict:
@@ -2231,17 +2289,29 @@ def ssd_row(gen, dev, B, S, H, P, N, launches=None, iters=50, dtype=torch.float3
 # widths, 0.966 ms of device time over a serve's 24 launches), NVIDIA H100
 # 80GB HBM3 at 700 W. Floor: half the parent (launch-bound smoke row: within
 # 10% of it; bf16 SSD: within 3%); target: no slower than SDPA's graph time
-# (flash), twice the bound (fp32 SSD at mamba2-130m's widths).
+# (flash), twice the bound (fp32 SSD at mamba2-130m's widths). The head dims
+# between the compiled widths and the states wider than 256 raised before
+# (no parent), but N=320, which the first port's ``fma`` took (0.6519 ms).
 NEXT_PARENT = {"flash d=16": (0.0758, "sdpa"), "flash d=32": (0.0958, "sdpa"),
                "flash q misaligned d=64": (0.1430, "sdpa"),
                "flash q misaligned d=128": (0.4346, "sdpa"),
                "flash q misaligned d=256": (2.661, "sdpa"),
                "flash k, v misaligned d=64": (None, "sdpa"),
+               **{f"flash d={d}": (None, "sdpa") for d in (48, 80, 96, 160, 192)},
+               "flash d=36 (copied rows)": (None, "sdpa"),
+               "flash fp32 d=96": (None, "sdpa"),
                "ssd fp32 mamba2-130m widths": (0.4736, "bound"),
                "ssd fp32 smoke serve shape": (0.010, "launch"),
                "ssd bf16 mamba2-130m widths": (0.966 / 24, "parent"),
                "ssd bf16 copied x, B, C": (None, None),
-               "ssd bf16 N over 256 (fma)": (None, None)}
+               "ssd bf16 N=320": (0.6519, None),
+               "ssd bf16 N=1024": (None, None), "ssd fp32 N=1024": (None, None)}
+
+
+# next_rows' rows of the kernels' last inputs (head dims between the
+# compiled widths, states wider than 256 but N=320, which replaced a row)
+LAST_ROWS = {f"flash d={d}" for d in (48, 80, 96, 160, 192)} | {
+    "flash d=36 (copied rows)", "flash fp32 d=96", "ssd bf16 N=1024", "ssd fp32 N=1024"}
 
 
 def next_verdict(row: dict) -> dict:
@@ -2258,43 +2328,61 @@ def next_verdict(row: dict) -> dict:
 
 
 def next_rows(dev) -> list:
-    """The designs of the first port's last two variants, timed beside their
-    bounds, the parent's times and SDPA where it computes the same function
-    (``NEXT_PARENT``): bf16 flash on ``wgmma`` at head dims 16 and 32 (native
-    widths), with q's rows one element off 16 bytes (copied by the producer
+    """The designs of the first port's last two variants and the kernels'
+    last inputs, timed beside their bounds, the parent's times and SDPA
+    where it computes the same function (``NEXT_PARENT``): bf16 flash on
+    ``wgmma`` at head dims 16 and 32 (native widths), 48, 80 and 96 (B=8 ×
+    512, 12 heads over 4), 160 and 192 (B=2 × 2048, 16 over 8) and 36 (rows
+    a tensor map cannot read: copied), each at its true d, and fp32 flash at
+    96; with q's rows one element off 16 bytes (copied by the producer
     warps) at 64 (fedsllm-100m's prefill), 128 (phi4-mini's) and 256
     (gemma2-9b's heads at S=2048, no softcap), and with k's and v's at 64;
     the SSD scan's ``tf32`` at mamba2-130m's widths in fp32 (B=8 × 512, 24
     heads of 64, N=128) and at the smoke serve's shape (B=4 × 32, 8 heads of
     16, N=16), its ``wgmma`` at mamba2-130m's widths in bf16, aligned and
-    with x, B and C one element off 16 bytes, and ``fma`` at N=320 (the
-    range it keeps)."""
+    with x, B and C one element off 16 bytes, and states wider than 256
+    (split across blocks, B=2 × 512, 4 heads of 64): N=320 in bf16 (the
+    first port's ``fma`` range) and N=1024 in bf16 and fp32."""
     gen = torch.Generator(device=dev).manual_seed(12)
-    rows = [dict(attn_row(gen, dev, BATCH, PROMPT, 12, 4, d, torch.bfloat16, iters=20),
-                 at=f"flash d={d}", expected="wgmma") for d in (16, 32)]
-    for B, S, H, Kv, d in ((BATCH, PROMPT, 12, 4, 64), (BATCH, PROMPT, 24, 8, 128),
-                           (2, 2048, 16, 8, 256)):
-        rows.append(dict(attn_row(gen, dev, B, S, H, Kv, d, torch.bfloat16, iters=10,
-                                  misaligned=True), at=f"flash q misaligned d={d}",
-                         expected="wgmma"))
-    rows.append(dict(attn_row(gen, dev, BATCH, PROMPT, 12, 4, 64, torch.bfloat16, iters=10,
-                              misaligned="kv"), at="flash k, v misaligned d=64",
-                     expected="wgmma"))
+    flash = lambda at, *shape, expected="wgmma", **kw: lambda: dict(  # noqa: E731
+        attn_row(gen, dev, *shape, **kw), at=at, expected=expected)
+    todo = [flash(f"flash d={d}", BATCH, PROMPT, 12, 4, d, torch.bfloat16, iters=20)
+            for d in (16, 32, 48, 80, 96)]
+    todo += [flash(f"flash d={d}", 2, 2048, 16, 8, d, torch.bfloat16, iters=10)
+             for d in (160, 192)]
+    todo += [flash("flash d=36 (copied rows)", BATCH, PROMPT, 12, 4, 36, torch.bfloat16,
+                   iters=10),
+             flash("flash fp32 d=96", BATCH, PROMPT, 12, 4, 96, torch.float32, iters=10,
+                   expected="fp32")]
+    todo += [flash(f"flash q misaligned d={d}", B, S, H, Kv, d, torch.bfloat16, iters=10,
+                   misaligned=True)
+             for B, S, H, Kv, d in ((BATCH, PROMPT, 12, 4, 64), (BATCH, PROMPT, 24, 8, 128),
+                                    (2, 2048, 16, 8, 256))]
+    todo.append(flash("flash k, v misaligned d=64", BATCH, PROMPT, 12, 4, 64, torch.bfloat16,
+                      iters=10, misaligned="kv"))
     _, H, Pd, N, _ = M2.dims(get_arch("mamba2-130m"))
     _, sH, sP, sN, _ = M2.dims(smoke_variant(get_arch("mamba2-130m")))
     B, S, _ = SMOKE_SERVE
-    rows += [ssd_row(gen, dev, BATCH, PROMPT, H, Pd, N, iters=20,
-                     at="ssd fp32 mamba2-130m widths"),
-             ssd_row(gen, dev, B, S, sH, sP, sN, at="ssd fp32 smoke serve shape"),
-             ssd_row(gen, dev, BATCH, PROMPT, H, Pd, N, iters=20, dtype=torch.bfloat16,
-                     expected="wgmma", at="ssd bf16 mamba2-130m widths"),
-             ssd_row(gen, dev, BATCH, PROMPT, H, Pd, N, iters=20, dtype=torch.bfloat16,
-                     expected="wgmma", misaligned=True, at="ssd bf16 copied x, B, C"),
-             ssd_row(gen, dev, 2, PROMPT, 4, 64, 320, iters=10, dtype=torch.bfloat16,
-                     expected="fma", at="ssd bf16 N over 256 (fma)")]
-    for row in rows:
-        next_verdict(row)
+    ssd = lambda *shape, **kw: lambda: ssd_row(gen, dev, *shape, **kw)  # noqa: E731
+    bf16 = dict(dtype=torch.bfloat16, expected="wgmma")
+    todo += [ssd(BATCH, PROMPT, H, Pd, N, iters=20, at="ssd fp32 mamba2-130m widths"),
+             ssd(B, S, sH, sP, sN, at="ssd fp32 smoke serve shape"),
+             ssd(BATCH, PROMPT, H, Pd, N, iters=20, **bf16, at="ssd bf16 mamba2-130m widths"),
+             ssd(BATCH, PROMPT, H, Pd, N, iters=20, **bf16, misaligned=True,
+                 at="ssd bf16 copied x, B, C"),
+             ssd(2, PROMPT, 4, 64, 320, iters=20, **bf16, at="ssd bf16 N=320"),
+             ssd(2, PROMPT, 4, 64, 1024, iters=20, **bf16, at="ssd bf16 N=1024"),
+             ssd(2, PROMPT, 4, 64, 1024, iters=20, at="ssd fp32 N=1024")]
+    rows = []
+    for make in todo:
+        t = time.perf_counter()
+        row = make()
+        row["seconds"] = time.perf_counter() - t
+        rows.append(next_verdict(row))
         log(f"[cli] (a) next {json.dumps(row)}")
+    last = sum(r["seconds"] for r in rows if r["at"] in LAST_ROWS)
+    log(f"[cli] (a) next rows in {sum(r['seconds'] for r in rows):.1f} s, of which the "
+        f"{len(LAST_ROWS)} rows of the kernels' last inputs {last:.1f} s")
     return rows
 
 
@@ -2616,26 +2704,38 @@ def rank_entries(cli) -> list[dict]:
     return out
 
 
-def next_entries(cli) -> list[dict]:
+def next_entries(cli, wide) -> list[dict]:
     """The kernels line's entries of the designs of the first port's last
-    two variants, from phase 8 (a)'s ``next_rows``: flash ``wgmma`` at head
-    dims 16 and 32 and with copied tiles (rows one element off 16 bytes),
-    the SSD scan's ``tf32`` (fp32) at full width and its ``wgmma`` with
-    copied tiles, and ``fma`` (N above 256), times summed over one launch at
-    each shape (no served path reaches them at these shapes: launches 0; the
-    fp32 smoke serve's ``tf32`` launches are ``variant_entries``')."""
+    two variants and of the kernels' last inputs, from phase 8 (a)'s
+    ``next_rows``: flash ``wgmma`` at head dims 16 and 32, with copied tiles
+    (rows one element off 16 bytes) and at the head dims between the
+    compiled widths, fp32 flash at d=96, the SSD scan's ``tf32`` (fp32) at
+    full width, its ``wgmma`` with copied tiles, and both above N=256 (split
+    across blocks), times summed over one launch at each shape; no served
+    path reaches these shapes (0 launches; the fp32 smoke serve's ``tf32``
+    launches are ``variant_entries``'). Then one entry per wide serve
+    (``run_wide``): its kernel timed at the serve's own shape, times summed
+    over the launches one of its ``decode_tokens`` calls made."""
     out = []
     flash = ("src/repro_torch/csrc/flash_attention.cu", "src/repro/kernels/flash_attention.py:84")
     ssd = ("src/repro_torch/csrc/ssd_scan.cu", "src/repro/kernels/ssd_scan.py:71")
-    for name, variant, (source, replaces), pick in (
+    between = {f"flash d={d}" for d in (48, 80, 96, 160, 192)} | {"flash d=36 (copied rows)"}
+    for name, variant, (source, replaces), pick, launches in (
             ("flash_attention/wgmma d=16, 32", "wgmma", flash,
-             lambda r: r["at"] in ("flash d=16", "flash d=32")),
+             lambda r: r["at"] in ("flash d=16", "flash d=32"), 0),
             ("flash_attention/wgmma copied", "wgmma", flash,
-             lambda r: "misaligned" in r["at"]),
+             lambda r: "misaligned" in r["at"], 0),
+            ("flash_attention/wgmma d between the compiled widths", "wgmma", flash,
+             lambda r: r["at"] in between, 0),
+            ("flash_attention/fp32 d=96", "fp32", flash, lambda r: r["at"] == "flash fp32 d=96",
+             0),
             ("ssd_scan/tf32 full width", "tf32", ssd,
-             lambda r: r["at"] == "ssd fp32 mamba2-130m widths"),
-            ("ssd_scan/wgmma copied", "wgmma", ssd, lambda r: r["at"] == "ssd bf16 copied x, B, C"),
-            ("ssd_scan/fma N > 256", "fma", ssd, lambda r: r["variant"] == "fma")):
+             lambda r: r["at"] == "ssd fp32 mamba2-130m widths", 0),
+            ("ssd_scan/wgmma copied", "wgmma", ssd, lambda r: r["at"] == "ssd bf16 copied x, B, C",
+             0),
+            ("ssd_scan/wgmma N > 256", "wgmma", ssd,
+             lambda r: r["at"] in ("ssd bf16 N=320", "ssd bf16 N=1024"), 0),
+            ("ssd_scan/tf32 N > 256", "tf32", ssd, lambda r: r["at"] == "ssd fp32 N=1024", 0)):
         mine = [r for r in cli["next"] if pick(r)]
         total = {k: sum(r[k] for r in mine)
                  for k in ("ms", "device_ms", "graph_ms", "plain_ms", "bound_ms")}
@@ -2644,7 +2744,7 @@ def next_entries(cli) -> list[dict]:
             total[key] = None if None in lib else sum(lib)
         by_bytes = sum(r["bound_ms"] for r in mine if r["bound_by"] == "bytes")
         out.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                    "variant": variant, "launches": 0,
+                    "variant": variant, "launches": launches,
                     "max_abs_err": max(r["err"] for r in mine), **total,
                     "bound_by": "bytes" if by_bytes >= total["bound_ms"] / 2 else "operations",
                     "rows": {v: f"{sum(bool(r[v]) for r in mine)}/"
@@ -2654,6 +2754,23 @@ def next_entries(cli) -> list[dict]:
                         r["at"] + f" B={r['B']} S={r['S']} H={r['H']}"
                         + (f" d={r['d']}" if "d" in r else f" P={r['P']} N={r['N']}")
                         for r in mine)})
+    for name, (kernel, variant, (source, replaces)) in (
+            (WIDE_HEADS, ("flash_attention", "wgmma", flash)),
+            (WIDE_STATE, ("ssd_scan", "wgmma", ssd))):
+        r = wide[name]["timing"]
+        n = wide[name]["variants"][kernel][variant]
+        out.append({"name": f"{kernel}/{variant} {name}", "route": "cuda", "source": source,
+                    "replaces": replaces, "variant": variant, "launches": n,
+                    "max_abs_err": wide[name]["checks"]["max_abs_err"][kernel],
+                    **{k: r[k] * n for k in ("ms", "device_ms", "graph_ms", "plain_ms",
+                                             "bound_ms")},
+                    **{k: None if r[k] is None else r[k] * n
+                       for k in ("library_ms", "library_device_ms")},
+                    "bound_by": r["bound_by"],
+                    "per": f"one decode_tokens call of {name}: B={BATCH}, prompt {PROMPT}, "
+                           f"{NEW} new tokens; launches at B={r['B']} S={r['S']} H={r['H']} "
+                           + (f"Kv={r['Kv']} d={r['d']}" if kernel == "flash_attention"
+                              else f"P={r['P']} N={r['N']}")})
     return out
 
 
@@ -4291,12 +4408,13 @@ def main() -> int:
     build = phase_build()
     results = {arch: run_path(arch, dev) for arch in ARCHS}
     kernels = kernel_entries(results)
+    wide = {name: run_wide(name, cfg, dev) for name, cfg in wide_configs().items()}
     train, ctx = phase_train(dev)
     priced = phase_priced(dev, ctx)
     del ctx
     campaign = phase_campaign(dev)
     cli, rows = phase_cli(dev)
-    kernels += variant_entries(rows) + rank_entries(cli) + next_entries(cli)
+    kernels += variant_entries(rows) + rank_entries(cli) + next_entries(cli, wide)
     dense, more = phase_dense(dev)
     kernels += more
     families, more = phase_families(dev)
@@ -4309,7 +4427,8 @@ def main() -> int:
         {"nvidia_smi": smi, "build": build, "kernels": kernels, "traces": TRACE_LOG,
          "paths": {arch: {"checks": r["checks"], "slice": r["slice"],
                           "end_to_end": r["timings"]["end_to_end"]}
-                   for arch, r in results.items()}, "train": train, "priced": priced,
+                   for arch, r in results.items()}, "wide": wide, "train": train,
+         "priced": priced,
          "campaign": campaign, "cli": cli,
          "dense": {k: dense[k] for k in ("gemma2", "gemma2_rule", "serves", "train")},
          "families": {k: families[k] for k in ("serves", "smoke", "split")},

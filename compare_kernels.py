@@ -31,7 +31,11 @@ S=512, 12 heads over 4) and with q one element off 16 bytes at d=64 (the
 same heads), d=128 (24 over 8) and d=256 (B=2, S=2048, 16 over 8), and the
 SSD scan in fp32 at mamba2-130m's widths (B=8, S=512, 24 heads of 64,
 N=128) and at the smoke serve's shape (B=4, S=32, 8 heads of 16, N=16), and
-in bf16 at mamba2-130m's widths. The last line holds each
+in bf16 at mamba2-130m's widths; then (``LAST``) bf16 flash at head dims
+between the compiled widths, 48 and 96 (B=8, S=512, 12 heads over 4), and
+the SSD scan in bf16 above N=256 (B=2, S=512, 4 heads of 64, N=320 and
+1024), each on a side whose wrapper takes it (a side that raises for it
+leaves the row out). The last line holds each
 metric's least time on each side and their ratio (this / other; none
 where only this side measured it).
 
@@ -54,6 +58,15 @@ bf16 prefill's tile width at ranks 17-63 not a multiple of 8 (A
 copied; ``prefill_tile_n``), and the bf16 prefill and decode with x's or
 W's tiles copied by the producers (a view one element off 16 bytes)
 against the same values read by TMA.
+
+    python3 compare_kernels.py --ptxas
+
+builds this checkout's ``csrc/flash_attention.cu`` twice, as it is served
+and with ``-DREPRO_FLASH_FULL_ONLY`` (the copying producers' FULL loops
+alone, no loop for a padded head dim), and prints ptxas's registers and
+spills of each kernel instance in both builds (one JSON line each): what
+the served instances' loop costs, which the served build's one figure per
+kernel cannot tell apart from the padded loop's.
 """
 
 from __future__ import annotations
@@ -104,6 +117,10 @@ HOST = [(8, 768, 768), (8, 2048, 768), (8, 768, 2048)]
 NEXT_FLASH = [(8, 512, 12, 4, 16, False), (8, 512, 12, 4, 32, False), (8, 512, 12, 4, 64, True),
               (8, 512, 24, 8, 128, True), (2, 2048, 16, 8, 256, True)]
 NEXT_SSD = [(8, 512, 24, 64, 128, True), (4, 32, 8, 16, 16, True), (8, 512, 24, 64, 128, False)]
+# the kernels' last inputs (bf16): flash at head dims between the compiled
+# widths, the SSD scan above N=256 (the first port's ``fma`` took N=320)
+LAST_FLASH = [(8, 512, 12, 4, 48, False), (8, 512, 12, 4, 96, False)]
+LAST_SSD = [(2, 512, 4, 64, 320, False), (2, 512, 4, 64, 1024, False)]
 
 
 def graph_ms(torch, fn, sets, iters=50):
@@ -226,14 +243,22 @@ def measure_next(torch, randn) -> dict:
     from repro_torch.kernels.ssd_ops import ssd_scan
 
     out = {}
-    for B, S, H, Kv, d, misaligned in NEXT_FLASH:
+
+    def taken(name, fn, sets, iters=50):
+        """The row's graph ms, or nothing where this side's wrapper raises."""
+        try:
+            out[name] = graph_ms(torch, fn, sets, iters)
+        except ValueError as e:
+            print(f"{name}: not taken ({e})", file=sys.stderr)
+
+    for B, S, H, Kv, d, misaligned in NEXT_FLASH + LAST_FLASH:
         sets = [((shift(torch, q) if misaligned else q).transpose(1, 2),
                  randn(B, S, Kv, d).transpose(1, 2), randn(B, S, Kv, d).transpose(1, 2))
                 for q in (randn(B, S, H, d) for _ in range(4))]
         name = f"next flash d={d} B={B} S={S} H={H}/{Kv}" + (" q+1" if misaligned else "")
-        out[name] = graph_ms(torch, lambda q, k, v: flash_attention(q, k, v, causal=True), sets)
+        taken(name, lambda q, k, v: flash_attention(q, k, v, causal=True), sets)
         del sets
-    for B, S, H, P, N, fp32 in NEXT_SSD:
+    for B, S, H, P, N, fp32 in NEXT_SSD + LAST_SSD:
         dtype = torch.float32 if fp32 else torch.bfloat16
         sets = [(randn(B, S, H, P, dtype=dtype),
                  torch.nn.functional.softplus(randn(B, S, H, dtype=torch.float32)),
@@ -241,8 +266,8 @@ def measure_next(torch, randn) -> dict:
                  randn(B, S, N, scale=0.5, dtype=dtype), randn(B, S, N, scale=0.5, dtype=dtype),
                  randn(B, H, P, N, dtype=torch.float32)) for _ in range(4)]
         name = f"next ssd {'fp32' if fp32 else 'bf16'} B={B} S={S} H={H} P={P} N={N}"
-        out[name] = graph_ms(torch, lambda x, dt, A, Bm, Cm, h: ssd_scan(
-            x, dt, A, Bm, Cm, initial_state=h), sets, 20)
+        taken(name, lambda x, dt, A, Bm, Cm, h: ssd_scan(x, dt, A, Bm, Cm, initial_state=h),
+              sets, 20)
         del sets
     return out
 
@@ -406,7 +431,32 @@ def host_ab(other: Path, rounds: int = 15, calls: int = 200) -> None:
                       "ratio event": row["this event"] / row["other event"]}))
 
 
+def ptxas() -> None:
+    import tempfile
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from chip_smoke import ptxas_summary
+    from repro_torch.kernels import _build
+
+    src = _build.CSRC / "flash_attention.cu"
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as tmp:
+        procs = {build: subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-o", f"{tmp}/{build}.so", str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for build, flags in (("served", ()), ("full_only", ("-DREPRO_FLASH_FULL_ONLY",)))}
+        for build, proc in procs.items():
+            out = proc.communicate()[0]
+            if proc.returncode != 0:
+                raise SystemExit(f"nvcc failed ({build}):\n{out}")
+            for row in ptxas_summary(out):
+                print(json.dumps({"build": build, **row}))
+
+
 def main() -> int:
+    if sys.argv[1:] == ["--ptxas"]:
+        ptxas()
+        return 0
     if sys.argv[2:] == ["--host"]:
         host_ab(Path(sys.argv[1]).resolve())
         return 0

@@ -20,10 +20,26 @@
 // gemma2-9b's prefill (S = 8192, d = 256, half its layers windowed to 4096)
 // and the other dense configs' (d = 128).
 //
-// Two variants, picked by the wrapper (kernels/flash_attention.py
-// ``variant``):
+// Built with -DREPRO_FLASH_FULL_ONLY (compare_kernels.py --ptxas), the
+// copying producers keep only their FULL loops (rows of D columns), so that
+// ptxas's report per kernel shows what the served instances' loop costs;
+// such a build is wrong at a padded d and is never loaded.
 //
-// * wgmma (bf16, d = 16, 32, 64, 128, 256, any strides; the main path): one
+// Two variants, picked by the wrapper (kernels/flash_attention.py
+// ``variant``), both at every head dim d from 1 to 256: each is compiled at
+// the widths 16, 32, 64, 128 and 256, and a d between them runs at the next
+// (the wrapper's ``padded_dim``, which it passes to the entries). Its rows
+// are read d columns wide and the columns past d arrive as zeros (TMA's
+// zero fill past the tensor map's innermost extent d; the copier's and the
+// fp32 producers' zero fill past a row's d columns; never the next head's
+// values: 0 times a non-finite value is NaN). Zero columns of Q and K leave the scores unchanged, those of V give
+// zero columns of O, which go to the padding of an output the wrapper
+// allocates padded_dim(d) wide and returns as its first d columns (the
+// store stays the compiled width's: a column guard in it made ptxas spill
+// in the served instances); the scale is 1/sqrt(d). Padding costs the
+// products' share of the work, D/d (1.33x at d = 96, 1.6x at 80).
+//
+// * wgmma (bf16, any strides; the main path): one
 //   block per two query tiles of one (batch, head), tile nq-1-i then tile i,
 //   so every block of a causal prefill has the same work and pays the start
 //   of its load pipeline once for both; the longest rows run first. A
@@ -56,8 +72,8 @@
 //   placing warps shift them into the swizzled tiles; the operands a map
 //   reads stay on TMA. The producer gives its registers to the consumers
 //   (setmaxnreg), which run as above.
-// * fp32 (fp32 inputs, head dims 16, 32, 64, 128, 256, any strides; the
-//   smoke configs serve in fp32): 3xTF32 on wgmma, P kept in fp32 as the TPU
+// * fp32 (fp32 inputs, any strides; the smoke configs serve in fp32):
+//   3xTF32 on wgmma, P kept in fp32 as the TPU
 //   kernel keeps it (namespace tf32x3). What bounds it is the tensor cores'
 //   TF32 rate over three products (165 TFLOP/s of fp32 work). Each fp32
 //   operand is split into a TF32 big and small term and three products
@@ -81,6 +97,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
+
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -110,7 +128,7 @@ __device__ __forceinline__ void kv_range(int q0, int rows, int Skv, int causal, 
 }
 
 // ===========================================================================
-// wgmma: TMA + warpgroup MMA, d = 64, 128, 256
+// wgmma: TMA + warpgroup MMA, compiled at D = 16, 32, 64, 128, 256
 // ===========================================================================
 namespace tc {
 
@@ -191,11 +209,12 @@ struct Layout {
 };
 
 // The operands whose tiles are copied (bit i of `flags`: q, k, v), with
-// their pointers and strides; a copied row has `d` columns
+// their pointers and strides; a copied row has d columns (the head dim, at
+// most the compiled width D; the tile's columns past d are zeros)
 struct Copied {
   const bf16* p[3];
   Strides st[3];
-  int flags;
+  int flags, d;
 };
 
 // c·tanh(x·scale/c) in the log2 domain (times log2 e), as 1 - 2/(2^(2x·scale·log2(e)/c) + 1):
@@ -330,7 +349,10 @@ __device__ __forceinline__ void hold(const uint32_t (&pa)[4][4]) {
 // they are in. The placing warps (pw 1..NPL) take the boxes' 32-row groups
 // in turn, place them into the swizzled tile, free the staging slot, and
 // after a job's last box arrive on its full barrier (1 + NPL arrivals).
-template <int D>
+// FULL: rows of D columns (d = D), a constant the copier's column masks fold
+// away (held at run time they made the copying instances spill 112-316 B);
+// else rows of cp.d columns.
+template <int D, bool FULL>
 struct Producer {
   using L = Layout<D, true>;
   // PART: chunks a placing read pass, to fit the producer's budget
@@ -343,7 +365,8 @@ struct Producer {
 
   __device__ __forceinline__ hopper::atile::Mat mat(int op) const {
     const Strides& s = cp.st[op];
-    return {cp.p[op] + bi * s.b + (op ? kvh : h) * s.h, op ? Skv : Sq, D, (int)s.s};
+    return {cp.p[op] + bi * s.b + (op ? kvh : h) * s.h, op ? Skv : Sq, FULL ? D : cp.d,
+            (int)s.s};
   }
 
   // job of operand op: `rows` rows from row r0 into `tile` (column blocks
@@ -484,38 +507,48 @@ kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtenso
         }
       }
     } else {
-      Producer<D> pr{cp, warp - 4 * NWG, lane, bi, h, kvh, Sq, Skv, stg, landed, sempty};
-      const bool issuer = pr.pw == 0;
-      if (issuer && lane == 0) {
-        if (!(cp.flags & 1)) hopper::prefetch_tensormap(&tm_q);
-        if (!(cp.flags & 2)) hopper::prefetch_tensormap(&tm_k);
-        if (!(cp.flags & 4)) hopper::prefetch_tensormap(&tm_v);
-      }
-      // a pass's Q job; with two query buffers the second pass's right
-      // after the first's, so that its copy is not late for the consumers
-      auto q_job = [&](int pass) {
-        const int q0 = (pass == 0 ? nq - 1 - bx : bx) * BQ, slot = pass % QBUFS;
-        if (issuer) hopper::mbar_wait(&qempty[slot], ((pass / QBUFS) & 1) ^ 1);
-        pr.job(0, &qfull[slot], qs + slot * QB, BQ, q0,
-               [&] { tma(&tm_q, &qfull[slot], qs + slot * QB, QB, BQ, q0, h); });
-      };
-      int i = 0;
-      for (int pass = 0; pass < passes; ++pass) {
-        const int q0 = (pass == 0 ? nq - 1 - bx : bx) * BQ;
-        int t_begin, t_end;
-        kv_range(q0, BQ, Skv, causal, window, t_begin, t_end);
-        if (QBUFS == 1 || pass == 0) q_job(pass);
-        if (QBUFS == 2 && pass == 0 && passes == 2) q_job(1);
-        for (int t = t_begin; t < t_end; ++t, ++i) {
-          const int s = i % STAGES, parity = ((i / STAGES) & 1) ^ 1;
-          if (issuer) hopper::mbar_wait(&kempty[s], parity);
-          pr.job(1, &kfull[s], ks + s * KVB, BKV, t * BKV,
-                 [&] { tma(&tm_k, &kfull[s], ks + s * KVB, KVB, BKV, t * BKV, kvh); });
-          if (issuer) hopper::mbar_wait(&vempty[s], parity);
-          pr.job(2, &vfull[s], vs + s * KVB, BKV, t * BKV,
-                 [&] { tma(&tm_v, &vfull[s], vs + s * KVB, KVB, BKV, t * BKV, kvh); });
+      // the copying producer, its column count a constant where d = D
+      auto copying = [&](auto whole) {
+        Producer<D, decltype(whole)::value> pr{cp, warp - 4 * NWG, lane, bi, h, kvh, Sq, Skv, stg,
+                                               landed, sempty};
+        const bool issuer = pr.pw == 0;
+        if (issuer && lane == 0) {
+          if (!(cp.flags & 1)) hopper::prefetch_tensormap(&tm_q);
+          if (!(cp.flags & 2)) hopper::prefetch_tensormap(&tm_k);
+          if (!(cp.flags & 4)) hopper::prefetch_tensormap(&tm_v);
         }
-      }
+        // a pass's Q job; with two query buffers the second pass's right
+        // after the first's, so that its copy is not late for the consumers
+        auto q_job = [&](int pass) {
+          const int q0 = (pass == 0 ? nq - 1 - bx : bx) * BQ, slot = pass % QBUFS;
+          if (issuer) hopper::mbar_wait(&qempty[slot], ((pass / QBUFS) & 1) ^ 1);
+          pr.job(0, &qfull[slot], qs + slot * QB, BQ, q0,
+                 [&] { tma(&tm_q, &qfull[slot], qs + slot * QB, QB, BQ, q0, h); });
+        };
+        int i = 0;
+        for (int pass = 0; pass < passes; ++pass) {
+          const int q0 = (pass == 0 ? nq - 1 - bx : bx) * BQ;
+          int t_begin, t_end;
+          kv_range(q0, BQ, Skv, causal, window, t_begin, t_end);
+          if (QBUFS == 1 || pass == 0) q_job(pass);
+          if (QBUFS == 2 && pass == 0 && passes == 2) q_job(1);
+          for (int t = t_begin; t < t_end; ++t, ++i) {
+            const int s = i % STAGES, parity = ((i / STAGES) & 1) ^ 1;
+            if (issuer) hopper::mbar_wait(&kempty[s], parity);
+            pr.job(1, &kfull[s], ks + s * KVB, BKV, t * BKV,
+                   [&] { tma(&tm_k, &kfull[s], ks + s * KVB, KVB, BKV, t * BKV, kvh); });
+            if (issuer) hopper::mbar_wait(&vempty[s], parity);
+            pr.job(2, &vfull[s], vs + s * KVB, BKV, t * BKV,
+                   [&] { tma(&tm_v, &vfull[s], vs + s * KVB, KVB, BKV, t * BKV, kvh); });
+          }
+        }
+      };
+#ifdef REPRO_FLASH_FULL_ONLY  // the FULL loop alone, for ptxas's report of it
+      copying(std::true_type());
+#else
+      if (cp.d == D) copying(std::true_type());
+      else copying(std::false_type());
+#endif
     }
     return;
   }
@@ -620,12 +653,13 @@ kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtenso
   }
 }
 
-// q (B,H,Sq,D), k/v (B,Kv,Skv,D) as 4-D tensor maps {D, seq, head, batch}
-// read in boxes of TW columns: BQ query rows, 64 key rows. An operand TMA
-// cannot read is copied (COPY), its map left unused.
+// q (B,H,Sq,d), k/v (B,Kv,Skv,d), d <= D, as 4-D tensor maps {d, seq, head,
+// batch} read in boxes of TW columns (columns d..D-1 arrive as zeros): BQ
+// query rows, 64 key rows. An operand TMA cannot read is copied (COPY), its
+// map left unused. o's rows hold D columns (those past d written too).
 template <int D, bool COPY>
 cudaError_t launch(const bf16* const* ptrs, bf16* o, int B, int H, int Kv, int Sq, int Skv,
-                   const Strides* st, int copied, int causal, int window, float softcap,
+                   int d, const Strides* st, int copied, int causal, int window, float softcap,
                    float scale, cudaStream_t stream) {
   using Lay = Layout<D, COPY>;
   static bool smem_set = false;
@@ -634,6 +668,7 @@ cudaError_t launch(const bf16* const* ptrs, bf16* o, int B, int H, int Kv, int S
   CUtensorMap maps[3];
   Copied cp{};
   cp.flags = copied;
+  cp.d = d;
   for (int i = 0; i < 3; ++i) {
     cp.p[i] = ptrs[i];
     cp.st[i] = st[i];
@@ -641,7 +676,7 @@ cudaError_t launch(const bf16* const* ptrs, bf16* o, int B, int H, int Kv, int S
       memset(&maps[i], 0, sizeof(CUtensorMap));
       continue;
     }
-    const uint64_t sizes[4] = {(uint64_t)D, (uint64_t)(i ? Skv : Sq), (uint64_t)(i ? Kv : H),
+    const uint64_t sizes[4] = {(uint64_t)d, (uint64_t)(i ? Skv : Sq), (uint64_t)(i ? Kv : H),
                                (uint64_t)B};
     const uint64_t strides[3] = {(uint64_t)st[i].s * 2, (uint64_t)st[i].h * 2,
                                  (uint64_t)st[i].b * 2};
@@ -668,13 +703,13 @@ int copied_operands(const bf16* const* ptrs, const Strides* st) {
 // and the one without
 template <int D>
 cudaError_t launch_any(const bf16* const* ptrs, bf16* o, int B, int H, int Kv, int Sq, int Skv,
-                       const Strides* st, int causal, int window, float softcap,
+                       int d, const Strides* st, int causal, int window, float softcap,
                        float scale, cudaStream_t stream) {
   const int copied = copied_operands(ptrs, st);
-  return copied ? launch<D, true>(ptrs, o, B, H, Kv, Sq, Skv, st, copied, causal, window,
+  return copied ? launch<D, true>(ptrs, o, B, H, Kv, Sq, Skv, d, st, copied, causal, window,
                                   softcap, scale, stream)
-                : launch<D, false>(ptrs, o, B, H, Kv, Sq, Skv, st, 0, causal, window, softcap,
-                                   scale, stream);
+                : launch<D, false>(ptrs, o, B, H, Kv, Sq, Skv, d, st, 0, causal, window,
+                                   softcap, scale, stream);
 }
 
 }  // namespace tc
@@ -728,40 +763,54 @@ struct Layout {
   static_assert(STAGES >= 2 && SMEM <= SMEM_MAX, "tiles too large for shared memory");
 };
 
-// the rows of one (batch, head) of q, k or v: row i at p + i·s, `rows` rows;
-// vec: every row 16-byte aligned (16- and 8-byte copies)
+// the rows of one (batch, head) of q, k or v: row i at p + i·s, `rows` rows
+// of `cols` values (the head dim); vec: every row 16-byte aligned (16- and
+// 8-byte copies)
 struct View {
   const float* p;
   long long s;
-  int rows;
+  int rows, cols;
   bool vec;
 };
 
-// cp.async of n = 4 or 2 values of row `row` at column col (zeros past the
-// last row) into dst
-template <int N>
+// cp.async of N = 4 or 2 values of row `row` at column col into dst, zeros
+// past the last row and (unless FULL: rows of the compiled width) the last
+// column
+template <int N, bool FULL>
 __device__ __forceinline__ void copy(float* dst, const View& v, int row, int col) {
-  const bool in = row < v.rows;
-  const float* src = in ? v.p + row * v.s + col : v.p;
-  if (v.vec) {
-    if (N == 4) hopper::cp_async16(dst, src, in ? 16 : 0);
-    else hopper::cp_async8(dst, src, in ? 8 : 0);
-    return;
-  }
+  if constexpr (FULL) {
+    const bool in = row < v.rows;
+    const float* src = in ? v.p + row * v.s + col : v.p;
+    if (v.vec) {
+      if (N == 4) hopper::cp_async16(dst, src, in ? 16 : 0);
+      else hopper::cp_async8(dst, src, in ? 8 : 0);
+      return;
+    }
 #pragma unroll
-  for (int i = 0; i < N; ++i) hopper::cp_async4(dst + i, in ? src + i : v.p, in ? 4 : 0);
+    for (int i = 0; i < N; ++i) hopper::cp_async4(dst + i, in ? src + i : v.p, in ? 4 : 0);
+  } else {
+    const int n = row < v.rows ? max(0, min(N, v.cols - col)) : 0;
+    const float* src = n ? v.p + row * v.s + col : v.p;
+    if (v.vec) {
+      if (N == 4) hopper::cp_async16(dst, src, 4 * n);
+      else hopper::cp_async8(dst, src, 4 * n);
+      return;
+    }
+#pragma unroll
+    for (int i = 0; i < N; ++i) hopper::cp_async4(dst + i, i < n ? src + i : v.p, i < n ? 4 : 0);
+  }
 }
 
 // A producer thread's share (pt of PT) of a K-major chunk: rows r0 + [0,
 // 64) at columns c0 + [0, NC), 4 columns a copy, into the raw slot (row i
 // at raw + i·NC); it reads back only what it copied
-template <int NC>
+template <int NC, bool FULL>
 __device__ __forceinline__ void copy_rows(float* raw, const View& v, int r0, int c0, int pt) {
   constexpr int C4 = NC / 4;
 #pragma unroll
   for (int e = 0; e < 16 * NC / PT; ++e) {
     const int f = pt + PT * e, row = f / C4, col = 4 * (f % C4);
-    copy<4>(raw + row * NC + col, v, r0 + row, c0 + col);
+    copy<4, FULL>(raw + row * NC + col, v, r0 + row, c0 + col);
   }
 }
 
@@ -791,7 +840,7 @@ __device__ __forceinline__ void put_rows(unsigned char* big, unsigned char* smal
 // {0, 1} of keys k0 + 8·(u / (NC/2)) + [0, 8), one 8-key step of two rows
 // of the transposed tile, copied into the raw slot (a warp's copies and
 // reads run along a key's row)
-template <int NC>
+template <int NC, bool FULL>
 __device__ __forceinline__ void copy_cols(float* raw, const View& v, int k0, int c0, int pt) {
 #pragma unroll
   for (int e = 0; e < (4 * NC + PT - 1) / PT; ++e) {
@@ -799,7 +848,8 @@ __device__ __forceinline__ void copy_cols(float* raw, const View& v, int k0, int
     if (u >= 4 * NC) return;
     const int col = 2 * (u % (NC / 2)), key = 8 * (u / (NC / 2));
 #pragma unroll
-    for (int j = 0; j < 8; ++j) copy<2>(raw + (key + j) * NC + col, v, k0 + key + j, c0 + col);
+    for (int j = 0; j < 8; ++j)
+      copy<2, FULL>(raw + (key + j) * NC + col, v, k0 + key + j, c0 + col);
   }
 }
 
@@ -859,7 +909,7 @@ __device__ __forceinline__ void add_piece(float (&oacc)[D / 2], const float (&ta
 template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
 kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-       float* __restrict__ o, int H, int Kv, int Sq, int Skv, Strides qst, Strides kst,
+       float* __restrict__ o, int H, int Kv, int Sq, int Skv, int d, Strides qst, Strides kst,
        Strides vst, Strides ost, int causal, int window, float softcap, float scale, int vec) {
   using L = Layout<D>;
   constexpr int NC = L::NC, NCH = L::NCH, VN = L::VN, SUBS = NC / VN, STAGES = L::STAGES;
@@ -907,57 +957,69 @@ kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __
     // of the K job the slot held before, so the producers pass a barrier
     // before a slot is filled again.
     hopper::setmaxnreg_dec<PRODUCER_REGS>();
-    constexpr int RS = L::RS;
-    const int pt = tid - 128;
-    const View qv{q + bi * qst.b + h * qst.h, qst.s, Sq, (vec & 1) != 0};
-    const View kvw{k + bi * kst.b + kvh * kst.h, kst.s, Skv, (vec & 2) != 0};
-    const View vv{v + bi * vst.b + kvh * vst.h, vst.s, Skv, (vec & 4) != 0};
-    const int jobs0 = NCH + 2 * NCH * (te0 - tb0);
-    const int total = jobs0 + (passes > 1 ? NCH + 2 * NCH * (te1 - tb1) : 0);
-    // the terms' writes, visible to the tensor cores, then one arrive a warp
-    auto arrive = [&](uint64_t* bar) {
-      hopper::fence_proxy_async();
-      __syncwarp();
-      if (lane == 0) hopper::mbar_arrive(bar);
-    };
-    auto issue = [&](int g) {  // job g's copies into raw slot g % RS, as one group
-      if (g < total) {
+    // FULL: rows of D columns (d = D), copied with no column clamp (held at
+    // run time it cost these producers, which pace the kernel, 4-8%)
+    auto produce = [&](auto whole) {
+      constexpr bool FULL = decltype(whole)::value;
+      constexpr int RS = L::RS;
+      const int pt = tid - 128;
+      const View qv{q + bi * qst.b + h * qst.h, qst.s, Sq, d, (vec & 1) != 0};
+      const View kvw{k + bi * kst.b + kvh * kst.h, kst.s, Skv, d, (vec & 2) != 0};
+      const View vv{v + bi * vst.b + kvh * vst.h, vst.s, Skv, d, (vec & 4) != 0};
+      const int jobs0 = NCH + 2 * NCH * (te0 - tb0);
+      const int total = jobs0 + (passes > 1 ? NCH + 2 * NCH * (te1 - tb1) : 0);
+      // the terms' writes, visible to the tensor cores, then one arrive a warp
+      auto arrive = [&](uint64_t* bar) {
+        hopper::fence_proxy_async();
+        __syncwarp();
+        if (lane == 0) hopper::mbar_arrive(bar);
+      };
+      auto issue = [&](int g) {  // job g's copies into raw slot g % RS, as one group
+        if (g < total) {
+          const bool second = g >= jobs0;
+          const int j = g - (second ? jobs0 : 0);
+          float* dst = raw + (g % RS) * (L::RAW / 4);
+          if (j < NCH) {
+            copy_rows<NC, FULL>(dst, qv, second ? q01 : q00, j * NC, pt);
+          } else {
+            const int t = (second ? tb1 : tb0) + (j - NCH) / (2 * NCH);
+            const int c = (j - NCH) % (2 * NCH);
+            if (c < NCH) copy_rows<NC, FULL>(dst, kvw, t * BKV, c * NC, pt);
+            else copy_cols<NC, FULL>(dst, vv, t * BKV, (c - NCH) * NC, pt);
+          }
+        }
+        hopper::cp_async_commit();
+      };
+#pragma unroll
+      for (int g = 0; g < RS - 1; ++g) issue(g);
+      for (int g = 0; g < total; ++g) {
+        hopper::named_sync(1, PT);  // every producer is done with job g - 1's slot
+        issue(g + RS - 1);
+        hopper::cp_async_wait<RS - 1>();  // job g's copies (this thread's) have landed
+        const float* src = raw + (g % RS) * (L::RAW / 4);
         const bool second = g >= jobs0;
         const int j = g - (second ? jobs0 : 0);
-        float* dst = raw + (g % RS) * (L::RAW / 4);
-        if (j < NCH) {
-          copy_rows<NC>(dst, qv, second ? q01 : q00, j * NC, pt);
-        } else {
-          const int t = (second ? tb1 : tb0) + (j - NCH) / (2 * NCH), c = (j - NCH) % (2 * NCH);
-          if (c < NCH) copy_rows<NC>(dst, kvw, t * BKV, c * NC, pt);
-          else copy_cols<NC>(dst, vv, t * BKV, (c - NCH) * NC, pt);
+        if (j < NCH) {  // Q's chunk j, once the last pass is done with Q
+          if (j == 0) hopper::mbar_wait(qempty, second ? 0 : 1);
+          put_rows<NC>(qs, qs + QT, src, j * NC, pt);
+          if (j == NCH - 1) arrive(qfull);
+          continue;
         }
+        const int rj = j - NCH + (second ? jobs0 - NCH : 0);  // the ring's job count
+        const int s = rj % STAGES;
+        hopper::mbar_wait(&empty[s], ((rj / STAGES) & 1) ^ 1);
+        unsigned char* slot = ring + s * SLOT;
+        if ((j - NCH) % (2 * NCH) < NCH) put_rows<NC>(slot, slot + KT, src, 0, pt);
+        else put_cols<NC>(slot, slot + VT, src, pt);
+        arrive(&full[s]);
       }
-      hopper::cp_async_commit();
     };
-#pragma unroll
-    for (int g = 0; g < RS - 1; ++g) issue(g);
-    for (int g = 0; g < total; ++g) {
-      hopper::named_sync(1, PT);  // every producer is done with job g - 1's slot
-      issue(g + RS - 1);
-      hopper::cp_async_wait<RS - 1>();  // job g's copies (this thread's) have landed
-      const float* src = raw + (g % RS) * (L::RAW / 4);
-      const bool second = g >= jobs0;
-      const int j = g - (second ? jobs0 : 0);
-      if (j < NCH) {  // Q's chunk j, once the last pass is done with Q
-        if (j == 0) hopper::mbar_wait(qempty, second ? 0 : 1);
-        put_rows<NC>(qs, qs + QT, src, j * NC, pt);
-        if (j == NCH - 1) arrive(qfull);
-        continue;
-      }
-      const int rj = j - NCH + (second ? jobs0 - NCH : 0);  // the ring's job count
-      const int s = rj % STAGES;
-      hopper::mbar_wait(&empty[s], ((rj / STAGES) & 1) ^ 1);
-      unsigned char* slot = ring + s * SLOT;
-      if ((j - NCH) % (2 * NCH) < NCH) put_rows<NC>(slot, slot + KT, src, 0, pt);
-      else put_cols<NC>(slot, slot + VT, src, pt);
-      arrive(&full[s]);
-    }
+#ifdef REPRO_FLASH_FULL_ONLY  // the FULL loop alone, for ptxas's report of it
+    produce(std::true_type());
+#else
+    if (d == D) produce(std::true_type());
+    else produce(std::false_type());
+#endif
     return;
   }
 
@@ -1119,7 +1181,7 @@ kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __
 
 template <int D>
 cudaError_t launch(const float* q, const float* k, const float* v, float* o, int B, int H,
-                   int Kv, int Sq, int Skv, const Strides* st, int causal, int window,
+                   int Kv, int Sq, int Skv, int d, const Strides* st, int causal, int window,
                    float softcap, float scale, cudaStream_t stream) {
   using L = Layout<D>;
   static bool smem_set = false;
@@ -1133,7 +1195,7 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* o, int
                   ((reinterpret_cast<uintptr_t>(o) & 7) == 0 && st[3].b % 2 == 0 &&
                    st[3].h % 2 == 0 && st[3].s % 2 == 0) << 3;
   dim3 grid(((Sq + BQ - 1) / BQ + 1) / 2, H, B);
-  kernel<D><<<grid, THREADS, L::SMEM, stream>>>(q, k, v, o, H, Kv, Sq, Skv, st[0], st[1],
+  kernel<D><<<grid, THREADS, L::SMEM, stream>>>(q, k, v, o, H, Kv, Sq, Skv, d, st[0], st[1],
                                                    st[2], st[3], causal, window, softcap, scale,
                                                    vec);
   return cudaGetLastError();
@@ -1141,39 +1203,44 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* o, int
 
 }  // namespace tf32x3
 
-bool valid(int B, int H, int Kv, int Sq, int Skv) {
+bool valid(int B, int H, int Kv, int Sq, int Skv, int D) {
   return B > 0 && H > 0 && Kv > 0 && H % Kv == 0 && Sq > 0 && Skv > 0 && B <= 65535 &&
-         H <= 65535;
+         H <= 65535 && D >= 1 && D <= 256;
 }
 
 }  // namespace
 
-// q (B,H,Sq,D), k/v (B,Kv,Skv,D), o (B,H,Sq,D) as strided bf16 views whose
-// last dim is contiguous; strides = 12 element strides (batch, head, seq) of
-// q, k, v, o in that order. Each entry launches one variant on `stream` and
+// q (B,H,Sq,D), k/v (B,Kv,Skv,D), o (B,H,Sq,Dp) as strided views whose last
+// dim is contiguous; Dp: the compiled width the caller runs D at and
+// allocated o's rows with (kernels/flash_attention.py ``padded_dim``), 16,
+// 32, 64, 128 or 256 and at least D (o's columns past D are written too,
+// so the store needs no column guard: one made ptxas spill in the served
+// instances); strides = 12 element strides (batch, head, seq) of q, k, v, o
+// in that order. Each entry launches one variant on `stream` and
 // returns cudaGetLastError() (cudaErrorInvalidValue for what it does not take).
 
-// wgmma: D in {16, 32, 64, 128, 256}, any strides of q, k, v: what a tensor
-// map reads (a 16-byte aligned pointer, strides positive multiples of 8)
-// comes by TMA, the rest is copied by the producer warps
+// wgmma: any D in 1..256 (run at Dp, the columns past D zeros),
+// any strides of q, k, v: what a tensor map reads (a 16-byte aligned pointer,
+// strides positive multiples of 8) comes by TMA, the rest is copied by the
+// producer warps
 extern "C" int flash_attention_wgmma_bf16(const void* q, const void* k, const void* v, void* o,
                                           int B, int H, int Kv, int Sq, int Skv, int D,
-                                          const long long* strides, int causal, int window,
+                                          int Dp, const long long* strides, int causal, int window,
                                           float softcap, float scale, void* stream) {
   using namespace tc;
-  if (!valid(B, H, Kv, Sq, Skv)) return (int)cudaErrorInvalidValue;
+  if (!valid(B, H, Kv, Sq, Skv, D) || Dp < D) return (int)cudaErrorInvalidValue;
   Strides st[4];
   for (int i = 0; i < 4; ++i) st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
   const bf16* ptrs[3] = {static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                          static_cast<const bf16*>(v)};
   bf16* op = static_cast<bf16*>(o);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16: return (int)launch_any<16>(ptrs, op, B, H, Kv, Sq, Skv, st, causal, window, softcap, scale, s);
-    case 32: return (int)launch_any<32>(ptrs, op, B, H, Kv, Sq, Skv, st, causal, window, softcap, scale, s);
-    case 64: return (int)launch_any<64>(ptrs, op, B, H, Kv, Sq, Skv, st, causal, window, softcap, scale, s);
-    case 128: return (int)launch_any<128>(ptrs, op, B, H, Kv, Sq, Skv, st, causal, window, softcap, scale, s);
-    case 256: return (int)launch_any<256>(ptrs, op, B, H, Kv, Sq, Skv, st, causal, window, softcap, scale, s);
+  switch (Dp) {
+    case 16: return (int)launch_any<16>(ptrs, op, B, H, Kv, Sq, Skv, D, st, causal, window, softcap, scale, s);
+    case 32: return (int)launch_any<32>(ptrs, op, B, H, Kv, Sq, Skv, D, st, causal, window, softcap, scale, s);
+    case 64: return (int)launch_any<64>(ptrs, op, B, H, Kv, Sq, Skv, D, st, causal, window, softcap, scale, s);
+    case 128: return (int)launch_any<128>(ptrs, op, B, H, Kv, Sq, Skv, D, st, causal, window, softcap, scale, s);
+    case 256: return (int)launch_any<256>(ptrs, op, B, H, Kv, Sq, Skv, D, st, causal, window, softcap, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1189,25 +1256,26 @@ extern "C" int flash_attention_copied(const void* q, const void* k, const void* 
   return tc::copied_operands(ptrs, st);
 }
 
-// fp32: fp32 q, k, v, o; D in {16, 32, 64, 128, 256}, any strides
+// fp32: fp32 q, k, v, o; any D in 1..256 (run at Dp, the columns past D
+// zeros), any strides
 extern "C" int flash_attention_fp32(const void* q, const void* k, const void* v, void* o, int B,
-                                    int H, int Kv, int Sq, int Skv, int D,
+                                    int H, int Kv, int Sq, int Skv, int D, int Dp,
                                     const long long* strides, int causal, int window,
                                     float softcap, float scale, void* stream) {
   using namespace tf32x3;
-  if (!valid(B, H, Kv, Sq, Skv)) return (int)cudaErrorInvalidValue;
+  if (!valid(B, H, Kv, Sq, Skv, D) || Dp < D) return (int)cudaErrorInvalidValue;
   Strides st[4];
   for (int i = 0; i < 4; ++i) st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
   const float *qp = static_cast<const float*>(q), *kp = static_cast<const float*>(k);
   const float* vp = static_cast<const float*>(v);
   float* op = static_cast<float*>(o);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16: return (int)launch<16>(qp, kp, vp, op, B, H, Kv, Sq, Skv, st, causal, window, softcap, scale, s);
-    case 32: return (int)launch<32>(qp, kp, vp, op, B, H, Kv, Sq, Skv, st, causal, window, softcap, scale, s);
-    case 64: return (int)launch<64>(qp, kp, vp, op, B, H, Kv, Sq, Skv, st, causal, window, softcap, scale, s);
-    case 128: return (int)launch<128>(qp, kp, vp, op, B, H, Kv, Sq, Skv, st, causal, window, softcap, scale, s);
-    case 256: return (int)launch<256>(qp, kp, vp, op, B, H, Kv, Sq, Skv, st, causal, window, softcap, scale, s);
+  switch (Dp) {
+    case 16: return (int)launch<16>(qp, kp, vp, op, B, H, Kv, Sq, Skv, D, st, causal, window, softcap, scale, s);
+    case 32: return (int)launch<32>(qp, kp, vp, op, B, H, Kv, Sq, Skv, D, st, causal, window, softcap, scale, s);
+    case 64: return (int)launch<64>(qp, kp, vp, op, B, H, Kv, Sq, Skv, D, st, causal, window, softcap, scale, s);
+    case 128: return (int)launch<128>(qp, kp, vp, op, B, H, Kv, Sq, Skv, D, st, causal, window, softcap, scale, s);
+    case 256: return (int)launch<256>(qp, kp, vp, op, B, H, Kv, Sq, Skv, D, st, causal, window, softcap, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -27,10 +27,27 @@
 // the operations bound it at three TF32 products' rate (5.64 GFLOP at
 // chunks of 64: 34 µs at 165 TFLOP/s, against 18 µs for its 61 MB).
 //
-// Three variants, picked by the wrapper (kernels/ssd_scan.py ``variant``):
+// Two variants, picked by the wrapper (kernels/ssd_scan.py ``variant``) from
+// the dtype, both at any P, any N and any strides. N is split across blocks:
+// ns = ceil(N / 256) slices of Ns = 64·ceil(N / (64·ns)) columns each
+// (the wrapper's ``n_slices``, ``slice_width``: it passes ns and Ns, which
+// also size its scratch, and the entries check that they cover N and fit a
+// block), one slice a block, since a block's state
+// (32 columns of P x Ns, fp32) lives in its warpgroup's registers and a
+// chunk's B and C tiles grow with N. Every sum over N is linear: the scores
+// C·Bᵀ and the state term C·h are sums over the slices, and a slice's
+// columns of h are updated from its columns of B alone. So a block runs the
+// kernel below on the columns [n0, n0 + Ns) of B, C and the states (TMA's or
+// the copier's zero fill past N) and writes its partial y into fp32 scratch
+// (ns, B, S, H, P) that the wrapper allocates; a second launch
+// (``sum_slices``) adds the partials in slice order (no atomics: reruns stay
+// bit-identical). Up to N = 256 there is one slice, y is written directly
+// and nothing else runs. Above, each slice's block recomputes the chunk's
+// decays and reads x again, and the partials move 2·ns·4 bytes a y element
+// beyond the bound's (written, then read by sum_slices).
 //
-// * wgmma (bf16 x/B/C, any P, N up to 256, any strides; the main path).
-//   N is padded to a multiple of 64 and the last 32-column slice of P
+// * wgmma (bf16 x/B/C; the main path). A slice's N is padded to a multiple
+//   of 64 and the last 32-column slice of P
 //   masked by TMA's zero fill (zero columns of B and C leave C·Bᵀ and the
 //   real state unchanged; only real columns are stored); an operand TMA
 //   cannot read (a pointer off 16 bytes, a stride not a positive multiple
@@ -74,7 +91,7 @@
 //   PyTorch: tests/test_torch_ssm.py holds it to the tolerance against the
 //   reference's Pallas kernel and shows that each of the three lo terms is
 //   needed. Every sum has a fixed order: reruns are bit-identical.
-// * tf32 (fp32 x/B/C, any P, N up to 256, any strides): the same schedule
+// * tf32 (fp32 x/B/C): the same schedule
 //   (one warpgroup per (b, h, 32 columns of P), chunks of 64, cs in the
 //   log2 domain, hᵀ in registers) with every product in 3xTF32 on wgmma:
 //   each fp32 operand a TF32 big and small term, three products a pair
@@ -91,11 +108,6 @@
 //   memory, two blocks an SM. kernels/ssd_ref.py ``ssd_scan_tf32x3_ref`` is
 //   this arithmetic in PyTorch (held against the Pallas kernel; each small
 //   term shown needed).
-// * fma (N above 256, whose state no longer fits a warpgroup's registers at
-//   32 columns of P): the first port's kernel. One block per (b, h) loops
-//   over chunks of 32 steps with the (P, N) state in shared memory; its
-//   products are fp32 FMAs on the CUDA cores out of shared memory, rows
-//   padded to an odd stride.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -111,205 +123,6 @@ namespace {
 struct Strides {
   long long x_b, x_s, x_h, dt_b, dt_s, dt_h, bm_b, bm_s, cm_b, cm_s;
 };
-
-// ===========================================================================
-// fma: the first port's kernel, fp32 FMAs on the CUDA cores
-// ===========================================================================
-namespace simt {
-
-constexpr int L = 32;          // steps per chunk: one warp scans the decay
-constexpr int NTHREADS = 256;  // 8 warps
-constexpr int NWARPS = NTHREADS / 32;
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(bf16 v) { return __bfloat162float(v); }
-
-// out[m, n] for m < M, n < NN, each thread owning the outputs at rows
-// warp + i·NWARPS and columns lane + j·32 of each (RM·NWARPS) x (RN·32) tile:
-//   acc = Σ_k a(m, k)·b(k, n)  +  Σ_k a2(m, k)·b2(k, n)
-// over k < K and k < K2, with a(m, k) = a[m·am + k·ak] and
-// b(k, n) = b[k·bk + n·bn] (a2, b2 alike); within a warp a is a broadcast
-// and b runs over consecutive n. The sums go to epi(m, n, acc).
-struct Operand {
-  const float* p;
-  int s0, s1;  // strides of its two indices
-  __device__ __forceinline__ float operator()(int i, int j) const { return p[i * s0 + j * s1]; }
-};
-
-template <int RM, int RN, typename Epi>
-__device__ __forceinline__ void smem_gemm(int M, int NN, int K, Operand a, Operand b, int K2,
-                                          Operand a2, Operand b2, Epi epi) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int m0 = 0; m0 < M; m0 += RM * NWARPS) {
-    for (int n0 = 0; n0 < NN; n0 += RN * 32) {
-      float acc[RM][RN];
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < RN; ++j) acc[i][j] = 0.f;
-      int mi[RM], nj[RN];  // clamped in range; the epilogue drops the clamped ones
-#pragma unroll
-      for (int i = 0; i < RM; ++i) mi[i] = min(m0 + warp + i * NWARPS, M - 1);
-#pragma unroll
-      for (int j = 0; j < RN; ++j) nj[j] = min(n0 + lane + j * 32, NN - 1);
-      for (int k = 0; k < K; ++k) {
-        float av[RM], bv[RN];
-#pragma unroll
-        for (int i = 0; i < RM; ++i) av[i] = a(mi[i], k);
-#pragma unroll
-        for (int j = 0; j < RN; ++j) bv[j] = b(k, nj[j]);
-#pragma unroll
-        for (int i = 0; i < RM; ++i)
-#pragma unroll
-          for (int j = 0; j < RN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
-      for (int k = 0; k < K2; ++k) {
-        float av[RM], bv[RN];
-#pragma unroll
-        for (int i = 0; i < RM; ++i) av[i] = a2(mi[i], k);
-#pragma unroll
-        for (int j = 0; j < RN; ++j) bv[j] = b2(k, nj[j]);
-#pragma unroll
-        for (int i = 0; i < RM; ++i)
-#pragma unroll
-          for (int j = 0; j < RN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
-#pragma unroll
-      for (int i = 0; i < RM; ++i) {
-        const int m = m0 + warp + i * NWARPS;
-#pragma unroll
-        for (int j = 0; j < RN; ++j) {
-          const int n = n0 + lane + j * 32;
-          if (m < M && n < NN) epi(m, n, acc[i][j]);
-        }
-      }
-    }
-  }
-}
-
-__host__ __device__ constexpr int odd(int n) { return n | 1; }
-
-// Shared memory of one block, in floats: the state h (P x NP), the chunk's
-// dt-weighted inputs xw (L x P), B and C (L x NP each), the scores G (L x L),
-// and the chunk's decay cs (L).
-__host__ __device__ inline size_t smem_floats(int P, int N) {
-  const int NP = odd(N);
-  return (size_t)P * NP + (size_t)L * P + 2 * (size_t)L * NP + L * L + L;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(NTHREADS, 2)
-ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-                const float* __restrict__ A, const T* __restrict__ Bm, const T* __restrict__ Cm,
-                const float* __restrict__ h0, float* __restrict__ y, float* __restrict__ hT,
-                int S, int H, int P, int N, Strides st) {
-  extern __shared__ __align__(16) float smem[];
-  const int NP = odd(N);
-  float* hs = smem;              // (P, NP): h[p][n]
-  float* xw = hs + P * NP;       // (L, P):  dt_s·x_s
-  float* bs = xw + L * P;        // (L, NP): B_s, later exp(cs_L − cs_s)·B_s
-  float* cs_mat = bs + L * NP;   // (L, NP): C_q, later exp(cs_q)·C_q
-  float* g = cs_mat + L * NP;    // (L, L):  masked, decayed C_q·B_s
-  float* cs = g + L * L;         // (L):     inclusive cumsum of dt·A
-
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int tid = threadIdx.x;
-  const float a_h = A[h];
-  const size_t state_off = ((size_t)b * H + h) * P * N;
-
-  for (int i = tid; i < P * N; i += NTHREADS) {
-    const int p = i / N, n = i % N;
-    hs[p * NP + n] = h0 ? h0[state_off + i] : 0.f;
-  }
-
-  const T* xb = x + b * st.x_b + h * st.x_h;
-  const float* dtb = dt + b * st.dt_b + h * st.dt_h;
-  const T* bb = Bm + b * st.bm_b;
-  const T* cb = Cm + b * st.cm_b;
-
-  for (int t0 = 0; t0 < S; t0 += L) {
-    // ---- load the chunk; steps past S are zero (dt = 0: state unchanged)
-    if (tid < 32) {
-      const int t = t0 + tid;
-      const float d = t < S ? dtb[t * st.dt_s] : 0.f;
-      float c = d * a_h;  // inclusive warp scan of la
-#pragma unroll
-      for (int off = 1; off < 32; off *= 2) {
-        const float v = __shfl_up_sync(0xffffffffu, c, off);
-        if (tid >= off) c += v;
-      }
-      cs[tid] = c;
-    }
-    for (int i = tid; i < L * P; i += NTHREADS) {
-      const int s = i / P, p = i % P, t = t0 + s;
-      xw[i] = t < S ? to_float(xb[t * st.x_s + p]) * dtb[t * st.dt_s] : 0.f;
-    }
-    for (int i = tid; i < L * N; i += NTHREADS) {
-      const int s = i / N, n = i % N, t = t0 + s;
-      bs[s * NP + n] = t < S ? to_float(bb[t * st.bm_s + n]) : 0.f;
-      cs_mat[s * NP + n] = t < S ? to_float(cb[t * st.cm_s + n]) : 0.f;
-    }
-    __syncthreads();
-
-    // ---- scores: G[q][s] = (C_q·B_s)·exp(cs_q − cs_s) for s <= q, else 0
-    const Operand none{nullptr, 0, 0};
-    smem_gemm<L / NWARPS, 1>(L, L, N, {cs_mat, NP, 1}, {bs, 1, NP}, 0, none, none,
-                             [&](int q, int s, float v) {
-                               g[q * L + s] = s <= q ? v * expf(cs[q] - cs[s]) : 0.f;
-                             });
-    __syncthreads();
-
-    // ---- fold the decays into C (from the chunk start) and B (to its end)
-    const float total = cs[L - 1];
-    for (int i = tid; i < L * N; i += NTHREADS) {
-      const int s = i / N, n = i % N;
-      cs_mat[s * NP + n] *= expf(cs[s]);
-      bs[s * NP + n] *= expf(total - cs[s]);
-    }
-    __syncthreads();
-
-    // ---- y_q = Σ_s G[q][s]·xw_s + Σ_n exp(cs_q)·C_q[n]·h[·][n]
-    float* yb = y + (((size_t)b * S + t0) * H + h) * P;
-    const int rows = min(L, S - t0);
-    smem_gemm<L / NWARPS, 2>(rows, P, L, {g, L, 1}, {xw, P, 1}, N, {cs_mat, NP, 1}, {hs, 1, NP},
-                             [&](int q, int p, float v) { yb[(size_t)q * H * P + p] = v; });
-    __syncthreads();
-
-    // ---- h = exp(cs_L)·h + Σ_s xw_sᵀ·(exp(cs_L − cs_s)·B_s)
-    const float decay = expf(total);
-    smem_gemm<8, 4>(P, N, L, {xw, 1, P}, {bs, NP, 1}, 0, none, none,
-                    [&](int p, int n, float v) { hs[p * NP + n] = fmaf(decay, hs[p * NP + n], v); });
-    __syncthreads();
-  }
-
-  for (int i = tid; i < P * N; i += NTHREADS) {
-    const int p = i / N, n = i % N;
-    hT[state_off + i] = hs[p * NP + n];
-  }
-}
-
-template <typename T>
-cudaError_t launch(const void* x, const float* dt, const float* A, const void* Bm, const void* Cm,
-                   const float* h0, float* y, float* hT, int B, int S, int H, int P, int N,
-                   const Strides& st, cudaStream_t stream) {
-  const size_t smem = smem_floats(P, N) * sizeof(float);
-  if (smem > 227 * 1024) return cudaErrorInvalidValue;
-  // the attribute sticks to the function: raised to the largest size seen
-  static size_t allowed = 0;
-  if (smem > allowed && smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(ssd_scan_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-    allowed = smem;
-  }
-  dim3 grid(H, B);
-  ssd_scan_kernel<T><<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const T*>(x), dt, A, static_cast<const T*>(Bm), static_cast<const T*>(Cm), h0,
-      y, hT, S, H, P, N, st);
-  return cudaGetLastError();
-}
-
-}  // namespace simt
 
 // ===========================================================================
 // wgmma: TMA loads + warpgroup MMA with two-term bf16 splits
@@ -387,8 +200,8 @@ __global__ void __launch_bounds__(THREADS, 3)
 kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_b,
        const __grid_constant__ CUtensorMap tm_c, const float* __restrict__ dt,
        const float* __restrict__ A, const float* __restrict__ h0, float* __restrict__ y,
-       float* __restrict__ hT, int S, int H, int P, int N, const __grid_constant__ Strides st,
-       const __grid_constant__ Views vw) {
+       float* __restrict__ hT, int S, int H, int P, int N, int nps, long long y_slice,
+       const __grid_constant__ Strides st, const __grid_constant__ Views vw) {
   using Lay = Layout<NB, COPY>;
   const long long dt_b = st.dt_b, dt_s = st.dt_s, dt_h = st.dt_h;
   extern __shared__ unsigned char smem_raw[];
@@ -406,8 +219,11 @@ kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtenso
   auto cs = [&](int t) { return cs_dt[(t / 2) * 4 + t % 2]; };
   auto dts = [&](int t) { return cs_dt[(t / 2) * 4 + 2 + t % 2]; };
 
+  // block (P slice, N slice sl, h, b): columns [p0, p0 + 32) of P and
+  // [n0, n0 + 64·NB) of N; its y (partial above one slice) y_slice·sl on
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int p0 = blockIdx.x * PS, h = blockIdx.y, b = blockIdx.z;
+  const int sl = blockIdx.x / nps, p0 = (blockIdx.x % nps) * PS, n0 = sl * 64 * NB;
+  const int h = blockIdx.y, b = blockIdx.z;
   const int nc = (S + Q - 1) / Q;
 
   // x, B, C of chunk c by TMA (steps past S, columns past P and N arrive as
@@ -424,7 +240,7 @@ kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtenso
     const bool isb = j <= NB;
     return hopper::atile::Box{{isb ? vw.bm + b * st.bm_b : vw.cm + b * st.cm_b, S, N,
                                (int)(isb ? st.bm_s : st.cm_s)},
-                              c * Q, 64 * k, Q, 64, (isb ? bs : cs_tile) + k * BOX,
+                              c * Q, n0 + 64 * k, Q, 64, (isb ? bs : cs_tile) + k * BOX,
                               stg + Lay::X_STG + (j - 1) * Lay::B_STG, true};
   };
   auto copied = [&](int j) { return (cp >> (j == 0 ? 0 : j <= NB ? 1 : 2)) & 1; };
@@ -435,8 +251,9 @@ kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtenso
       if (!(cp & 1)) hopper::tma_load_4d(xs, &tm_x, full, p0, c * Q, h, b);
 #pragma unroll
       for (int k = 0; k < NB; ++k) {
-        if (!(cp & 2)) hopper::tma_load_3d(bs + k * BOX, &tm_b, full, 64 * k, c * Q, b);
-        if (!(cp & 4)) hopper::tma_load_3d(cs_tile + k * BOX, &tm_c, full, 64 * k, c * Q, b);
+        if (!(cp & 2)) hopper::tma_load_3d(bs + k * BOX, &tm_b, full, n0 + 64 * k, c * Q, b);
+        if (!(cp & 4))
+          hopper::tma_load_3d(cs_tile + k * BOX, &tm_c, full, n0 + 64 * k, c * Q, b);
       }
     }
     if constexpr (COPY) {
@@ -477,13 +294,14 @@ kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtenso
   const int r0 = warp * 16 + lane / 4, cq = 2 * (lane % 4);
   const size_t state_off = ((size_t)b * H + h) * P * N;
 
-  // hᵀ (N x 32, fp32): fragment ti holds n in [64 ti, 64 ti + 64), p in [p0, p0 + 32)
+  // hᵀ (64·NB x 32, fp32): fragment ti holds n in n0 + [64 ti, 64 ti + 64), p
+  // in [p0, p0 + 32)
   float hacc[NB][16];
 #pragma unroll
   for (int ti = 0; ti < NB; ++ti)
 #pragma unroll
     for (int e = 0; e < 16; ++e) {
-      const int n = 64 * ti + r0 + 8 * ((e % 4) / 2), p = p0 + 8 * (e / 4) + cq + e % 2;
+      const int n = n0 + 64 * ti + r0 + 8 * ((e % 4) / 2), p = p0 + 8 * (e / 4) + cq + e % 2;
       hacc[ti][e] = h0 && p < P && n < N ? h0[state_off + (size_t)p * N + n] : 0.f;
     }
   float sacc[32], yacc[16];
@@ -497,7 +315,7 @@ kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtenso
   const uint64_t dh = hopper::make_desc(hbuf, 16, 1024, 1);      // K-major, 128-byte rows
   const uint64_t dx = hopper::make_desc(xs, X_TILE, 512, 2);     // MN-major, 64-byte rows
   const uint64_t dxw = hopper::make_desc(xwbuf, X_TILE, 512, 2); // MN-major, 64-byte rows
-  float* yb = y + ((size_t)b * S * H + h) * P + p0;
+  float* yb = y + sl * y_slice + ((size_t)b * S * H + h) * P + p0;
 
   for (int c = 0; c < nc; ++c) {
     if (warp == 0) {  // cs, the inclusive sum of la over the chunk
@@ -670,7 +488,7 @@ kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtenso
   for (int ti = 0; ti < NB; ++ti)
 #pragma unroll
     for (int e = 0; e < 16; ++e) {
-      const int n = 64 * ti + r0 + 8 * ((e % 4) / 2), p = p0 + 8 * (e / 4) + cq + e % 2;
+      const int n = n0 + 64 * ti + r0 + 8 * ((e % 4) / 2), p = p0 + 8 * (e / 4) + cq + e % 2;
       if (p < P && n < N) hT[state_off + (size_t)p * N + n] = hacc[ti][e];
     }
 }
@@ -684,11 +502,13 @@ int copied_operands(const void* x, const void* Bm, const void* Cm, const Strides
 
 // x (B,S,H,P) as a 4-D map {P, S, H, B}, 32 x 64 boxes; Bm, Cm (B,S,N) as
 // 3-D maps {N, S, B}, 64 x 64 boxes (boxes past P and N zero-filled); the
-// operands TMA cannot read copied (COPY)
+// operands TMA cannot read copied (COPY); ns slices of N (y: their partials,
+// y_slice apart, when ns > 1)
 template <int NB>
 cudaError_t launch(const bf16* x, const float* dt, const float* A, const bf16* Bm,
                    const bf16* Cm, const float* h0, float* y, float* hT, int B, int S, int H,
-                   int P, int N, const Strides& st, cudaStream_t stream) {
+                   int P, int N, int ns, long long y_slice, const Strides& st,
+                   cudaStream_t stream) {
   const Views vw{x, Bm, Cm, copied_operands(x, Bm, Cm, st)};
   CUtensorMap mx, mb, mc;
   memset(&mx, 0, sizeof(mx));
@@ -715,20 +535,21 @@ cudaError_t launch(const bf16* x, const float* dt, const float* A, const bf16* B
         cudaSuccess)
       return e;
   }
-  dim3 grid((P + PS - 1) / PS, H, B);
+  const int nps = (P + PS - 1) / PS;
+  dim3 grid(nps * ns, H, B);
   if (vw.copied) {
     static bool smem_set = false;
     if ((e = hopper::allow_smem(kernel<NB, true>, Layout<NB, true>::SMEM, smem_set)) != cudaSuccess)
       return e;
     kernel<NB, true><<<grid, THREADS, Layout<NB, true>::SMEM, stream>>>(
-        mx, mb, mc, dt, A, h0, y, hT, S, H, P, N, st, vw);
+        mx, mb, mc, dt, A, h0, y, hT, S, H, P, N, nps, y_slice, st, vw);
   } else {
     static bool smem_set = false;
     if ((e = hopper::allow_smem(kernel<NB, false>, Layout<NB, false>::SMEM, smem_set)) !=
         cudaSuccess)
       return e;
     kernel<NB, false><<<grid, THREADS, Layout<NB, false>::SMEM, stream>>>(
-        mx, mb, mc, dt, A, h0, y, hT, S, H, P, N, st, vw);
+        mx, mb, mc, dt, A, h0, y, hT, S, H, P, N, nps, y_slice, st, vw);
   }
   return cudaGetLastError();
 }
@@ -877,8 +698,8 @@ template <int NB>
 __global__ void __launch_bounds__(THREADS, 2)
 kernel(const float* __restrict__ x, const float* __restrict__ dt, const float* __restrict__ A,
        const float* __restrict__ Bm, const float* __restrict__ Cm, const float* __restrict__ h0,
-       float* __restrict__ y, float* __restrict__ hT, int S, int H, int P, int N,
-       const __grid_constant__ Strides st, int vec) {
+       float* __restrict__ y, float* __restrict__ hT, int S, int H, int P, int N, int nps,
+       long long y_slice, const __grid_constant__ Strides st, int vec) {
   using L = Layout;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base =
@@ -895,17 +716,20 @@ kernel(const float* __restrict__ x, const float* __restrict__ dt, const float* _
   auto cs = [&](int t) { return cs_dt[(t / 2) * 4 + t % 2]; };
   auto dts = [&](int t) { return cs_dt[(t / 2) * 4 + 2 + t % 2]; };
 
+  // block (P slice, N slice sl, h, b), as tc's
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int p0 = blockIdx.x * PS, h = blockIdx.y, b = blockIdx.z;
+  const int sl = blockIdx.x / nps, p0 = (blockIdx.x % nps) * PS, ns0 = sl * 64 * NB;
+  const int h = blockIdx.y, b = blockIdx.z;
   const int nc = (S + Q - 1) / Q;
   const float* xb = x + b * st.x_b + h * st.x_h;
   const float* bb = Bm + b * st.bm_b;
   const float* cb = Cm + b * st.cm_b;
 
-  // block u = c·NB + k of B or C (steps c·Q + [0, Q), columns 64k + [0, 64)
-  // of N), and chunk c's x (columns p0 + [0, 32) of P), each one commit group
+  // block u = c·NB + k of B or C (steps c·Q + [0, Q), columns ns0 + 64k + [0,
+  // 64) of N, zeros past N), and chunk c's x (columns p0 + [0, 32) of P),
+  // each one commit group
   auto load_bc = [&](float* dst, const float* m, long long pitch, int u, bool v) {
-    const int t0 = (u / NB) * Q, n0 = 64 * (u % NB);
+    const int t0 = (u / NB) * Q, n0 = ns0 + 64 * (u % NB);
     for (int e = opaque(tid); e < Q * 16; e += THREADS) {
       const int row = e / 16, col = 4 * (e % 16), t = t0 + row, n = n0 + col;
       copy4(dst + raw_at<64>(row, col), m + (size_t)min(t, S - 1) * pitch + min(n, N - 1),
@@ -932,13 +756,14 @@ kernel(const float* __restrict__ x, const float* __restrict__ dt, const float* _
   const float la_h = A[h] * LOG2E;
   const float* dtb = dt + b * st.dt_b + h * st.dt_h;
 
-  // hᵀ (N x 32, fp32): fragment k holds n in [64k, 64k + 64), p in [p0, p0 + 32)
+  // hᵀ (64·NB x 32, fp32): fragment k holds n in ns0 + [64k, 64k + 64), p in
+  // [p0, p0 + 32)
   float hacc[NB][16];
 #pragma unroll
   for (int k = 0; k < NB; ++k)
 #pragma unroll
     for (int e = 0; e < 16; ++e) {
-      const int n = 64 * k + r0 + 8 * ((e % 4) / 2), p = p0 + 8 * (e / 4) + cq + e % 2;
+      const int n = ns0 + 64 * k + r0 + 8 * ((e % 4) / 2), p = p0 + 8 * (e / 4) + cq + e % 2;
       hacc[k][e] = h0 && p < P && n < N ? h0[state_off + (size_t)p * N + n] : 0.f;
     }
   float sacc[32], yacc[16], tacc[16];
@@ -949,7 +774,7 @@ kernel(const float* __restrict__ x, const float* __restrict__ dt, const float* _
   const uint64_t dhs = hopper::make_desc(hterm + L::PT, 16, 1024, 1);
   const uint64_t dwb = hopper::make_desc(xwterm, 16, 1024, 1);
   const uint64_t dws = hopper::make_desc(xwterm + L::PT, 16, 1024, 1);
-  float* yb = y + ((size_t)b * S * H + h) * P + p0;
+  float* yb = y + sl * y_slice + ((size_t)b * S * H + h) * P + p0;
   const int total = nc * NB;
   // warp 0's dt of steps 2·lane and 2·lane + 1 of a chunk, one chunk ahead
   float d0n = 0.f, d1n = 0.f;
@@ -1142,7 +967,7 @@ kernel(const float* __restrict__ x, const float* __restrict__ dt, const float* _
   for (int k = 0; k < NB; ++k)
 #pragma unroll
     for (int e = 0; e < 16; ++e) {
-      const int n = 64 * k + r0 + 8 * ((e % 4) / 2), p = p0 + 8 * (e / 4) + cq + e % 2;
+      const int n = ns0 + 64 * k + r0 + 8 * ((e % 4) / 2), p = p0 + 8 * (e / 4) + cq + e % 2;
       if (p < P && n < N) hT[state_off + (size_t)p * N + n] = hacc[k][e];
     }
 }
@@ -1155,18 +980,21 @@ inline bool rows16(const void* p, std::initializer_list<long long> strides) {
   return true;
 }
 
+// ns slices of N (y: their partials, y_slice apart, when ns > 1)
 template <int NB>
 cudaError_t launch(const float* x, const float* dt, const float* A, const float* Bm,
                    const float* Cm, const float* h0, float* y, float* hT, int B, int S, int H,
-                   int P, int N, const Strides& st, cudaStream_t stream) {
+                   int P, int N, int ns, long long y_slice, const Strides& st,
+                   cudaStream_t stream) {
   static bool smem_set = false;
   cudaError_t e = hopper::allow_smem(kernel<NB>, Layout::SMEM, smem_set);
   if (e != cudaSuccess) return e;
   const int vec = rows16(x, {st.x_b, st.x_s, st.x_h}) | rows16(Bm, {st.bm_b, st.bm_s}) << 1 |
                   rows16(Cm, {st.cm_b, st.cm_s}) << 2;
-  dim3 grid((P + PS - 1) / PS, H, B);
+  const int nps = (P + PS - 1) / PS;
+  dim3 grid(nps * ns, H, B);
   kernel<NB><<<grid, THREADS, Layout::SMEM, stream>>>(x, dt, A, Bm, Cm, h0, y, hT, S, H, P, N,
-                                                      st, vec);
+                                                      nps, y_slice, st, vec);
   return cudaGetLastError();
 }
 
@@ -1180,55 +1008,94 @@ Strides strides_of(const long long* s) {
   return Strides{s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], s[9]};
 }
 
+// y = Σ_s part[s] over ns slices of n values, added in slice order (16-byte
+// loads and stores where n % 4 == 0)
+__global__ void __launch_bounds__(256)
+sum_slices(const float* __restrict__ part, float* __restrict__ y, long long n, int ns) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (n % 4 == 0) {
+    const float4* p4 = reinterpret_cast<const float4*>(part);
+    float4* y4 = reinterpret_cast<float4*>(y);
+    const long long n4 = n / 4;
+    for (long long i = first; i < n4; i += stride) {
+      float4 acc = p4[i];
+      for (int s = 1; s < ns; ++s) {
+        const float4 v = p4[s * n4 + i];
+        acc.x += v.x;
+        acc.y += v.y;
+        acc.z += v.z;
+        acc.w += v.w;
+      }
+      y4[i] = acc;
+    }
+    return;
+  }
+  for (long long i = first; i < n; i += stride) {
+    float acc = part[i];
+    for (int s = 1; s < ns; ++s) acc += part[s * n + i];
+    y[i] = acc;
+  }
+}
+
+// The scan over N's slices as the caller lays them out (kernels/ssd_scan.py
+// ``n_slices``, ``slice_width``): ns slices of Ns = 64·nb columns, nb 1 to 4,
+// each starting below N and all together covering it. run(nb, out, ns,
+// y_slice) launches the variant's instance nb: at one slice into y, else
+// into the partials (ns, B, S, H, P), n = B·S·H·P values apart, which
+// sum_slices then adds into y
+template <typename Run>
+cudaError_t run_split(int N, int ns, int Ns, float* y, float* partial, long long n,
+                      cudaStream_t stream, Run run) {
+  if (ns < 1 || Ns < 64 || Ns > 256 || Ns % 64 != 0 || (long long)ns * Ns < N ||
+      (long long)(ns - 1) * Ns >= N || (ns > 1 && partial == nullptr))
+    return cudaErrorInvalidValue;
+  cudaError_t e = run(Ns / 64, ns > 1 ? partial : y, ns, ns > 1 ? n : 0);
+  if (e != cudaSuccess || ns == 1) return e;
+  const long long units = (n % 4 == 0 ? n / 4 : n), per = 256;
+  const long long blocks = (units + per - 1) / per;
+  sum_slices<<<(int)(blocks < 132 * 16 ? blocks : 132 * 16), per, 0, stream>>>(partial, y, n, ns);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // x (B,S,H,P) with its last dim contiguous; dt (B,S,H) fp32; A (H,) fp32;
 // Bm, Cm (B,S,N) with their last dim contiguous; strides (in elements):
 // x_b, x_s, x_h, dt_b, dt_s, dt_h, bm_b, bm_s, cm_b, cm_s. h0 (B,H,P,N) fp32
 // contiguous, or null for a zero state. y (B,S,H,P) and hT (B,H,P,N): fp32,
-// contiguous. Each entry launches one variant on `stream` and returns
-// cudaGetLastError() (cudaErrorInvalidValue for what it does not take).
+// contiguous. ns slices of Ns columns of N (``run_split``); partial: fp32
+// scratch (ns, B, S, H, P) for ns > 1, else unused (may be null). Each entry
+// launches one variant on `stream` (and, above one slice, sum_slices after
+// it) and returns cudaGetLastError() (cudaErrorInvalidValue for what it
+// does not take).
 
-// fma: N above 256 (any P whose state fits a block's shared memory);
-// `bf16_inputs` says whether x, Bm and Cm are bf16 (else fp32)
-extern "C" int ssd_scan_fma(const void* x, const void* dt, const void* A, const void* Bm,
-                            const void* Cm, const void* h0, void* y, void* hT, int B, int S,
-                            int H, int P, int N, const long long* strides, int bf16_inputs,
-                            void* stream) {
-  if (!valid(B, S, H, P, N)) return (int)cudaErrorInvalidValue;
-  const float *dtp = static_cast<const float*>(dt), *ap = static_cast<const float*>(A);
-  const float* h0p = static_cast<const float*>(h0);
-  float *yp = static_cast<float*>(y), *hp = static_cast<float*>(hT);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Strides s = strides_of(strides);
-  if (bf16_inputs)
-    return (int)simt::launch<bf16>(x, dtp, ap, Bm, Cm, h0p, yp, hp, B, S, H, P, N, s, st);
-  return (int)simt::launch<float>(x, dtp, ap, Bm, Cm, h0p, yp, hp, B, S, H, P, N, s, st);
-}
-
-// wgmma: bf16 x, Bm, Cm; any P; N up to 256 (padded to a multiple of 64);
-// any strides: what a tensor map reads (a 16-byte aligned pointer, strides
-// positive multiples of 8 elements) by TMA, the rest copied; `bf16_inputs`
-// must be 1
+// wgmma: bf16 x, Bm, Cm; any P and N; any strides: what a tensor map reads
+// (a 16-byte aligned pointer, strides positive multiples of 8 elements) by
+// TMA, the rest copied; `bf16_inputs` must be 1
 extern "C" int ssd_scan_wgmma(const void* x, const void* dt, const void* A, const void* Bm,
-                              const void* Cm, const void* h0, void* y, void* hT, int B, int S,
-                              int H, int P, int N, const long long* strides, int bf16_inputs,
-                              void* stream) {
-  if (!valid(B, S, H, P, N) || !bf16_inputs || N > 256) return (int)cudaErrorInvalidValue;
+                              const void* Cm, const void* h0, void* y, void* hT, void* partial,
+                              int B, int S, int H, int P, int N, int ns, int Ns,
+                              const long long* strides, int bf16_inputs, void* stream) {
+  if (!valid(B, S, H, P, N) || !bf16_inputs) return (int)cudaErrorInvalidValue;
   const bf16 *xp = static_cast<const bf16*>(x), *bp = static_cast<const bf16*>(Bm);
   const bf16* cp = static_cast<const bf16*>(Cm);
   const float *dtp = static_cast<const float*>(dt), *ap = static_cast<const float*>(A);
   const float* h0p = static_cast<const float*>(h0);
-  float *yp = static_cast<float*>(y), *hp = static_cast<float*>(hT);
+  float* hp = static_cast<float*>(hT);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Strides s = strides_of(strides);
-  switch ((N + 63) / 64) {
-    case 1: return (int)tc::launch<1>(xp, dtp, ap, bp, cp, h0p, yp, hp, B, S, H, P, N, s, st);
-    case 2: return (int)tc::launch<2>(xp, dtp, ap, bp, cp, h0p, yp, hp, B, S, H, P, N, s, st);
-    case 3: return (int)tc::launch<3>(xp, dtp, ap, bp, cp, h0p, yp, hp, B, S, H, P, N, s, st);
-    case 4: return (int)tc::launch<4>(xp, dtp, ap, bp, cp, h0p, yp, hp, B, S, H, P, N, s, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return (int)run_split(N, ns, Ns, static_cast<float*>(y), static_cast<float*>(partial),
+                        (long long)B * S * H * P, st,
+                        [&](int nb, float* out, int ns, long long ys) {
+    switch (nb) {
+      case 1: return tc::launch<1>(xp, dtp, ap, bp, cp, h0p, out, hp, B, S, H, P, N, ns, ys, s, st);
+      case 2: return tc::launch<2>(xp, dtp, ap, bp, cp, h0p, out, hp, B, S, H, P, N, ns, ys, s, st);
+      case 3: return tc::launch<3>(xp, dtp, ap, bp, cp, h0p, out, hp, B, S, H, P, N, ns, ys, s, st);
+      case 4: return tc::launch<4>(xp, dtp, ap, bp, cp, h0p, out, hp, B, S, H, P, N, ns, ys, s, st);
+      default: return cudaErrorInvalidValue;
+    }
+  });
 }
 
 // the operands (bits 0, 1, 2: x, Bm, Cm) whose tiles ssd_scan_wgmma copies
@@ -1238,27 +1105,31 @@ extern "C" int ssd_scan_copied(const void* x, const void* Bm, const void* Cm,
   return tc::copied_operands(x, Bm, Cm, strides_of(strides));
 }
 
-// tf32: fp32 x, Bm, Cm; any P; N up to 256; any strides (16-byte copies
-// where rows are 16-byte aligned, 4-byte otherwise); `bf16_inputs` must be 0
+// tf32: fp32 x, Bm, Cm; any P and N; any strides (16-byte copies where rows
+// are 16-byte aligned, 4-byte otherwise); `bf16_inputs` must be 0
 extern "C" int ssd_scan_tf32(const void* x, const void* dt, const void* A, const void* Bm,
-                             const void* Cm, const void* h0, void* y, void* hT, int B, int S,
-                             int H, int P, int N, const long long* strides, int bf16_inputs,
-                             void* stream) {
-  if (!valid(B, S, H, P, N) || bf16_inputs || N > 256) return (int)cudaErrorInvalidValue;
+                             const void* Cm, const void* h0, void* y, void* hT, void* partial,
+                             int B, int S, int H, int P, int N, int ns, int Ns,
+                             const long long* strides, int bf16_inputs, void* stream) {
+  if (!valid(B, S, H, P, N) || bf16_inputs) return (int)cudaErrorInvalidValue;
   const float *xp = static_cast<const float*>(x), *bp = static_cast<const float*>(Bm);
   const float* cp = static_cast<const float*>(Cm);
   const float *dtp = static_cast<const float*>(dt), *ap = static_cast<const float*>(A);
   const float* h0p = static_cast<const float*>(h0);
-  float *yp = static_cast<float*>(y), *hp = static_cast<float*>(hT);
+  float* hp = static_cast<float*>(hT);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Strides s = strides_of(strides);
-  switch ((N + 63) / 64) {
-    case 1: return (int)tf32::launch<1>(xp, dtp, ap, bp, cp, h0p, yp, hp, B, S, H, P, N, s, st);
-    case 2: return (int)tf32::launch<2>(xp, dtp, ap, bp, cp, h0p, yp, hp, B, S, H, P, N, s, st);
-    case 3: return (int)tf32::launch<3>(xp, dtp, ap, bp, cp, h0p, yp, hp, B, S, H, P, N, s, st);
-    case 4: return (int)tf32::launch<4>(xp, dtp, ap, bp, cp, h0p, yp, hp, B, S, H, P, N, s, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return (int)run_split(N, ns, Ns, static_cast<float*>(y), static_cast<float*>(partial),
+                        (long long)B * S * H * P, st,
+                        [&](int nb, float* out, int ns, long long ys) {
+    switch (nb) {
+      case 1: return tf32::launch<1>(xp, dtp, ap, bp, cp, h0p, out, hp, B, S, H, P, N, ns, ys, s, st);
+      case 2: return tf32::launch<2>(xp, dtp, ap, bp, cp, h0p, out, hp, B, S, H, P, N, ns, ys, s, st);
+      case 3: return tf32::launch<3>(xp, dtp, ap, bp, cp, h0p, out, hp, B, S, H, P, N, ns, ys, s, st);
+      case 4: return tf32::launch<4>(xp, dtp, ap, bp, cp, h0p, out, hp, B, S, H, P, N, ns, ys, s, st);
+      default: return cudaErrorInvalidValue;
+    }
+  });
 }
 
 extern "C" const char* repro_error_string(int err) {

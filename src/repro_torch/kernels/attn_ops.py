@@ -2,7 +2,7 @@
 
 A tensor on the CPU goes to the plain version (on the meta device too: shapes
 only, no launch, nothing counted); a CUDA tensor launches one of the CUDA
-kernel's variants (``wgmma`` for bf16, ``fp32``; head dim 16/32/64/128/256,
+kernel's variants (``wgmma`` for bf16, ``fp32``; any head dim from 1 to 256,
 any strides; picked by ``variant`` of ``flash_attention.py``) or raises.
 Unlike the reference wrapper, nothing is padded and ragged lengths never
 fall back: the kernel masks the edge itself. ``flash_attention.launches``
@@ -17,7 +17,7 @@ import torch
 
 from repro_torch.kernels import require_no_grad
 from repro_torch.kernels.attn_ref import flash_attention_ref
-from repro_torch.kernels.flash_attention import HEAD_DIMS, flash_attention_cuda, variant
+from repro_torch.kernels.flash_attention import MAX_HEAD_DIM, flash_attention_cuda, variant
 
 
 def _check(q, k, v):
@@ -26,7 +26,7 @@ def _check(q, k, v):
     B, H, Sq, d = q.shape
     if k.shape[0] != B or k.shape[3] != d or k.shape[1] == 0 or H % k.shape[1]:
         raise ValueError(f"flash_attention: q{tuple(q.shape)} does not match k{tuple(k.shape)}")
-    if 0 in (B, H, Sq, k.shape[2]):
+    if 0 in (B, H, Sq, k.shape[2], d):
         raise ValueError(f"flash_attention: empty input q{tuple(q.shape)} k{tuple(k.shape)}")
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"flash_attention: mixed dtypes {q.dtype} {k.dtype} {v.dtype}")
@@ -38,8 +38,9 @@ def _check(q, k, v):
         if q.dtype not in (torch.bfloat16, torch.float32):
             raise TypeError(f"flash_attention: the CUDA kernel takes bfloat16 or float32, "
                             f"got {q.dtype}")
-        if d not in HEAD_DIMS:
-            raise ValueError(f"flash_attention: the CUDA kernel takes head dim in {HEAD_DIMS}, got {d}")
+        if d > MAX_HEAD_DIM:
+            raise ValueError(f"flash_attention: the CUDA kernel takes head dims 1 to "
+                             f"{MAX_HEAD_DIM}, got {d}")
     elif q.device.type not in ("cpu", "meta"):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
 

@@ -1,14 +1,16 @@
 """Binding of the flash attention CUDA kernels (``csrc/flash_attention.cu``),
 the port of ``repro/kernels/flash_attention.py``'s Pallas kernel, and the
-rule that picks one of its two variants:
+rule that picks one of its two variants, both at every head dim from 1 to
+256 (compiled at ``HEAD_DIMS``; a head dim between them runs at the next,
+``padded_dim``, its columns past d zeros):
 
-* ``wgmma``: TMA + warpgroup MMA with the softmax in registers, bf16, head
-  dims 16, 32, 64 (fedsllm-100m), 128 (phi4-mini, starcoder2, command-r) and
-  256 (gemma2-9b), any strides: every bf16 serve. The C entry reads each of
-  q, k, v by TMA where a tensor map can (``copied`` asks it which) and has
-  the producer warps copy the tiles of the others;
-* ``fp32``: fp32 inputs, every head dim and any strides: 3xTF32 on wgmma
-  (each operand a TF32 big and small term, three products), P kept in fp32;
+* ``wgmma``: TMA + warpgroup MMA with the softmax in registers, bf16, any
+  strides: every bf16 serve (head dims 64 for fedsllm-100m, 128 for
+  phi4-mini, starcoder2 and command-r, 256 for gemma2-9b). The C entry
+  reads each of q, k, v by TMA where a tensor map can (``copied`` asks it
+  which) and has the producer warps copy the tiles of the others;
+* ``fp32``: fp32 inputs, any strides: 3xTF32 on wgmma (each operand a TF32
+  big and small term, three products), P kept in fp32;
   ``attn_ref.flash_attention_tf32x3_ref`` mirrors its arithmetic.
 """
 
@@ -23,12 +25,19 @@ import torch
 from repro_torch.kernels import _build
 
 HEAD_DIMS = (16, 32, 64, 128, 256)  # the kernels' compiled head widths
+MAX_HEAD_DIM = HEAD_DIMS[-1]  # above it O no longer fits a warpgroup's registers
+
+
+def padded_dim(d: int) -> int:
+    """The compiled width that head dim ``d`` (1 to 256) runs at: the
+    smallest of ``HEAD_DIMS`` that holds it."""
+    return next(w for w in HEAD_DIMS if w >= d)
 
 
 def variant(d: int, fp32: bool = False) -> str:
-    """The variant for head dim ``d`` (one of ``HEAD_DIMS``): ``fp32`` for
-    fp32 inputs, else ``wgmma``, at every stride and alignment (``copied``
-    says which operands it copies)."""
+    """The variant for head dim ``d`` (1 to 256): ``fp32`` for fp32 inputs,
+    else ``wgmma``, at every stride and alignment (``copied`` says which
+    operands it copies)."""
     return "fp32" if fp32 else "wgmma"
 
 
@@ -52,7 +61,7 @@ def _entries():
     for name, symbol in (("wgmma", "flash_attention_wgmma_bf16"),
                          ("fp32", "flash_attention_fp32")):
         fn = getattr(lib, symbol)
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
                        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int,
                           ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -64,13 +73,16 @@ def flash_attention_cuda(q, k, v, causal: bool, window: int, softcap: float, kin
     """q (B,H,Sq,d), k/v (B,Kv,Skv,d): bf16 (fp32 for the ``fp32`` variant)
     views on one CUDA device whose last dim is contiguous; ``kind`` is the
     variant (see ``variant``). Returns (B,H,Sq,d) laid out in memory as
-    (B,Sq,H,d), the model's layout, so the caller's transpose back is free."""
+    (B,Sq,H,d), the model's layout, so the caller's transpose back is free;
+    at a head dim between the compiled widths, as the first d columns of
+    (B,Sq,H,``padded_dim(d)``), whose rows the kernel writes whole."""
     lib, fns = _entries()
     B, H, Sq, d = q.shape
     Kv, Skv = k.shape[1], k.shape[2]
-    o = torch.empty((B, Sq, H, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+    dp = padded_dim(d)  # the instance the C entry runs, and o's allocated width
+    o = torch.empty((B, Sq, H, dp), dtype=q.dtype, device=q.device).transpose(1, 2)[..., :d]
     strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, o) for s in t.stride()[:3]))
     _build.launch(lib, fns[kind], f"flash_attention ({kind})", q.device, q.data_ptr(),
-                  k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H, Kv, Sq, Skv, d, strides,
+                  k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H, Kv, Sq, Skv, d, dp, strides,
                   int(causal), int(window), float(softcap), 1.0 / math.sqrt(d))
     return o

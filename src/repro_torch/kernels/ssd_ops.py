@@ -3,10 +3,12 @@
 A tensor on the CPU goes to the plain version (the exact sequential
 recurrence; on the meta device too: shapes only, no launch, nothing
 counted); a CUDA tensor launches one of the CUDA kernel's variants (``wgmma``
-for bf16, ``tf32`` for fp32, ``fma`` above N = 256; picked by ``variant`` of
-``ssd_scan.py`` from the dtype and N before the launch) or raises. Unlike the
-reference wrapper, a ragged S is masked inside the kernel (no padded copies),
-an initial state goes in and the final state comes out, and y is fp32.
+for bf16, ``tf32`` for fp32, at any P and N; picked by ``variant`` of
+``ssd_scan.py`` from the dtype before the launch; above N = 256 the state is
+split across blocks and their partial ys added by a second launch, counted
+with the first as one) or raises. Unlike the reference wrapper, a ragged S
+is masked inside the kernel (no padded copies), an initial state goes in and
+the final state comes out, and y is fp32.
 ``ssd_scan.launches`` counts kernel launches, ``ssd_scan.variant_launches``
 counts them by variant. Forward-only: with grad mode on, an input
 that requires grad raises (``kernels.require_no_grad``), on every device."""
@@ -17,7 +19,7 @@ import torch
 
 from repro_torch.kernels import require_no_grad
 from repro_torch.kernels.ssd_ref import ssd_scan_ref
-from repro_torch.kernels.ssd_scan import MAX_SMEM, smem_bytes, ssd_scan_cuda, variant
+from repro_torch.kernels.ssd_scan import ssd_scan_cuda, variant
 
 
 def _check(x, dt, A, Bm, Cm, initial_state):
@@ -64,11 +66,7 @@ def ssd_scan(x, dt, A, Bm, Cm, *, initial_state=None):
     require_no_grad("ssd_scan", x, dt, A, Bm, Cm, initial_state)
     if x.device.type in ("cpu", "meta"):
         return ssd_scan_ref(x, dt, A, Bm, Cm, initial_state)
-    P, N = x.shape[-1], Bm.shape[-1]
-    kind = variant(x.dtype, N)
-    if smem_bytes(kind, P, N) > MAX_SMEM:
-        raise ValueError(f"ssd_scan: P={P}, N={N} need {smem_bytes(kind, P, N)} bytes of "
-                         f"shared memory ({kind} variant), more than a block's {MAX_SMEM}")
+    kind = variant(x.dtype)
     out = ssd_scan_cuda(x, dt, A, Bm, Cm, initial_state, kind)
     ssd_scan.launches += 1
     ssd_scan.variant_launches[kind] += 1
@@ -76,6 +74,6 @@ def ssd_scan(x, dt, A, Bm, Cm, *, initial_state=None):
 
 
 ssd_scan.launches = 0
-ssd_scan.variant_launches = {"wgmma": 0, "tf32": 0, "fma": 0}
+ssd_scan.variant_launches = {"wgmma": 0, "tf32": 0}
 
 __all__ = ["ssd_scan", "ssd_scan_ref"]

@@ -8,6 +8,7 @@ a machine with the card and without JAX; there the repository's
     PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py
 """
 
+import ctypes
 import math
 
 import pytest
@@ -17,6 +18,7 @@ from repro_torch.config import FedsLLMConfig, get_arch, smoke_variant
 from repro_torch.core import fedsllm, split
 from repro_torch.core.lora import init_lora, merge
 from repro_torch.data.tokens import TokenStream, client_batches
+from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as flash_binding
 from repro_torch.kernels import ssd_scan as ssd_binding
 from repro_torch.kernels.attn_ops import flash_attention
@@ -584,12 +586,50 @@ def test_lora_at_the_hybrid_and_moe_widths(cuda, M, K, N, expected):
 
 
 def test_flash_wrapper_raises_on_other_head_dims(cuda):
-    """Head dims outside HEAD_DIMS (16-256) raise on the card; none falls
-    back to the plain version."""
-    for d in (48, 96, 512):
+    """Head dims above 256 raise on the card (O would no longer fit a
+    warpgroup's registers); none falls back to the plain version."""
+    for d in (257, 512):
         q = torch.zeros((1, 2, 8, d), device=cuda, dtype=torch.bfloat16)
         with pytest.raises(ValueError, match="head dim"):
             flash_attention(q, q[:, :1], q[:, :1])
+
+
+@pytest.mark.parametrize("case", ["bf16", "bf16 q misaligned", "fp32"])
+@pytest.mark.parametrize("d", [1, 8, 36, 48, 80, 96, 100, 160, 192, 255])
+def test_flash_any_head_dim_matches_plain(cuda, no_tf32, d, case):
+    """Head dims between the compiled widths run at the next one
+    (``padded_dim``), their columns past d zeros: bf16 in the model's layout
+    (a d not a multiple of 8 gives strides a tensor map cannot read: copied
+    tiles) and with q one element off 16 bytes (copied), and fp32; GQA, a
+    ragged S, a window and a softcap at every other d; against the plain
+    version (bf16: 2 ulps of the largest output; fp32: 2e-5 + 2e-5·|o|)."""
+    B, S, H, Kv = 2, 130, 4, 2
+    window, softcap = (48, 30.0) if d % 2 else (0, 0.0)
+    dtype = torch.float32 if case == "fp32" else torch.bfloat16
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    q = torch.randn((B, S, H, d), generator=gen, device=cuda).to(dtype)
+    if case == "bf16 q misaligned":
+        q = torch.empty(q.numel() + 1, dtype=dtype, device=cuda)[1:].view_as(q).copy_(q)
+    q = q.transpose(1, 2)
+    k, v = (torch.randn((B, S, Kv, d), generator=gen, device=cuda).to(dtype).transpose(1, 2)
+            for _ in range(2))
+    if dtype == torch.bfloat16:
+        want = "qkv" if d % 8 else "q" if case == "bf16 q misaligned" else ""
+        assert flash_binding.copied([s for t in (q, k, v) for s in t.stride()[:3]],
+                                    [t.data_ptr() for t in (q, k, v)]) == want
+    before = dict(flash_attention.variant_launches)
+    o = flash_attention(q, k, v, causal=True, window=window, softcap=softcap)
+    torch.cuda.synchronize()
+    moved = {k_: v_ - before[k_] for k_, v_ in flash_attention.variant_launches.items()}
+    assert moved == {"wgmma": int(dtype == torch.bfloat16), "fp32": int(dtype == torch.float32)}
+    assert o.shape == (B, H, S, d) and o.dtype == dtype
+    ref = flash_attention_ref(q, k, v, causal=True, window=window, softcap=softcap)
+    if dtype == torch.float32:
+        excess = ((o - ref).abs() - 2e-5 * ref.abs()).max().item()
+        assert excess <= 2e-5, excess
+    else:
+        err = (o.float() - ref.float()).abs().max().item()
+        assert err <= _bf16_ulps(ref), (err, _bf16_ulps(ref))
 
 
 S_ = 512  # the sequence length in the strides below
@@ -696,8 +736,9 @@ def _ssd_inputs(cuda, B, S, H, P, N, dtype, h0, seed):
     (1, 64, 2, 100, 200, torch.float32, True),  # beyond one thread tile
     (8, 512, 24, 64, 128, torch.float32, True),  # mamba2-130m widths in fp32
     (1, 4, 1, 256, 256, torch.float32, False),  # the widest state tf32 holds
-    (2, 70, 2, 64, 320, torch.bfloat16, True),  # N over 256: fma
+    (2, 70, 2, 64, 320, torch.bfloat16, True),  # N over 256: two slices of N
     (1, 40, 2, 24, 300, torch.float32, False),
+    (1, 4, 1, 64, 1024, torch.float32, False),  # four slices of 256
 ])
 def test_ssd_kernel_matches_plain(cuda, B, S, H, P, N, dtype, h0):
     x, dt, A, Bm, Cm, state = _ssd_inputs(cuda, B, S, H, P, N, dtype, h0, seed=S + P)
@@ -746,9 +787,43 @@ def test_ssd_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
         ssd_scan(x, dt, A, Bm, Cm, initial_state=state.transpose(-1, -2))
     with pytest.raises(ValueError):
         ssd_scan(x, dt, A, Bm.cpu(), Cm)  # mixed devices
-    big = _ssd_inputs(cuda, 1, 4, 1, 64, 1024, torch.float32, False, seed=0)
-    with pytest.raises(ValueError, match="shared"):
-        ssd_scan(*big[:5])  # the (P, N) state does not fit a block's shared memory
+
+
+@pytest.mark.parametrize("ns,width", [(1, 256), (2, 128), (3, 256), (2, 320), (4, 96)])
+def test_ssd_entry_refuses_slices_that_do_not_fit(cuda, ns, width):
+    """The C entry runs the slices of N the wrapper lays out (and sizes its
+    scratch by), and refuses a layout that leaves columns of N out (1 x
+    256, 2 x 128 at N=320), holds a slice wholly past N (3 x 256), is wider
+    than a block holds (320) or is not made of 64-column blocks (96)."""
+    x, dt, A, Bm, Cm, _ = _ssd_inputs(cuda, 1, 64, 2, 16, 320, torch.float32, False, seed=0)
+    lib, fns = ssd_binding._entries()
+    y = torch.empty((1, 64, 2, 16), device=cuda)
+    h = torch.empty((1, 2, 16, 320), device=cuda)
+    partial = torch.empty((max(ns, 2), 1, 64, 2, 16), device=cuda)
+    strides = (ctypes.c_longlong * 10)(*x.stride()[:3], *dt.stride(), *Bm.stride()[:2],
+                                       *Cm.stride()[:2])
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        _build.launch(lib, fns["tf32"], "ssd_scan (tf32)", x.device, x.data_ptr(),
+                      dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), None,
+                      y.data_ptr(), h.data_ptr(), partial.data_ptr(), 1, 64, 2, 16, 320, ns,
+                      width, strides, 0)
+
+
+@pytest.mark.parametrize("kind", ["wgmma", "fp32"])
+@pytest.mark.parametrize("d,dp", [(96, 64), (96, 96), (16, 8)])
+def test_flash_entry_refuses_a_width_it_cannot_run(cuda, kind, d, dp):
+    """The C entries run head dim d at the width the wrapper passes (and
+    allocates o's rows with), and refuse one narrower than d or not
+    compiled."""
+    dtype = torch.float32 if kind == "fp32" else torch.bfloat16
+    q = torch.zeros((1, 2, 8, d), device=cuda, dtype=dtype)
+    o = torch.empty((1, 8, 2, 256), device=cuda, dtype=dtype).transpose(1, 2)
+    lib, fns = flash_binding._entries()
+    strides = (ctypes.c_longlong * 12)(*(s for t in (q, q, q, o) for s in t.stride()[:3]))
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        _build.launch(lib, fns[kind], f"flash_attention ({kind})", q.device, q.data_ptr(),
+                      q.data_ptr(), q.data_ptr(), o.data_ptr(), 1, 2, 2, 8, 8, d, dp, strides,
+                      1, 0, 0.0, 1.0)
 
 
 def test_bf16_smoke_mamba2_serving_runs_the_kernels(cuda):
@@ -815,7 +890,7 @@ def test_ssd_wgmma_matches_plain(cuda, B, S, H, P, N, h0):
     y, h = ssd_scan(x, dt, A, Bm, Cm, initial_state=state)
     torch.cuda.synchronize()
     moved = {k: v - before[k] for k, v in ssd_scan.variant_launches.items()}
-    assert moved == {"wgmma": 1, "tf32": 0, "fma": 0}, moved
+    assert moved == {"wgmma": 1, "tf32": 0}, moved
     yr, hr = ssd_scan_ref(x, dt, A, Bm, Cm, state)
     # 1e-4 of the largest output, the reference's own SSD tolerance: the
     # variant's fp32 operands (G, h, w·x) go in as two bf16 terms each
@@ -829,7 +904,8 @@ def test_ssd_wgmma_matches_plain(cuda, B, S, H, P, N, h0):
     (torch.bfloat16, 64, 128, 0, "wgmma"),
     (torch.float32, 64, 128, 0, "tf32"),
     (torch.bfloat16, 24, 40, 0, "wgmma"),  # P not a multiple of 32, N not of 64
-    (torch.bfloat16, 64, 320, 0, "fma"),  # N over 256
+    (torch.bfloat16, 64, 320, 0, "wgmma"),  # N over 256: two slices of N
+    (torch.float32, 64, 320, 0, "tf32"),
     (torch.bfloat16, 64, 128, 1, "wgmma"),  # views not 16-byte aligned: tiles copied
     (torch.float32, 64, 128, 1, "tf32"),  # rows not 16-byte aligned: 4-byte copies
 ])
@@ -893,11 +969,42 @@ def test_ssd_wgmma_copied_tiles_match_plain(cuda, case):
     y, h = ssd_scan(x, dt, A, Bm, Cm, initial_state=state)
     torch.cuda.synchronize()
     moved = {k: v - before[k] for k, v in ssd_scan.variant_launches.items()}
-    assert moved == {"wgmma": 1, "tf32": 0, "fma": 0}, moved
+    assert moved == {"wgmma": 1, "tf32": 0}, moved
     yr, hr = ssd_scan_ref(x, dt, A, Bm, Cm, state)
     for got, want in ((y, yr), (h, hr)):
         err = (got - want).abs().max().item()
         assert err <= 1e-4 * want.abs().max().item(), (err, want.abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("N", [320, 512, 1024])
+def test_ssd_split_n_matches_plain_and_reruns_bit_for_bit(cuda, N, dtype):
+    """States wider than 256 split across blocks (``n_slices``: 2, 2 and 4
+    slices), each block's partial y added by a second launch in slice order:
+    a ragged S, an initial state and (bf16) B one element off 16 bytes
+    (copied tiles), within 1e-4 of the largest output of the sequential
+    recurrence, y and the final state; reruns give the same bits (no
+    atomics)."""
+    B, S, H, P = 2, 150, 3, 64
+    x, dt, A, Bm, Cm, state = _ssd_inputs(cuda, B, S, H, P, N, dtype, True, seed=N)
+    if dtype == torch.bfloat16:
+        Bm = torch.empty(Bm.numel() + 1, dtype=dtype, device=cuda)[1:].view_as(Bm).copy_(Bm)
+        assert ssd_binding.copied([*x.stride()[:3], *Bm.stride()[:2], *Cm.stride()[:2]],
+                                  [t.data_ptr() for t in (x, Bm, Cm)]) == "B"
+    assert ssd_binding.n_slices(N) == {320: 2, 512: 2, 1024: 4}[N]
+    before = dict(ssd_scan.variant_launches)
+    y, h = ssd_scan(x, dt, A, Bm, Cm, initial_state=state)
+    torch.cuda.synchronize()
+    moved = {k: v - before[k] for k, v in ssd_scan.variant_launches.items()}
+    assert moved == {k: int(k == ssd_binding.variant(dtype)) for k in moved}, moved
+    yr, hr = ssd_scan_ref(x, dt, A, Bm, Cm, state)
+    for got, want in ((y, yr), (h, hr)):
+        assert torch.isfinite(got).all()
+        err = (got - want).abs().max().item()
+        assert err <= 1e-4 * want.abs().max().item(), (err, want.abs().max().item())
+    for _ in range(2):
+        y2, h2 = ssd_scan(x, dt, A, Bm, Cm, initial_state=state)
+        assert torch.equal(y2, y) and torch.equal(h2, h)
 
 
 def test_ssd_tf32_is_deterministic(cuda):

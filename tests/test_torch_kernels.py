@@ -441,6 +441,17 @@ def test_flash_variant_rule_fp32(d):
     assert flash_binding.variant(d, True) == "fp32"
 
 
+@pytest.mark.parametrize("d,width", [
+    (1, 16), (8, 16), (16, 16), (17, 32), (32, 32), (36, 64), (48, 64), (64, 64), (65, 128),
+    (80, 128), (96, 128), (128, 128), (129, 256), (160, 256), (192, 256), (255, 256), (256, 256),
+])
+def test_flash_padded_dim(d, width):
+    """Every head dim from 1 to 256 runs at the smallest compiled width that
+    holds it (the C entries' ``padded_dim``), its columns past d zeros."""
+    assert flash_binding.padded_dim(d) == width
+    assert flash_binding.MAX_HEAD_DIM == max(flash_binding.HEAD_DIMS) == 256
+
+
 # ---------------------------------------------------------------------------
 # Flash attention
 # ---------------------------------------------------------------------------
@@ -533,6 +544,26 @@ def test_flash_tf32x3_ref_matches_pallas(B, H, Kv, Sq, Skv, d, causal, window, s
     assert o.dtype == torch.float32 and o.shape == (B, H, Sq, d)
     np.testing.assert_allclose(_np(o), _pallas_fp32(q, k, v, causal, window, softcap),
                                rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("d", [8, 36, 48, 80, 96, 192])
+def test_flash_at_head_dims_between_the_compiled_widths(d):
+    """Head dims that run at a wider compiled width (``padded_dim``): the
+    port's plain version (its wrapper on the CPU) and the fp32 variant's
+    arithmetic against the Pallas kernel in interpret mode, causal with a
+    window, a softcap and GQA, within the reference's fp32 limit, 2e-5 +
+    2e-5·|o| per element. The Pallas kernel's blocks take any d."""
+    B, H, Kv, S, window, softcap = 1, 4, 2, 128, 48, 30.0
+    rng = np.random.default_rng(d)
+    q = rng.standard_normal((B, H, S, d), np.float32)
+    k, v = (rng.standard_normal((B, Kv, S, d), np.float32) for _ in range(2))
+    want = _pallas_fp32(q, k, v, True, window, softcap)
+    tq, tk, tv = (torch.from_numpy(t) for t in (q, k, v))
+    for o in (flash_attention(tq, tk, tv, window=window, softcap=softcap),
+              flash_attention_tf32x3_ref(tq, tk, tv, window=window, softcap=softcap)):
+        assert o.shape == (B, H, S, d)
+        excess = (np.abs(_np(o) - want) - 2e-5 * np.abs(want)).max()
+        assert excess <= 2e-5, excess
 
 
 @pytest.mark.parametrize("dropped", [None, "q", "k", "p", "v"])

@@ -18,6 +18,7 @@ decays, chunked against sequential); 1e-4 for logits, as in
 """
 
 import dataclasses
+import hashlib
 import os
 import subprocess
 import sys
@@ -135,6 +136,12 @@ def _bf16_exact(a):
 SPLIT_CASES = [(*case, False) for case in SSD_CASES] + [
     (2, 200, 3, 32, 64, 64, True),  # ragged S from an initial state
     (1, 512, 2, 64, 128, 256, False),  # mamba2-130m widths
+    # states wider than 256, split across blocks (two slices of 192 and of
+    # 256 columns), a ragged S (not a multiple of the kernel's 64 steps)
+    (1, 200, 2, 32, 320, 50, False),
+    (1, 200, 2, 32, 320, 50, True),
+    (1, 130, 2, 16, 512, 65, False),
+    (1, 130, 2, 16, 512, 65, True),
 ]
 
 
@@ -233,15 +240,69 @@ def test_ssd_tf32x3_needs_each_small_term(dropped):
     (torch.float32, 64, 128, "tf32"),
     (torch.bfloat16, 24, 40, "wgmma"),
     (torch.float32, 24, 40, "tf32"),
-    (torch.bfloat16, 64, 320, "fma"),
-    (torch.float32, 64, 320, "fma"),
+    (torch.bfloat16, 64, 320, "wgmma"),  # N over 256: split across blocks
+    (torch.float32, 64, 320, "tf32"),
 ])
 def test_ssd_variant_rule(dtype, P, N, expected):
     """The rule that routes a CUDA launch, decided before it from the dtype
-    and N (the card tests run every variant); the wgmma variant takes every
-    stride and alignment, copying the tiles of the operands a tensor map
-    cannot read (``test_torch_cuda.py::test_ssd_copied_follows_the_tma_rule``)."""
-    assert ssd_binding.variant(dtype, N) == expected
+    alone, at every P and N (the card tests run every variant); the wgmma
+    variant takes every stride and alignment, copying the tiles of the
+    operands a tensor map cannot read
+    (``test_torch_cuda.py::test_ssd_copied_follows_the_tma_rule``)."""
+    assert ssd_binding.variant(dtype) == expected
+
+
+@pytest.mark.parametrize("N,slices,width", [
+    (1, 1, 64), (16, 1, 64), (128, 1, 128), (200, 1, 256), (256, 1, 256),
+    (257, 2, 192), (320, 2, 192), (384, 2, 192), (385, 2, 256), (512, 2, 256),
+    (513, 3, 192), (1024, 4, 256), (1025, 5, 256),
+])
+def test_ssd_n_slices(N, slices, width):
+    """The split of N across blocks: ceil(N / 256) slices of equal width, a
+    multiple of 64 (the kernel's column blocks) no wider than 256; one slice
+    up to 256."""
+    assert ssd_binding.n_slices(N) == slices and ssd_binding.slice_width(N) == width
+
+
+def test_ssd_slices_cover_n_once():
+    """Every N to 4096: the slices hold every column, and none of them is
+    wholly past N (the last holds at least one real column)."""
+    for N in range(1, 4097):
+        ns, w = ssd_binding.n_slices(N), ssd_binding.slice_width(N)
+        assert w % 64 == 0 and w <= 256 and (ns - 1) * w < N <= ns * w, (N, ns, w)
+
+
+# sha256 (first 16 hex digits) of y's then the final state's fp32 bytes
+# that the mirrors returned before N was split across blocks (the whole of
+# N in one pass), at test_ssd_mirrors_split_only_above_256's inputs
+UNSPLIT_BITS = {
+    ("ssd_scan_split_ref", 40): "39882f694b603b57",
+    ("ssd_scan_split_ref", 128): "fae5a7b30fefdee3",
+    ("ssd_scan_split_ref", 256): "e2f3098589ee37f9",
+    ("ssd_scan_tf32x3_ref", 40): "2d3ec46138bd8552",
+    ("ssd_scan_tf32x3_ref", 128): "16bd123a83eaa8ed",
+    ("ssd_scan_tf32x3_ref", 256): "9de3377062c6d35a",
+}
+
+
+@pytest.mark.parametrize("mirror", [ssd_scan_split_ref, ssd_scan_tf32x3_ref])
+@pytest.mark.parametrize("N", [40, 128, 256, 320, 512])
+def test_ssd_mirrors_split_only_above_256(mirror, N):
+    """Up to N = 256 the mirrors take one slice: the same bits as before N
+    was split (``UNSPLIT_BITS``). Above, a partial y per slice added in
+    slice order: other bits than one slice of N (``width=N``), within 1e-4
+    of its largest output."""
+    x, dt, A, Bm, Cm, h0 = (torch.from_numpy(a) for a in _ssd_inputs(1, 100, 2, 16, N, seed=N))
+    y, h = mirror(x, dt, A, Bm, Cm, h0)
+    if N <= 256:
+        bits = hashlib.sha256(y.contiguous().numpy().tobytes()
+                              + h.contiguous().numpy().tobytes()).hexdigest()[:16]
+        assert bits == UNSPLIT_BITS[mirror.__name__, N]
+    else:
+        y1, h1 = mirror(x, dt, A, Bm, Cm, h0, width=N)
+        assert not torch.equal(y, y1)
+        _close_rel(y, y1)
+        _close_rel(h, h1)
 
 
 def test_ssd_smem_bytes_mirror_the_kernel_layouts():
@@ -249,7 +310,8 @@ def test_ssd_smem_bytes_mirror_the_kernel_layouts():
     main path (1 KiB alignment + x, B, C of a chunk + h's and w⊙x's terms +
     the chunk's cs, dt + the barrier: three blocks per SM; + the copied
     boxes' staging: two), tf32::Layout::SMEM (the raw blocks + the terms + cs,
-    dt: two) and simt::smem_floats."""
+    dt: two), each at a block's slice of N (``slice_width``): states wider
+    than 256 take the layouts of their slices."""
     assert ssd_binding.smem_bytes("wgmma", 64, 128) == 1024 + 36864 + 16384 + 8192 + 512 + 8
     assert 3 * (ssd_binding.smem_bytes("wgmma", 64, 128) + 1024) <= 228 * 1024
     copied = ssd_binding.smem_bytes("wgmma", 64, 128, copied=True)
@@ -259,8 +321,12 @@ def test_ssd_smem_bytes_mirror_the_kernel_layouts():
     assert ssd_binding.smem_bytes("tf32", 64, 128) == 1024 + 40960 + 32768 + 32768 + 512
     assert ssd_binding.smem_bytes("tf32", 16, 16) == ssd_binding.smem_bytes("tf32", 64, 256)
     assert 2 * (ssd_binding.smem_bytes("tf32", 64, 128) + 1024) <= 228 * 1024
-    assert ssd_binding.smem_bytes("fma", 64, 128) == 4 * (64 * 129 + 32 * 64 + 2 * 32 * 129
-                                                          + 32 * 32 + 32)
+    assert ssd_binding.smem_bytes("tf32", 64, 1024) == ssd_binding.smem_bytes("tf32", 64, 128)
+    for N, slice_n in ((320, 192), (512, 256), (1024, 256), (1025, 256), (513, 192)):
+        for copied in (False, True):
+            smem = ssd_binding.smem_bytes("wgmma", 64, N, copied)
+            assert smem == ssd_binding.smem_bytes("wgmma", 64, slice_n, copied)
+            assert (1 if copied else 2) * (smem + 1024) <= 228 * 1024  # blocks an SM
 
 
 def test_ssd_wrapper_rejects_bad_inputs():
